@@ -1,0 +1,18 @@
+"""pydcop_tpu_torch — the PyTorch/CUDA port of pydcop_tpu.
+
+A second package beside the JAX one, for NVIDIA Hopper GPUs.  It keeps
+the JAX package's problem model, YAML format, tensor layouts and solve
+semantics, imports nothing of JAX or of the JAX package, and replaces
+each Pallas TPU kernel on its path with a kernel written by hand for
+``sm_90a`` (``csrc/``).  Entry points run on ``cuda`` unless the caller
+asks for ``device="cpu"``.
+
+Ported so far: ``solve -a maxsum`` on one device — model
+(`pydcop_tpu_torch.dcop`), factor graph (`pydcop_tpu_torch.graph`),
+compile (`pydcop_tpu_torch.ops.compile`), the generic and packed MaxSum
+engines, the chunked harness, `solve_result`/`solve` and the CLI.
+"""
+
+from pydcop_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

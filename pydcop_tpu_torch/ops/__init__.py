@@ -1,0 +1,26 @@
+"""Tensorization and device kernels.
+
+* ``compile``: a DCOP → padded tensor graph on a torch device;
+* ``segments``: segment reductions over graph neighborhoods;
+* ``maxsum_kernels``: the generic MaxSum engine (any arity), plain torch;
+* ``packed_maxsum``: the packed all-binary MaxSum engine, whose cycle is
+  the hand-written CUDA kernel ``csrc/packed_maxsum.cu``;
+* ``cuda_build``: builds and loads the CUDA kernels at first use.
+"""
+from pydcop_tpu_torch.ops.compile import (
+    PAD_COST,
+    FactorBucket,
+    FactorGraphTensors,
+    compile_binary_from_arrays,
+    compile_factor_graph,
+    tensors_from_numpy,
+)
+
+__all__ = [
+    "FactorBucket",
+    "FactorGraphTensors",
+    "compile_binary_from_arrays",
+    "compile_factor_graph",
+    "tensors_from_numpy",
+    "PAD_COST",
+]

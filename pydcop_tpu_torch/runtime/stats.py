@@ -1,0 +1,75 @@
+"""Counters and the executed-config record of a solve.
+
+The parts of the JAX package's ``runtime/stats.py`` that the chunked
+harness uses, with the same names and schemas, so that
+``SolveResult.metrics()`` has the same keys in both packages.
+"""
+from __future__ import annotations
+
+#: counter names surfaced under ``SolveResult.metrics()["harness"]`` by
+#: the chunked solve harness — how often the host blocked on the device
+#: and what it paid per chunk.  This package runs no fixed-shape,
+#: donating or pipelined runner yet, so ``donated_chunks``,
+#: ``masked_tail_cycles``, ``overshoot_cycles`` and
+#: ``compile_cache_evictions`` stay 0; the keys are kept for the schema.
+HARNESS_COUNTERS = (
+    "chunks_dispatched",        # chunk launches
+    "host_sync_count",          # device→host reads in the loop
+    "dispatch_wait_s",          # wall seconds blocked on device results
+    "donated_chunks",           # chunks run through a donating runner
+    "masked_tail_cycles",       # frozen cycles in fixed-shape tail chunks
+    "overshoot_cycles",         # cycles run past the stop (pipelined mode)
+    "compile_cache_evictions",  # chunk-runner cache evictions
+)
+
+
+class HarnessCounters:
+    """Host↔device traffic counters collected by the solve harness and
+    merged into its result (``SolveResult.metrics()['harness']``).
+    ``dispatch_wait_s`` accumulates float seconds; everything else is an
+    integer count."""
+
+    def __init__(self):
+        self.counts = {
+            k: (0.0 if k == "dispatch_wait_s" else 0)
+            for k in HARNESS_COUNTERS
+        }
+
+    def add(self, name: str, n=1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown harness counter {name!r}; add it to "
+                f"HARNESS_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def as_dict(self) -> dict:
+        out = dict(self.counts)
+        out["dispatch_wait_s"] = round(out["dispatch_wait_s"], 6)
+        return out
+
+
+def resolved_config(
+    algo: str,
+    engine: str,
+    chunk: int = 0,
+    overlap: str = "default",
+    boundary_threshold: float = 0.5,
+    dpop_budget_mb: float = 0.0,
+    i_bound: int = 0,
+    precision: str = "f32",
+) -> dict:
+    """The canonical executed-config record surfaced as
+    ``SolveResult.metrics()["config"]``, with the JAX package's keys;
+    ``None``/0 mean "not applicable on this path" (this package runs
+    only the ``harness`` engine at the f32 tier)."""
+    return {
+        "algo": str(algo),
+        "engine": str(engine),
+        "chunk": int(chunk),
+        "overlap": str(overlap),
+        "boundary_threshold": float(boundary_threshold),
+        "dpop_budget_mb": float(dpop_budget_mb),
+        "i_bound": int(i_bound),
+        "precision": str(precision),
+    }
