@@ -7,10 +7,12 @@ each Pallas TPU kernel on its path with a kernel written by hand for
 ``sm_90a`` (``csrc/``).  Entry points run on ``cuda`` unless the caller
 asks for ``device="cpu"``.
 
-Ported so far: ``solve -a maxsum`` on one device — model
-(`pydcop_tpu_torch.dcop`), factor graph (`pydcop_tpu_torch.graph`),
-compile (`pydcop_tpu_torch.ops.compile`), the generic and packed MaxSum
-engines, the chunked harness, `solve_result`/`solve` and the CLI.
+Ported so far: ``solve -a maxsum|mgm|dsa|dsatuto|mixeddsa|adsa`` on one
+device — model (`pydcop_tpu_torch.dcop`), factor graph and constraints
+hypergraph (`pydcop_tpu_torch.graph`), compile
+(`pydcop_tpu_torch.ops.compile`), the generic and packed MaxSum and
+local-search engines, the chunked harness, `solve_result`/`solve` and
+the CLI.
 """
 
 from pydcop_tpu_torch.version import __version__

@@ -160,6 +160,7 @@ def list_available_algorithms() -> List[str]:
         m.name
         for m in pkgutil.iter_modules(pkg.__path__)
         if not m.ispkg and m.name not in exclude
+        and not m.name.startswith("_")
     )
 
 

@@ -10,10 +10,11 @@ model knows how to emit padded index arrays for the kernels
 """
 from pydcop_tpu_torch.graph.objects import ComputationGraph, ComputationNode, Link
 
-#: graph models ported so far (the JAX package also has
-#: constraints_hypergraph, pseudotree and ordered_graph)
+#: graph models ported so far (the JAX package also has pseudotree and
+#: ordered_graph)
 GRAPH_MODULES = [
     "factor_graph",
+    "constraints_hypergraph",
 ]
 
 

@@ -19,6 +19,9 @@ compile a DCOP once in each package and compare the arrays exactly:
 * ``objective='max'`` problems are compiled by negating all costs:
   kernels always minimize; final costs are reported through
   DCOP.solution_cost on the host.
+* The local-search family compiles a :class:`ConstraintGraphTensors`:
+  the same fields plus every directed neighbour pair
+  (``neighbor_src``/``neighbor_dst``).
 
 Only dense float32 buckets exist here: the JAX package's table-free
 (structured) buckets and its int8 table tier are not ported yet and
@@ -36,6 +39,7 @@ from pydcop_tpu_torch.dcop.dcop import DCOP
 from pydcop_tpu_torch.dcop.relations import Constraint
 from pydcop_tpu_torch.device import DeviceLike, resolve_device
 from pydcop_tpu_torch.errors import NotPortedError
+from pydcop_tpu_torch.ops.segments import SegmentPlan
 
 # Large-but-finite padding cost: min-reductions never pick padded entries,
 # and sums of a few pads stay finite in float32.
@@ -105,6 +109,22 @@ class FactorGraphTensors:
         }
 
 
+@dataclass
+class ConstraintGraphTensors(FactorGraphTensors):
+    """Compiled constraints hypergraph — local-search family.
+
+    Adds the var↔var adjacency used for gain exchange (MGM & friends):
+    ``neighbor_src/neighbor_dst`` list every directed neighbour pair,
+    sorted by (src, dst)."""
+
+    neighbor_src: Optional[torch.Tensor] = None  # [M] int64
+    neighbor_dst: Optional[torch.Tensor] = None  # [M] int64
+
+    @property
+    def n_pairs(self) -> int:
+        return int(self.neighbor_src.shape[0])
+
+
 def _slice_externals(dcop: DCOP, constraints: Sequence[Constraint]
                      ) -> List[Constraint]:
     """Fix external (read-only sensor) variables at their current value:
@@ -121,12 +141,10 @@ def _slice_externals(dcop: DCOP, constraints: Sequence[Constraint]
     ]
 
 
-def compile_factor_graph(dcop: DCOP,
-                         device: DeviceLike = None) -> FactorGraphTensors:
-    """Compile a DCOP for factor-graph algorithms (maxsum family), onto
-    ``device`` (cuda unless the caller asks for the CPU).  Variables and
-    constraints are taken in name order, as the JAX package does."""
-    dev = resolve_device(device)
+def _compile_fields(dcop: DCOP) -> Dict[str, Any]:
+    """The fields of a compiled graph (see :func:`tensors_from_numpy`).
+    Variables and constraints are taken in name order, as the JAX package
+    does."""
     variables = [dcop.variables[n] for n in sorted(dcop.variables)]
     constraints = [dcop.constraints[n] for n in sorted(dcop.constraints)]
     constraints = [
@@ -177,7 +195,7 @@ def compile_factor_graph(dcop: DCOP,
         np.concatenate([b["var_idx"].reshape(-1) for b in buckets])
         if buckets else np.zeros(0, dtype=np.int32)
     )
-    return tensors_from_numpy(dict(
+    return dict(
         var_names=var_names,
         domain_values=domain_values,
         domain_sizes=domain_sizes,
@@ -189,7 +207,50 @@ def compile_factor_graph(dcop: DCOP,
         sign=sign,
         initial_values=init,
         has_initial=has_init,
-    ), device=dev)
+    )
+
+
+def compile_factor_graph(dcop: DCOP,
+                         device: DeviceLike = None) -> FactorGraphTensors:
+    """Compile a DCOP for factor-graph algorithms (maxsum family), onto
+    ``device`` (cuda unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return tensors_from_numpy(_compile_fields(dcop), device=dev)
+
+
+def neighbor_pairs(var_idxs: Sequence[np.ndarray],
+                   n_vars: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Every directed pair (a, b), a != b, of variables that share a
+    constraint, deduplicated and sorted by (a, b) — the JAX package's
+    ``sorted(set(pairs))``, from the buckets' ``[F, arity]`` index arrays
+    in one vectorised pass."""
+    keys = []
+    for vi in var_idxs:
+        vi = np.asarray(vi, dtype=np.int64)
+        a = vi.shape[1]
+        for p in range(a):
+            for q in range(a):
+                if p != q:
+                    src, dst = vi[:, p], vi[:, q]
+                    keep = src != dst
+                    keys.append(src[keep] * n_vars + dst[keep])
+    if not keys:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    uniq = np.unique(np.concatenate(keys))
+    return ((uniq // n_vars).astype(np.int32),
+            (uniq % n_vars).astype(np.int32))
+
+
+def compile_constraint_graph(
+        dcop: DCOP, device: DeviceLike = None) -> "ConstraintGraphTensors":
+    """Compile a DCOP for local-search algorithms on the constraints
+    hypergraph: the factor-graph fields plus the directed neighbour pairs
+    (``neighbor_src``/``neighbor_dst``) that carry MGM's gain exchange."""
+    dev = resolve_device(device)
+    fields = _compile_fields(dcop)
+    fields["neighbor_src"], fields["neighbor_dst"] = neighbor_pairs(
+        [b["var_idx"] for b in fields["buckets"]], len(fields["var_names"]))
+    return tensors_from_numpy(fields, device=dev)
 
 
 def tensors_from_numpy(fields: Dict[str, Any],
@@ -201,6 +262,8 @@ def tensors_from_numpy(fields: Dict[str, Any],
     ``buckets`` a list of dicts (``arity``, ``tensors``, ``var_idx``,
     ``factor_ids``, ``edge_offset``).  A test can thus compile once in
     the JAX package and run both packages on the very same arrays.
+    Fields with ``neighbor_src``/``neighbor_dst`` (a compiled constraints
+    hypergraph) give a :class:`ConstraintGraphTensors`.
     Table-free buckets (``sbuckets``) and int8 tables (``qscale``/
     ``qoffset``) are not ported and are refused."""
     dev = resolve_device(device)
@@ -234,7 +297,13 @@ def tensors_from_numpy(fields: Dict[str, Any],
         ))
     V = len(fields["var_names"])
     has_init = fields.get("has_initial")
-    return FactorGraphTensors(
+    extra = {}
+    cls = FactorGraphTensors
+    if fields.get("neighbor_src") is not None:
+        cls = ConstraintGraphTensors
+        extra = dict(neighbor_src=put(fields["neighbor_src"], np.int64),
+                     neighbor_dst=put(fields["neighbor_dst"], np.int64))
+    return cls(
         var_names=list(fields["var_names"]),
         domain_values=[tuple(d) for d in fields["domain_values"]],
         domain_sizes=np.asarray(fields["domain_sizes"], dtype=np.int32),
@@ -247,6 +316,7 @@ def tensors_from_numpy(fields: Dict[str, Any],
         initial_values=np.asarray(fields["initial_values"], dtype=np.int32),
         has_initial=(np.zeros(V, dtype=bool) if has_init is None
                      else np.asarray(has_init, dtype=bool)),
+        **extra,
     )
 
 
@@ -280,6 +350,10 @@ def numpy_fields(t: Any) -> Dict[str, Any]:
         initial_values=host(t.initial_values),
         has_initial=(None if t.has_initial is None
                      else host(t.has_initial)),
+        neighbor_src=(None if getattr(t, "neighbor_src", None) is None
+                      else host(t.neighbor_src)),
+        neighbor_dst=(None if getattr(t, "neighbor_dst", None) is None
+                      else host(t.neighbor_dst)),
     )
 
 
@@ -328,13 +402,47 @@ def compile_binary_from_arrays(
 # ---------------------------------------------------------------------------
 
 
+def bucket_index(bucket: FactorBucket, device: torch.device
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``var_idx`` of the bucket on ``device`` as int64 ``[F, arity]``,
+    and its columns as separate contiguous tensors, built once and kept
+    on the bucket."""
+    cache = bucket.__dict__.setdefault("_index", {})
+    if device not in cache:
+        vi = torch.as_tensor(np.asarray(bucket.var_idx, dtype=np.int64),
+                             device=device)
+        cache[device] = (vi, [vi[:, p].contiguous()
+                              for p in range(bucket.arity)])
+    return cache[device]
+
+
+def bucket_plans(bucket: FactorBucket, device: torch.device,
+                 n_vars: int) -> List[SegmentPlan]:
+    """The ordered segment-sum plan of each scope position's variables,
+    built once and kept on the bucket."""
+    cache = bucket.__dict__.setdefault("_plans", {})
+    if device not in cache:
+        cache[device] = [SegmentPlan(c, n_vars)
+                         for c in bucket_index(bucket, device)[1]]
+    return cache[device]
+
+
+def edge_plan(tensors: FactorGraphTensors) -> SegmentPlan:
+    """The ordered segment-sum plan of ``edge_var`` over the variables,
+    built once and kept on the compiled graph."""
+    plan = tensors.__dict__.get("_edge_plan")
+    if plan is None:
+        plan = SegmentPlan(tensors.edge_var, tensors.n_vars)
+        tensors.__dict__["_edge_plan"] = plan
+    return plan
+
+
 def bucket_factor_values(bucket: FactorBucket,
                          x: torch.Tensor) -> torch.Tensor:
     """Cost of each factor in the bucket under assignment x ([V] value
     indices) → [F]."""
-    var_idx = torch.as_tensor(bucket.var_idx, dtype=torch.int64,
-                              device=x.device)
-    vals = x[var_idx]  # [F, a]
+    var_idx, _ = bucket_index(bucket, x.device)
+    vals = x.long()[var_idx]  # [F, a]
     fidx = torch.arange(bucket.n_factors, device=x.device)
     return bucket.tensors[(fidx,) + tuple(
         vals[:, p] for p in range(bucket.arity))]
@@ -349,3 +457,49 @@ def total_cost(tensors: FactorGraphTensors, x: torch.Tensor) -> torch.Tensor:
     vidx = torch.arange(tensors.n_vars, device=x.device)
     unary = tensors.unary_costs[vidx, x] * tensors.domain_mask[vidx, x]
     return cost + torch.sum(unary)
+
+
+def local_cost_tables(
+    tensors: FactorGraphTensors,
+    x: torch.Tensor,
+    bucket_tensors: Optional[List[torch.Tensor]] = None,
+    factor_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-variable cost of each candidate value given the neighbours'
+    current values: ``out[v, d] = unary[v, d] + Σ_{factors containing v}
+    cost(factor | v=d, others=x)``, ``[V, D]`` with PAD_COST on invalid
+    slots — the workhorse of the local-search family.
+
+    The arithmetic is the JAX package's: start from the unary costs, then
+    for each bucket and each scope position p add the ordered segment sum
+    (:func:`bucket_plans`) of that position's gathered rows; so on the
+    CPU and on the card the result equals the JAX package's XLA CPU
+    result bit for bit.  The weighting knobs
+    (``bucket_tensors``, ``factor_weights``) belong to dba/gdba, which
+    are not ported, and refuse."""
+    if bucket_tensors is not None or factor_weights is not None:
+        raise NotPortedError(
+            "weighted local cost tables (bucket_tensors/factor_weights, "
+            "dba/gdba) are not ported to the PyTorch package yet"
+        )
+    V, D = tensors.n_vars, tensors.max_domain_size
+    dev = x.device
+    valid = tensors.domain_mask > 0
+    out = torch.where(valid, tensors.unary_costs, PAD_COST)
+    dvals = torch.arange(D, device=dev)[None, :]
+    xl = x.long()
+    for b in tensors.buckets:
+        F, a = b.n_factors, b.arity
+        if F == 0:
+            continue
+        var_idx, _ = bucket_index(b, dev)
+        plans = bucket_plans(b, dev, V)
+        vals = xl[var_idx]  # [F, a]
+        fidx = torch.arange(F, device=dev)[:, None]
+        for p in range(a):
+            # axis p swept over D, every other axis at its current value
+            idx = tuple(dvals if q == p else vals[:, q][:, None]
+                        for q in range(a))
+            rows = b.tensors[(fidx,) + idx]  # [F, D]
+            out = out + plans[p].sum(rows)
+    return torch.where(valid, out, PAD_COST)

@@ -26,6 +26,7 @@ BUILD_DIR = PKG_DIR / "_build"
 #: kernel library name → its source, relative to the package
 SOURCES: Dict[str, str] = {
     "packed_maxsum": "csrc/packed_maxsum.cu",
+    "local_search": "csrc/local_search.cu",
 }
 
 #: ``-fmad=false``: no contraction of a*b + c into one fused multiply-add,

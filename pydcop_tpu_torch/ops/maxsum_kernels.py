@@ -24,12 +24,12 @@ from typing import List, Tuple
 
 import torch
 
-from pydcop_tpu_torch.ops.compile import FactorBucket, FactorGraphTensors
-from pydcop_tpu_torch.ops.segments import (
-    masked_argmin,
-    masked_mean,
-    segment_sum,
+from pydcop_tpu_torch.ops.compile import (
+    FactorBucket,
+    FactorGraphTensors,
+    edge_plan,
 )
+from pydcop_tpu_torch.ops.segments import masked_argmin, masked_mean
 
 
 def _broadcast_to_axis(msg: torch.Tensor, axis: int,
@@ -80,10 +80,10 @@ def var_beliefs_and_messages(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Variable beliefs [V, D] and outgoing var→factor messages [E, D].
 
-    beliefs[v] = unary[v] + Σ_{incoming edges} r;
+    beliefs[v] = unary[v] + Σ_{incoming edges} r, the sum in edge order
+    (deterministic on the card too);
     q[e] = beliefs[var(e)] − r[e], normalized to zero masked mean."""
-    beliefs = tensors.unary_costs + segment_sum(
-        r_flat, tensors.edge_var, tensors.n_vars)
+    beliefs = tensors.unary_costs + edge_plan(tensors).sum(r_flat)
     vmask = tensors.domain_mask[tensors.edge_var]  # [E, D]
     q = beliefs[tensors.edge_var] - r_flat
     q = (q - masked_mean(q, vmask)) * vmask

@@ -92,8 +92,9 @@ def test_unported_options_refuse():
     with pytest.raises(NotPortedError):
         solve_result(dcop, "maxsum", device="cpu",
                      algo_params={"precision": "bf16"})
-    with pytest.raises(ImportError, match="available: \\['maxsum'\\]"):
-        solve_result(dcop, "dsa", device="cpu")
+    with pytest.raises(ImportError, match="available: \\['adsa', 'dsa', "
+                       "'dsatuto', 'maxsum', 'mgm', 'mixeddsa'\\]"):
+        solve_result(dcop, "dpop", device="cpu")
 
 
 def test_cli_solve_on_cpu():
