@@ -8,9 +8,9 @@ NVIDIA H100 and the CUDA toolkit::
 
 It builds the port's CUDA kernels from ``pydcop_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), then drives the port's main
-paths on one device: ``solve -a maxsum`` and ``solve -a mgm|dsa``.  Each
-phase prints one line; any failure exits non-zero before the result
-lines are printed.
+paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa`` and
+``solve -a dpop``.  Each phase prints one line; any failure exits
+non-zero before the result lines are printed.
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, kernel build time and the ptxas report;
@@ -26,23 +26,32 @@ lines are printed.
    one x and one set of uniforms: tables, cur, best and gain equal (max
    abs error 0), x equal after 20 MGM cycles and after 20 cycles of DSA
    A/B/C, mixeddsa and adsa;
-3. cli / cli_local_search: ``python -m pydcop_tpu_torch solve`` in a
-   subprocess on the tutorial instance: maxsum must finish with cost
-   12, mgm and dsa with the cost of the port's own CPU run;
+   dpop_kernel_vs_plain: the whole-sweep DPOP kernel against its plain
+   version on the JAX bench's 10,000-node random tree (D=10), the same
+   generator at 100,000 nodes, and 3,000-node forest, ragged-domain and
+   max-mode trees: assign equal, msg and cs with max abs error 0, and
+   assign equal to the level scan's;
+3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
+   solve`` in a subprocess on the tutorial instance: maxsum and dpop
+   must finish with cost 12, mgm and dsa with the cost of the port's own
+   CPU run;
 4. main_path: ``solve_result`` on a 10,000-variable / 30,000-constraint
    soft coloring built with the port's DCOP objects, 200 cycles, for
-   maxsum, mgm and dsa; every launch counter is zeroed just before each
-   solve, and just after it the kernels of that path must have launched
-   once per cycle (mgm: 200 ls_tables + 200 mgm_move; dsa: 200
-   dsa_cycle); then each path piece by piece (graph, compile, pack,
-   cycles, coin copy, scoring);
+   maxsum, mgm and dsa, and on the 10,000-node tree for dpop; every
+   launch counter is zeroed just before each solve, and just after it
+   the kernels of that path must have launched once per cycle (mgm: 200
+   ls_tables + 200 mgm_move; dsa: 200 dsa_cycle), or for dpop once per
+   tree level and phase (L UTIL + L VALUE launches, engine
+   "wholesweep", cost equal to the CPU run's); then each path piece by
+   piece (graph, compile, pack, cycles or sweep, coin copy, scoring);
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
    equal;
-5. times: each kernel's ms per cycle (CUDA events around a run of
-   launches, after warm-up) at 10k/30k and 100k/300k beside its bytes
-   bound, its plain version's time, and its device time per launch from
-   a torch.profiler trace.
+5. times: each kernel's ms per cycle or sweep (CUDA events around a run
+   of launches, after warm-up) at 10k/30k and 100k/300k (DPOP: the 10k
+   and 100k trees, 200 back-to-back sweeps) beside its bytes bound, its
+   plain version's time, and its device time per launch from a
+   torch.profiler trace.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 ``{"kernels": [...]}`` (one entry per kernel: launches on its main path,
@@ -420,23 +429,196 @@ def coloring_dcop(V, E, seed=1):
     return dcop
 
 
+def bench_tree_dcop(N, D=10, seed=2):
+    """The JAX bench's DPOP instance (bench.py bench_dpop), built with the
+    port's DCOP objects: numpy default_rng(seed), each node's parent
+    uniform among all earlier nodes, uniform [0, 10) tables."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        AgentDef,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    rng = np.random.default_rng(seed)
+    dcop = DCOP("dpop_bench", objective="min")
+    dom = Domain("d", "vals", list(range(D)))
+    vs = [Variable(f"v{i}", dom) for i in range(N)]
+    for v in vs:
+        dcop.add_variable(v)
+    parents = [int(rng.integers(0, i)) for i in range(1, N)]
+    mats = rng.uniform(0, 10, (N - 1, D, D)).astype(np.float32)
+    for i, p in enumerate(parents):
+        dcop.add_constraint(
+            NAryMatrixRelation([vs[p], vs[i + 1]], mats[i], name=f"c{i}"))
+    dcop.add_agents([AgentDef("a0")])
+    return dcop
+
+
+def tree_dcop(N, D=4, seed=0, objective="min", ragged=False, forest=False):
+    """The random trees of the JAX package's whole-sweep tests
+    (tests/unit/test_pallas_dpop.py): each node's parent among the 8
+    before it; ``forest`` makes every 17th node a new root, ``ragged``
+    puts every second variable on a domain of D - 2 values."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        AgentDef,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    rng = np.random.default_rng(seed)
+    dcop = DCOP("t", objective=objective)
+    doms = [Domain("d", "vals", list(range(D)))]
+    if ragged:
+        doms.append(Domain("d2", "vals", list(range(max(2, D - 2)))))
+    vs = []
+    for i in range(N):
+        v = Variable(f"v{i}", doms[i % len(doms)])
+        vs.append(v)
+        dcop.add_variable(v)
+    for i in range(1, N):
+        if forest and i % 17 == 0:
+            continue
+        p = int(rng.integers(max(0, i - 8), i))
+        mat = rng.uniform(0, 10, (len(vs[p].domain), len(vs[i].domain)))
+        dcop.add_constraint(NAryMatrixRelation(
+            [vs[p], vs[i]], mat.astype(np.float32), name=f"c{i}"))
+    dcop.add_agents([AgentDef("a0")])
+    return dcop
+
+
+def dpop_pack(dcop, dev):
+    """(pseudo-tree, sweep plan on dev, whole-sweep layout or None)."""
+    from pydcop_tpu_torch.graph import pseudotree
+    from pydcop_tpu_torch.ops.dpop_sweep import compile_sweep
+    from pydcop_tpu_torch.ops.packed_dpop import pack_sweep
+
+    tree = pseudotree.build_computation_graph(dcop)
+    plan = compile_sweep(tree, dcop, dcop.objective, device=dev)
+    return tree, plan, None if plan is None else pack_sweep(plan)
+
+
+def dpop_kernel_vs_plain(plan, ps):
+    """The whole-sweep kernel against its plain version on the card, and
+    its assignment against the level scan's.  Returns the max abs error
+    over assign, msg and cs; raises on any difference."""
+    import torch
+
+    from pydcop_tpu_torch.ops.dpop_sweep import run_sweep
+    from pydcop_tpu_torch.ops.packed_dpop import (
+        whole_sweep,
+        whole_sweep_plain,
+    )
+
+    k = whole_sweep(ps)
+    p = whole_sweep_plain(ps)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("assign", "msg", "cs"), k, p):
+        if a.is_floating_point() and not torch.isfinite(a).all():
+            raise AssertionError(f"kernel {name} has non-finite values")
+        if not torch.equal(a, b):
+            raise AssertionError(f"kernel {name} differs from plain in "
+                                 f"{int((a != b).sum())} entries")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    if not np.array_equal(k[0].cpu().numpy(), run_sweep(plan)[0]):
+        raise AssertionError("kernel assign differs from the level scan's")
+    return err
+
+
+def dpop_bytes_ops(ps):
+    """Bytes and float operations of one whole sweep, each input read
+    once and each output written once: in the [n, D, D] table, the CSR
+    children, parent and level starts; out msg, cs and assign.  UTIL
+    adds each child's D message values, then per node D*D adds and
+    D*(D-1) reductions; VALUE per node D adds and D-1 compares."""
+    N, D, L = ps.n_nodes, ps.D, ps.L
+    n_child = int(ps.child_idx.numel())
+    nbytes = 4 * (N * D * D + (N + 1) + n_child + N + (L + 1)
+                  + 2 * N * D + N)
+    nops = N * (D * D + D * (D - 1) + D + (D - 1)) + D * n_child
+    return nbytes, nops
+
+
+def time_dpop(ps, reps=200):
+    """(ms per sweep by CUDA events over ``reps`` back-to-back sweeps,
+    plain ms, bound ms, bound_by, bytes, device us per sweep from the
+    profiler)."""
+    from pydcop_tpu_torch.ops.packed_dpop import (
+        whole_sweep,
+        whole_sweep_plain,
+    )
+
+    whole_sweep(ps)  # warm-up
+    ms = cuda_ms(lambda: whole_sweep(ps), reps)
+    whole_sweep_plain(ps)
+    plain = cuda_ms(lambda: whole_sweep_plain(ps), 3)
+    nbytes, nops = dpop_bytes_ops(ps)
+    bound, by = bound_of(nbytes, nops)
+    names = ["dpop_util_level_kernel", "dpop_value_level_kernel"]
+    us = profile_us(lambda: [whole_sweep(ps) for _ in range(20)], names)
+    device_us = (None if None in us.values()
+                 else ps.L * (us[names[0]] + us[names[1]]))
+    return ms, plain, bound, by, nbytes, device_us
+
+
+def dpop_breakdown(dcop, dev):
+    """Where a dpop solve's time goes (host clock around work that ends
+    in a synchronize): pseudo-tree, compile_sweep, pack, the sweep, and
+    scoring (assignment, message metrics, solution cost)."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms.dpop import DpopSolver
+    from pydcop_tpu_torch.graph import pseudotree
+    from pydcop_tpu_torch.ops.dpop_sweep import compile_sweep
+    from pydcop_tpu_torch.ops.packed_dpop import pack_sweep, \
+        whole_sweep_values
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    tree, graph_s = timed(lambda: pseudotree.build_computation_graph(dcop))
+    plan, compile_s = timed(lambda: compile_sweep(tree, dcop, "min",
+                                                  device=dev))
+    ps, pack_s = timed(lambda: pack_sweep(plan))
+    assign, sweep_s = timed(lambda: whole_sweep_values(ps))
+    t0 = time.perf_counter()
+    DpopSolver(dcop, tree, device=dev)._finish_sweep_result(
+        assign.cpu().numpy(), plan.gid_to_name, plan.sep_size, t0)
+    return dict(graph_s=graph_s, compile_s=compile_s, pack_s=pack_s,
+                sweep_s=sweep_s, solution_cost_s=time.perf_counter() - t0,
+                n_nodes=plan.n_nodes, L=plan.L,
+                tables_per_s=plan.n_nodes / sweep_s)
+
+
 def reset_counts():
     """Zero the launch counter of every kernel wrapper."""
+    from pydcop_tpu_torch.ops import packed_dpop
     from pydcop_tpu_torch.ops import packed_local_search as P
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
 
     packed_cycles.launches = 0
     P.reset_launches()
+    packed_dpop.reset_launches()
 
 
 def read_counts():
     from pydcop_tpu_torch.ops import packed_local_search as P
+    from pydcop_tpu_torch.ops.packed_dpop import whole_sweep
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
 
     return {"packed_maxsum_cycle": packed_cycles.launches,
             "ls_tables": P.ls_tables.launches,
             "mgm_move": P.mgm_move.launches,
-            "dsa_cycle": P.dsa_cycle.launches}
+            "dsa_cycle": P.dsa_cycle.launches,
+            "dpop_util_level": whole_sweep.util_launches,
+            "dpop_value_level": whole_sweep.value_launches}
 
 
 def breakdown(dcop, algo, cycles, dev):
@@ -584,12 +766,44 @@ def main():
         fail("ls_kernel_vs_plain", "the hard instance fired no lateral "
              "move: variant B's rule went unchecked")
 
+    dpop_cases = {
+        "bench_tree_10k": lambda: bench_tree_dcop(10_000),
+        "bench_tree_100k": lambda: bench_tree_dcop(100_000),
+        "forest_3k": lambda: tree_dcop(3000, seed=3, forest=True),
+        "ragged_3k": lambda: tree_dcop(3000, D=5, seed=4, ragged=True),
+        "max_3k": lambda: tree_dcop(3000, seed=5, objective="max"),
+    }
+    dpop_packed = {}
+    dpop_err = 0.0
+    for name, build in dpop_cases.items():
+        t0 = time.perf_counter()
+        dcop = build()
+        build_s = time.perf_counter() - t0
+        tree, plan, ps = dpop_pack(dcop, dev)
+        prep_s = time.perf_counter() - t0 - build_s
+        if ps is None:
+            fail("dpop_kernel_vs_plain", f"{name} did not pack")
+        try:
+            err = dpop_kernel_vs_plain(plan, ps)
+        except AssertionError as e:
+            fail("dpop_kernel_vs_plain", f"{name}: {e}")
+        dpop_err = max(dpop_err, err)
+        if name.startswith("bench"):
+            dpop_packed[name] = (dcop, ps)
+        say("dpop_kernel_vs_plain", case=name, n_nodes=ps.n_nodes, D=ps.D,
+            L=ps.L, Bmax=plan.Bmax, max_children=ps.max_children,
+            roots=len(tree.roots), mode=ps.mode, max_abs_err=err,
+            build_dcop_s=round(build_s, 3),
+            tree_compile_pack_s=round(prep_s, 3))
+        del tree, plan, ps
+
     # 3. CLI paths ---------------------------------------------------------
     from pydcop_tpu_torch.dcop import load_dcop_from_file
 
     tuto = os.path.join(ROOT, "tests", "instances", "graph_coloring_tuto.yaml")
-    for algo in ("maxsum", "mgm", "dsa"):
-        phase = "cli" if algo == "maxsum" else "cli_local_search"
+    for algo in ("maxsum", "mgm", "dsa", "dpop"):
+        phase = {"maxsum": "cli", "dpop": "cli_dpop"}.get(
+            algo, "cli_local_search")
         proc = subprocess.run(
             [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", algo,
              tuto], capture_output=True, text=True, timeout=300, cwd=ROOT)
@@ -598,7 +812,7 @@ def main():
         except ValueError:
             fail(phase, f"{algo}: rc={proc.returncode} no JSON; stderr: "
                  f"{proc.stderr[-2000:]}")
-        want = 12 if algo == "maxsum" else solve_result(
+        want = 12 if algo in ("maxsum", "dpop") else solve_result(
             load_dcop_from_file([tuto]), algo, device="cpu").cost
         if proc.returncode != 0 or out.get("status") != "FINISHED" \
                 or out.get("cost") != want:
@@ -648,13 +862,51 @@ def main():
         say(phase + "_breakdown", algo=algo, nvidia_smi=smi,
             **breakdown(dcop, algo, cycles, dev))
 
+    # dpop on the bench's 10k-node tree: one whole sweep, L + L launches
+    from pydcop_tpu_torch.graph import pseudotree
+
+    tree_dcop_10k = dpop_packed["bench_tree_10k"][0]
+    L = pseudotree.build_computation_graph(tree_dcop_10k).height + 1
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_result(tree_dcop_10k, "dpop", device="cuda")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want.update(dpop_util_level=L, dpop_value_level=L)
+    if counts != want:
+        fail("main_path_dpop", f"launches {counts} in one dpop solve, "
+             f"expected {want}")
+    main_launches.update(dpop_whole_sweep=2 * L)
+    cpu = solve_result(tree_dcop_10k, "dpop", device="cpu")
+    dpop_keys = jax_keys - {"harness"}
+    keys = set(res.metrics())
+    if keys != dpop_keys:
+        fail("main_path_dpop", f"metrics keys {sorted(keys)} != the JAX "
+             f"package's {sorted(dpop_keys)}")
+    if res.config["engine"] != "wholesweep" or res.status != "FINISHED" \
+            or res.cost != cpu.cost or res.assignment != cpu.assignment \
+            or len(res.assignment) != 10_000:
+        fail("main_path_dpop", f"engine={res.config['engine']} "
+             f"status={res.status} cost={res.cost} (CPU {cpu.cost}, "
+             f"same assignment: {res.assignment == cpu.assignment})")
+    say("main_path_dpop", algo="dpop", launches=counts, L=L,
+        engine=res.config["engine"], cpu_engine=cpu.config["engine"],
+        status=res.status, cost=res.cost, cpu_cost=cpu.cost,
+        cycle=res.cycle, msg_count=res.msg_count, msg_size=res.msg_size,
+        solve_s=round(solve_s, 3))
+    say("main_path_dpop_breakdown", algo="dpop", nvidia_smi=smi,
+        **dpop_breakdown(tree_dcop_10k, dev))
+
     # every test instance, by every algorithm of the port, on the card
     # and on the CPU: the same run (maxsum without noise, as the parity
     # tests run it; the local-search coins come from CPU generators)
     inst = os.path.join(ROOT, "tests", "instances")
     for fn in sorted(os.listdir(inst)):
         d = load_dcop_from_file([os.path.join(inst, fn)])
-        for algo in ("maxsum", "mgm", "dsa", "dsatuto", "mixeddsa", "adsa"):
+        for algo in ("maxsum", "mgm", "dsa", "dsatuto", "mixeddsa", "adsa",
+                     "dpop"):
             params = {"noise": 0} if algo == "maxsum" else None
             g = solve_result(d, algo, algo_params=params, device="cuda")
             c = solve_result(d, algo, algo_params=params, device="cpu")
@@ -662,6 +914,7 @@ def main():
                     and g.cycle == c.cycle and g.status == c.status)
             say("instances", instance=fn, algo=algo, cuda_cost=g.cost,
                 cpu_cost=c.cost, cuda_cycle=g.cycle, cpu_cycle=c.cycle,
+                cuda_engine=g.config["engine"],
                 same_assignment=g.assignment == c.assignment)
             if not same or g.status != "FINISHED" \
                     or not math.isfinite(g.cost):
@@ -700,6 +953,19 @@ def main():
                 library_note="no single PyTorch call computes a "
                 "local-tables gather-sum or an MGM/DSA move",
                 nvidia_smi=smi)
+    for name, (_, ps) in dpop_packed.items():
+        ms, plain, bound, by, nbytes, device_us = time_dpop(ps)
+        timing[name, "dpop_whole_sweep"] = (ms, plain, bound, by)
+        say("times", kernel="dpop_whole_sweep", size=name,
+            n_nodes=ps.n_nodes, D=ps.D, L=ps.L, launches_per_sweep=2 * ps.L,
+            kernel_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+            bytes_per_sweep=nbytes, profiler_kernel_us=device_us,
+            kernel_busy_share=(device_us / (ms * 1e3) if device_us
+                               else None),
+            tables_per_s=ps.n_nodes / (ms * 1e-3),
+            library_ms=None,
+            library_note="no single PyTorch call computes a DPOP sweep",
+            nvidia_smi=smi)
 
     entries = [
         ("packed_maxsum_cycle", "pydcop_tpu_torch/csrc/packed_maxsum.cu",
@@ -714,10 +980,15 @@ def main():
         ("packed_dsa_cycles", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:644",
          main_launches["dsa_cycle"], ls_err),
+        ("dpop_whole_sweep", "pydcop_tpu_torch/csrc/dpop_sweep.cu",
+         "pydcop_tpu/ops/pallas_dpop.py:306",
+         main_launches["dpop_whole_sweep"], dpop_err),
     ]
     kernels = []
     for name, source, replaces, launches, err in entries:
-        ms, plain, bound, by = timing["10k_30k", name]
+        ms, plain, bound, by = timing[
+            "bench_tree_10k" if name == "dpop_whole_sweep" else "10k_30k",
+            name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,

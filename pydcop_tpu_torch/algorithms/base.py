@@ -38,8 +38,13 @@ class SolveResult:
     msg_count: int
     msg_size: float
     time: float
-    #: host↔device traffic scorecard of the chunk loop
+    #: host↔device traffic scorecard of the chunk loop; None for solvers
+    #: that do not run through the chunked harness (dpop)
     harness: Optional[Dict[str, Any]] = None
+    #: exact-inference scorecard: for the mini-bucket fallback the
+    #: i-bound and the lower/upper-bound sandwich around the (unreached)
+    #: optimum; None for every other solver
+    dpop: Optional[Dict[str, Any]] = None
     #: canonical fully-resolved executed config (runtime/stats)
     config: Optional[Dict[str, Any]] = None
 
@@ -56,6 +61,8 @@ class SolveResult:
         }
         if self.harness is not None:
             out["harness"] = dict(self.harness)
+        if self.dpop is not None:
+            out["dpop"] = dict(self.dpop)
         if self.config is not None:
             out["config"] = dict(self.config)
         return out

@@ -27,6 +27,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES: Dict[str, str] = {
     "packed_maxsum": "csrc/packed_maxsum.cu",
     "local_search": "csrc/local_search.cu",
+    "dpop_sweep": "csrc/dpop_sweep.cu",
 }
 
 #: ``-fmad=false``: no contraction of a*b + c into one fused multiply-add,

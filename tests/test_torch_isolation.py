@@ -24,14 +24,15 @@ sys.path.insert(0, sys.argv[1])
 import pydcop_tpu_torch
 from pydcop_tpu_torch.cli import make_parser
 from pydcop_tpu_torch.dcop import load_dcop_from_file
-from pydcop_tpu_torch.ops import cuda_build, packed_maxsum
+from pydcop_tpu_torch.ops import cuda_build, packed_dpop, packed_maxsum
 from pydcop_tpu_torch.runtime import solve_result
 make_parser()
-res = solve_result(load_dcop_from_file([sys.argv[2]]), "maxsum",
-                   device="cpu")
+dcop = load_dcop_from_file([sys.argv[2]])
+res = solve_result(dcop, "maxsum", device="cpu")
+exact = solve_result(dcop, "dpop", device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pydcop_tpu"))
-print(json.dumps({"cost": res.cost, "bad": bad}))
+print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost, "bad": bad}))
 """
 
 
@@ -43,7 +44,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["cost"] == 12
+    assert got["cost"] == 12 and got["dpop_cost"] == 12
     assert got["bad"] == []
 
 
