@@ -532,13 +532,13 @@ def dpop_kernel_vs_plain(plan, ps):
 def dpop_bytes_ops(ps):
     """Bytes and float operations of one whole sweep, each input read
     once and each output written once: in the [n, D, D] table, the CSR
-    children, parent and level starts; out msg, cs and assign.  UTIL
-    adds each child's D message values, then per node D*D adds and
-    D*(D-1) reductions; VALUE per node D adds and D-1 compares."""
+    children, parent and level starts; out assign (msg and cs are the
+    kernel's intermediates, not the function's outputs).  UTIL adds each
+    child's D message values, then per node D*D adds and D*(D-1)
+    reductions; VALUE per node D adds and D-1 compares."""
     N, D, L = ps.n_nodes, ps.D, ps.L
     n_child = int(ps.child_idx.numel())
-    nbytes = 4 * (N * D * D + (N + 1) + n_child + N + (L + 1)
-                  + 2 * N * D + N)
+    nbytes = 4 * (N * D * D + (N + 1) + n_child + N + (L + 1) + N)
     nops = N * (D * D + D * (D - 1) + D + (D - 1)) + D * n_child
     return nbytes, nops
 
@@ -878,7 +878,8 @@ def main():
     if counts != want:
         fail("main_path_dpop", f"launches {counts} in one dpop solve, "
              f"expected {want}")
-    main_launches.update(dpop_whole_sweep=2 * L)
+    main_launches.update(dpop_whole_sweep=counts["dpop_util_level"]
+                         + counts["dpop_value_level"])
     cpu = solve_result(tree_dcop_10k, "dpop", device="cpu")
     dpop_keys = jax_keys - {"harness"}
     keys = set(res.metrics())

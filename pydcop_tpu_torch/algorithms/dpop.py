@@ -70,7 +70,8 @@ GRAPH_TYPE = "pseudotree"
 # bounded approximation; "sharded" and "frontier" are not ported and
 # raise.  `budget_mb` is the per-device table budget the auto tier
 # routes on (0 = engine caps), `i_bound` the mini-bucket width bound
-# (0 = off); `prune` and `shards` configure the sharded sweep.
+# (0 = off); `prune` and `shards` configure the sharded sweep, so any
+# value but their defaults raises.
 algo_params = [
     AlgoParameterDef("engine", "str",
                      ["auto", "sweep", "wholesweep", "sharded",
@@ -126,6 +127,10 @@ class DpopSolver:
             int(budget_mb * 2**20) if budget_mb > 0 else None
         )
         self.i_bound = int(params.get("i_bound") or 0)
+        if params.get("prune", True) is not True:
+            raise _not_ported("sharded", "prune:false sets its wire pruning")
+        if int(params.get("shards") or 0) != 0:
+            raise _not_ported("sharded", "shards sets its mesh size")
 
     def _node_constraint_table(self, node: PseudoTreeNode):
         """Join the node's own constraints + its variable costs into one

@@ -40,7 +40,8 @@ def set_parser(subparsers):
                         "lower/upper bound sandwich of engine:minibucket")
     parser.add_argument("--dpop-no-prune", action="store_true",
                         help="disable the wire pruning of the sharded "
-                        "DPOP sweep (-p prune:false)")
+                        "DPOP sweep (-p prune:false); the sharded sweep "
+                        "is not ported, so this is refused")
     return parser
 
 

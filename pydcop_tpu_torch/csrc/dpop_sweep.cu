@@ -32,9 +32,10 @@
 // node: it reads its parent's value and scans its D own values.
 //
 // Bound: the sweep must read the table (n_nodes*D*D floats: 4.0 MB at 10k
-// nodes and D=10, 1.2 us at 3.35 TB/s) and write msg, cs and assign; its
-// operations (~2*n_nodes*D^2) are nothing to the card.  But L levels are L
-// dependent steps each way, so the sweep is bound by latency: 2L launches
+// nodes and D=10, 1.2 us at 3.35 TB/s) and the tree, and write assign (msg
+// and cs are this design's intermediates, not outputs); its operations
+// (~2*n_nodes*D^2) are nothing to the card.  But L levels are L dependent
+// steps each way, so the sweep is bound by latency: 2L launches
 // of small grids, one after the other.  Nothing here hides that; a single
 // cooperative launch with a grid-wide barrier per level, or a CUDA graph of
 // the 2L launches, would be the next step.
@@ -104,7 +105,8 @@ __global__ void dpop_value_level_kernel(
 template <bool kMax>
 int sweep(const float* table, const int* child_ptr, const int* child_idx,
           const int* parent, const int* level_start, int L, int D,
-          float* msg, float* cs, int* assign, cudaStream_t stream) {
+          float* msg, float* cs, int* assign, int* launched,
+          cudaStream_t stream) {
   const int nodes_per_block = D >= 256 ? 1 : 256 / D;
   const int util_threads = nodes_per_block * D;
   const size_t shared = sizeof(float) * util_threads;
@@ -116,6 +118,7 @@ int sweep(const float* table, const int* child_ptr, const int* child_idx,
         table, child_ptr, child_idx, lo, B, D, nodes_per_block, msg, cs);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++launched[0];
   }
   constexpr int kValueThreads = 256;
   for (int l = 0; l < L; ++l) {
@@ -126,6 +129,7 @@ int sweep(const float* table, const int* child_ptr, const int* child_idx,
         table, cs, parent, lo, B, D, assign);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++launched[1];
   }
   return 0;
 }
@@ -134,8 +138,10 @@ int sweep(const float* table, const int* child_ptr, const int* child_idx,
 
 // Runs one whole sweep on `stream`: L UTIL launches (deepest level first),
 // then L VALUE launches (roots first).  `level_start` ([L+1], level l =
-// node ids [level_start[l], level_start[l+1])) lives in HOST memory; every
-// other pointer is device memory.  Returns 0, or the first launch error
+// node ids [level_start[l], level_start[l+1])) and `launched` ([2]) live in
+// HOST memory; every other pointer is device memory.  Adds one to
+// launched[0] for each UTIL launch and to launched[1] for each VALUE
+// launch that went out.  Returns 0, or the first launch error
 // (cudaGetLastError after each launch), without launching the rest.  D
 // must be in [1, 1024] and every level non-empty, else
 // cudaErrorInvalidValue without launching.
@@ -143,7 +149,7 @@ extern "C" int dpop_whole_sweep(const float* table, const int* child_ptr,
                                 const int* child_idx, const int* parent,
                                 const int* level_start, int L, int D,
                                 int max_mode, float* msg, float* cs,
-                                int* assign, void* stream) {
+                                int* assign, int* launched, void* stream) {
   if (D < 1 || D > 1024 || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -155,7 +161,7 @@ extern "C" int dpop_whole_sweep(const float* table, const int* child_ptr,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return max_mode
              ? sweep<true>(table, child_ptr, child_idx, parent, level_start,
-                           L, D, msg, cs, assign, st)
+                           L, D, msg, cs, assign, launched, st)
              : sweep<false>(table, child_ptr, child_idx, parent, level_start,
-                            L, D, msg, cs, assign, st);
+                            L, D, msg, cs, assign, launched, st);
 }

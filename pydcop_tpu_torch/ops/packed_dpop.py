@@ -31,12 +31,13 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from pydcop_tpu_torch.ops.dpop_sweep import DpopSweepPlan
+from pydcop_tpu_torch.ops.segments import SegmentPlan
 
 #: the kernel keeps a node's D values in one block (and D <= 1024 always
 #: holds for a plan compile_sweep accepts at W = 1: D*D <= 2**20)
@@ -59,8 +60,8 @@ class PackedDpopSweep:
     #: level_start[l + 1])
     level_start: np.ndarray
     max_children: int
-    #: plain version's per-level child ranks, built at its first call
-    _ranks: Optional[list] = field(default=None, repr=False)
+    #: plain version's per-level child-sum plans, built at its first call
+    _plans: Optional[list] = field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -126,28 +127,19 @@ def pack_sweep(plan: DpopSweepPlan) -> Optional[PackedDpopSweep]:
 # ---------------------------------------------------------------------------
 
 
-def _child_ranks(ps: PackedDpopSweep) -> List[List[Tuple[torch.Tensor,
-                                                         torch.Tensor]]]:
-    """Per level, per rank k: (row within the level of each node that has
-    a k-th child, that child's gid)."""
-    if ps._ranks is None:
-        ptr = ps.child_ptr.cpu().numpy().astype(np.int64)
-        idx = ps.child_idx.cpu().numpy().astype(np.int64)
-        counts = np.diff(ptr)
-        ranks = []
-        for li in range(ps.L):
-            lo, hi = int(ps.level_start[li]), int(ps.level_start[li + 1])
-            per = []
-            for k in range(int(counts[lo:hi].max(initial=0))):
-                rows = np.flatnonzero(counts[lo:hi] > k)
-                per.append((
-                    torch.as_tensor(rows, device=ps.device),
-                    torch.as_tensor(idx[ptr[lo + rows] + k],
-                                    device=ps.device),
-                ))
-            ranks.append(per)
-        ps._ranks = ranks
-    return ps._ranks
+def _level_plans(ps: PackedDpopSweep) -> List[Optional[SegmentPlan]]:
+    """Per level, the ordered child sum's plan: the next level's nodes
+    (ascending gid) added into their parents' rows within this level;
+    None for the deepest level, which has no children."""
+    if ps._plans is None:
+        ls = ps.level_start
+        parent = ps.parent.cpu()
+        ps._plans = [
+            SegmentPlan((parent[ls[li + 1]:ls[li + 2]] - int(ls[li]))
+                        .to(ps.device), int(ls[li + 1] - ls[li]))
+            for li in range(ps.L - 1)
+        ] + [None]
+    return ps._plans
 
 
 def whole_sweep_plain(ps: PackedDpopSweep):
@@ -159,13 +151,12 @@ def whole_sweep_plain(ps: PackedDpopSweep):
     msg = torch.zeros((N, D), dtype=torch.float32, device=dev)
     cs = torch.zeros((N, D), dtype=torch.float32, device=dev)
     assign = torch.zeros(N, dtype=torch.int32, device=dev)
-    ranks = _child_ranks(ps)
+    plans = _level_plans(ps)
     ls = ps.level_start
     for li in range(ps.L - 1, -1, -1):
         lo, hi = int(ls[li]), int(ls[li + 1])
-        c = torch.zeros((hi - lo, D), dtype=torch.float32, device=dev)
-        for rows, kids in ranks[li]:
-            c[rows] += msg[kids]
+        c = (plans[li].sum(msg[hi:int(ls[li + 2])]) if plans[li] is not None
+             else torch.zeros((hi - lo, D), dtype=torch.float32, device=dev))
         cs[lo:hi] = c
         t = ps.table[lo:hi] + c[:, :, None]  # [B, own i, parent j]
         msg[lo:hi] = (torch.amin(t, dim=1) if ps.mode == "min"
@@ -198,7 +189,7 @@ def _kernel():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn = load("dpop_sweep").dpop_whole_sweep
         fn.restype = ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 3 + [P] * 4
+        fn.argtypes = [P] * 5 + [I] * 3 + [P] * 5
         _fn.append(fn)
     return _fn[0]
 
@@ -235,25 +226,26 @@ def whole_sweep(ps: PackedDpopSweep):
     """(assign [n_nodes] int32, msg [n_nodes, D], cs [n_nodes, D]) of one
     whole sweep.  On CUDA: one host call that launches the kernel's L
     UTIL and L VALUE levels (``whole_sweep.util_launches`` and
-    ``.value_launches`` count the launches); on the CPU: the plain
-    version."""
+    ``.value_launches`` add the launches the kernel's host code reports
+    having made); on the CPU: the plain version."""
     if not _on_cuda(ps):
         return whole_sweep_plain(ps)
     f = dict(dtype=torch.float32, device=ps.device)
     msg = torch.empty((ps.n_nodes, ps.D), **f)
     cs = torch.empty((ps.n_nodes, ps.D), **f)
     assign = torch.empty(ps.n_nodes, dtype=torch.int32, device=ps.device)
+    launched = (ctypes.c_int * 2)(0, 0)
     err = _kernel()(
         ps.table.data_ptr(), ps.child_ptr.data_ptr(),
         ps.child_idx.data_ptr(), ps.parent.data_ptr(),
         ps.level_start.ctypes.data, ps.L, ps.D, int(ps.mode == "max"),
-        msg.data_ptr(), cs.data_ptr(), assign.data_ptr(),
+        msg.data_ptr(), cs.data_ptr(), assign.data_ptr(), launched,
         torch.cuda.current_stream(ps.device).cuda_stream)
+    whole_sweep.util_launches += launched[0]
+    whole_sweep.value_launches += launched[1]
     if err != 0:
         raise RuntimeError(f"dpop_whole_sweep launch failed: CUDA error "
                            f"{err}")
-    whole_sweep.util_launches += ps.L
-    whole_sweep.value_launches += ps.L
     return assign, msg, cs
 
 

@@ -388,9 +388,10 @@ def test_kernel_matches_plain_on_gpu(kind):
     tt = tpt.build_computation_graph(td)
     plan = tsweep.compile_sweep(tt, td, td.objective, device="cuda")
     ps = packed_dpop.pack_sweep(plan)
-    before = packed_dpop.whole_sweep.util_launches
+    packed_dpop.reset_launches()
     k = packed_dpop.whole_sweep(ps)
-    assert packed_dpop.whole_sweep.util_launches == before + ps.L
+    assert packed_dpop.whole_sweep.util_launches == ps.L
+    assert packed_dpop.whole_sweep.value_launches == ps.L
     p = packed_dpop.whole_sweep_plain(ps)
     torch.cuda.synchronize()
     for a, b in zip(k, p):

@@ -244,6 +244,21 @@ def test_unported_engines_raise():
             "budget_mb": 1e-6, "i_bound": 1}, device="cpu")
 
 
+@pytest.mark.parametrize("params", [
+    {"prune": False}, {"prune": "false"}, {"shards": 2},
+    {"engine": "minibucket", "i_bound": 1, "shards": 4},
+], ids=["prune_false", "prune_false_str", "shards", "shards_minibucket"])
+def test_sharded_knobs_raise(params):
+    """prune and shards set only the sharded sweep: any value but their
+    defaults is refused rather than ignored."""
+    dcop = load_dcop_from_file([_path("graph_coloring_tuto")])
+    with pytest.raises(NotPortedError, match="sharded"):
+        solve_result(dcop, "dpop", algo_params=params, device="cpu")
+    res = solve_result(dcop, "dpop", algo_params={"prune": True,
+                                                  "shards": 0}, device="cpu")
+    assert res.cost == 12
+
+
 def test_cli_solve_dpop_on_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", "dpop",
@@ -267,10 +282,14 @@ def test_cli_dpop_shorthands():
             capture_output=True, text=True, timeout=120, cwd=ROOT)
         return proc.returncode, json.loads(proc.stdout)
 
-    rc, res = run("-a", "dpop", "-p", "engine:minibucket", "--i-bound", "1",
-                  "--dpop-no-prune")
+    rc, res = run("-a", "dpop", "-p", "engine:minibucket", "--i-bound", "1")
     assert rc == 0 and res["dpop"]["i_bound"] == 1
     assert res["config"]["i_bound"] == 1
+    # --dpop-no-prune configures the sharded sweep, which is not ported
+    rc, res = run("-a", "dpop", "-p", "engine:minibucket", "--i-bound", "1",
+                  "--dpop-no-prune")
+    assert rc == 1 and res["status"] == "ERROR"
+    assert "'sharded' is not ported" in res["error"]
     rc, res = run("-a", "mgm", "--i-bound", "1")
     assert rc == 1 and res["status"] == "ERROR"
     assert "only apply to -a dpop" in res["error"]
