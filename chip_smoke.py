@@ -8,9 +8,9 @@ NVIDIA H100 and the CUDA toolkit::
 
 It builds the port's CUDA kernels from ``pydcop_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), then drives the port's main
-paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa`` and
-``solve -a dpop``.  Each phase prints one line; any failure exits
-non-zero before the result lines are printed.
+paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa``,
+``solve -a mgm2`` and ``solve -a dpop``.  Each phase prints one line;
+any failure exits non-zero before the result lines are printed.
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, kernel build time and the ptxas report;
@@ -26,6 +26,10 @@ non-zero before the result lines are printed.
    one x and one set of uniforms: tables, cur, best and gain equal (max
    abs error 0), x equal after 20 MGM cycles and after 20 cycles of DSA
    A/B/C, mixeddsa and adsa;
+   mgm2_kernel_vs_plain: the MGM-2 kernels against their plain version
+   on those four instances and the 100k/300k colouring, from one x and
+   one set of coins: x equal after 20 cycles for each favor at
+   threshold 0.5 and for unilateral at thresholds 0 and 1;
    dpop_kernel_vs_plain: the whole-sweep DPOP kernel against its plain
    version on the JAX bench's 10,000-node random tree (D=10), the same
    generator at 100,000 nodes, and 3,000-node forest, ragged-domain and
@@ -33,23 +37,26 @@ non-zero before the result lines are printed.
    assign equal to the level scan's;
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
    solve`` in a subprocess on the tutorial instance: maxsum and dpop
-   must finish with cost 12, mgm and dsa with the cost of the port's own
-   CPU run;
+   must finish with cost 12, mgm, dsa and mgm2 with the cost of the
+   port's own CPU run;
 4. main_path: ``solve_result`` on a 10,000-variable / 30,000-constraint
    soft coloring built with the port's DCOP objects, 200 cycles, for
-   maxsum, mgm and dsa, and on the 10,000-node tree for dpop; every
+   maxsum, mgm, dsa and mgm2, and on the 10,000-node tree for dpop; every
    launch counter is zeroed just before each solve, and just after it
    the kernels of that path must have launched once per cycle (mgm: 200
-   ls_tables + 200 mgm_move; dsa: 200 dsa_cycle), or for dpop once per
-   tree level and phase (L UTIL + L VALUE launches, engine
+   ls_tables + 200 mgm_move; dsa: 200 dsa_cycle; mgm2: the 6 × 200
+   launches its host loop reports, and the cost of the CPU run), or for
+   dpop once per tree level and phase (L UTIL + L VALUE launches, engine
    "wholesweep", cost equal to the CPU run's); then each path piece by
-   piece (graph, compile, pack, cycles or sweep, coin copy, scoring);
+   piece (graph, compile, pack, cycles or sweep, coin draw and copy,
+   scoring);
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
    equal;
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
-   of launches, after warm-up) at 10k/30k and 100k/300k (DPOP: the 10k
-   and 100k trees, 200 back-to-back sweeps) beside its bytes bound, its
+   of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
+   and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
+   sweeps) beside its bytes bound, its
    plain version's time, and its device time per launch from a
    torch.profiler trace.
 
@@ -408,6 +415,112 @@ def time_ls(pls, reps=200):
     return out
 
 
+#: the MGM-2 rules held against the plain version on the card: every
+#: favor at threshold 0.5, and thresholds 0 (no offerer) and 1 (every
+#: offer meets an offerer) once
+MGM2_RULES = [("unilateral", 0.5), ("no", 0.5), ("coordinated", 0.5),
+              ("unilateral", 0.0), ("unilateral", 1.0)]
+MGM2_KERNELS = ["mgm2_tables_kernel", "mgm2_offer_kernel",
+                "mgm2_response_kernel", "mgm2_commit_kernel",
+                "mgm2_winner_kernel", "mgm2_go_kernel"]
+
+
+def mgm2_coins(pls, n, seed):
+    """(u_off, u_pick, u_fav) [n, Vp] on the card, drawn on the CPU."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.rand((n, pls.Vp), generator=gen).to(pls.device)
+            for _ in range(3)]
+
+
+def mgm2_offers(pm, u_off, u_pick, threshold):
+    """Offered slots per cycle of these coins (an offerer's picked slot
+    whose mate is no offerer), averaged over the rows."""
+    pls = pm.pls
+    sc = pls.pg.slot_col
+    offerer = u_off < threshold
+    pick = (u_pick * pm.deg_col.float().clamp_min(1.0)).floor().int()
+    offered = (offerer[:, sc] & (pm.pick_rank == pick[:, sc])
+               & ~offerer[:, pls.mate_col.long()])
+    return float(offered.sum()) / u_off.shape[0]
+
+
+def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
+    """The MGM-2 kernels against their plain version on the card, from
+    one x and one set of coins, for each rule of MGM2_RULES.  Returns
+    (max abs error over every x, stats); raises on any difference."""
+    import torch
+
+    from pydcop_tpu_torch.ops.packed_mgm2 import (
+        packed_mgm2_cycles,
+        packed_mgm2_cycles_plain,
+    )
+
+    x = random_x_col(pm.pls, seed)
+    u = mgm2_coins(pm.pls, cycles, seed)
+    err, stats = 0.0, {}
+    for favor, threshold in MGM2_RULES:
+        k = packed_mgm2_cycles(pm, x, *u, threshold, favor)
+        p = packed_mgm2_cycles_plain(pm, x, *u, threshold, favor)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(
+                f"favor={favor} threshold={threshold}: x after {cycles} "
+                f"cycles differs from plain in {int((k != p).sum())} "
+                f"columns")
+        err = max(err, float((k.double() - p.double()).abs().max()))
+        stats[f"{favor}_{threshold}_moved"] = int((k != x).sum())
+    stats["offers_per_cycle_0.5"] = mgm2_offers(pm, u[0], u[1], 0.5)
+    return err, stats
+
+
+def mgm2_bytes_ops(pm, offers):
+    """Bytes and float operations of one MGM-2 cycle, each input read
+    once and each output written once: x and the three coins, the unary
+    and mask columns, the four column arrays (col_var, col_deg,
+    col_slot0, col_stride), the five slot arrays (mate, mate_col,
+    mate_idx, pick_rank, edge_id), the D cost floats a slot the tables
+    select and the D*D cost floats of each offered slot (``offers`` a
+    cycle, counted from this run's coins); out x'.  Operations: the
+    tables' D adds a slot, per column the table, argmin and gain (4D),
+    per offered slot the joint table (3 D*D) and argmins (2D), per slot
+    the response, commit and winner compares (about 8)."""
+    D, N, Vp = pm.pls.D, pm.pls.N, pm.pls.Vp
+    floats = 3 * Vp + 2 * D * Vp + D * N + D * D * offers
+    ints = 2 * Vp + 4 * Vp + 5 * N
+    nops = N * D + Vp * 4 * D + offers * (3 * D * D + 2 * D) + 8 * N
+    return 4 * (floats + ints), nops
+
+
+def time_mgm2(pm, reps=200, threshold=0.5, favor="unilateral"):
+    """(ms per cycle by CUDA events over ``reps`` cycles of one call,
+    plain ms per cycle, bound ms, bound_by, bytes, device us per cycle
+    from the profiler (the six kernels' per-launch times summed), the
+    per-launch time of each kernel, offers per cycle)."""
+    from pydcop_tpu_torch.ops.packed_mgm2 import (
+        packed_mgm2_cycles,
+        packed_mgm2_cycles_plain,
+    )
+
+    x = random_x_col(pm.pls, 1)
+    u = mgm2_coins(pm.pls, reps, 1)
+    few = [a[:5] for a in u]
+    packed_mgm2_cycles(pm, x, *(a[:20] for a in u), threshold, favor)
+    ms = cuda_ms(lambda: packed_mgm2_cycles(pm, x, *u, threshold, favor),
+                 1) / reps
+    packed_mgm2_cycles_plain(pm, x, *few, threshold, favor)
+    plain = cuda_ms(lambda: packed_mgm2_cycles_plain(
+        pm, x, *few, threshold, favor), 1) / 5
+    offers = mgm2_offers(pm, u[0], u[1], threshold)
+    nbytes, nops = mgm2_bytes_ops(pm, offers)
+    bound, by = bound_of(nbytes, nops)
+    us = profile_us(lambda: packed_mgm2_cycles(
+        pm, x, *(a[:50] for a in u), threshold, favor), MGM2_KERNELS)
+    device_us = None if None in us.values() else sum(us.values())
+    return ms, plain, bound, by, nbytes, device_us, us, offers
+
+
 def coloring_dcop(V, E, seed=1):
     """A soft 3-colouring built with the port's own DCOP objects."""
     from pydcop_tpu_torch.dcop import (
@@ -599,33 +712,37 @@ def dpop_breakdown(dcop, dev):
 
 def reset_counts():
     """Zero the launch counter of every kernel wrapper."""
-    from pydcop_tpu_torch.ops import packed_dpop
+    from pydcop_tpu_torch.ops import packed_dpop, packed_mgm2
     from pydcop_tpu_torch.ops import packed_local_search as P
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
 
     packed_cycles.launches = 0
     P.reset_launches()
     packed_dpop.reset_launches()
+    packed_mgm2.reset_launches()
 
 
 def read_counts():
     from pydcop_tpu_torch.ops import packed_local_search as P
     from pydcop_tpu_torch.ops.packed_dpop import whole_sweep
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
+    from pydcop_tpu_torch.ops.packed_mgm2 import packed_mgm2_cycles
 
     return {"packed_maxsum_cycle": packed_cycles.launches,
             "ls_tables": P.ls_tables.launches,
             "mgm_move": P.mgm_move.launches,
             "dsa_cycle": P.dsa_cycle.launches,
             "dpop_util_level": whole_sweep.util_launches,
-            "dpop_value_level": whole_sweep.value_launches}
+            "dpop_value_level": whole_sweep.value_launches,
+            "mgm2": packed_mgm2_cycles.launches}
 
 
 def breakdown(dcop, algo, cycles, dev):
     """Where a solve's time goes, piece by piece (host clock around work
     that ends in a synchronize): the computation graph, compile, pack,
-    the cycles, the coin copy (DSA: per chunk of 100 cycles, the fixed-
-    cycle chunk) and scoring."""
+    the cycles, the coin copy (DSA and MGM-2: per chunk of 100 cycles,
+    the fixed-cycle chunk; MGM-2 draws three [100, V] tables a chunk) and
+    scoring."""
     import torch
 
     from pydcop_tpu_torch.algorithms import AlgorithmDef, \
@@ -647,16 +764,17 @@ def breakdown(dcop, algo, cycles, dev):
         mod.GRAPH_TYPE).build_computation_graph(dcop))
     tensors, compile_s = timed(lambda: compile_fn(dcop, device=dev))
     solver_cls = {"maxsum": "MaxSumSolver", "mgm": "MgmSolver",
-                  "dsa": "DsaSolver"}[algo]
+                  "dsa": "DsaSolver", "mgm2": "Mgm2Solver"}[algo]
     solver, pack_s = timed(lambda: getattr(mod, solver_cls)(
         dcop, tensors, AlgorithmDef.build_with_default_params(algo)))
     state = solver.initial_state()
     out = dict(graph_s=graph_s, compile_s=compile_s, pack_s=pack_s)
-    if algo == "dsa":
+    if algo in ("dsa", "mgm2"):
         # the coins of the two 100-cycle chunks: drawn on the CPU alone,
         # then as the solve pays for them (draw, copy, column permute)
+        kinds = 3 if algo == "mgm2" else 1
         _, draw_s = timed(lambda: [solver.draw_uniforms(cycles // 2)
-                                   for _ in range(2)])
+                                   for _ in range(2 * kinds)])
         solver.coins.manual_seed(0)
         chunks, coin_s = timed(lambda: [solver.chunk_coins(cycles // 2)
                                         for _ in range(2)])
@@ -679,7 +797,7 @@ def breakdown(dcop, algo, cycles, dev):
     assignment = tensors.assignment_from_indices(
         solver.values_of(state).cpu().numpy())
     dcop.solution_cost(assignment, solver.infinity)
-    if algo == "dsa":
+    if algo in ("dsa", "mgm2"):
         out["cycles_per_s_with_coins"] = cycles / (cycles_s + coin_s)
     out.update(cycles_s=cycles_s, cycles=cycles,
                cycles_per_s=cycles / cycles_s,
@@ -704,6 +822,8 @@ def main():
     from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays
     from pydcop_tpu_torch.ops.packed_local_search import pack_from_pg
     from pydcop_tpu_torch.ops.packed_maxsum import pack_for_gpu
+    from pydcop_tpu_torch.ops.packed_mgm2 import LAUNCHES_PER_CYCLE, \
+        pack_mgm2_from_pls
     from pydcop_tpu_torch.runtime import solve_result
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -766,6 +886,21 @@ def main():
         fail("ls_kernel_vs_plain", "the hard instance fired no lateral "
              "move: variant B's rule went unchecked")
 
+    big_arrays = coloring_arrays(100_000, 300_000)
+    big = pack_for_gpu(compile_binary_from_arrays(
+        *big_arrays[:3], 100_000, unary=big_arrays[3], device=dev))
+    mgm2_err = 0.0
+    for name, pg in list(cases.items()) + [("coloring_100k_300k", big)]:
+        pm = pack_mgm2_from_pls(pack_from_pg(pg))
+        try:
+            err, stats = mgm2_kernel_vs_plain(pm)
+        except AssertionError as e:
+            fail("mgm2_kernel_vs_plain", f"{name}: {e}")
+        mgm2_err = max(mgm2_err, err)
+        say("mgm2_kernel_vs_plain", case=name, D=pg.D, N=pg.N, Vp=pg.Vp,
+            max_deg=int(pg.col_deg.max()), max_abs_err=err, cycles=20,
+            **stats)
+
     dpop_cases = {
         "bench_tree_10k": lambda: bench_tree_dcop(10_000),
         "bench_tree_100k": lambda: bench_tree_dcop(100_000),
@@ -801,7 +936,7 @@ def main():
     from pydcop_tpu_torch.dcop import load_dcop_from_file
 
     tuto = os.path.join(ROOT, "tests", "instances", "graph_coloring_tuto.yaml")
-    for algo in ("maxsum", "mgm", "dsa", "dpop"):
+    for algo in ("maxsum", "mgm", "dsa", "mgm2", "dpop"):
         phase = {"maxsum": "cli", "dpop": "cli_dpop"}.get(
             algo, "cli_local_search")
         proc = subprocess.run(
@@ -833,8 +968,10 @@ def main():
     for algo, expect in (
             ("maxsum", {"packed_maxsum_cycle": cycles}),
             ("mgm", {"ls_tables": cycles, "mgm_move": cycles}),
-            ("dsa", {"dsa_cycle": cycles})):
-        phase = "main_path" if algo == "maxsum" else "main_path_local_search"
+            ("dsa", {"dsa_cycle": cycles}),
+            ("mgm2", {"mgm2": cycles * LAUNCHES_PER_CYCLE})):
+        phase = {"maxsum": "main_path", "mgm2": "main_path_mgm2"}.get(
+            algo, "main_path_local_search")
         reset_counts()
         t0 = time.perf_counter()
         res = solve_result(dcop, algo, cycles=cycles, device="cuda")
@@ -855,10 +992,19 @@ def main():
                 or len(res.assignment) != 10_000:
             fail(phase, f"{algo}: status={res.status} cycle={res.cycle} "
                  f"cost={res.cost} n_assigned={len(res.assignment)}")
+        extra = {}
+        if algo == "mgm2":
+            cpu = solve_result(dcop, algo, cycles=cycles, device="cpu")
+            if res.cost != cpu.cost or res.assignment != cpu.assignment:
+                fail(phase, f"mgm2: card cost {res.cost} != CPU cost "
+                     f"{cpu.cost} (same assignment: "
+                     f"{res.assignment == cpu.assignment})")
+            extra = {"cpu_cost": cpu.cost}
         say(phase, algo=algo, launches=counts, cycle=res.cycle,
             status=res.status, cost=res.cost, violation=res.violation,
             msg_count=res.msg_count, build_dcop_s=round(build_dcop_s, 3),
-            solve_s=round(solve_s, 3), harness=res.metrics()["harness"])
+            solve_s=round(solve_s, 3), harness=res.metrics()["harness"],
+            **extra)
         say(phase + "_breakdown", algo=algo, nvidia_smi=smi,
             **breakdown(dcop, algo, cycles, dev))
 
@@ -907,7 +1053,7 @@ def main():
     for fn in sorted(os.listdir(inst)):
         d = load_dcop_from_file([os.path.join(inst, fn)])
         for algo in ("maxsum", "mgm", "dsa", "dsatuto", "mixeddsa", "adsa",
-                     "dpop"):
+                     "mgm2", "dpop"):
             params = {"noise": 0} if algo == "maxsum" else None
             g = solve_result(d, algo, algo_params=params, device="cuda")
             c = solve_result(d, algo, algo_params=params, device="cpu")
@@ -925,12 +1071,7 @@ def main():
 
     # 5. times -------------------------------------------------------------
     timing = {}
-    big_arrays = coloring_arrays(100_000, 300_000)
-    sizes = {
-        "10k_30k": primary,
-        "100k_300k": pack_for_gpu(compile_binary_from_arrays(
-            *big_arrays[:3], 100_000, unary=big_arrays[3], device=dev)),
-    }
+    sizes = {"10k_30k": primary, "100k_300k": big}
     for name, pg in sizes.items():
         ms, plain, bound, by, nbytes, device_us = time_kernel(pg)
         timing[name, "packed_maxsum_cycle"] = (ms, plain, bound, by)
@@ -954,6 +1095,19 @@ def main():
                 library_note="no single PyTorch call computes a "
                 "local-tables gather-sum or an MGM/DSA move",
                 nvidia_smi=smi)
+        ms, plain, bound, by, nbytes, device_us, us, offers = time_mgm2(
+            pack_mgm2_from_pls(pack_from_pg(pg)))
+        timing[name, "packed_mgm2_cycles"] = (ms, plain, bound, by)
+        say("times", kernel="packed_mgm2_cycles", size=name, N=pg.N,
+            Vp=pg.Vp, launches_per_cycle=LAUNCHES_PER_CYCLE, kernel_ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by,
+            bytes_per_cycle=nbytes, offers_per_cycle=offers,
+            profiler_kernel_us=device_us, profiler_us_by_kernel=us,
+            kernel_busy_share=(device_us / (ms * 1e3) if device_us
+                               else None),
+            library_ms=None,
+            library_note="no single PyTorch call computes an MGM-2 cycle",
+            nvidia_smi=smi)
     for name, (_, ps) in dpop_packed.items():
         ms, plain, bound, by, nbytes, device_us = time_dpop(ps)
         timing[name, "dpop_whole_sweep"] = (ms, plain, bound, by)
@@ -984,6 +1138,9 @@ def main():
         ("dpop_whole_sweep", "pydcop_tpu_torch/csrc/dpop_sweep.cu",
          "pydcop_tpu/ops/pallas_dpop.py:306",
          main_launches["dpop_whole_sweep"], dpop_err),
+        ("packed_mgm2_cycles", "pydcop_tpu_torch/csrc/mgm2.cu",
+         "pydcop_tpu/ops/pallas_mgm2.py:448", main_launches["mgm2"],
+         mgm2_err),
     ]
     kernels = []
     for name, source, replaces, launches, err in entries:

@@ -7,6 +7,8 @@
   the hand-written CUDA kernel ``csrc/packed_maxsum.cu``;
 * ``packed_local_search``: the packed all-binary local-search engine
   (local tables, MGM and DSA cycles), kernels in ``csrc/local_search.cu``;
+* ``packed_mgm2``: the packed all-binary MGM-2 engine, kernels in
+  ``csrc/mgm2.cu``;
 * ``cuda_build``: builds and loads the CUDA kernels at first use.
 """
 from pydcop_tpu_torch.ops.compile import (

@@ -28,6 +28,7 @@ SOURCES: Dict[str, str] = {
     "packed_maxsum": "csrc/packed_maxsum.cu",
     "local_search": "csrc/local_search.cu",
     "dpop_sweep": "csrc/dpop_sweep.cu",
+    "mgm2": "csrc/mgm2.cu",
 }
 
 #: ``-fmad=false``: no contraction of a*b + c into one fused multiply-add,

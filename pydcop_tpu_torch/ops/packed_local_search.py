@@ -102,8 +102,10 @@ def pack_local_search(t: FactorGraphTensors
     return pack_from_pg(pack_for_gpu(t))
 
 
-def pack_x(pls: PackedLocalSearch, x: torch.Tensor) -> torch.Tensor:
-    """[V] value indices in variable order → int32 [Vp] column order."""
+def pack_x(pls: PackedLocalSearch, x) -> torch.Tensor:
+    """[V] value indices in variable order (a tensor or a numpy array) →
+    int32 [Vp] column order, on the layout's device."""
+    x = torch.as_tensor(x, device=pls.device)
     return x.to(torch.int32)[pls.col_var.long()].contiguous()
 
 
@@ -112,8 +114,10 @@ def unpack_x(pls: PackedLocalSearch, x_col: torch.Tensor) -> torch.Tensor:
     return x_col[pls.pg.var_order]
 
 
-def pack_uniforms(pls: PackedLocalSearch, u: torch.Tensor) -> torch.Tensor:
-    """[n, V] coins in variable order → float32 [n, Vp] column order."""
+def pack_uniforms(pls: PackedLocalSearch, u) -> torch.Tensor:
+    """[n, V] coins in variable order (a tensor or a numpy array) →
+    float32 [n, Vp] column order, on the layout's device."""
+    u = torch.as_tensor(u, device=pls.device)
     return u.to(torch.float32)[:, pls.col_var.long()].contiguous()
 
 

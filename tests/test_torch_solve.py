@@ -93,7 +93,8 @@ def test_unported_options_refuse():
         solve_result(dcop, "maxsum", device="cpu",
                      algo_params={"precision": "bf16"})
     with pytest.raises(ImportError, match="available: \\['adsa', 'dpop', "
-                       "'dsa', 'dsatuto', 'maxsum', 'mgm', 'mixeddsa'\\]"):
+                       "'dsa', 'dsatuto', 'maxsum', 'mgm', 'mgm2', "
+                       "'mixeddsa'\\]"):
         solve_result(dcop, "syncbb", device="cpu")
 
 
