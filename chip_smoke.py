@@ -9,8 +9,10 @@ NVIDIA H100 and the CUDA toolkit::
 It builds the port's CUDA kernels from ``pydcop_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), then drives the port's main
 paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa``,
-``solve -a mgm2`` and ``solve -a dpop``.  Each phase prints one line;
-any failure exits non-zero before the result lines are printed.
+``solve -a mgm2`` and ``solve -a dpop`` on binary graphs and trees, and
+``solve -a maxsum|mgm|dsa`` on mixed-arity (SECP) graphs.  Each phase
+prints one line; any failure exits non-zero before the result lines are
+printed.
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, kernel build time and the ptxas report;
@@ -35,6 +37,13 @@ any failure exits non-zero before the result lines are printed.
    generator at 100,000 nodes, and 3,000-node forest, ragged-domain and
    max-mode trees: assign equal, msg and cs with max abs error 0, and
    assign equal to the level scan's;
+   mixed_kernel_vs_plain: the mixed branches of the MaxSum kernel and of
+   the three local-search kernels against their plain versions (the same
+   rules as above) on five mixed-arity graphs: the JAX bench's SECP
+   (generate_secp(3000 lights, 900 models, 300 rules, seed 1), arity <= 3
+   at max_model_size 2 and <= 4 at 3), the latter at 10x (30,000 lights),
+   a star whose hub holds 2,500 unary, binary and ternary factors, and a
+   6,000-variable graph of arity 1-4 with domains of 4 and 3 values;
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
    solve`` in a subprocess on the tutorial instance: maxsum and dpop
    must finish with cost 12, mgm, dsa and mgm2 with the cost of the
@@ -50,13 +59,20 @@ any failure exits non-zero before the result lines are printed.
    "wholesweep", cost equal to the CPU run's); then each path piece by
    piece (graph, compile, pack, cycles or sweep, coin draw and copy,
    scoring);
+   main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm
+   and dsa through the mixed kernels (200 launches of the mixed MaxSum
+   kernel; 200 + 200 of ls_tables and mgm_move; 200 of dsa_cycle), the
+   cost equal to the CPU run of the same engine (``use_packed=True``);
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
-   equal;
+   equal (a mixed-arity instance: against the CPU run with
+   ``use_packed=True``, the card's engine; the CPU default, the generic
+   engine, is printed beside it);
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
    of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
-   sweeps) beside its bytes bound, its
+   sweeps; the mixed branches: the 3.9k SECPs of arity <= 3 and <= 4 and
+   the 39k SECP) beside its bytes bound, its
    plain version's time, and its device time per launch from a
    torch.profiler trace.
 
@@ -79,6 +95,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TOL = 1e-4
+#: SECP-39k is the JAX bench's SECP4 at this many times its size (10: 30k
+#: lights; cut to 5 if the run nears its time limit)
+SECP_BIG_SCALE = 10
 
 
 def say(phase, **fields):
@@ -223,22 +242,33 @@ def bound_of(nbytes, nops):
 
 
 def packed_bytes(pg):
-    """Bytes one cycle must move: every input read once (q, r, the D*D
-    cost rows, vmask, unary, inv_dcount, mate, the three column arrays),
-    every output written once (q', r', beliefs)."""
+    """Bytes one cycle must move: every input read once (q, r, the cost
+    rows — binary: D*D a slot; mixed: each arity's [D^a, N_a] array —,
+    vmask, unary, inv_dcount, the slot index arrays — binary: mate;
+    mixed: arity, cost_idx, mate, mate2, mate3 —, the three column
+    arrays), every output written once (q', r', beliefs)."""
     D, N, Vp = pg.D, pg.N, pg.Vp
-    floats = (D * N * 2 + D * D * N + D * N + D * Vp + N  # inputs
-              + D * N * 2 + D * Vp)                         # outputs
-    ints = N + 3 * Vp
-    return 4 * (floats + ints)
+    if pg.mixed is None:
+        cost, slot_ints = D * D * N, N
+    else:
+        cost, slot_ints = sum(c.numel() for c in pg.mixed.costs), 5 * N
+    floats = (D * N * 2 + cost + D * N + D * Vp + N  # inputs
+              + D * N * 2 + D * Vp)                  # outputs
+    return 4 * (floats + slot_ints + 3 * Vp)
 
 
 def packed_ops(pg):
-    """Float operations of one cycle: per slot and value, D adds and D-1
-    mins, the mask, damping (3) and the belief add; per slot, the q
-    side (D subtractions, D multiply-adds for the mean, 2D to centre)."""
+    """Float operations of one cycle: per slot and value, the factor side
+    (binary: D adds and D-1 mins; a mixed arity-a slot: about 3 D^(a-1) —
+    two adds and a min a candidate), the mask, damping (3) and the belief
+    add; per slot, the q side (D subtractions, D multiply-adds for the
+    mean, 2D to centre)."""
     D, N = pg.D, pg.N
-    return N * D * (2 * D - 1 + 1 + 3 + 1) + N * (D + 2 * D + 1 + 2 * D)
+    rest = N * D * (1 + 3 + 1) + N * (D + 2 * D + 1 + 2 * D)
+    if pg.mixed is None:
+        return N * D * (2 * D - 1) + rest
+    return sum(sl.numel() * 3 * D ** a
+               for a, sl in enumerate(pg.mixed.slots, 1)) + rest
 
 
 def time_kernel(pg, reps=200):
@@ -256,9 +286,10 @@ def time_kernel(pg, reps=200):
         lambda: packed_cycles_plain(pg, q, r, 20, damping=0.5), 1) / 20
     nbytes = packed_bytes(pg)
     bound, by = bound_of(nbytes, packed_ops(pg))
+    name = ("packed_maxsum_cycle_kernel" if pg.mixed is None
+            else "packed_maxsum_mixed_kernel")
     device_us = profile_us(
-        lambda: packed_cycles(pg, q, r, 50, damping=0.5),
-        ["packed_maxsum_cycle_kernel"])["packed_maxsum_cycle_kernel"]
+        lambda: packed_cycles(pg, q, r, 50, damping=0.5), [name])[name]
     return ms, plain, bound, by, nbytes, device_us
 
 
@@ -359,14 +390,19 @@ def ls_bytes_ops(pls):
     * packed_mgm_cycles, per cycle: the same inputs plus mate_idx and
       col_var; out x';
     * packed_dsa_cycles, per cycle: the same inputs plus the move coins;
-      out x'."""
+      out x'.
+
+    On the mixed layout a slot also reads its arity and cost_idx and up
+    to three sibling columns (MGM: three sibling indices)."""
     D, N, Vp = pls.D, pls.N, pls.Vp
-    common = D * N + 2 * D * Vp + Vp + N + 3 * Vp
+    sibs = 1 if pls.pg.mixed is None else 3
+    slot_ints = N if pls.pg.mixed is None else 5 * N
+    common = D * N + 2 * D * Vp + Vp + slot_ints + 3 * Vp
     ops = N * D + Vp * 4 * D
     return {
         "packed_local_tables": (4 * (common + D * Vp + 3 * Vp), ops),
-        "packed_mgm_cycles": (4 * (common + N + Vp + Vp),
-                              ops + 2 * N + 6 * Vp),
+        "packed_mgm_cycles": (4 * (common + sibs * N + Vp + Vp),
+                              ops + 2 * sibs * N + 6 * Vp),
         "packed_dsa_cycles": (4 * (common + Vp + Vp), ops + 8 * Vp),
     }
 
@@ -392,7 +428,8 @@ def time_ls(pls, reps=200):
             lambda: cuda_ms(lambda: P.packed_mgm_cycles_plain(pls, x, 5),
                             1) / 5,
             lambda: P.packed_mgm_cycles(pls, x, 50),
-            ["ls_tables_kernel", "mgm_move_kernel"]),
+            ["ls_tables_kernel", "mgm_move_kernel" if pls.pg.mixed is None
+             else "mgm_move_mixed_kernel"]),
         "packed_dsa_cycles": (
             lambda: cuda_ms(lambda: P.packed_dsa_cycles(pls, x, u, 0.7),
                             1) / reps,
@@ -716,7 +753,7 @@ def reset_counts():
     from pydcop_tpu_torch.ops import packed_local_search as P
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
 
-    packed_cycles.launches = 0
+    packed_cycles.launches = packed_cycles.mixed_launches = 0
     P.reset_launches()
     packed_dpop.reset_launches()
     packed_mgm2.reset_launches()
@@ -732,6 +769,10 @@ def read_counts():
             "ls_tables": P.ls_tables.launches,
             "mgm_move": P.mgm_move.launches,
             "dsa_cycle": P.dsa_cycle.launches,
+            "packed_maxsum_mixed": packed_cycles.mixed_launches,
+            "ls_tables_mixed": P.ls_tables.mixed_launches,
+            "mgm_move_mixed": P.mgm_move.mixed_launches,
+            "dsa_cycle_mixed": P.dsa_cycle.mixed_launches,
             "dpop_util_level": whole_sweep.util_launches,
             "dpop_value_level": whole_sweep.value_launches,
             "mgm2": packed_mgm2_cycles.launches}
@@ -803,6 +844,78 @@ def breakdown(dcop, algo, cycles, dev):
                cycles_per_s=cycles / cycles_s,
                solution_cost_s=time.perf_counter() - t0)
     return out
+
+
+def secp_dcop(scale=1, max_model_size=2):
+    """The JAX bench's mixed-arity leg (bench.py bench_mixed_arity):
+    generate_secp(n_lights=3000, n_models=900, n_rules=300, seed=1), each
+    count times ``scale``, with the port's copy of the generator."""
+    from pydcop_tpu_torch.generators import generate_secp
+
+    return generate_secp(n_lights=3000 * scale, n_models=900 * scale,
+                         n_rules=300 * scale,
+                         max_model_size=max_model_size, seed=1)
+
+
+def mixed_dcop(V, D, counts, seed, ragged=False, hub=False):
+    """A random mixed-arity DCOP of the port's objects: ``counts`` maps
+    an arity to its number of factors over random distinct variables
+    (``hub``: every factor holds variable 0, the others distinct), costs
+    uniform in [0, 5); ``ragged`` puts every second variable on D - 1
+    values."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        AgentDef,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    rng = np.random.default_rng(seed)
+    doms = [Domain("d", "vals", list(range(D)))]
+    if ragged:
+        doms.append(Domain("d2", "vals", list(range(D - 1))))
+    vs = [Variable(f"v{i:05d}", doms[i % len(doms)]) for i in range(V)]
+    dcop = DCOP("mixed", objective="min")
+    for v in vs:
+        dcop.add_variable(v)
+    k = 0
+    for a, n in sorted(counts.items()):
+        for _ in range(n):
+            if hub:
+                idx = [0] + list(1 + rng.choice(V - 1, a - 1, replace=False))
+            else:
+                idx = rng.choice(V, a, replace=False)
+            sc = [vs[i] for i in idx]
+            m = rng.uniform(0, 5, [len(v.domain) for v in sc])
+            dcop.add_constraint(NAryMatrixRelation(
+                sc, m.astype(np.float32), name=f"c{k:06d}"))
+            k += 1
+    dcop.add_agents([AgentDef("a0")])
+    return dcop
+
+
+def solve_cpu_packed(dcop, algo, params=None, cycles=None):
+    """``solve_result(..., device="cpu")`` with the solver built with
+    ``use_packed=True``: the packed layout through the plain versions,
+    the reference a card run of the packed engine is held to."""
+    from pydcop_tpu_torch.algorithms import AlgorithmDef, \
+        load_algorithm_module
+
+    algo_def = AlgorithmDef.build_with_default_params(
+        algo, params or {}, mode=dcop.objective)
+    solver = load_algorithm_module(algo).build_solver(
+        dcop, None, algo_def, seed=0, device="cpu", use_packed=True)
+    stop = cycles if cycles is not None else (
+        algo_def.params.get("stop_cycle") or None)
+    return solver.run(cycles=stop)
+
+
+def is_mixed(dcop):
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+
+    return any(b.arity != 2 and b.n_factors
+               for b in compile_factor_graph(dcop, device="cpu").buckets)
 
 
 def main():
@@ -932,6 +1045,55 @@ def main():
             tree_compile_pack_s=round(prep_s, 3))
         del tree, plan, ps
 
+    # the mixed-arity layouts (unary to quaternary factors): K1's mixed
+    # branch and the mixed branches of K2/K4/K5 against their plain versions
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+
+    mixed_builds = {
+        "secp_3.9k": lambda: secp_dcop(1, 2),
+        "secp4_3.9k": lambda: secp_dcop(1, 3),
+        f"secp4_{39 * SECP_BIG_SCALE // 10}k": lambda: secp_dcop(
+            SECP_BIG_SCALE, 3),
+        "mixed_star_deg2500": lambda: mixed_dcop(
+            3401, 3, {1: 100, 2: 1400, 3: 1000}, seed=11, hub=True),
+        "ragged_mixed_d4": lambda: mixed_dcop(
+            6000, 4, {1: 1000, 2: 6000, 3: 3000, 4: 500}, seed=12,
+            ragged=True),
+    }
+    mixed_dcops, mixed_pgs = {}, {}
+    mixed_err = mixed_ls_err = 0.0
+    for name, build in mixed_builds.items():
+        t0 = time.perf_counter()
+        dcop = build()
+        build_s = time.perf_counter() - t0
+        pg = pack_for_gpu(compile_factor_graph(dcop, device=dev))
+        prep_s = time.perf_counter() - t0 - build_s
+        if pg is None or pg.mixed is None:
+            fail("mixed_kernel_vs_plain", f"{name} did not take the mixed "
+                 f"layout")
+        mixed_dcops[name], mixed_pgs[name] = dcop, pg
+        slots = [int(sl.numel()) for sl in pg.mixed.slots]
+        for damping in (0.5, 0.0):
+            try:
+                err, ties = kernel_vs_plain(pg, damping)
+            except AssertionError as e:
+                fail("mixed_kernel_vs_plain", f"{name} damping={damping}: "
+                     f"{e}")
+            mixed_err = max(mixed_err, err)
+            say("mixed_kernel_vs_plain", kernel="packed_maxsum_mixed_cycle",
+                case=name, damping=damping, D=pg.D, N=pg.N, Vp=pg.Vp,
+                slots_by_arity=slots, max_deg=int(pg.col_deg.max()),
+                max_abs_err=err, near_tie_value_diffs=ties,
+                build_dcop_s=round(build_s, 3),
+                compile_pack_s=round(prep_s, 3))
+        try:
+            err, stats = ls_kernel_vs_plain(pack_from_pg(pg))
+        except AssertionError as e:
+            fail("mixed_kernel_vs_plain", f"{name} local search: {e}")
+        mixed_ls_err = max(mixed_ls_err, err)
+        say("mixed_kernel_vs_plain", kernel="local_search_mixed", case=name,
+            D=pg.D, N=pg.N, Vp=pg.Vp, max_abs_err=err, cycles=20, **stats)
+
     # 3. CLI paths ---------------------------------------------------------
     from pydcop_tpu_torch.dcop import load_dcop_from_file
 
@@ -1046,23 +1208,71 @@ def main():
     say("main_path_dpop_breakdown", algo="dpop", nvidia_smi=smi,
         **dpop_breakdown(tree_dcop_10k, dev))
 
+    # the mixed-arity path: the JAX bench's SECP, 200 cycles of maxsum,
+    # mgm and dsa on the card through the mixed kernels, each cost equal
+    # to the CPU run of the same packed engine (use_packed=True)
+    secp = mixed_dcops["secp_3.9k"]
+    for algo, expect in (
+            ("maxsum", {"packed_maxsum_mixed": cycles}),
+            ("mgm", {"ls_tables_mixed": cycles, "mgm_move_mixed": cycles}),
+            ("dsa", {"dsa_cycle_mixed": cycles})):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve_result(secp, algo, cycles=cycles, device="cuda")
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: expect.get(k, 0) for k in counts}
+        if counts != want:
+            fail("main_path_mixed", f"{algo}: launches {counts} in a "
+                 f"{cycles}-cycle solve, expected {want}")
+        main_launches.update({k: v for k, v in counts.items() if v})
+        cpu = solve_cpu_packed(secp, algo, cycles=cycles)
+        if set(res.metrics()) != jax_keys or res.status != "FINISHED" \
+                or res.cycle != cycles or not math.isfinite(res.cost) \
+                or len(res.assignment) != len(secp.variables):
+            fail("main_path_mixed", f"{algo}: status={res.status} "
+                 f"cycle={res.cycle} cost={res.cost} "
+                 f"keys={sorted(res.metrics())}")
+        if res.cost != cpu.cost or res.assignment != cpu.assignment:
+            fail("main_path_mixed", f"{algo}: card cost {res.cost} != CPU "
+                 f"(use_packed=True) cost {cpu.cost} (same assignment: "
+                 f"{res.assignment == cpu.assignment})")
+        say("main_path_mixed", algo=algo, instance="secp_3.9k",
+            launches=counts, cycle=res.cycle, status=res.status,
+            cost=res.cost, cpu_packed_cost=cpu.cost,
+            violation=res.violation, msg_count=res.msg_count,
+            solve_s=round(solve_s, 3), harness=res.metrics()["harness"])
+        say("main_path_mixed_breakdown", algo=algo, nvidia_smi=smi,
+            **breakdown(secp, algo, cycles, dev))
+
     # every test instance, by every algorithm of the port, on the card
     # and on the CPU: the same run (maxsum without noise, as the parity
     # tests run it; the local-search coins come from CPU generators)
+    # A mixed-arity instance takes the packed engine on the card and the
+    # generic one on the CPU by default (as the JAX package); there the
+    # card is held to the CPU run of the packed engine (use_packed=True),
+    # and the CPU default is printed beside it.
     inst = os.path.join(ROOT, "tests", "instances")
     for fn in sorted(os.listdir(inst)):
         d = load_dcop_from_file([os.path.join(inst, fn)])
+        mixed = is_mixed(d)
         for algo in ("maxsum", "mgm", "dsa", "dsatuto", "mixeddsa", "adsa",
                      "mgm2", "dpop"):
             params = {"noise": 0} if algo == "maxsum" else None
             g = solve_result(d, algo, algo_params=params, device="cuda")
             c = solve_result(d, algo, algo_params=params, device="cpu")
+            extra = {}
+            if mixed and algo not in ("mgm2", "dpop"):
+                extra = dict(cpu_default_cost=c.cost,
+                             cpu_default_cycle=c.cycle)
+                c = solve_cpu_packed(d, algo, params)
             same = (g.assignment == c.assignment and g.cost == c.cost
                     and g.cycle == c.cycle and g.status == c.status)
             say("instances", instance=fn, algo=algo, cuda_cost=g.cost,
                 cpu_cost=c.cost, cuda_cycle=g.cycle, cpu_cycle=c.cycle,
-                cuda_engine=g.config["engine"],
-                same_assignment=g.assignment == c.assignment)
+                cpu_use_packed=bool(extra), cuda_engine=g.config["engine"],
+                same_assignment=g.assignment == c.assignment, **extra)
             if not same or g.status != "FINISHED" \
                     or not math.isfinite(g.cost):
                 fail("instances", f"{fn} {algo}: card status={g.status} "
@@ -1122,6 +1332,33 @@ def main():
             library_note="no single PyTorch call computes a DPOP sweep",
             nvidia_smi=smi)
 
+    big_secp = f"secp4_{39 * SECP_BIG_SCALE // 10}k"
+    for name in ("secp_3.9k", "secp4_3.9k", big_secp):
+        pg = mixed_pgs[name]
+        ms, plain, bound, by, nbytes, device_us = time_kernel(pg)
+        timing[name, "packed_maxsum_mixed_cycle"] = (ms, plain, bound, by)
+        say("times", kernel="packed_maxsum_mixed_cycle", size=name, N=pg.N,
+            Vp=pg.Vp, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, bytes_per_cycle=nbytes,
+            profiler_kernel_us=device_us,
+            kernel_busy_share=device_us / (ms * 1e3) if device_us else None,
+            library_ms=None,
+            library_note="no single PyTorch call computes a MaxSum cycle",
+            nvidia_smi=smi)
+        for kname, (ms, plain, bound, by, nbytes, device_us) in \
+                time_ls(pack_from_pg(pg)).items():
+            timing[name, kname + "_mixed"] = (ms, plain, bound, by)
+            say("times", kernel=kname + "_mixed", size=name, N=pg.N,
+                Vp=pg.Vp, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, bytes_per_cycle=nbytes,
+                profiler_kernel_us=device_us,
+                kernel_busy_share=(device_us / (ms * 1e3) if device_us
+                                   else None),
+                library_ms=None,
+                library_note="no single PyTorch call computes a "
+                "local-tables gather-sum or an MGM/DSA move",
+                nvidia_smi=smi)
+
     entries = [
         ("packed_maxsum_cycle", "pydcop_tpu_torch/csrc/packed_maxsum.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1505",
@@ -1141,11 +1378,26 @@ def main():
         ("packed_mgm2_cycles", "pydcop_tpu_torch/csrc/mgm2.cu",
          "pydcop_tpu/ops/pallas_mgm2.py:448", main_launches["mgm2"],
          mgm2_err),
+        ("packed_maxsum_mixed_cycle",
+         "pydcop_tpu_torch/csrc/packed_maxsum.cu",
+         "pydcop_tpu/ops/pallas_maxsum.py:1505",
+         main_launches["packed_maxsum_mixed"], mixed_err),
+        ("packed_local_tables_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
+         "pydcop_tpu/ops/pallas_maxsum.py:1603",
+         main_launches["ls_tables_mixed"], mixed_ls_err),
+        ("packed_mgm_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
+         "pydcop_tpu/ops/pallas_local_search.py:529",
+         main_launches["mgm_move_mixed"], mixed_ls_err),
+        ("packed_dsa_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
+         "pydcop_tpu/ops/pallas_local_search.py:644",
+         main_launches["dsa_cycle_mixed"], mixed_ls_err),
     ]
+    sizes_of = {"dpop_whole_sweep": "bench_tree_10k"}
     kernels = []
     for name, source, replaces, launches, err in entries:
         ms, plain, bound, by = timing[
-            "bench_tree_10k" if name == "dpop_whole_sweep" else "10k_30k",
+            sizes_of.get(name, "secp_3.9k" if "mixed" in name
+                         else "10k_30k"),
             name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -9,9 +9,12 @@ they differ only in the move rule.
 
 Two engines, chosen as MaxSum's are:
 
-* packed (all-binary graphs with D ≤ 8, on any device): the kernels of
-  :mod:`pydcop_tpu_torch.ops.packed_local_search` on a GPU, their plain
-  versions on the CPU;
+* packed (the graphs MaxSum packs: all-binary, or mixed arity 1-4): the
+  kernels of :mod:`pydcop_tpu_torch.ops.packed_local_search` on a GPU,
+  their plain versions on the CPU — by default an all-binary graph on
+  every device and a mixed-arity graph on CUDA only; ``use_packed``
+  True / False packs whatever packs / never packs, as the JAX solvers'
+  flag (see :mod:`pydcop_tpu_torch.algorithms.maxsum`);
 * generic (any arity): plain PyTorch over the compiled buckets
   (:func:`local_cost_tables`, :func:`gains_and_best`,
   :func:`neighborhood_winner`), deterministic on every device.
@@ -37,11 +40,12 @@ from pydcop_tpu_torch.ops.compile import (
     local_cost_tables,
 )
 from pydcop_tpu_torch.ops.packed_local_search import (
-    pack_local_search,
+    pack_from_pg,
     pack_uniforms,
     pack_x,
     unpack_x,
 )
+from pydcop_tpu_torch.ops.packed_maxsum import solver_layout
 from pydcop_tpu_torch.ops.segments import (
     masked_argmin,
     segment_max,
@@ -146,14 +150,16 @@ def dsa_move(x, best_val, gain, in_conflict, activate, variant):
 class LocalSearchSolver(SynchronousTensorSolver):
     """Base for local-search solvers: state = (x [V] int32,).
 
-    The packed engine runs whenever the graph packs (``self.packed`` is
-    not None), the generic one otherwise.  Subclasses implement
-    :meth:`cycle` (one generic cycle from x and this cycle's coins) and
-    :meth:`packed_run` (n packed cycles on the column-order x), and
-    :meth:`chunk_coins` when they draw coins."""
+    The packed engine runs where the layout of
+    :func:`~pydcop_tpu_torch.ops.packed_maxsum.solver_layout` packs
+    (``self.packed`` is not None), the generic one otherwise.
+    Subclasses implement :meth:`cycle` (one generic cycle from x and this
+    cycle's coins) and :meth:`packed_run` (n packed cycles on the
+    column-order x), and :meth:`chunk_coins` when they draw coins."""
 
     def __init__(self, dcop, tensors: ConstraintGraphTensors,
-                 algo_def: AlgorithmDef, seed: int = 0):
+                 algo_def: AlgorithmDef, seed: int = 0,
+                 use_packed: Optional[bool] = None):
         super().__init__(dcop, tensors, algo_def)
         precision = self.params.get("precision") or "f32"
         if precision != "f32":
@@ -166,7 +172,7 @@ class LocalSearchSolver(SynchronousTensorSolver):
         # parity: mgm/dsa broadcast their value each cycle)
         self.msgs_per_cycle = tensors.n_pairs
         self.msg_size_per_msg = 1.0
-        self.packed = pack_local_search(tensors)
+        self.packed = pack_from_pg(solver_layout(tensors, use_packed))
         self.coins = torch.Generator(device="cpu")
 
     def run(self, cycles=None, timeout=None):

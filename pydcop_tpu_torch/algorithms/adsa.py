@@ -49,8 +49,8 @@ def adsa_cycle(tensors, x, wake_u, move_u, probability, variant,
 class ADsaSolver(StochasticSolver):
     wake_coins = True
 
-    def __init__(self, dcop, tensors, algo_def, seed=0):
-        super().__init__(dcop, tensors, algo_def, seed)
+    def __init__(self, dcop, tensors, algo_def, seed=0, use_packed=None):
+        super().__init__(dcop, tensors, algo_def, seed, use_packed)
         self.probability = float(self.params.get("probability", 0.7))
         self.variant = self.params.get("variant", "B")
         self.activation = float(self.params.get("activation", 0.5))
@@ -68,12 +68,13 @@ class ADsaSolver(StochasticSolver):
 
 
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None, seed=0,
-                 device: DeviceLike = None) -> ADsaSolver:
+                 device: DeviceLike = None,
+                 use_packed=None) -> ADsaSolver:
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "adsa", parameters_definitions=algo_params
     )
     tensors = compile_constraint_graph(dcop, device=device)
-    return ADsaSolver(dcop, tensors, algo_def, seed)
+    return ADsaSolver(dcop, tensors, algo_def, seed, use_packed)
 
 
 def computation_memory(node) -> float:

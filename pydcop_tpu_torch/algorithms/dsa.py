@@ -48,8 +48,8 @@ def dsa_cycle(tensors, x, u, probability, variant):
 class DsaSolver(StochasticSolver):
     """State = (x,)."""
 
-    def __init__(self, dcop, tensors, algo_def, seed=0):
-        super().__init__(dcop, tensors, algo_def, seed)
+    def __init__(self, dcop, tensors, algo_def, seed=0, use_packed=None):
+        super().__init__(dcop, tensors, algo_def, seed, use_packed)
         self.probability = float(self.params.get("probability", 0.7))
         self.variant = self.params.get("variant", "B")
 
@@ -63,12 +63,13 @@ class DsaSolver(StochasticSolver):
 
 
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None, seed=0,
-                 device: DeviceLike = None) -> DsaSolver:
+                 device: DeviceLike = None,
+                 use_packed=None) -> DsaSolver:
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "dsa", parameters_definitions=algo_params
     )
     tensors = compile_constraint_graph(dcop, device=device)
-    return DsaSolver(dcop, tensors, algo_def, seed)
+    return DsaSolver(dcop, tensors, algo_def, seed, use_packed)
 
 
 def computation_memory(node) -> float:

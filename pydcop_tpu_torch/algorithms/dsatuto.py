@@ -17,13 +17,14 @@ algo_params = []
 
 
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None, seed=0,
-                 device: DeviceLike = None) -> DsaSolver:
+                 device: DeviceLike = None,
+                 use_packed=None) -> DsaSolver:
     inner = AlgorithmDef(
         "dsa", {"probability": 0.5, "variant": "B", "stop_cycle": 0},
         mode=dcop.objective,
     )
     tensors = compile_constraint_graph(dcop, device=device)
-    return DsaSolver(dcop, tensors, inner, seed)
+    return DsaSolver(dcop, tensors, inner, seed, use_packed)
 
 
 def computation_memory(node) -> float:

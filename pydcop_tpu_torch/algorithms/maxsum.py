@@ -6,12 +6,24 @@ factor_costs_for_var, costs_for_factor, select_value, damping/stability).
 
 Two engines:
 
-* packed (all-binary graphs with D ≤ 8, on any device): the var-grouped
-  slot layout of :mod:`pydcop_tpu_torch.ops.packed_maxsum`, one launch of
-  the hand-written CUDA kernel per cycle on a GPU, the kernel's plain
+* packed (all-binary graphs with D ≤ 8; mixed arity 1-4 with D ≤ 8, or
+  D ≤ 5 with a ternary or quaternary factor): the var-grouped slot
+  layouts of :mod:`pydcop_tpu_torch.ops.packed_maxsum`, one launch of the
+  hand-written CUDA kernel per cycle on a GPU, the kernel's plain
   version on the CPU;
 * generic (any arity/domain): ``[E, D]`` messages and a batched
   broadcast-min per arity bucket (:mod:`pydcop_tpu_torch.ops.maxsum_kernels`).
+
+``use_packed`` has the JAX solver's meaning
+(:func:`~pydcop_tpu_torch.ops.packed_maxsum.solver_layout`): by default
+an all-binary graph packs on every device and a mixed-arity graph on
+CUDA only, as the JAX package packs only on its accelerator — so on the
+CPU both packages run the generic engine for mixed graphs, and their
+packed engines (which add in another order: on ``secp_small`` at noise 0
+the generic engine stops at cycle 35 with cost 3.713333, the packed one
+at cycle 42 with 4.223333, in both packages) meet only with
+``use_packed=True``.  ``True`` packs whatever packs, on any device;
+``False`` forces the generic engine.
 
 Stated deviation from the JAX package: the symmetry-breaking noise added
 to the unary costs is drawn from a ``torch.Generator`` seeded with
@@ -36,9 +48,9 @@ from pydcop_tpu_torch.ops.compile import FactorGraphTensors, \
     compile_factor_graph
 from pydcop_tpu_torch.ops.maxsum_kernels import init_messages, maxsum_cycle
 from pydcop_tpu_torch.ops.packed_maxsum import (
-    pack_for_gpu,
     packed_cycles,
     packed_init_state,
+    solver_layout,
 )
 from pydcop_tpu_torch.ops.segments import masked_argmin
 
@@ -70,11 +82,11 @@ def messages_stable(r_prev: torch.Tensor, r_cur: torch.Tensor,
 class MaxSumSolver(SynchronousTensorSolver):
     """State = (q var→factor msgs, r factor→var msgs, values [V]).
 
-    The packed engine runs whenever the graph packs (all-binary, D ≤ 8),
-    on either device; other graphs take the generic engine."""
+    The packed engine runs where :func:`solver_layout` gives a layout
+    (see the module docstring); other graphs take the generic engine."""
 
     def __init__(self, dcop, tensors: FactorGraphTensors, algo_def,
-                 seed: int = 0):
+                 seed: int = 0, use_packed: Optional[bool] = None):
         super().__init__(dcop, tensors, algo_def)
         precision = self.params.get("precision") or "f32"
         if precision != "f32":
@@ -102,7 +114,7 @@ class MaxSumSolver(SynchronousTensorSolver):
         # costs each — the reference's message accounting
         self.msgs_per_cycle = 2 * tensors.n_edges
         self.msg_size_per_msg = float(tensors.max_domain_size)
-        self.packed = pack_for_gpu(self.tensors)
+        self.packed = solver_layout(self.tensors, use_packed)
 
     def initial_state(self):
         if self.packed is not None:
@@ -144,12 +156,13 @@ def build_solver(
     algo_def: Optional[AlgorithmDef] = None,
     seed: int = 0,
     device: DeviceLike = None,
+    use_packed: Optional[bool] = None,
 ) -> MaxSumSolver:
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "maxsum", parameters_definitions=algo_params
     )
     tensors = compile_factor_graph(dcop, device=device)
-    return MaxSumSolver(dcop, tensors, algo_def, seed)
+    return MaxSumSolver(dcop, tensors, algo_def, seed, use_packed)
 
 
 # -- distribution cost callbacks (reference: maxsum.py computation_memory /

@@ -41,8 +41,8 @@ def mgm_cycle(tensors, x):
 class MgmSolver(LocalSearchSolver):
     """State = (x,).  One cycle = the reference's value + gain rounds."""
 
-    def __init__(self, dcop, tensors, algo_def, seed=0):
-        super().__init__(dcop, tensors, algo_def, seed)
+    def __init__(self, dcop, tensors, algo_def, seed=0, use_packed=None):
+        super().__init__(dcop, tensors, algo_def, seed, use_packed)
         # 2 rounds (value + gain) of one message per directed pair
         self.msgs_per_cycle = 2 * tensors.n_pairs
 
@@ -54,12 +54,13 @@ class MgmSolver(LocalSearchSolver):
 
 
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None, seed=0,
-                 device: DeviceLike = None) -> MgmSolver:
+                 device: DeviceLike = None,
+                 use_packed=None) -> MgmSolver:
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "mgm", parameters_definitions=algo_params
     )
     tensors = compile_constraint_graph(dcop, device=device)
-    return MgmSolver(dcop, tensors, algo_def, seed)
+    return MgmSolver(dcop, tensors, algo_def, seed, use_packed)
 
 
 def computation_memory(node) -> float:

@@ -29,8 +29,10 @@ the same pair are not merged when excluding the shared constraint from the
 joint table.  Only binary constraints participate in pairing (the
 reference's offers are pairwise by construction).
 
-Engines, as for MGM: the packed one (all-binary graphs, D ≤ 8) runs the
-kernels of ``csrc/mgm2.cu`` on a GPU and their plain version on the CPU
+Engines, as for MGM: the packed one (all-binary graphs, D ≤ 8; a
+mixed-arity graph keeps the generic engine on every device, whatever
+``use_packed`` says) runs the kernels of ``csrc/mgm2.cu`` on a GPU and
+their plain version on the CPU
 (:mod:`pydcop_tpu_torch.ops.packed_mgm2`, the arithmetic of the JAX
 package's Pallas kernel); the generic one (:meth:`Mgm2Solver.cycle`, any
 arity) is plain PyTorch with the JAX generic cycle's arithmetic.  The two
@@ -79,8 +81,8 @@ algo_params = [
 class Mgm2Solver(LocalSearchSolver):
     """State = (x,).  Coins per cycle = (u_off, u_pick, u_fav)."""
 
-    def __init__(self, dcop, tensors, algo_def, seed=0):
-        super().__init__(dcop, tensors, algo_def, seed)
+    def __init__(self, dcop, tensors, algo_def, seed=0, use_packed=None):
+        super().__init__(dcop, tensors, algo_def, seed, use_packed)
         self.threshold = float(self.params.get("threshold", 0.5))
         self.favor = str(self.params.get("favor", "unilateral"))
         if self.favor not in FAVORS:
@@ -92,6 +94,10 @@ class Mgm2Solver(LocalSearchSolver):
         self.msgs_per_cycle = 5 * tensors.n_pairs
         self._build_pair_structures()
         self.packed_mgm2 = pack_mgm2_from_pls(self.packed)
+        if self.packed_mgm2 is None:
+            # a mixed-arity layout has no MGM-2 kernel yet: the generic
+            # engine runs, on every device
+            self.packed = None
 
     def _build_pair_structures(self):
         """Static pair-edge arrays from the arity-2 bucket.  ``n_pairs``
@@ -252,12 +258,13 @@ class Mgm2Solver(LocalSearchSolver):
 
 
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None, seed=0,
-                 device: DeviceLike = None) -> Mgm2Solver:
+                 device: DeviceLike = None,
+                 use_packed=None) -> Mgm2Solver:
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "mgm2", parameters_definitions=algo_params
     )
     tensors = compile_constraint_graph(dcop, device=device)
-    return Mgm2Solver(dcop, tensors, algo_def, seed)
+    return Mgm2Solver(dcop, tensors, algo_def, seed, use_packed)
 
 
 def computation_memory(node) -> float:

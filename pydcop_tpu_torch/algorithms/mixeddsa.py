@@ -33,8 +33,8 @@ algo_params = [
 
 
 class MixedDsaSolver(StochasticSolver):
-    def __init__(self, dcop, tensors, algo_def, seed=0):
-        super().__init__(dcop, tensors, algo_def, seed)
+    def __init__(self, dcop, tensors, algo_def, seed=0, use_packed=None):
+        super().__init__(dcop, tensors, algo_def, seed, use_packed)
         self.proba_hard = float(self.params.get("proba_hard", 0.7))
         self.proba_soft = float(self.params.get("proba_soft", 0.5))
         self.variant = self.params.get("variant", "B")
@@ -56,12 +56,13 @@ class MixedDsaSolver(StochasticSolver):
 
 
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None, seed=0,
-                 device: DeviceLike = None) -> MixedDsaSolver:
+                 device: DeviceLike = None,
+                 use_packed=None) -> MixedDsaSolver:
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "mixeddsa", parameters_definitions=algo_params
     )
     tensors = compile_constraint_graph(dcop, device=device)
-    return MixedDsaSolver(dcop, tensors, algo_def, seed)
+    return MixedDsaSolver(dcop, tensors, algo_def, seed, use_packed)
 
 
 def computation_memory(node) -> float:

@@ -1,23 +1,29 @@
-"""Packed local-search engine for all-binary constraint graphs (GPU layout).
+"""Packed local-search engine on the GPU layouts (all-binary and mixed
+arity 1-4).
 
 The counterpart of the JAX package's ``ops/pallas_local_search.py``
-(``pack_local_search``, ``packed_mgm_cycles``, ``packed_dsa_cycles``) and
-of ``ops/pallas_maxsum.py::packed_local_tables``, on the var-grouped slot
-layout of :func:`~pydcop_tpu_torch.ops.packed_maxsum.pack_for_gpu` (an
-all-binary constraints hypergraph IS an all-binary factor graph: a
-slot's factor mate is the neighbour on the other end).
+(``pack_local_search``/``move_extras``, ``packed_mgm_cycles``,
+``packed_dsa_cycles``) and of ``ops/pallas_maxsum.py::packed_local_tables``,
+on the var-grouped slot layouts of
+:func:`~pydcop_tpu_torch.ops.packed_maxsum.pack_for_gpu` (an all-binary
+constraints hypergraph IS an all-binary factor graph: a slot's factor
+mate is the neighbour on the other end; a mixed graph's slot has up to
+three siblings).
 
-On top of that layout local search needs, per slot, the column of its
-mate (``mate_col = slot_col[mate]``, so a thread reads a neighbour's
-value or gain with one indexed load) and the mate's original variable
-index (``mate_idx``, MGM's static lexic tie-break), and per column its
-original variable (``col_var``).  The assignment is int32 ``[Vp]`` in
-column order (:func:`pack_x` / :func:`unpack_x`); coins are ``[n, Vp]``
-float32 in column order (:func:`pack_uniforms`).
+On top of that layout local search needs, per slot, the column of each
+sibling (``mate_col``, and on the mixed layout ``mate2_col``/``mate3_col``,
+-1 where the slot's factor has no such sibling — a unary slot has none),
+so a thread reads a neighbour's value or gain with one indexed load, and
+each sibling's original variable index (``mate_idx``/``mate2_idx``/
+``mate3_idx``, MGM's static lexic tie-break, ``NO_INDEX`` where absent),
+and per column its original variable (``col_var``).  The assignment is
+int32 ``[Vp]`` in column order (:func:`pack_x` / :func:`unpack_x`); coins
+are ``[n, Vp]`` float32 in column order (:func:`pack_uniforms`).
 
-Three hand-written CUDA kernels (``csrc/local_search.cu``), each behind a
-wrapper with a launch counter and a plain PyTorch version doing the same
-arithmetic in the same order:
+Three hand-written CUDA kernels (``csrc/local_search.cu``, each with a
+binary and a mixed branch), each behind a wrapper with a launch counter
+per branch and a plain PyTorch version doing the same arithmetic in the
+same order:
 
 * :func:`ls_tables` — local cost tables, current cost, best value, gain;
 * :func:`mgm_move` — MGM's neighbourhood arbitration and move;
@@ -39,6 +45,7 @@ import torch
 
 from pydcop_tpu_torch.ops.compile import PAD_COST, FactorGraphTensors
 from pydcop_tpu_torch.ops.packed_maxsum import (
+    ARITIES,
     MAX_D,
     PackedMaxSumGraph,
     pack_for_gpu,
@@ -59,9 +66,16 @@ class PackedLocalSearch:
     """The packed layout plus the per-slot arrays local search needs."""
 
     pg: PackedMaxSumGraph
-    mate_col: torch.Tensor  # [N] int32 column of each slot's mate
+    #: [N] int32 column of each slot's (first) sibling; -1 on unary slots
+    mate_col: torch.Tensor
     mate_idx: torch.Tensor  # [N] int32 original variable of that column
     col_var: torch.Tensor  # [Vp] int32 original variable of each column
+    #: mixed layout only: the second and third siblings' columns (-1
+    #: where absent) and original variables (NO_INDEX where absent)
+    mate2_col: Optional[torch.Tensor] = None
+    mate3_col: Optional[torch.Tensor] = None
+    mate2_idx: Optional[torch.Tensor] = None
+    mate3_idx: Optional[torch.Tensor] = None
 
     @property
     def D(self) -> int:
@@ -79,20 +93,37 @@ class PackedLocalSearch:
     def device(self) -> torch.device:
         return self.pg.device
 
+    def siblings(self):
+        """[(column [N], variable [N])] of each sibling rank the layout
+        has: one on the binary layout, three on the mixed one."""
+        out = [(self.mate_col, self.mate_idx)]
+        if self.mate2_col is not None:
+            out += [(self.mate2_col, self.mate2_idx),
+                    (self.mate3_col, self.mate3_idx)]
+        return out
+
 
 def pack_from_pg(pg: Optional[PackedMaxSumGraph]
                  ) -> Optional[PackedLocalSearch]:
     if pg is None:
         return None
-    mate_col = pg.slot_col[pg.mate.long()]
     col_var = torch.empty_like(pg.var_order)
     col_var[pg.var_order] = torch.arange(pg.Vp, device=pg.device)
-    return PackedLocalSearch(
-        pg=pg,
-        mate_col=mate_col.int().contiguous(),
-        mate_idx=col_var[mate_col].int().contiguous(),
-        col_var=col_var.int().contiguous(),
-    )
+
+    def sibling(mate):
+        """(column, variable) of the slots ``mate`` (-1 = none)."""
+        m = mate.long()
+        col = torch.where(m >= 0, pg.slot_col[m.clamp_min(0)], -1)
+        idx = torch.where(col >= 0, col_var[col.clamp_min(0)], NO_INDEX)
+        return col.int().contiguous(), idx.int().contiguous()
+
+    mate_col, mate_idx = sibling(pg.mate)
+    extra = {}
+    if pg.mixed is not None:
+        extra["mate2_col"], extra["mate2_idx"] = sibling(pg.mixed.mate2)
+        extra["mate3_col"], extra["mate3_idx"] = sibling(pg.mixed.mate3)
+    return PackedLocalSearch(pg=pg, mate_col=mate_col, mate_idx=mate_idx,
+                             col_var=col_var.int().contiguous(), **extra)
 
 
 def pack_local_search(t: FactorGraphTensors
@@ -142,17 +173,34 @@ def _per_column(pls, slot_vals, combine, fill):
     return out
 
 
+def _slot_costs(pls: PackedLocalSearch, xl: torch.Tensor) -> torch.Tensor:
+    """[D, N] each slot's cost row at its siblings' current values."""
+    pg = pls.pg
+    D = pg.D
+    d = torch.arange(D, device=xl.device)[:, None]
+    if pg.mixed is None:
+        xm = xl[pls.mate_col.long()]  # the mate's value at each slot
+        return pg.cost_rows.gather(0, xm[None, :] * D + d)
+    out = torch.empty((D, pg.N), dtype=torch.float32, device=xl.device)
+    sib_cols = [c.long() for c, _ in pls.siblings()]
+    for a, sl, cost in zip(ARITIES, pg.mixed.slots, pg.mixed.costs):
+        if sl.numel() == 0:
+            continue
+        # row of the siblings' values: x1, (x1*D + x2), ((x1*D+x2)*D+x3)
+        row = torch.zeros_like(sl)
+        for col in sib_cols[:a - 1]:
+            row = row * D + xl[col[sl]]
+        out[:, sl] = cost.gather(0, row[None, :] * D + d)
+    return out
+
+
 def ls_tables_plain(pls: PackedLocalSearch, x_col: torch.Tensor,
                     prefer_change: bool = False):
     """(tables [D, Vp] with PAD_COST at invalid values, cur [Vp], best
     [Vp] int32, gain [Vp]) at assignment ``x_col``."""
     pg = pls.pg
-    D = pg.D
     xl = x_col.long()
-    xm = xl[pls.mate_col.long()]  # the mate's value at each slot
-    rows = xm[None, :] * D + torch.arange(D, device=xl.device)[:, None]
-    contrib = pg.cost_rows.gather(0, rows)  # [D, N]
-    acc = _per_column(pls, contrib, torch.add, 0.0)
+    acc = _per_column(pls, _slot_costs(pls, xl), torch.add, 0.0)
     tables = torch.where(pg.mask_p > 0, pg.unary_p + acc, PAD_COST)
     cur = tables.gather(0, xl[None]).squeeze(0)
     pick = tables
@@ -168,13 +216,21 @@ def ls_tables_plain(pls: PackedLocalSearch, x_col: torch.Tensor,
 def mgm_move_plain(pls: PackedLocalSearch, x_col: torch.Tensor,
                    best: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     """MGM's move: a column moves to ``best`` iff its gain is the strict
-    maximum of its neighbourhood, ties to the smallest original index."""
+    maximum of its neighbourhood (every sibling of every slot), ties to
+    the smallest original index."""
     eps = gain.new_tensor(EPS)
-    g_mate = gain[pls.mate_col.long()]
-    nm = _per_column(pls, g_mate, torch.maximum, 0.0)
+    sibs = [(c.long(), i) for c, i in pls.siblings()]
+    # a sibling that does not exist routes gain 0 and index NO_INDEX
+    g = [torch.where(c >= 0, gain[c.clamp_min(0)], 0.0) for c, _ in sibs]
+    g_max = g[0]
+    for gs in g[1:]:
+        g_max = torch.maximum(g_max, gs)
+    nm = _per_column(pls, g_max, torch.maximum, 0.0)
     thr = (nm - eps)[pls.pg.slot_col]
-    cand = torch.where(g_mate >= thr, pls.mate_idx,
-                       torch.full_like(pls.mate_idx, NO_INDEX))
+    cand = None
+    for gs, (_, idx) in zip(g, sibs):
+        cs = torch.where(gs >= thr, idx, torch.full_like(idx, NO_INDEX))
+        cand = cs if cand is None else torch.minimum(cand, cs)
     idx = _per_column(pls, cand, torch.minimum, NO_INDEX)
     move = (gain > 0) & ((gain > nm + eps) | (
         ((gain - nm).abs() <= eps) & (pls.col_var < idx)))
@@ -245,6 +301,9 @@ def _kernel(name: str):
             "ls_tables": [P] * 12 + [I] * 4 + [P],
             "mgm_move": [P] * 10 + [I, P],
             "dsa_cycle": [P] * 11 + [I] * 4 + [F, F, I, F, P],
+            "ls_tables_mixed": [P] * 19 + [I] * 8 + [P],
+            "mgm_move_mixed": [P] * 14 + [I, P],
+            "dsa_cycle_mixed": [P] * 18 + [I] * 8 + [F, F, I, F, P],
         }[name]
         fn = getattr(load("local_search"), name)
         fn.restype = ctypes.c_int
@@ -293,13 +352,40 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _tables_layout(pls: PackedLocalSearch):
+    """The layout operands of ``ls_tables``/``dsa_cycle`` (binary) or of
+    their ``_mixed`` entries, after the state operands."""
+    pg = pls.pg
+    cols = (pg.col_deg.data_ptr(), pg.col_slot0.data_ptr(),
+            pg.col_stride.data_ptr())
+    if pg.mixed is None:
+        return (pg.cost_rows.data_ptr(), pg.unary_p.data_ptr(),
+                pg.mask_p.data_ptr(), pls.mate_col.data_ptr(), *cols,
+                pg.D, pg.N, pg.Vp)
+    m = pg.mixed
+    return (*(c.data_ptr() for c in m.costs), m.arity.data_ptr(),
+            m.cost_idx.data_ptr(), pls.mate_col.data_ptr(),
+            pls.mate2_col.data_ptr(), pls.mate3_col.data_ptr(),
+            pg.unary_p.data_ptr(), pg.mask_p.data_ptr(), *cols,
+            pg.D, pg.N, pg.Vp, *(int(sl.numel()) for sl in m.slots))
+
+
+def _count(fn, pls: PackedLocalSearch) -> None:
+    """One launch of ``fn``'s binary or mixed kernel."""
+    if pls.pg.mixed is None:
+        fn.launches += 1
+    else:
+        fn.mixed_launches += 1
+
+
 def ls_tables(pls: PackedLocalSearch, x_col: torch.Tensor,
               prefer_change: bool = False,
               out: Optional[Tuple[torch.Tensor, ...]] = None):
     """(tables [D, Vp], cur [Vp], best [Vp] int32, gain [Vp]) at the
     column-order assignment ``x_col``: one launch of the ``ls_tables``
-    kernel on CUDA (``ls_tables.launches`` counts them), the plain
-    version on the CPU.  ``out`` reuses four output tensors."""
+    kernel on CUDA (``ls_tables.launches`` counts the binary branch's,
+    ``ls_tables.mixed_launches`` the mixed branch's), the plain version
+    on the CPU.  ``out`` reuses four output tensors."""
     if not _on(pls, "x", x_col, torch.int32, (pls.Vp,)):
         return ls_tables_plain(pls, x_col, prefer_change)
     pg = pls.pg
@@ -309,15 +395,13 @@ def ls_tables(pls: PackedLocalSearch, x_col: torch.Tensor,
                torch.empty(pg.Vp, dtype=torch.int32, device=x_col.device),
                torch.empty(pg.Vp, **f))
     tables, cur, best, gain = out
-    err = _kernel("ls_tables")(
+    name = "ls_tables" if pg.mixed is None else "ls_tables_mixed"
+    err = _kernel(name)(
         x_col.data_ptr(), tables.data_ptr(), cur.data_ptr(),
-        best.data_ptr(), gain.data_ptr(), pg.cost_rows.data_ptr(),
-        pg.unary_p.data_ptr(), pg.mask_p.data_ptr(),
-        pls.mate_col.data_ptr(), pg.col_deg.data_ptr(),
-        pg.col_slot0.data_ptr(), pg.col_stride.data_ptr(),
-        pg.D, pg.N, pg.Vp, int(prefer_change), _stream(x_col))
-    _raise_on(err, "ls_tables")
-    ls_tables.launches += 1
+        best.data_ptr(), gain.data_ptr(), *_tables_layout(pls),
+        int(prefer_change), _stream(x_col))
+    _raise_on(err, name)
+    _count(ls_tables, pls)
     return out
 
 
@@ -325,8 +409,9 @@ def mgm_move(pls: PackedLocalSearch, x_col: torch.Tensor,
              best: torch.Tensor, gain: torch.Tensor,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MGM's arbitration and move from this cycle's (best, gain): one
-    launch of the ``mgm_move`` kernel on CUDA (``mgm_move.launches``),
-    the plain version on the CPU.  ``out`` must not alias ``x_col``."""
+    launch of the ``mgm_move`` kernel on CUDA (``mgm_move.launches`` /
+    ``.mixed_launches``), the plain version on the CPU.  ``out`` must not
+    alias ``x_col``."""
     on_cuda = _on(pls, "x", x_col, torch.int32, (pls.Vp,))
     _on(pls, "best", best, torch.int32, (pls.Vp,))
     _on(pls, "gain", gain, torch.float32, (pls.Vp,))
@@ -334,14 +419,21 @@ def mgm_move(pls: PackedLocalSearch, x_col: torch.Tensor,
         return mgm_move_plain(pls, x_col, best, gain)
     pg = pls.pg
     out = torch.empty_like(x_col) if out is None else out
-    err = _kernel("mgm_move")(
+    if pg.mixed is None:
+        name, sibs = "mgm_move", (pls.mate_col.data_ptr(),
+                                  pls.mate_idx.data_ptr())
+    else:
+        name = "mgm_move_mixed"
+        sibs = (pls.mate_col.data_ptr(), pls.mate2_col.data_ptr(),
+                pls.mate3_col.data_ptr(), pls.mate_idx.data_ptr(),
+                pls.mate2_idx.data_ptr(), pls.mate3_idx.data_ptr())
+    err = _kernel(name)(
         x_col.data_ptr(), out.data_ptr(), best.data_ptr(), gain.data_ptr(),
-        pls.mate_col.data_ptr(), pls.mate_idx.data_ptr(),
-        pls.col_var.data_ptr(), pg.col_deg.data_ptr(),
+        *sibs, pls.col_var.data_ptr(), pg.col_deg.data_ptr(),
         pg.col_slot0.data_ptr(), pg.col_stride.data_ptr(), pg.Vp,
         _stream(x_col))
-    _raise_on(err, "mgm_move")
-    mgm_move.launches += 1
+    _raise_on(err, name)
+    _count(mgm_move, pls)
     return out
 
 
@@ -352,7 +444,8 @@ def dsa_cycle(pls: PackedLocalSearch, x_col: torch.Tensor, u: torch.Tensor,
               activation: Optional[float] = None,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One DSA-family cycle: one launch of the ``dsa_cycle`` kernel on
-    CUDA (``dsa_cycle.launches``), the plain version on the CPU.  ``u``
+    CUDA (``dsa_cycle.launches`` / ``.mixed_launches``), the plain
+    version on the CPU.  ``u``
     (and ``awake_u``) are this cycle's [Vp] coins in column order."""
     _check_rule(variant, awake_u, activation)
     on_cuda = _on(pls, "x", x_col, torch.int32, (pls.Vp,))
@@ -362,32 +455,30 @@ def dsa_cycle(pls: PackedLocalSearch, x_col: torch.Tensor, u: torch.Tensor,
     if not on_cuda:
         return dsa_cycle_plain(pls, x_col, u, probability, variant,
                                probability_hard, awake_u, activation)
-    pg = pls.pg
     out = torch.empty_like(x_col) if out is None else out
-    err = _kernel("dsa_cycle")(
+    name = "dsa_cycle" if pls.pg.mixed is None else "dsa_cycle_mixed"
+    err = _kernel(name)(
         x_col.data_ptr(), out.data_ptr(), u.data_ptr(),
         None if awake_u is None else awake_u.data_ptr(),
-        pg.cost_rows.data_ptr(), pg.unary_p.data_ptr(),
-        pg.mask_p.data_ptr(), pls.mate_col.data_ptr(),
-        pg.col_deg.data_ptr(), pg.col_slot0.data_ptr(),
-        pg.col_stride.data_ptr(), pg.D, pg.N, pg.Vp, VARIANTS[variant],
+        *_tables_layout(pls), VARIANTS[variant],
         float(probability),
         float(probability if probability_hard is None
               else probability_hard),
         int(probability_hard is not None),
         float(0.0 if activation is None else activation), _stream(x_col))
-    _raise_on(err, "dsa_cycle")
-    dsa_cycle.launches += 1
+    _raise_on(err, name)
+    _count(dsa_cycle, pls)
     return out
 
 
-ls_tables.launches = 0
-mgm_move.launches = 0
-dsa_cycle.launches = 0
-
-
 def reset_launches() -> None:
-    ls_tables.launches = mgm_move.launches = dsa_cycle.launches = 0
+    """Zero the launch counters of the three wrappers (``launches``: the
+    binary kernels; ``mixed_launches``: the mixed ones)."""
+    for fn in (ls_tables, mgm_move, dsa_cycle):
+        fn.launches = fn.mixed_launches = 0
+
+
+reset_launches()
 
 
 # ---------------------------------------------------------------------------

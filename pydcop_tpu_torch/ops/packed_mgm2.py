@@ -70,8 +70,10 @@ class PackedMgm2:
 def pack_mgm2_from_pls(pls: Optional[PackedLocalSearch]
                        ) -> Optional[PackedMgm2]:
     """The MGM-2 statics of ``pls`` on its device, or None when there is
-    no packed layout or no pair edge."""
-    if pls is None:
+    no packed layout, no pair edge, or the layout is the mixed-arity one
+    (the mixed branch of the JAX kernel, ``pallas_mgm2.py:329-354``, is
+    not ported yet: MGM-2 keeps its generic engine on mixed graphs)."""
+    if pls is None or pls.pg.mixed is not None:
         return None
     pg = pls.pg
     soe = np.asarray(pg.slot_of_edge, dtype=np.int64)  # e = p*F + f

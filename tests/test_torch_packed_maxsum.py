@@ -29,6 +29,7 @@ from pydcop_tpu_torch.ops.compile import (
     tensors_from_numpy,
 )
 from pydcop_tpu_torch.ops.packed_maxsum import (
+    pack_binary_for_gpu,
     pack_for_gpu,
     packed_cycles,
     packed_cycles_plain,
@@ -151,7 +152,10 @@ def test_packer_refuses_what_it_cannot_pack():
         t = compile_factor_graph(
             load_dcop_from_file(os.path.join(inst, name + ".yaml")),
             device="cpu")
-        assert pack_for_gpu(t) is None
+        # the binary packer refuses them; pack_for_gpu gives them the
+        # mixed layout
+        assert pack_binary_for_gpu(t) is None
+        assert pack_for_gpu(t).mixed is not None
     rng = np.random.default_rng(0)
     big_d = compile_binary_from_arrays(
         np.array([0]), np.array([1]),

@@ -59,6 +59,16 @@ def test_engine_choice(name):
     assert (solver.packed is not None) == (name in BINARY)
 
 
+@pytest.mark.parametrize("name", sorted(set(NAMES) - BINARY))
+def test_engine_choice_mixed_with_use_packed(name):
+    """use_packed=True packs a mixed-arity graph on the CPU too (the mixed
+    layout, run by the kernel's plain version); False never packs."""
+    dcop = load_dcop_from_file(_path(name))
+    solver = build_solver(dcop, device="cpu", use_packed=True)
+    assert solver.packed is not None and solver.packed.mixed is not None
+    assert build_solver(dcop, device="cpu", use_packed=False).packed is None
+
+
 def test_tutorial_default_noise_cost_12():
     dcop = load_dcop_from_file(_path("graph_coloring_tuto"))
     res = solve_result(dcop, "maxsum", device="cpu")

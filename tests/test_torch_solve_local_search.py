@@ -173,6 +173,22 @@ def test_engine_choice(name):
         assert (solver.packed is not None) == (name in BINARY)
 
 
+@pytest.mark.parametrize("algo", ["mgm", "dsa", "dsatuto", "mixeddsa",
+                                  "adsa"])
+def test_engine_choice_mixed_with_use_packed(algo):
+    """use_packed=True packs a mixed-arity graph on the CPU too; False
+    never packs, not even an all-binary graph."""
+    mod = load_algorithm_module(algo)
+    for name in sorted(set(NAMES) - BINARY):
+        dcop = load_dcop_from_file(_path(name))
+        solver = mod.build_solver(dcop, device="cpu", use_packed=True)
+        assert solver.packed is not None
+        assert solver.packed.pg.mixed is not None
+    tuto = load_dcop_from_file(_path("graph_coloring_tuto"))
+    assert mod.build_solver(tuto, device="cpu",
+                            use_packed=False).packed is None
+
+
 @pytest.mark.parametrize("algo", ["mgm", "dsa"])
 def test_packed_and_generic_engines_agree(algo):
     """Same seed, same coins: the packed engine (plain versions on the

@@ -157,6 +157,22 @@ def test_solver_matches_jax_from_shared_start(name, favor):
     assert got.metrics()["config"] == ref.metrics()["config"]
 
 
+@pytest.mark.parametrize("name", sorted(set(NAMES) - BINARY))
+def test_mixed_graph_keeps_the_generic_engine(name):
+    """MGM-2 has no mixed-layout kernel yet: a mixed-arity graph runs the
+    generic engine even with use_packed=True (the packed layout exists,
+    pack_mgm2_from_pls refuses it)."""
+    from pydcop_tpu_torch.ops.packed_local_search import pack_local_search
+    from pydcop_tpu_torch.ops.packed_mgm2 import pack_mgm2_from_pls
+
+    dcop = load_dcop_from_file(_path(name))
+    solver = load_algorithm_module("mgm2").build_solver(
+        dcop, device="cpu", use_packed=True)
+    assert solver.packed is None and solver.packed_mgm2 is None
+    pls = pack_local_search(solver.tensors)
+    assert pls.pg.mixed is not None and pack_mgm2_from_pls(pls) is None
+
+
 @pytest.mark.parametrize("threshold", [0.2, 0.9])
 def test_fixed_cycles_and_threshold_match_jax(threshold):
     ref, got, _ = _run_both("meeting_scheduling",
