@@ -242,16 +242,18 @@ def bound_of(nbytes, nops):
 
 
 def packed_bytes(pg):
-    """Bytes one cycle must move: every input read once (q, r, the cost
-    rows — binary: D*D a slot; mixed: each arity's [D^a, N_a] array —,
-    vmask, unary, inv_dcount, the slot index arrays — binary: mate;
-    mixed: arity, cost_idx, mate, mate2, mate3 —, the three column
+    """Bytes one cycle must move: every input read once (q, r, each
+    factor's cost table once — an arity-a factor's D^a entries give all a
+    of its outgoing messages, though the layout stores a rotated copy per
+    slot —, vmask, unary, inv_dcount, the slot index arrays — binary:
+    mate; mixed: arity, cost_idx, mate, mate2, mate3 —, the three column
     arrays), every output written once (q', r', beliefs)."""
     D, N, Vp = pg.D, pg.N, pg.Vp
     if pg.mixed is None:
-        cost, slot_ints = D * D * N, N
+        cost, slot_ints = D * D * N // 2, N
     else:
-        cost, slot_ints = sum(c.numel() for c in pg.mixed.costs), 5 * N
+        cost = sum(c.numel() // a for a, c in enumerate(pg.mixed.costs, 1))
+        slot_ints = 5 * N
     floats = (D * N * 2 + cost + D * N + D * Vp + N  # inputs
               + D * N * 2 + D * Vp)                  # outputs
     return 4 * (floats + slot_ints + 3 * Vp)
@@ -428,8 +430,7 @@ def time_ls(pls, reps=200):
             lambda: cuda_ms(lambda: P.packed_mgm_cycles_plain(pls, x, 5),
                             1) / 5,
             lambda: P.packed_mgm_cycles(pls, x, 50),
-            ["ls_tables_kernel", "mgm_move_kernel" if pls.pg.mixed is None
-             else "mgm_move_mixed_kernel"]),
+            ["ls_tables_kernel", "mgm_move_kernel"]),
         "packed_dsa_cycles": (
             lambda: cuda_ms(lambda: P.packed_dsa_cycles(pls, x, u, 0.7),
                             1) / reps,

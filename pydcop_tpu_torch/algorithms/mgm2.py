@@ -30,8 +30,9 @@ joint table.  Only binary constraints participate in pairing (the
 reference's offers are pairwise by construction).
 
 Engines, as for MGM: the packed one (all-binary graphs, D ≤ 8; a
-mixed-arity graph keeps the generic engine on every device, whatever
-``use_packed`` says) runs the kernels of ``csrc/mgm2.cu`` on a GPU and
+mixed-arity graph keeps the generic engine on every device and is not
+packed, and ``use_packed=True`` on it raises :class:`NotPortedError`, as
+the mixed branch of the MGM-2 kernel is not ported yet) runs the kernels of ``csrc/mgm2.cu`` on a GPU and
 their plain version on the CPU
 (:mod:`pydcop_tpu_torch.ops.packed_mgm2`, the arithmetic of the JAX
 package's Pallas kernel); the generic one (:meth:`Mgm2Solver.cycle`, any
@@ -57,6 +58,7 @@ from pydcop_tpu_torch.algorithms._local_search import (
 )
 from pydcop_tpu_torch.dcop.dcop import DCOP
 from pydcop_tpu_torch.device import DeviceLike
+from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.ops.compile import PAD_COST, compile_constraint_graph
 from pydcop_tpu_torch.ops.packed_local_search import pack_uniforms
 from pydcop_tpu_torch.ops.packed_mgm2 import (
@@ -82,6 +84,15 @@ class Mgm2Solver(LocalSearchSolver):
     """State = (x,).  Coins per cycle = (u_off, u_pick, u_fav)."""
 
     def __init__(self, dcop, tensors, algo_def, seed=0, use_packed=None):
+        if any(b.arity != 2 and b.n_factors for b in tensors.buckets):
+            # the mixed branch of the MGM-2 kernel is not ported: a
+            # mixed-arity graph runs the generic engine, and is not packed
+            if use_packed:
+                raise NotPortedError(
+                    "mgm2 use_packed=True on a mixed-arity graph is not "
+                    "ported to the PyTorch package yet (the mixed branch "
+                    "of the MGM-2 kernel); leave use_packed unset")
+            use_packed = False
         super().__init__(dcop, tensors, algo_def, seed, use_packed)
         self.threshold = float(self.params.get("threshold", 0.5))
         self.favor = str(self.params.get("favor", "unilateral"))
@@ -95,8 +106,7 @@ class Mgm2Solver(LocalSearchSolver):
         self._build_pair_structures()
         self.packed_mgm2 = pack_mgm2_from_pls(self.packed)
         if self.packed_mgm2 is None:
-            # a mixed-arity layout has no MGM-2 kernel yet: the generic
-            # engine runs, on every device
+            # no pair edge to pack: the generic engine runs
             self.packed = None
 
     def _build_pair_structures(self):

@@ -194,43 +194,12 @@ __global__ void ls_tables_kernel(Layout L, Mixed M,
 // MGM arbitration (neighborhood_winner): move iff own gain is the strict
 // maximum of the neighbourhood, ties to the smallest original index.  A
 // degree-0 column has neighbourhood max 0 and tie-break sentinel INT_MAX,
-// so it moves on any positive gain.
-__global__ void mgm_move_kernel(const int* __restrict__ x_in,
-                                int* __restrict__ x_out,
-                                const int* __restrict__ best,
-                                const float* __restrict__ gain,
-                                const int* __restrict__ mate_col,
-                                const int* __restrict__ mate_idx,
-                                const int* __restrict__ col_var,
-                                const int* __restrict__ col_deg,
-                                const int* __restrict__ col_slot0,
-                                const int* __restrict__ col_stride, int Vp) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Vp) return;
-  const int deg = col_deg[c];
-  const size_t s0 = static_cast<size_t>(col_slot0[c]);
-  const size_t stride = static_cast<size_t>(col_stride[c]);
-  float nm = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-    nm = fmaxf(nm, gain[mate_col[s]]);
-  }
-  const float thr = nm - kEps;
-  int idx = INT_MAX;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-    if (gain[mate_col[s]] >= thr) idx = min(idx, mate_idx[s]);
-  }
-  const float g = gain[c];
-  const bool move =
-      (g > 0.0f) &&
-      ((g > nm + kEps) || ((fabsf(g - nm) <= kEps) && (col_var[c] < idx)));
-  x_out[c] = move ? best[c] : x_in[c];
-}
-
-// MGM arbitration on the mixed layout: as mgm_move_kernel, over the up to
-// three siblings of each slot (a -1 column is no sibling).
-__global__ void mgm_move_mixed_kernel(
+// so it moves on any positive gain.  kSibs is the number of sibling arrays
+// a slot reads: 1 on the binary layout (mate_col, mate_idx; every slot
+// has its sibling, so no -1 test), 3 on the mixed one (a -1 column is no
+// sibling).
+template <int kSibs>
+__global__ void mgm_move_kernel(
     const int* __restrict__ x_in, int* __restrict__ x_out,
     const int* __restrict__ best, const float* __restrict__ gain,
     const int* __restrict__ mate_col, const int* __restrict__ mate2_col,
@@ -250,9 +219,9 @@ __global__ void mgm_move_mixed_kernel(
   for (int k = 0; k < deg; ++k) {
     const size_t s = s0 + static_cast<size_t>(k) * stride;
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
+    for (int r = 0; r < kSibs; ++r) {
       const int mc = cols[r][s];
-      if (mc >= 0) nm = fmaxf(nm, gain[mc]);
+      if (kSibs == 1 || mc >= 0) nm = fmaxf(nm, gain[mc]);
     }
   }
   const float thr = nm - kEps;
@@ -260,9 +229,10 @@ __global__ void mgm_move_mixed_kernel(
   for (int k = 0; k < deg; ++k) {
     const size_t s = s0 + static_cast<size_t>(k) * stride;
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
+    for (int r = 0; r < kSibs; ++r) {
       const int mc = cols[r][s];
-      if (mc >= 0 && gain[mc] >= thr) idx = min(idx, idxs[r][s]);
+      if ((kSibs == 1 || mc >= 0) && gain[mc] >= thr)
+        idx = min(idx, idxs[r][s]);
     }
   }
   const float g = gain[c];
@@ -387,9 +357,9 @@ extern "C" int mgm_move(const int* x_in, int* x_out, const int* best,
                         const int* col_stride, int Vp, void* stream) {
   if (Vp <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mgm_move_kernel<<<blocks_for(Vp), kThreads, 0, st>>>(
-      x_in, x_out, best, gain, mate_col, mate_idx, col_var, col_deg,
-      col_slot0, col_stride, Vp);
+  mgm_move_kernel<1><<<blocks_for(Vp), kThreads, 0, st>>>(
+      x_in, x_out, best, gain, mate_col, nullptr, nullptr, mate_idx, nullptr,
+      nullptr, col_var, col_deg, col_slot0, col_stride, Vp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,7 +424,7 @@ extern "C" int mgm_move_mixed(
     const int* col_stride, int Vp, void* stream) {
   if (Vp <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mgm_move_mixed_kernel<<<blocks_for(Vp), kThreads, 0, st>>>(
+  mgm_move_kernel<3><<<blocks_for(Vp), kThreads, 0, st>>>(
       x_in, x_out, best, gain, mate_col, mate2_col, mate3_col, mate_idx,
       mate2_idx, mate3_idx, col_var, col_deg, col_slot0, col_stride, Vp);
   return static_cast<int>(cudaGetLastError());

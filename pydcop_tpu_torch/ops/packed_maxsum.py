@@ -242,11 +242,11 @@ def pack_mixed_for_gpu(t: FactorGraphTensors
                        ) -> Optional[PackedMaxSumGraph]:
     """The mixed-arity layout of ``t`` on ``t``'s device, or None out of
     the JAX mixed packer's scope: a factor of arity outside 1-4, D > 8,
-    D > 5 when a factor has arity 3 or 4, or no factors.  An all-binary
-    graph packs here too (every slot binary), though
-    :func:`pack_for_gpu` gives it the binary layout."""
+    D > 5 when a factor has arity 3 or 4, or no factors; and None for an
+    all-binary graph, which takes :func:`pack_binary_for_gpu`'s layout."""
     by_arity = {b.arity: b for b in t.buckets if b.n_factors > 0}
-    if not by_arity or any(a not in ARITIES for a in by_arity):
+    if set(by_arity) in (set(), {2}) or any(a not in ARITIES
+                                            for a in by_arity):
         return None
     V, D = t.n_vars, t.max_domain_size
     if D > MAX_D or (D > MAX_D_NARY and max(by_arity) >= 3):

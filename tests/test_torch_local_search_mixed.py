@@ -16,6 +16,8 @@ sub-column split only regroups integer sums.  The instances are those of
 The CUDA kernels cannot run here; ``test_mixed_kernels_match_plain_on_gpu``
 holds them against the plain versions where a GPU is visible.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,7 +75,10 @@ def hard_mixed_dcop(seed=6):
     return dcop
 
 
+@functools.lru_cache(maxsize=None)
 def pair(name):
+    """Both packages' mixed layouts of one compiled instance, built once a
+    process (the tests only read them)."""
     build = hard_mixed_dcop if name == "hard" else INSTANCES[name]
     jt = jax_compile(build())
     t = tensors_from_numpy(numpy_fields(jt), device="cpu")

@@ -158,17 +158,28 @@ def test_solver_matches_jax_from_shared_start(name, favor):
 
 
 @pytest.mark.parametrize("name", sorted(set(NAMES) - BINARY))
-def test_mixed_graph_keeps_the_generic_engine(name):
+def test_mixed_graph_keeps_the_generic_engine(name, monkeypatch):
     """MGM-2 has no mixed-layout kernel yet: a mixed-arity graph runs the
-    generic engine even with use_packed=True (the packed layout exists,
-    pack_mgm2_from_pls refuses it)."""
+    generic engine on every device and is not packed (the solver asks for
+    no layout), use_packed=True on it is refused, and pack_mgm2_from_pls
+    refuses the mixed layout."""
+    from pydcop_tpu_torch.algorithms import _local_search
     from pydcop_tpu_torch.ops.packed_local_search import pack_local_search
     from pydcop_tpu_torch.ops.packed_mgm2 import pack_mgm2_from_pls
 
     dcop = load_dcop_from_file(_path(name))
-    solver = load_algorithm_module("mgm2").build_solver(
-        dcop, device="cpu", use_packed=True)
-    assert solver.packed is None and solver.packed_mgm2 is None
+    asked = []
+    layout = _local_search.solver_layout
+    monkeypatch.setattr(_local_search, "solver_layout",
+                        lambda t, use_packed: asked.append(use_packed)
+                        or layout(t, use_packed))
+    mod = load_algorithm_module("mgm2")
+    for use_packed in (None, False):
+        solver = mod.build_solver(dcop, device="cpu", use_packed=use_packed)
+        assert solver.packed is None and solver.packed_mgm2 is None
+    assert asked == [False, False]
+    with pytest.raises(NotPortedError, match="mixed-arity"):
+        mod.build_solver(dcop, device="cpu", use_packed=True)
     pls = pack_local_search(solver.tensors)
     assert pls.pg.mixed is not None and pack_mgm2_from_pls(pls) is None
 
