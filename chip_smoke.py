@@ -9,8 +9,9 @@ NVIDIA H100 and the CUDA toolkit::
 It builds the port's CUDA kernels from ``pydcop_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), then drives the port's main
 paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa``,
-``solve -a mgm2`` and ``solve -a dpop`` on binary graphs and trees, and
-``solve -a maxsum|mgm|dsa`` on mixed-arity (SECP) graphs.  Each phase
+``solve -a mgm2`` and ``solve -a dpop`` on binary graphs and trees,
+``solve -a maxsum|mgm|dsa|mgm2`` on mixed-arity (SECP) graphs, and
+``solve -a dba|gdba`` (the generic engine, no kernel) on a CSP.  Each phase
 prints one line; any failure exits non-zero before the result lines are
 printed.
 
@@ -44,10 +45,15 @@ printed.
    at max_model_size 2 and <= 4 at 3), the latter at 10x (30,000 lights),
    a star whose hub holds 2,500 unary, binary and ternary factors, and a
    6,000-variable graph of arity 1-4 with domains of 4 and 3 values;
+   there also the mixed branch of the MGM-2 kernels against its plain
+   version, cycle by cycle for 20 cycles from one x and one set of coins,
+   for each favor at threshold 0.5 (x equal after every cycle; offers,
+   accepted pairs and pair moves printed; some graph must make pair
+   moves);
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
    solve`` in a subprocess on the tutorial instance: maxsum and dpop
-   must finish with cost 12, mgm, dsa and mgm2 with the cost of the
-   port's own CPU run;
+   must finish with cost 12, mgm, dsa, mgm2, dba and gdba with the cost
+   of the port's own CPU run;
 4. main_path: ``solve_result`` on a 10,000-variable / 30,000-constraint
    soft coloring built with the port's DCOP objects, 200 cycles, for
    maxsum, mgm, dsa and mgm2, and on the 10,000-node tree for dpop; every
@@ -59,20 +65,25 @@ printed.
    "wholesweep", cost equal to the CPU run's); then each path piece by
    piece (graph, compile, pack, cycles or sweep, coin draw and copy,
    scoring);
-   main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm
-   and dsa through the mixed kernels (200 launches of the mixed MaxSum
-   kernel; 200 + 200 of ls_tables and mgm_move; 200 of dsa_cycle), the
-   cost equal to the CPU run of the same engine (``use_packed=True``);
+   main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm,
+   dsa and mgm2 through the mixed kernels (200 launches of the mixed
+   MaxSum kernel; 200 + 200 of ls_tables and mgm_move; 200 of dsa_cycle;
+   6 x 200 of the mixed MGM-2 kernels), the cost equal to the CPU run of
+   the same engine (``use_packed=True``);
+   main_path_breakout: dba and gdba (A/NZ/E), 200 cycles on a
+   10,000-variable / 30,000-constraint 3-colouring posed as a CSP (cost 1
+   on equal colours), on the generic engine: no kernel launched, cost,
+   assignment and stop cycle equal to the CPU run, and the breakdown;
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
-   equal (a mixed-arity instance: against the CPU run with
-   ``use_packed=True``, the card's engine; the CPU default, the generic
-   engine, is printed beside it);
+   equal (a mixed-arity instance, except by dba and gdba: against the
+   CPU run with ``use_packed=True``, the card's engine; the CPU default,
+   the generic engine, is printed beside it);
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
    of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
-   sweeps; the mixed branches: the 3.9k SECPs of arity <= 3 and <= 4 and
-   the 39k SECP) beside its bytes bound, its
+   sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
+   arity <= 3 and <= 4 and the 39k SECP) beside its bytes bound, its
    plain version's time, and its device time per launch from a
    torch.profiler trace.
 
@@ -475,12 +486,16 @@ def mgm2_coins(pls, n, seed):
 def mgm2_offers(pm, u_off, u_pick, threshold):
     """Offered slots per cycle of these coins (an offerer's picked slot
     whose mate is no offerer), averaged over the rows."""
+    import torch
+
     pls = pm.pls
     sc = pls.pg.slot_col
     offerer = u_off < threshold
     pick = (u_pick * pm.deg_col.float().clamp_min(1.0)).floor().int()
+    mc = pls.mate_col.long()
+    mate_offers = torch.where(mc >= 0, offerer[:, mc.clamp_min(0)], True)
     offered = (offerer[:, sc] & (pm.pick_rank == pick[:, sc])
-               & ~offerer[:, pls.mate_col.long()])
+               & ~mate_offers)
     return float(offered.sum()) / u_off.shape[0]
 
 
@@ -513,6 +528,40 @@ def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
     return err, stats
 
 
+def mgm2_mixed_vs_plain(pm, cycles=20, seed=0):
+    """The mixed branch of the MGM-2 kernels against its plain version on
+    the card, cycle by cycle from one x and one set of coins, for each
+    favor at threshold 0.5: x equal after every cycle.  Returns (max abs
+    error, stats with the offers, accepted pairs and pair moves of each
+    run, counted by the plain version); raises on any difference."""
+    import torch
+
+    from pydcop_tpu_torch.ops.packed_mgm2 import (
+        mgm2_cycle_plain,
+        packed_mgm2_cycles,
+    )
+
+    x0 = random_x_col(pm.pls, seed)
+    u = mgm2_coins(pm.pls, cycles, seed)
+    err, stats = 0.0, {}
+    for favor in ("unilateral", "no", "coordinated"):
+        xk = xp = x0
+        counts = {}
+        for c in range(cycles):
+            xk = packed_mgm2_cycles(pm, xk, *(a[c: c + 1] for a in u), 0.5,
+                                    favor)
+            xp = mgm2_cycle_plain(pm, xp, *(a[c] for a in u), 0.5, favor,
+                                  stats=counts)
+            torch.cuda.synchronize()
+            if not torch.equal(xk, xp):
+                raise AssertionError(
+                    f"favor={favor}: x after cycle {c} differs from plain "
+                    f"in {int((xk != xp).sum())} columns")
+            err = max(err, float((xk.double() - xp.double()).abs().max()))
+        stats[favor] = dict(counts, moved=int((xk != x0).sum()))
+    return err, stats
+
+
 def mgm2_bytes_ops(pm, offers):
     """Bytes and float operations of one MGM-2 cycle, each input read
     once and each output written once: x and the three coins, the unary
@@ -523,10 +572,15 @@ def mgm2_bytes_ops(pm, offers):
     cycle, counted from this run's coins); out x'.  Operations: the
     tables' D adds a slot, per column the table, argmin and gain (4D),
     per offered slot the joint table (3 D*D) and argmins (2D), per slot
-    the response, commit and winner compares (about 8)."""
+    the response, commit and winner compares (about 8).  On the mixed
+    layout the tables read as K2-mixed's (D floats of each slot's arity
+    array, the slot's arity and cost_idx, up to three sibling columns),
+    and the pairing adds the pair degree of each column."""
     D, N, Vp = pm.pls.D, pm.pls.N, pm.pls.Vp
     floats = 3 * Vp + 2 * D * Vp + D * N + D * D * offers
     ints = 2 * Vp + 4 * Vp + 5 * N
+    if pm.pls.pg.mixed is not None:
+        ints += 4 * N + Vp  # arity, cost_idx, mate2/3_col; pair degree
     nops = N * D + Vp * 4 * D + offers * (3 * D * D + 2 * D) + 8 * N
     return 4 * (floats + ints), nops
 
@@ -577,6 +631,30 @@ def coloring_dcop(V, E, seed=1):
     for k in range(E):
         dcop.add_constraint(NAryMatrixRelation(
             [vs[edge_i[k]], vs[edge_j[k]]], mats[k], name=f"c{k:06d}"))
+    return dcop
+
+
+def coloring_csp_dcop(V, E, seed=1):
+    """A 3-colouring posed as a CSP, built with the port's own DCOP
+    objects: the edges of :func:`coloring_dcop`, cost 1 on equal colours
+    and 0 otherwise (the shape of the reference's DBA test problems)."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    edge_i, edge_j, _, _ = coloring_arrays(V, E, seed=seed)
+    d = Domain("colors", "color", [0, 1, 2])
+    vs = [Variable(f"v{i:06d}", d) for i in range(V)]
+    dcop = DCOP("coloring_csp")
+    for v in vs:
+        dcop.add_variable(v)
+    eq = np.eye(3, dtype=np.float32)
+    for k in range(E):
+        dcop.add_constraint(NAryMatrixRelation(
+            [vs[edge_i[k]], vs[edge_j[k]]], eq, name=f"c{k:06d}"))
     return dcop
 
 
@@ -776,7 +854,8 @@ def read_counts():
             "dsa_cycle_mixed": P.dsa_cycle.mixed_launches,
             "dpop_util_level": whole_sweep.util_launches,
             "dpop_value_level": whole_sweep.value_launches,
-            "mgm2": packed_mgm2_cycles.launches}
+            "mgm2": packed_mgm2_cycles.launches,
+            "mgm2_mixed": packed_mgm2_cycles.mixed_launches}
 
 
 def breakdown(dcop, algo, cycles, dev):
@@ -806,7 +885,8 @@ def breakdown(dcop, algo, cycles, dev):
         mod.GRAPH_TYPE).build_computation_graph(dcop))
     tensors, compile_s = timed(lambda: compile_fn(dcop, device=dev))
     solver_cls = {"maxsum": "MaxSumSolver", "mgm": "MgmSolver",
-                  "dsa": "DsaSolver", "mgm2": "Mgm2Solver"}[algo]
+                  "dsa": "DsaSolver", "mgm2": "Mgm2Solver",
+                  "dba": "DbaSolver", "gdba": "GdbaSolver"}[algo]
     solver, pack_s = timed(lambda: getattr(mod, solver_cls)(
         dcop, tensors, AlgorithmDef.build_with_default_params(algo)))
     state = solver.initial_state()
@@ -1062,7 +1142,8 @@ def main():
             ragged=True),
     }
     mixed_dcops, mixed_pgs = {}, {}
-    mixed_err = mixed_ls_err = 0.0
+    mixed_err = mixed_ls_err = mixed_mgm2_err = 0.0
+    pair_moves = 0
     for name, build in mixed_builds.items():
         t0 = time.perf_counter()
         dcop = build()
@@ -1094,12 +1175,27 @@ def main():
         mixed_ls_err = max(mixed_ls_err, err)
         say("mixed_kernel_vs_plain", kernel="local_search_mixed", case=name,
             D=pg.D, N=pg.N, Vp=pg.Vp, max_abs_err=err, cycles=20, **stats)
+        pm = pack_mgm2_from_pls(pack_from_pg(pg))
+        if pm is None:
+            fail("mgm2_kernel_vs_plain", f"{name}: no binary factor to pair")
+        try:
+            err, stats = mgm2_mixed_vs_plain(pm)
+        except AssertionError as e:
+            fail("mgm2_kernel_vs_plain", f"{name} (mixed): {e}")
+        mixed_mgm2_err = max(mixed_mgm2_err, err)
+        pair_moves += sum(v.get("pair_moves", 0) for v in stats.values())
+        say("mgm2_kernel_vs_plain", layout="mixed", case=name, D=pg.D,
+            N=pg.N, Vp=pg.Vp, binary_slots=int(pm.deg_col.sum()),
+            max_abs_err=err, cycles=20, threshold=0.5, **stats)
+    if not pair_moves:
+        fail("mgm2_kernel_vs_plain", "no mixed graph made a pair move: the "
+             "pairing of the mixed branch went unchecked")
 
     # 3. CLI paths ---------------------------------------------------------
     from pydcop_tpu_torch.dcop import load_dcop_from_file
 
     tuto = os.path.join(ROOT, "tests", "instances", "graph_coloring_tuto.yaml")
-    for algo in ("maxsum", "mgm", "dsa", "mgm2", "dpop"):
+    for algo in ("maxsum", "mgm", "dsa", "mgm2", "dpop", "dba", "gdba"):
         phase = {"maxsum": "cli", "dpop": "cli_dpop"}.get(
             algo, "cli_local_search")
         proc = subprocess.run(
@@ -1210,13 +1306,14 @@ def main():
         **dpop_breakdown(tree_dcop_10k, dev))
 
     # the mixed-arity path: the JAX bench's SECP, 200 cycles of maxsum,
-    # mgm and dsa on the card through the mixed kernels, each cost equal
-    # to the CPU run of the same packed engine (use_packed=True)
+    # mgm, dsa and mgm2 on the card through the mixed kernels, each cost
+    # equal to the CPU run of the same packed engine (use_packed=True)
     secp = mixed_dcops["secp_3.9k"]
     for algo, expect in (
             ("maxsum", {"packed_maxsum_mixed": cycles}),
             ("mgm", {"ls_tables_mixed": cycles, "mgm_move_mixed": cycles}),
-            ("dsa", {"dsa_cycle_mixed": cycles})):
+            ("dsa", {"dsa_cycle_mixed": cycles}),
+            ("mgm2", {"mgm2_mixed": cycles * LAUNCHES_PER_CYCLE})):
         reset_counts()
         t0 = time.perf_counter()
         res = solve_result(secp, algo, cycles=cycles, device="cuda")
@@ -1247,6 +1344,45 @@ def main():
         say("main_path_mixed_breakdown", algo=algo, nvidia_smi=smi,
             **breakdown(secp, algo, cycles, dev))
 
+    # the breakout algorithms on a 10k-variable / 30k-constraint colouring
+    # CSP: the generic engine (plain PyTorch on the card, as the JAX
+    # package runs them in XLA), so no kernel counter may move
+    t0 = time.perf_counter()
+    csp = coloring_csp_dcop(10_000, 30_000)
+    build_csp_s = time.perf_counter() - t0
+    for algo in ("dba", "gdba"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve_result(csp, algo, cycles=cycles, device="cuda")
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        if any(counts.values()):
+            fail("main_path_breakout", f"{algo}: launches {counts}: the "
+                 f"generic engine launches no kernel of the port")
+        cpu = solve_result(csp, algo, cycles=cycles, device="cpu")
+        if set(res.metrics()) != jax_keys or res.status != "FINISHED" \
+                or res.cycle != cycles or not math.isfinite(res.cost) \
+                or len(res.assignment) != 10_000:
+            fail("main_path_breakout", f"{algo}: status={res.status} "
+                 f"cycle={res.cycle} cost={res.cost} "
+                 f"keys={sorted(res.metrics())}")
+        if res.cost != cpu.cost or res.assignment != cpu.assignment \
+                or res.cycle != cpu.cycle:
+            fail("main_path_breakout", f"{algo}: card cost {res.cost} at "
+                 f"cycle {res.cycle} != CPU cost {cpu.cost} at cycle "
+                 f"{cpu.cycle} (same assignment: "
+                 f"{res.assignment == cpu.assignment})")
+        say("main_path_breakout", algo=algo, instance="coloring_csp_10k_30k",
+            engine="generic (plain PyTorch, no kernel)", launches=counts,
+            cycle=res.cycle, status=res.status, cost=res.cost,
+            cpu_cost=cpu.cost, cpu_cycle=cpu.cycle, violation=res.violation,
+            msg_count=res.msg_count, build_dcop_s=round(build_csp_s, 3),
+            solve_s=round(solve_s, 3), harness=res.metrics()["harness"])
+        say("main_path_breakout_breakdown", algo=algo, nvidia_smi=smi,
+            engine="generic (plain PyTorch, no kernel)",
+            **breakdown(csp, algo, cycles, dev))
+
     # every test instance, by every algorithm of the port, on the card
     # and on the CPU: the same run (maxsum without noise, as the parity
     # tests run it; the local-search coins come from CPU generators)
@@ -1259,12 +1395,12 @@ def main():
         d = load_dcop_from_file([os.path.join(inst, fn)])
         mixed = is_mixed(d)
         for algo in ("maxsum", "mgm", "dsa", "dsatuto", "mixeddsa", "adsa",
-                     "mgm2", "dpop"):
+                     "mgm2", "dpop", "dba", "gdba"):
             params = {"noise": 0} if algo == "maxsum" else None
             g = solve_result(d, algo, algo_params=params, device="cuda")
             c = solve_result(d, algo, algo_params=params, device="cpu")
             extra = {}
-            if mixed and algo not in ("mgm2", "dpop"):
+            if mixed and algo not in ("dpop", "dba", "gdba"):
                 extra = dict(cpu_default_cost=c.cost,
                              cpu_default_cycle=c.cycle)
                 c = solve_cpu_packed(d, algo, params)
@@ -1360,6 +1496,22 @@ def main():
                 "local-tables gather-sum or an MGM/DSA move",
                 nvidia_smi=smi)
 
+    for name in ("secp_3.9k", "secp4_3.9k", big_secp):
+        pg = mixed_pgs[name]
+        ms, plain, bound, by, nbytes, device_us, us, offers = time_mgm2(
+            pack_mgm2_from_pls(pack_from_pg(pg)))
+        timing[name, "packed_mgm2_cycles_mixed"] = (ms, plain, bound, by)
+        say("times", kernel="packed_mgm2_cycles_mixed", size=name, N=pg.N,
+            Vp=pg.Vp, launches_per_cycle=LAUNCHES_PER_CYCLE, kernel_ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by,
+            bytes_per_cycle=nbytes, offers_per_cycle=offers,
+            profiler_kernel_us=device_us, profiler_us_by_kernel=us,
+            kernel_busy_share=(device_us / (ms * 1e3) if device_us
+                               else None),
+            library_ms=None,
+            library_note="no single PyTorch call computes an MGM-2 cycle",
+            nvidia_smi=smi)
+
     entries = [
         ("packed_maxsum_cycle", "pydcop_tpu_torch/csrc/packed_maxsum.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1505",
@@ -1392,6 +1544,9 @@ def main():
         ("packed_dsa_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:644",
          main_launches["dsa_cycle_mixed"], mixed_ls_err),
+        ("packed_mgm2_cycles_mixed", "pydcop_tpu_torch/csrc/mgm2.cu",
+         "pydcop_tpu/ops/pallas_mgm2.py:448", main_launches["mgm2_mixed"],
+         mixed_mgm2_err),
     ]
     sizes_of = {"dpop_whole_sweep": "bench_tree_10k"}
     kernels = []

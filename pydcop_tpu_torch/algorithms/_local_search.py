@@ -1,11 +1,13 @@
 """Shared machinery for the local-search algorithm family
-(dsa / adsa / dsatuto / mgm / mixeddsa).
+(dsa / adsa / dsatuto / mgm / mgm2 / mixeddsa, and the breakout
+algorithms dba / gdba, which run the generic engine only).
 
 All of these run on the constraints hypergraph and share one per-cycle
 primitive, the **local cost table**: for every variable, the cost of each
 candidate value given its neighbours' current values
 (:func:`pydcop_tpu_torch.ops.compile.local_cost_tables`).  On top of it
-they differ only in the move rule.
+they differ only in the move rule (and dba/gdba in the breakout weights
+they carry in their state and feed to the tables).
 
 Two engines, chosen as MaxSum's are:
 
@@ -17,7 +19,9 @@ Two engines, chosen as MaxSum's are:
   flag (see :mod:`pydcop_tpu_torch.algorithms.maxsum`);
 * generic (any arity): plain PyTorch over the compiled buckets
   (:func:`local_cost_tables`, :func:`gains_and_best`,
-  :func:`neighborhood_winner`), deterministic on every device.
+  :func:`neighborhood_winner`), deterministic on every device.  dba and
+  gdba run only this one, as the JAX package's (their weighted tables
+  have no packed form).
 
 Stated deviations from the JAX package, as MaxSum's noise: the initial
 values come from a CPU ``torch.Generator`` seeded with ``seed + 17`` and
@@ -227,3 +231,42 @@ class StochasticSolver(LocalSearchSolver):
         if self.packed is not None:
             coins = tuple(pack_uniforms(self.packed, c) for c in coins)
         return coins
+
+
+def quiet_neighborhood(tensors: ConstraintGraphTensors,
+                       gain: torch.Tensor) -> torch.Tensor:
+    """True where neither a variable nor any neighbour can improve:
+    ``max(gain, neighbourhood max of gain) <= 1e-9`` — the breakout
+    algorithms' quasi-local minimum."""
+    src, dst = tensors.neighbor_src, tensors.neighbor_dst
+    if src.shape[0] > 0:
+        neigh_max = torch.clamp_min(
+            segment_max(gain[src], dst, tensors.n_vars), 0.0)
+    else:
+        neigh_max = torch.zeros_like(gain)
+    return torch.maximum(gain, neigh_max) <= gain.new_tensor(1e-9)
+
+
+class BreakoutSolver(LocalSearchSolver):
+    """Base of dba and gdba: state = (x [V] int32, breakout weights), the
+    generic engine only (``use_packed=False``, as the JAX solvers), no
+    coins.  Subclasses implement :meth:`initial_weights` and
+    :meth:`cycle` (one cycle from the whole state)."""
+
+    def __init__(self, dcop, tensors: ConstraintGraphTensors,
+                 algo_def: AlgorithmDef, seed: int = 0):
+        super().__init__(dcop, tensors, algo_def, seed, use_packed=False)
+        # an ok and an improve message per directed neighbour pair
+        self.msgs_per_cycle = 2 * tensors.n_pairs
+
+    def initial_weights(self):
+        raise NotImplementedError
+
+    def initial_state(self):
+        return (random_valid_values(self.tensors, self.seed + 17),
+                self.initial_weights())
+
+    def run_cycles(self, state, n: int):
+        for _ in range(n):
+            state = self.cycle(state)
+        return state

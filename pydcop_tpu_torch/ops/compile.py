@@ -459,39 +459,54 @@ def total_cost(tensors: FactorGraphTensors, x: torch.Tensor) -> torch.Tensor:
     return cost + torch.sum(unary)
 
 
+def bucket_factor_ids(bucket: FactorBucket,
+                      device: torch.device) -> torch.Tensor:
+    """``factor_ids`` of the bucket on ``device`` as int64 ``[F]``, built
+    once and kept on the bucket."""
+    cache = bucket.__dict__.setdefault("_factor_ids", {})
+    if device not in cache:
+        cache[device] = torch.as_tensor(
+            np.asarray(bucket.factor_ids, dtype=np.int64), device=device)
+    return cache[device]
+
+
 def local_cost_tables(
     tensors: FactorGraphTensors,
     x: torch.Tensor,
     bucket_tensors: Optional[List[torch.Tensor]] = None,
     factor_weights: Optional[torch.Tensor] = None,
+    include_unary: bool = True,
 ) -> torch.Tensor:
     """Per-variable cost of each candidate value given the neighbours'
     current values: ``out[v, d] = unary[v, d] + Σ_{factors containing v}
     cost(factor | v=d, others=x)``, ``[V, D]`` with PAD_COST on invalid
     slots — the workhorse of the local-search family.
 
-    The arithmetic is the JAX package's: start from the unary costs, then
-    for each bucket and each scope position p add the ordered segment sum
+    The arithmetic is the JAX package's: start from the unary costs (or
+    from zeros when ``include_unary`` is False), then for each bucket and
+    each scope position p add the ordered segment sum
     (:func:`bucket_plans`) of that position's gathered rows; so on the
     CPU and on the card the result equals the JAX package's XLA CPU
-    result bit for bit.  The weighting knobs
-    (``bucket_tensors``, ``factor_weights``) belong to dba/gdba, which
-    are not ported, and refuse."""
-    if bucket_tensors is not None or factor_weights is not None:
-        raise NotPortedError(
-            "weighted local cost tables (bucket_tensors/factor_weights, "
-            "dba/gdba) are not ported to the PyTorch package yet"
-        )
+    result bit for bit.  The breakout knobs: ``bucket_tensors``
+    substitutes each bucket's cost tensor (GDBA's effective tensors) and
+    ``factor_weights`` (``[n_factors]``) multiplies each factor's
+    gathered rows before the sum (DBA's breakout weights)."""
     V, D = tensors.n_vars, tensors.max_domain_size
     dev = x.device
     valid = tensors.domain_mask > 0
-    out = torch.where(valid, tensors.unary_costs, PAD_COST)
+    if include_unary:
+        out = torch.where(valid, tensors.unary_costs, PAD_COST)
+    else:
+        out = torch.zeros((V, D), dtype=torch.float32, device=dev)
     dvals = torch.arange(D, device=dev)[None, :]
     xl = x.long()
-    for b in tensors.buckets:
+    for bi, b in enumerate(tensors.buckets):
         F, a = b.n_factors, b.arity
         if F == 0:
             continue
+        T = b.tensors if bucket_tensors is None else bucket_tensors[bi]
+        w = (None if factor_weights is None
+             else factor_weights[bucket_factor_ids(b, dev)][:, None])
         var_idx, _ = bucket_index(b, dev)
         plans = bucket_plans(b, dev, V)
         vals = xl[var_idx]  # [F, a]
@@ -500,6 +515,8 @@ def local_cost_tables(
             # axis p swept over D, every other axis at its current value
             idx = tuple(dvals if q == p else vals[:, q][:, None]
                         for q in range(a))
-            rows = b.tensors[(fidx,) + idx]  # [F, D]
+            rows = T[(fidx,) + idx]  # [F, D]
+            if w is not None:
+                rows = rows * w
             out = out + plans[p].sum(rows)
     return torch.where(valid, out, PAD_COST)

@@ -273,10 +273,21 @@ def test_unported_options_refuse():
         with pytest.raises(NotPortedError):
             solve_result(dcop, algo, device="cpu",
                          algo_params={"precision": "bf16"})
+    # the weighted tables of dba/gdba are ported: they equal the JAX
+    # package's
+    from pydcop_tpu.ops.compile import compile_constraint_graph as jax_cg
+    from pydcop_tpu.ops.compile import local_cost_tables as jax_tables
+
     t = compile_constraint_graph(dcop, device="cpu")
+    jt = jax_cg(jax_load_dcop(_path("graph_coloring_tuto")))
     x = torch.zeros(t.n_vars, dtype=torch.int32)
-    with pytest.raises(NotPortedError):
-        local_cost_tables(t, x, factor_weights=torch.ones(t.n_factors))
-    with pytest.raises(NotPortedError):
-        local_cost_tables(t, x, bucket_tensors=[b.tensors
-                                                for b in t.buckets])
+    w = torch.arange(1, t.n_factors + 1, dtype=torch.float32)
+    assert np.array_equal(
+        local_cost_tables(t, x, factor_weights=w).numpy(),
+        np.asarray(jax_tables(jt, jnp.asarray(x.numpy()),
+                              factor_weights=jnp.asarray(w.numpy()))))
+    doubled = [b.tensors * 2 for b in t.buckets]
+    assert np.array_equal(
+        local_cost_tables(t, x, bucket_tensors=doubled).numpy(),
+        np.asarray(jax_tables(jt, jnp.asarray(x.numpy()), bucket_tensors=[
+            jnp.asarray(b.numpy()) for b in doubled])))

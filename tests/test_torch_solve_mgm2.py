@@ -159,10 +159,11 @@ def test_solver_matches_jax_from_shared_start(name, favor):
 
 @pytest.mark.parametrize("name", sorted(set(NAMES) - BINARY))
 def test_mixed_graph_keeps_the_generic_engine(name, monkeypatch):
-    """MGM-2 has no mixed-layout kernel yet: a mixed-arity graph runs the
-    generic engine on every device and is not packed (the solver asks for
-    no layout), use_packed=True on it is refused, and pack_mgm2_from_pls
-    refuses the mixed layout."""
+    """MGM-2 picks its engine on a mixed-arity graph as the rest of the
+    local-search family: on the CPU the default (None) and False keep
+    the generic engine (the solver asks ``solver_layout`` with the flag
+    as given), while True packs the mixed layout and
+    ``pack_mgm2_from_pls`` returns its mixed statics."""
     from pydcop_tpu_torch.algorithms import _local_search
     from pydcop_tpu_torch.ops.packed_local_search import pack_local_search
     from pydcop_tpu_torch.ops.packed_mgm2 import pack_mgm2_from_pls
@@ -177,11 +178,18 @@ def test_mixed_graph_keeps_the_generic_engine(name, monkeypatch):
     for use_packed in (None, False):
         solver = mod.build_solver(dcop, device="cpu", use_packed=use_packed)
         assert solver.packed is None and solver.packed_mgm2 is None
-    assert asked == [False, False]
-    with pytest.raises(NotPortedError, match="mixed-arity"):
-        mod.build_solver(dcop, device="cpu", use_packed=True)
+    assert asked == [None, False]
+    solver = mod.build_solver(dcop, device="cpu", use_packed=True)
+    assert asked == [None, False, True]
+    pm = solver.packed_mgm2
+    assert pm is not None and pm.pls is solver.packed
+    assert pm.pls.pg.mixed is not None
     pls = pack_local_search(solver.tensors)
-    assert pls.pg.mixed is not None and pack_mgm2_from_pls(pls) is None
+    again = pack_mgm2_from_pls(pls)
+    assert pls.pg.mixed is not None and again is not None
+    for a, b in ((again.pick_rank, pm.pick_rank), (again.edge_id, pm.edge_id),
+                 (again.deg_col, pm.deg_col)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("threshold", [0.2, 0.9])
