@@ -10,8 +10,10 @@ It builds the port's CUDA kernels from ``pydcop_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), then drives the port's main
 paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa``,
 ``solve -a mgm2`` and ``solve -a dpop`` on binary graphs and trees,
-``solve -a maxsum|mgm|dsa|mgm2`` on mixed-arity (SECP) graphs, and
-``solve -a dba|gdba`` (the generic engine, no kernel) on a CSP.  Each phase
+``solve -a maxsum|mgm|dsa|mgm2`` on mixed-arity (SECP) graphs,
+``solve -a dba|gdba`` (the generic engine, no kernel) on a CSP, and the
+sharded engines (``solve -d`` with 8 shards on the card, sharded mgm and
+dsa).  Each phase
 prints one line; any failure exits non-zero before the result lines are
 printed.
 
@@ -50,6 +52,13 @@ printed.
    for each favor at threshold 0.5 (x equal after every cycle; offers,
    accepted pairs and pair moves printed; some graph must make pair
    moves);
+   sharded_kernel_vs_plain: the per-shard kernels K7 (shard_fused_ba),
+   K8 (shard_route_gains) and K9 (shard_tables) against their plain
+   versions on the same inputs, launch by launch inside 20-cycle sharded
+   runs on the card (maxsum at damping 0.5 and 0, mgm, dsa): the 10k/30k
+   and 100k/300k colourings at 8 shards, the degree-2,500 star and the
+   unequal-domains graph at 4, the hard colouring (K8's ties) at 8;
+   tolerance K7 atol 1e-4·(1+|x|), K8 and K9 max abs error 0;
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
    solve`` in a subprocess on the tutorial instance: maxsum and dpop
    must finish with cost 12, mgm, dsa, mgm2, dba and gdba with the cost
@@ -74,6 +83,14 @@ printed.
    10,000-variable / 30,000-constraint 3-colouring posed as a CSP (cost 1
    on equal colours), on the generic engine: no kernel launched, cost,
    assignment and stop cycle equal to the CPU run, and the breakdown;
+   main_path_sharded: ``solve_result`` with a placement of 8 agents
+   (blocks of variables) over the 10k/30k colouring, ``n_shards=8``, 200
+   cycles on the card: 8 × 200 K7 launches, assignment, cost and cycle
+   equal to the same call on the CPU, and the number of values that
+   differ from single-device maxsum (printed, not gated);
+   main_path_sharded_local_search: sharded mgm (8 × 200 K9 + 8 × 200 K8)
+   and dsa (8 × 200 K9), 200 cycles at 8 shards, values equal to the CPU
+   run with the same start and coins;
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
    equal (a mixed-arity instance, except by dba and gdba: against the
@@ -83,9 +100,10 @@ printed.
    of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
    sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
-   arity <= 3 and <= 4 and the 39k SECP) beside its bytes bound, its
-   plain version's time, and its device time per launch from a
-   torch.profiler trace.
+   arity <= 3 and <= 4 and the 39k SECP; K7-K9: ms per launch at 8
+   shards of the 10k/30k and 100k/300k colourings, and the sharded
+   maxsum/mgm/dsa cycles/s) beside its bytes bound, its plain version's
+   time, and its device time per launch from a torch.profiler trace.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 ``{"kernels": [...]}`` (one entry per kernel: launches on its main path,
@@ -828,7 +846,8 @@ def dpop_breakdown(dcop, dev):
 
 def reset_counts():
     """Zero the launch counter of every kernel wrapper."""
-    from pydcop_tpu_torch.ops import packed_dpop, packed_mgm2
+    from pydcop_tpu_torch.ops import packed_dpop, packed_mgm2, \
+        packed_sharded
     from pydcop_tpu_torch.ops import packed_local_search as P
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
 
@@ -836,10 +855,12 @@ def reset_counts():
     P.reset_launches()
     packed_dpop.reset_launches()
     packed_mgm2.reset_launches()
+    packed_sharded.reset_launches()
 
 
 def read_counts():
     from pydcop_tpu_torch.ops import packed_local_search as P
+    from pydcop_tpu_torch.ops import packed_sharded as K
     from pydcop_tpu_torch.ops.packed_dpop import whole_sweep
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
     from pydcop_tpu_torch.ops.packed_mgm2 import packed_mgm2_cycles
@@ -855,7 +876,10 @@ def read_counts():
             "dpop_util_level": whole_sweep.util_launches,
             "dpop_value_level": whole_sweep.value_launches,
             "mgm2": packed_mgm2_cycles.launches,
-            "mgm2_mixed": packed_mgm2_cycles.mixed_launches}
+            "mgm2_mixed": packed_mgm2_cycles.mixed_launches,
+            "shard_fused_ba": K.shard_fused_ba.launches,
+            "shard_route_gains": K.shard_route_gains.launches,
+            "shard_tables": K.shard_tables.launches}
 
 
 def breakdown(dcop, algo, cycles, dev):
@@ -999,6 +1023,206 @@ def is_mixed(dcop):
                for b in compile_factor_graph(dcop, device="cpu").buckets)
 
 
+#: shards of the sharded phases: the count of a host of 8 cards, run as
+#: 8 shards on the one card (4 on the star and the unequal domains)
+SHARDS = 8
+
+
+def checked_kernels(errs, exact_only=False):
+    """Context manager: while active, the engines' K7/K8/K9 calls run the
+    kernel AND its plain version on the same inputs, hold them together
+    (K7: atol 1e-4·(1+|x|), or exactly with ``exact_only``; K8, K9:
+    exactly) and carry on with the kernel's outputs.  ``errs`` collects
+    the max abs error per kernel."""
+    import contextlib
+
+    import torch
+
+    from pydcop_tpu_torch.ops import packed_sharded as K
+
+    def check(name, kernel, plain, exact):
+        def run(sh, *args):
+            k = kernel(sh, *args)  # counts on ``run.launches``
+            p = plain(sh, *args)
+            ks = k if isinstance(k, tuple) else (k,)
+            ps = p if isinstance(p, tuple) else (p,)
+            torch.cuda.synchronize()
+            for a, b in zip(ks, ps):
+                d = (a.double() - b.double()).abs()
+                err = float(d.max()) if d.numel() else 0.0
+                errs[name] = max(errs.get(name, 0.0), err)
+                ok = (torch.equal(a, b) if exact else
+                      bool(torch.all(d <= TOL * (1 + b.double().abs()))))
+                if not ok:
+                    raise AssertionError(
+                        f"{name} shard {sh.index}: kernel differs from "
+                        f"plain (max abs error {err})")
+            return k
+        run.launches = 0
+        return run
+
+    @contextlib.contextmanager
+    def patched():
+        real = (K.shard_fused_ba, K.shard_route_gains, K.shard_tables)
+        K.shard_fused_ba = check("shard_fused_ba", real[0],
+                                 K.shard_fused_ba_plain, exact_only)
+        K.shard_route_gains = check("shard_route_gains", real[1],
+                                    K.shard_route_gains_plain, True)
+        K.shard_tables = check("shard_tables", real[2],
+                               K.shard_tables_plain, True)
+        try:
+            yield
+        finally:
+            K.shard_fused_ba, K.shard_route_gains, K.shard_tables = real
+    return patched()
+
+
+def sharded_kernel_vs_plain(t, n_shards, cycles=20):
+    """K7, K8 and K9 against their plain versions on the card, per shard
+    and per cycle, inside real sharded runs: maxsum at damping 0.5 and 0
+    (K7), mgm and dsa (K9, K8 in mgm), ``cycles`` cycles each.  Returns
+    (errs per kernel, stats)."""
+    import torch
+
+    from pydcop_tpu_torch.parallel import ShardedLocalSearch, \
+        ShardedMaxSum, build_mesh
+
+    errs = {}
+    mesh = build_mesh(n_shards, "cuda")
+    with checked_kernels(errs):
+        for damping in (0.5, 0.0):
+            ShardedMaxSum(t, mesh, damping=damping).run(cycles)
+        moved = {}
+        for rule in ("mgm", "dsa"):
+            eng = ShardedLocalSearch(t, mesh, rule=rule)
+            x0 = eng.run_chunked(0, seed=1)[1]
+            _, x, _ = eng.run_chunked(cycles, x=x0, seed=1)
+            moved[rule] = int((x != x0).sum())
+    packs = ShardedMaxSum(t, mesh).packs
+    Ns = [sh.N for sh in packs.shards]
+    torch.cuda.synchronize()
+    return errs, dict(
+        S=n_shards, N_min=min(Ns), N_max=max(Ns), Vp=packs.Vp, D=packs.D,
+        max_shard_deg=max(int(sh.t_deg.max()) for sh in packs.shards),
+        boundary_columns=packs.boundary.n_boundary,
+        cut_fraction=round(packs.boundary.cut_fraction, 4), moved=moved)
+
+
+def block_distribution(dcop, n_agents):
+    """Agent k hosts the k-th block of variables (in name order) and every
+    constraint whose first variable is in its block."""
+    from pydcop_tpu_torch.distribution import Distribution
+
+    names = sorted(dcop.variables)
+    agent_of = {n: f"a{k * n_agents // len(names):02d}"
+                for k, n in enumerate(names)}
+    mapping = {f"a{k:02d}": [] for k in range(n_agents)}
+    for n in names:
+        mapping[agent_of[n]].append(n)
+    for c in sorted(dcop.constraints):
+        mapping[agent_of[dcop.constraints[c].dimensions[0].name]].append(c)
+    return Distribution(mapping)
+
+
+def sharded_bytes_ops(packs):
+    """{kernel: (bytes, operations)} of one launch, averaged over the
+    shards that launch.  Each input read once, each output written once:
+    the combined beliefs / gains / values at the columns the shard
+    touches, each factor's D×D table once (K7; K9 reads the D entries
+    its values select), the slot arrays (vmask, inv_dcount, mate,
+    mate_col, gmask1), the four thread arrays; out r_new and the [D, Vp]
+    partial, or nm_part and gn."""
+    D, Vp = packs.D, packs.Vp
+    rows = []
+    for sh in packs.shards:
+        if not sh.N:
+            continue
+        N = sh.N
+        touched = int((sh.t_deg > 0).sum())
+        walk = 4 * Vp
+        k7 = (D * touched + D * N + D * D * N // 2 + D * N + N + 2 * N
+              + walk + D * N + D * Vp)
+        k8 = touched + N + N + walk + Vp + N
+        k9 = touched + D * N + N + walk + D * Vp
+        ops7 = N * (5 * D + 1 + D * D + D * (D - 1) + D + 3 * D + D)
+        rows.append(((4 * k7, ops7), (4 * k8, 2 * N), (4 * k9, D * N)))
+    n = len(rows)
+    return {name: (sum(r[i][0] for r in rows) / n,
+                   sum(r[i][1] for r in rows) / n)
+            for i, name in enumerate(("packed_shard_fused_ba",
+                                      "packed_shard_route_gains",
+                                      "packed_shard_tables"))}
+
+
+def time_sharded(t, n_shards, reps=100):
+    """Per-launch ms (CUDA events over ``reps`` rounds of one launch per
+    shard), the plain versions' ms, device us per launch (profiler),
+    bounds, and the sharded cycles/s of maxsum, mgm and dsa (host clock
+    over 200 cycles, ending in a synchronize)."""
+    import torch
+
+    from pydcop_tpu_torch.ops import packed_sharded as K
+    from pydcop_tpu_torch.parallel import ShardedLocalSearch, \
+        ShardedMaxSum, build_mesh
+
+    mesh = build_mesh(n_shards, "cuda")
+    ms_eng = ShardedMaxSum(t, mesh)
+    packs = ms_eng.packs
+    live = [sh for sh in packs.shards if sh.N]
+    _, (r_u, bel), _ = ms_eng.run(5)
+    ls = ShardedLocalSearch(t, mesh, rule="mgm")
+    x = ls.run_chunked(5, seed=0)[1]
+    unary_p, mask_p, _ = packs.common_on(x.device)
+    tables = torch.where(mask_p > 0, unary_p + sum(
+        K.shard_tables(sh, x) for sh in live), 1e30)
+    gain = K.cur_best_gain(tables, x, False)[2]
+    calls = {
+        "packed_shard_fused_ba": (
+            lambda sh: K.shard_fused_ba(sh, bel[sh.index], r_u[sh.index],
+                                        0.5),
+            lambda sh: K.shard_fused_ba_plain(sh, bel[sh.index],
+                                              r_u[sh.index], 0.5),
+            "shard_fused_ba_kernel"),
+        "packed_shard_route_gains": (
+            lambda sh: K.shard_route_gains(sh, gain),
+            lambda sh: K.shard_route_gains_plain(sh, gain),
+            "shard_route_gains_kernel"),
+        "packed_shard_tables": (
+            lambda sh: K.shard_tables(sh, x),
+            lambda sh: K.shard_tables_plain(sh, x), "shard_tables_kernel"),
+    }
+    bo = sharded_bytes_ops(packs)
+    out = {}
+    for name, (kern, plain, kname) in calls.items():
+        def rounds(fn, n):
+            for _ in range(n):
+                for sh in live:
+                    fn(sh)
+        rounds(kern, 3)  # warm-up
+        ms = cuda_ms(lambda: rounds(kern, reps), 1) / (reps * len(live))
+        plain_ms = cuda_ms(lambda: rounds(plain, 3), 1) / (3 * len(live))
+        device_us = profile_us(lambda: rounds(kern, 10), [kname])[kname]
+        bound, by = bound_of(*bo[name])
+        out[name] = dict(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, bytes_per_launch=bo[name][0],
+                         profiler_kernel_us=device_us,
+                         launches_per_cycle=len(live))
+    rates = {}
+    dsa = ShardedLocalSearch(t, mesh, rule="dsa")
+    for label, run in (
+            ("maxsum", lambda: ms_eng.run(200)),
+            ("mgm", lambda: ls.run_chunked(200, seed=0)),
+            # dsa: with the draw and copy of its 200 coin rows
+            ("dsa", lambda: dsa.run_chunked(200, seed=0))):
+        run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates[label] = 200 / (time.perf_counter() - t0)
+    return out, rates
+
+
 def main():
     try:
         import torch
@@ -1040,9 +1264,9 @@ def main():
 
     # 2. kernels against their plain versions, on the card ----------------
     ei, ej, mats, un = coloring_arrays(10_000, 30_000)
-    primary = pack_for_gpu(
-        compile_binary_from_arrays(ei, ej, mats, 10_000, unary=un,
-                                   device=dev))
+    primary_t = compile_binary_from_arrays(ei, ej, mats, 10_000, unary=un,
+                                           device=dev)
+    primary = pack_for_gpu(primary_t)
     cases = {
         "coloring_10k_30k": primary,
         "star_deg2500": pack_for_gpu(star_tensors(2500, dev)),
@@ -1081,8 +1305,9 @@ def main():
              "move: variant B's rule went unchecked")
 
     big_arrays = coloring_arrays(100_000, 300_000)
-    big = pack_for_gpu(compile_binary_from_arrays(
-        *big_arrays[:3], 100_000, unary=big_arrays[3], device=dev))
+    big_t = compile_binary_from_arrays(
+        *big_arrays[:3], 100_000, unary=big_arrays[3], device=dev)
+    big = pack_for_gpu(big_t)
     mgm2_err = 0.0
     for name, pg in list(cases.items()) + [("coloring_100k_300k", big)]:
         pm = pack_mgm2_from_pls(pack_from_pg(pg))
@@ -1190,6 +1415,34 @@ def main():
     if not pair_moves:
         fail("mgm2_kernel_vs_plain", "no mixed graph made a pair move: the "
              "pairing of the mixed branch went unchecked")
+
+    # the per-shard kernels K7-K9 against their plain versions, launch by
+    # launch inside real sharded runs on the card
+    sharded_cases = {
+        "coloring_10k_30k": (primary_t, SHARDS),
+        "coloring_100k_300k": (big_t, SHARDS),
+        "star_deg2500": (star_tensors(2500, dev), 4),
+        "unequal_domains_d4": (
+            unequal_domains_tensors(5000, 15_000, 4, dev), 4),
+        "hard_coloring_10k_30k": (
+            hard_coloring_tensors(10_000, 30_000, dev), SHARDS),
+    }
+    sharded_err = {}
+    for name, (t, n_shards) in sharded_cases.items():
+        t0 = time.perf_counter()
+        try:
+            errs, stats = sharded_kernel_vs_plain(t, n_shards)
+        except AssertionError as e:
+            fail("sharded_kernel_vs_plain", f"{name}: {e}")
+        for k, v in errs.items():
+            sharded_err[k] = max(sharded_err.get(k, 0.0), v)
+        if set(errs) != {"shard_fused_ba", "shard_route_gains",
+                         "shard_tables"}:
+            fail("sharded_kernel_vs_plain", f"{name}: only {sorted(errs)} "
+                 f"were checked")
+        say("sharded_kernel_vs_plain", case=name, cycles=20,
+            max_abs_err=errs, seconds=round(time.perf_counter() - t0, 3),
+            **stats)
 
     # 3. CLI paths ---------------------------------------------------------
     from pydcop_tpu_torch.dcop import load_dcop_from_file
@@ -1383,6 +1636,85 @@ def main():
             engine="generic (plain PyTorch, no kernel)",
             **breakdown(csp, algo, cycles, dev))
 
+    # the sharded path: solve -d with a placement of 8 agents, 8 shards on
+    # the card, each cycle 8 K7 launches and one ordered sum; the card is
+    # held to the CPU run (the plain versions) of the same shards
+    from pydcop_tpu_torch.ops.compile import compile_constraint_graph
+    from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
+
+    dist = block_distribution(dcop, SHARDS)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_result(dcop, "maxsum", distribution=dist, n_shards=SHARDS,
+                       cycles=cycles, device="cuda")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: 0 for k in counts}
+    want["shard_fused_ba"] = SHARDS * cycles
+    if counts != want:
+        fail("main_path_sharded", f"launches {counts} in a {cycles}-cycle "
+             f"{SHARDS}-shard solve, expected {want}")
+    main_launches.update(shard_fused_ba=counts["shard_fused_ba"])
+    cpu = solve_result(dcop, "maxsum", distribution=dist, n_shards=SHARDS,
+                       cycles=cycles, device="cpu")
+    if res.status != "FINISHED" or res.cycle != cycles \
+            or not math.isfinite(res.cost) or len(res.assignment) != 10_000 \
+            or set(res.metrics()) != jax_keys - {"harness"} | {"shard"}:
+        fail("main_path_sharded", f"status={res.status} cycle={res.cycle} "
+             f"cost={res.cost} keys={sorted(res.metrics())}")
+    if (res.assignment, res.cost, res.cycle) != (cpu.assignment, cpu.cost,
+                                                 cpu.cycle):
+        fail("main_path_sharded", f"card cost {res.cost} at cycle "
+             f"{res.cycle} != CPU cost {cpu.cost} at cycle {cpu.cycle} "
+             f"(same assignment: {res.assignment == cpu.assignment})")
+    single = solve_result(dcop, "maxsum", cycles=cycles,
+                          algo_params={"noise": 0}, device="cuda")
+    say("main_path_sharded", algo="maxsum", instance="coloring_10k_30k",
+        agents=len(dist.agents), launches=counts, cycle=res.cycle,
+        status=res.status, cost=res.cost, cpu_cost=cpu.cost,
+        single_device_cost=single.cost,
+        values_differing_from_single_device=sum(
+            res.assignment[k] != single.assignment[k]
+            for k in res.assignment),
+        shard=res.metrics()["shard"], config=res.config,
+        msg_count=res.msg_count, solve_s=round(solve_s, 3))
+
+    # sharded mgm and dsa, 8 shards on the card against the CPU: the same
+    # start and coins (drawn on the CPU from the seed)
+    cg_cuda = compile_constraint_graph(dcop, device=dev)
+    cg_cpu = compile_constraint_graph(dcop, device="cpu")
+    for rule, expect in (
+            ("mgm", {"shard_tables": cycles, "shard_route_gains": cycles}),
+            ("dsa", {"shard_tables": cycles})):
+        eng = ShardedLocalSearch(cg_cuda, build_mesh(SHARDS, "cuda"),
+                                 rule=rule)
+        reset_counts()
+        t0 = time.perf_counter()
+        values = eng.run(cycles, seed=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: SHARDS * expect.get(k, 0) for k in counts}
+        if counts != want:
+            fail("main_path_sharded_local_search", f"{rule}: launches "
+                 f"{counts}, expected {want}")
+        main_launches.update(
+            {f"{k}_{rule}": v for k, v in counts.items() if v})
+        cpu_values = ShardedLocalSearch(
+            cg_cpu, build_mesh(SHARDS, "cpu"), rule=rule).run(cycles,
+                                                               seed=0)
+        if not np.array_equal(values, cpu_values):
+            fail("main_path_sharded_local_search", f"{rule}: "
+                 f"{int((values != cpu_values).sum())} values differ from "
+                 f"the CPU run")
+        cost = dcop.solution_cost(
+            cg_cpu.assignment_from_indices(values), 10000)[1]
+        say("main_path_sharded_local_search", algo=rule,
+            instance="coloring_10k_30k", S=SHARDS, launches=counts,
+            cycles=cycles, cost=cost, equal_to_cpu=True,
+            run_s=round(run_s, 3), comm=eng.comm_stats())
+
     # every test instance, by every algorithm of the port, on the card
     # and on the CPU: the same run (maxsum without noise, as the parity
     # tests run it; the local-search coins come from CPU generators)
@@ -1512,6 +1844,22 @@ def main():
             library_note="no single PyTorch call computes an MGM-2 cycle",
             nvidia_smi=smi)
 
+    for name, t in (("10k_30k", primary_t), ("100k_300k", big_t)):
+        out, rates = time_sharded(t, SHARDS)
+        for kname, row in out.items():
+            timing[name, kname] = (row["kernel_ms"], row["plain_ms"],
+                                   row["bound_ms"], row["bound_by"])
+            say("times", kernel=kname, size=name, S=SHARDS, **row,
+                kernel_busy_share=(
+                    row["profiler_kernel_us"] / (row["kernel_ms"] * 1e3)
+                    if row["profiler_kernel_us"] else None),
+                library_ms=None,
+                library_note="no single PyTorch call computes a shard's "
+                "rotated MaxSum cycle, routed gains or partial tables",
+                nvidia_smi=smi)
+        say("times", kernel="sharded_cycles", size=name, S=SHARDS,
+            cycles_per_s=rates, nvidia_smi=smi)
+
     entries = [
         ("packed_maxsum_cycle", "pydcop_tpu_torch/csrc/packed_maxsum.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1505",
@@ -1547,6 +1895,16 @@ def main():
         ("packed_mgm2_cycles_mixed", "pydcop_tpu_torch/csrc/mgm2.cu",
          "pydcop_tpu/ops/pallas_mgm2.py:448", main_launches["mgm2_mixed"],
          mixed_mgm2_err),
+        ("packed_shard_fused_ba", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:180",
+         main_launches["shard_fused_ba"], sharded_err["shard_fused_ba"]),
+        ("packed_shard_route_gains", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:258",
+         main_launches["shard_route_gains_mgm"],
+         sharded_err["shard_route_gains"]),
+        ("packed_shard_tables", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:319",
+         main_launches["shard_tables_mgm"], sharded_err["shard_tables"]),
     ]
     sizes_of = {"dpop_whole_sweep": "bench_tree_10k"}
     kernels = []

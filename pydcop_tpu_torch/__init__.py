@@ -7,12 +7,15 @@ each Pallas TPU kernel on its path with a kernel written by hand for
 ``sm_90a`` (``csrc/``).  Entry points run on ``cuda`` unless the caller
 asks for ``device="cpu"``.
 
-Ported so far: ``solve -a maxsum|mgm|dsa|dsatuto|mixeddsa|adsa`` on one
-device — model (`pydcop_tpu_torch.dcop`), factor graph and constraints
-hypergraph (`pydcop_tpu_torch.graph`), compile
-(`pydcop_tpu_torch.ops.compile`), the generic and packed MaxSum and
-local-search engines, the chunked harness, `solve_result`/`solve` and
-the CLI.
+Ported so far: ``solve -a
+maxsum|mgm|mgm2|dsa|dsatuto|mixeddsa|adsa|dpop|dba|gdba`` on one device
+— model (`pydcop_tpu_torch.dcop`), factor graph, constraints hypergraph
+and pseudo-tree (`pydcop_tpu_torch.graph`), compile
+(`pydcop_tpu_torch.ops.compile`), the generic and packed engines, the
+chunked harness, `solve_result`/`solve` and the CLI — and the sharded
+MaxSum and local-search engines in one process
+(`pydcop_tpu_torch.parallel`), which a distribution file drives
+(``solve -d``).
 """
 
 from pydcop_tpu_torch.version import __version__

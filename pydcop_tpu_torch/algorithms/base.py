@@ -47,6 +47,9 @@ class SolveResult:
     dpop: Optional[Dict[str, Any]] = None
     #: canonical fully-resolved executed config (runtime/stats)
     config: Optional[Dict[str, Any]] = None
+    #: sharded-collective scorecard (runtime/stats.ShardCommCounters, the
+    #: engines' ``comm_stats()``) of a sharded solve; None elsewhere
+    shard: Optional[Dict[str, Any]] = None
 
     def metrics(self) -> Dict[str, Any]:
         out = {
@@ -61,6 +64,8 @@ class SolveResult:
         }
         if self.harness is not None:
             out["harness"] = dict(self.harness)
+        if self.shard is not None:
+            out["shard"] = dict(self.shard)
         if self.dpop is not None:
             out["dpop"] = dict(self.dpop)
         if self.config is not None:

@@ -3,9 +3,12 @@
 Equivalent capability to the reference's pydcop/commands/solve.py
 (run_cmd): load YAML → build graph → run → print the metrics JSON, the
 same JSON as the JAX package's ``solve``.  The options ported so far are
-``-a``, ``-p``, ``--cycles``, ``--seed``, ``--device`` and the dpop
-shorthands ``--dpop-budget-mb``, ``--i-bound`` and ``--dpop-no-prune``
-(plus the global ``--timeout`` and ``--output``).
+``-a``, ``-p``, ``--cycles``, ``--seed``, ``--device``, the dpop
+shorthands ``--dpop-budget-mb``, ``--i-bound`` and ``--dpop-no-prune``,
+and ``-d`` with a distribution YAML file, which drives a sharded maxsum
+solve (one shard per visible device), with ``--shard-overlap`` and
+``--shard-boundary-threshold`` (plus the global ``--timeout`` and
+``--output``).  ``-d`` with a strategy name is not ported and fails.
 """
 from __future__ import annotations
 
@@ -30,6 +33,21 @@ def set_parser(subparsers):
                         default="cuda",
                         help="device to solve on (default cuda; a missing "
                         "GPU is an error, never a silent CPU run)")
+    parser.add_argument(
+        "-d", "--distribution", default=None,
+        help="a distribution YAML file, which drives the solve: factors "
+        "are sharded by host agent onto one shard per visible device "
+        "(maxsum only; other algorithms reject an explicit placement). "
+        "Distribution strategy names are not ported")
+    parser.add_argument("--shard-overlap",
+                        choices=["off", "exact", "stale"], default=None,
+                        help="sharded-engine collective path: off = dense "
+                        "whole-space sum (the default path here); exact "
+                        "and stale (boundary-compacted) are not ported")
+    parser.add_argument("--shard-boundary-threshold", type=float,
+                        default=0.5,
+                        help="auto-policy cut-fraction threshold, recorded "
+                        "in metrics['config'] (default 0.5)")
     # DPOP only; shorthands for the matching -p algo params
     parser.add_argument("--dpop-budget-mb", type=float, default=None,
                         help="per-device byte budget for DPOP util "
@@ -69,14 +87,26 @@ def run_cmd(args):
             if args.dpop_no_prune:
                 algo_params["prune"] = False
         dcop = load_dcop_from_file(args.dcop_files)
+        distribution = args.distribution
+        if distribution is not None \
+                and distribution.endswith((".yaml", ".yml")):
+            from pydcop_tpu_torch.distribution import load_dist_from_file
+
+            try:
+                distribution = load_dist_from_file(distribution)
+            except Exception as e:
+                raise ValueError(f"cannot load distribution: {e}") from e
         res = solve_result(
             dcop,
             args.algo,
+            distribution=distribution,
             timeout=args.timeout,
             cycles=args.cycles,
             algo_params=algo_params,
             seed=args.seed,
             device=args.device,
+            shard_overlap=args.shard_overlap,
+            shard_boundary_threshold=args.shard_boundary_threshold,
         )
     except Exception as e:
         output_metrics({"status": "ERROR", "error": str(e)}, args.output)

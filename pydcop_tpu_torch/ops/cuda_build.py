@@ -29,6 +29,7 @@ SOURCES: Dict[str, str] = {
     "local_search": "csrc/local_search.cu",
     "dpop_sweep": "csrc/dpop_sweep.cu",
     "mgm2": "csrc/mgm2.cu",
+    "sharded": "csrc/sharded.cu",
 }
 
 #: ``-fmad=false``: no contraction of a*b + c into one fused multiply-add,

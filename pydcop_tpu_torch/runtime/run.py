@@ -1,14 +1,18 @@
-"""One-call solve API, on one device.
+"""One-call solve API.
 
 Equivalent capability to the reference's pydcop/infrastructure/run.py
 (solve) without the thread/process agent plumbing: build graph → compile
-to tensors on the device → run synchronous rounds.  Only the
-single-device path is ported: an explicit distribution, checkpointing,
-warm-repair headroom and the elastic driver each refuse with
-:class:`~pydcop_tpu_torch.errors.NotPortedError`.
+to tensors on the device → run synchronous rounds.  A ``Distribution``
+object (e.g. loaded from a distribution YAML) drives a sharded solve: the
+factors go to the shards of their host agents
+(:func:`_solve_under_placement`, maxsum only).  A distribution strategy
+given by name, checkpointing, warm-repair headroom and the elastic driver
+each refuse with :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
 
+import logging
+from time import perf_counter
 from typing import Any, Dict, Optional, Union
 
 from pydcop_tpu_torch.algorithms import AlgorithmDef, load_algorithm_module
@@ -46,26 +50,49 @@ def solve_result(
     headroom: Optional[float] = None,
     fault_plan=None,
     elastic: Optional[Dict[str, Any]] = None,
+    shard_overlap: Optional[str] = None,
+    shard_boundary_threshold: float = 0.5,
+    n_shards: Optional[int] = None,
 ) -> SolveResult:
     """Solve a DCOP on ``device`` (cuda unless the caller passes
     ``device="cpu"``) and return the full result + metrics.
 
     ``cycles`` runs exactly that many cycles; otherwise the run stops when
     the solver is stable, at the algorithm's ``stop_cycle`` parameter, or
-    at ``timeout``."""
+    at ``timeout``.
+
+    ``distribution`` as a ``Distribution`` object drives a sharded maxsum
+    solve (:func:`_solve_under_placement`) over ``n_shards`` shards of
+    ``device`` — by default one per visible device of its kind: the card
+    count on cuda, 1 on the CPU.  ``shard_overlap`` and
+    ``shard_boundary_threshold`` choose its collective path as in the JAX
+    package (only the dense one is ported); they and ``n_shards`` apply
+    to that path only."""
+    from pydcop_tpu_torch.distribution.objects import Distribution
+
     refused = {
-        "distribution": distribution is not None,
         "checkpoint_dir/resume": bool(checkpoint_dir) or resume,
         "headroom": headroom is not None,
         "fault_plan/elastic": fault_plan is not None or elastic is not None,
+        "a distribution strategy given by name": (
+            distribution is not None
+            and not isinstance(distribution, Distribution)),
     }
     for name, given in refused.items():
         if given:
             raise NotPortedError(
-                f"{name} is not ported to the PyTorch package yet: it "
-                f"runs the single-device solve path only"
-            )
+                f"{name} is not ported to the PyTorch package yet: pass a "
+                f"Distribution object (e.g. a distribution YAML file) or "
+                f"none")
     dev = resolve_device(device)
+    if isinstance(distribution, Distribution):
+        return _solve_under_placement(
+            dcop, algo, algo_params, distribution, cycles, timeout, dev,
+            shard_overlap, shard_boundary_threshold, n_shards)
+    if n_shards is not None or shard_overlap is not None:
+        raise ValueError(
+            "n_shards and shard_overlap apply to a sharded solve only: "
+            "pass a Distribution object as well")
     algo_def = _build_algo_def(dcop, algo, algo_params)
     algo_module = load_algorithm_module(algo_def.algo)
     graph_module = load_graph_module(graph or algo_module.GRAPH_TYPE)
@@ -78,6 +105,100 @@ def solve_result(
         else (algo_def.params.get("stop_cycle") or None)
     )
     return solver.run(cycles=stop_cycle, timeout=timeout)
+
+
+def _solve_under_placement(
+    dcop: DCOP,
+    algo: Union[str, AlgorithmDef],
+    algo_params: Optional[Dict[str, Any]],
+    distribution,
+    cycles: Optional[int],
+    timeout: Optional[float],
+    dev,
+    shard_overlap: Optional[str] = None,
+    shard_boundary_threshold: float = 0.5,
+    n_shards: Optional[int] = None,
+) -> SolveResult:
+    """A sharded maxsum solve whose factor→shard assignment follows an
+    explicit placement: agents fold (sorted, round-robin) onto the shards
+    and each factor lands on its host agent's shard.  The complete
+    host-driven algorithms have no device placement to drive, so asking
+    for one fails loudly instead of being ignored; amaxsum (the JAX
+    package's other placement-driven algorithm) is not ported."""
+    import numpy as np
+
+    from pydcop_tpu_torch.algorithms import DEFAULT_INFINITY
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+    from pydcop_tpu_torch.parallel.mesh import ShardedMaxSum, build_mesh
+    from pydcop_tpu_torch.parallel.partition import \
+        assigns_from_distribution
+    from pydcop_tpu_torch.runtime.stats import resolved_config
+
+    name = algo.algo if isinstance(algo, AlgorithmDef) else algo
+    if name == "amaxsum":
+        raise NotPortedError(
+            "amaxsum is not ported to the PyTorch package yet (with it "
+            "comes the activation branch of the sharded MaxSum kernel)")
+    if name != "maxsum":
+        raise ValueError(
+            f"an explicit distribution can only drive device sharding "
+            f"for the factor-graph BP family (maxsum/amaxsum), not "
+            f"{name!r}; rerun without -d or with a strategy name"
+        )
+    algo_def = _build_algo_def(dcop, algo, algo_params)
+    t0 = perf_counter()
+    tensors = compile_factor_graph(dcop, device=dev)
+    mesh = build_mesh(n_shards, dev)
+    assigns = assigns_from_distribution(distribution, tensors, len(mesh))
+    if len(mesh) == 1:
+        logging.getLogger("pydcop_tpu_torch.run").warning(
+            "placement-driven solve on one shard: all %d agents fold onto "
+            "it", len(distribution.agents),
+        )
+    damping = algo_def.params.get("damping")
+    damping = 0.5 if damping is None else float(damping)  # 0 is valid
+    sharded = ShardedMaxSum(tensors, mesh, damping=damping,
+                            assigns=assigns, overlap=shard_overlap,
+                            boundary_threshold=shard_boundary_threshold,
+                            precision=algo_def.params.get("precision"))
+    n_cycles = cycles or 30
+    status = "FINISHED"
+    if timeout is None:
+        values, _q, _r = sharded.run(cycles=n_cycles)
+    else:
+        # chunked so the timeout is honoured between chunks
+        chunk = max(1, min(10, n_cycles))
+        done = 0
+        q = r = None
+        values = None
+        while done < n_cycles:
+            n = min(chunk, n_cycles - done)
+            values, q, r = sharded.run(cycles=n, q=q, r=r)
+            done += n
+            if perf_counter() - t0 > timeout:
+                status = "TIMEOUT"
+                break
+        n_cycles = done
+    assignment = tensors.assignment_from_indices(np.asarray(values))
+    violation, cost = dcop.solution_cost(assignment, DEFAULT_INFINITY)
+    edges = tensors.n_edges
+    return SolveResult(
+        status=status,
+        assignment=assignment,
+        cost=cost,
+        violation=violation,
+        cycle=n_cycles,
+        msg_count=2 * edges * n_cycles,
+        msg_size=float(2 * edges * n_cycles * tensors.max_domain_size),
+        time=perf_counter() - t0,
+        shard=sharded.comm_stats(),
+        config=resolved_config(
+            "maxsum", "sharded_mesh",
+            overlap=shard_overlap or "default",
+            boundary_threshold=shard_boundary_threshold,
+            precision=sharded.precision,
+        ),
+    )
 
 
 def solve(

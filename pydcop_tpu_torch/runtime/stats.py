@@ -1,10 +1,12 @@
 """Counters and the executed-config record of a solve.
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
-harness uses, with the same names and schemas, so that
-``SolveResult.metrics()`` has the same keys in both packages.
+harness and the sharded engines use, with the same names and schemas,
+so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
+
+import dataclasses
 
 #: counter names surfaced under ``SolveResult.metrics()["harness"]`` by
 #: the chunked solve harness — how often the host blocked on the device
@@ -73,3 +75,57 @@ def resolved_config(
         "i_bound": int(i_bound),
         "precision": str(precision),
     }
+
+
+#: field names surfaced under ``SolveResult.metrics()["shard"]`` by the
+#: sharded engines (``parallel/mesh.py::CommPlan.counters``) — the
+#: partition-quality + collective-path scorecard of a sharded solve
+SHARD_COMM_FIELDS = (
+    "mode",                      # dense (the only mode ported)
+    "collective",                # psum: the ordered all-shard sum
+    "n_shards",
+    "boundary_columns",          # variables touched by 2+ shards
+    "total_columns",             # dense collective width
+    "cut_fraction",              # boundary / factor-touched variables
+    "boundary_fraction",         # boundary / all variables
+    "bytes_per_cycle_dense",     # per-shard collective payload, dense
+    "bytes_per_cycle_compact",   # per-shard payload on the chosen path
+    "exchange_rounds",           # ppermute rounds (0 unless ppermute)
+    "threshold",                 # auto-policy cut-fraction threshold
+)
+
+
+@dataclasses.dataclass
+class ShardCommCounters:
+    """Partition quality + per-cycle collective cost of a sharded
+    engine: which collective path it runs and what it pays per cycle.
+    Built by ``parallel/mesh.py::CommPlan.counters``; surfaced as
+    ``SolveResult.metrics()["shard"]``.  The fields and their order are
+    the JAX package's."""
+
+    mode: str
+    collective: str
+    n_shards: int
+    boundary_columns: int
+    total_columns: int
+    cut_fraction: float
+    boundary_fraction: float
+    bytes_per_cycle_dense: int
+    bytes_per_cycle_compact: int
+    exchange_rounds: int = 0
+    threshold: float = 0.5
+
+    def as_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["cut_fraction"] = round(out["cut_fraction"], 6)
+        out["boundary_fraction"] = round(out["boundary_fraction"], 6)
+        return out
+
+    @property
+    def compact_savings(self) -> float:
+        """Fraction of dense collective bytes the chosen path avoids."""
+        if not self.bytes_per_cycle_dense:
+            return 0.0
+        return 1.0 - (
+            self.bytes_per_cycle_compact / self.bytes_per_cycle_dense
+        )

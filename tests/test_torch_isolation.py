@@ -3,8 +3,9 @@ of the JAX package (``pydcop_tpu``), not even its JAX-free modules.
 
 The test process itself has JAX loaded (``tests/conftest.py`` imports
 it), so the import check runs in a fresh interpreter: it imports the
-port, solves the tutorial instance on the CPU and reports every JAX or
-JAX-package module that got loaded.  A source scan backs it up for code
+port (its sharded engines included), solves the tutorial instance on the
+CPU (maxsum, dpop, and maxsum sharded by a placement) and reports every
+JAX or JAX-package module that got loaded.  A source scan backs it up for code
 paths a single solve does not reach."""
 import ast
 import json
@@ -25,14 +26,24 @@ import pydcop_tpu_torch
 from pydcop_tpu_torch.cli import make_parser
 from pydcop_tpu_torch.dcop import load_dcop_from_file
 from pydcop_tpu_torch.ops import cuda_build, packed_dpop, packed_maxsum
+from pydcop_tpu_torch.ops import packed_sharded
+from pydcop_tpu_torch.distribution import Distribution, load_dist, yaml_dist
+from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
+from pydcop_tpu_torch.parallel import boundary, collectives, packed_mesh
 from pydcop_tpu_torch.runtime import solve_result
 make_parser()
 dcop = load_dcop_from_file([sys.argv[2]])
 res = solve_result(dcop, "maxsum", device="cpu")
 exact = solve_result(dcop, "dpop", device="cpu")
+comps = sorted(dcop.variables) + sorted(dcop.constraints)
+dist = load_dist(yaml_dist(Distribution(
+    {"a0": comps[0::2], "a1": comps[1::2]})))
+sharded = solve_result(dcop, "maxsum", distribution=dist, n_shards=2,
+                       device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pydcop_tpu"))
-print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost, "bad": bad}))
+print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost,
+                  "sharded_cost": sharded.cost, "bad": bad}))
 """
 
 
@@ -45,6 +56,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["cost"] == 12 and got["dpop_cost"] == 12
+    assert got["sharded_cost"] == 12
     assert got["bad"] == []
 
 
