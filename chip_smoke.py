@@ -11,9 +11,10 @@ It builds the port's CUDA kernels from ``pydcop_tpu_torch/csrc`` (one
 paths on one device: ``solve -a maxsum``, ``solve -a mgm|dsa``,
 ``solve -a mgm2`` and ``solve -a dpop`` on binary graphs and trees,
 ``solve -a maxsum|mgm|dsa|mgm2`` on mixed-arity (SECP) graphs,
-``solve -a dba|gdba`` (the generic engine, no kernel) on a CSP, and the
+``solve -a dba|gdba`` (the generic engine, no kernel) on a CSP, the
 sharded engines (``solve -d`` with 8 shards on the card, sharded mgm and
-dsa).  Each phase
+dsa) on a colouring and on a SECP, and ``solve -a amaxsum`` with and
+without ``-d``.  Each phase
 prints one line; any failure exits non-zero before the result lines are
 printed.
 
@@ -58,7 +59,14 @@ printed.
    runs on the card (maxsum at damping 0.5 and 0, mgm, dsa): the 10k/30k
    and 100k/300k colourings at 8 shards, the degree-2,500 star and the
    unequal-domains graph at 4, the hard colouring (K8's ties) at 8;
-   tolerance K7 atol 1e-4·(1+|x|), K8 and K9 max abs error 0;
+   tolerance K7 atol 1e-4·(1+|x|), K8 and K9 max abs error 0; there
+   also amaxsum (activation 0.7) through K7's activation branch;
+   sharded_mixed_kernel_vs_plain: the mixed branches of K7 (with and
+   without activation), K8 and K9 against their plain versions, launch
+   by launch, exactly (max abs error 0), on SECP-3.9k, SECP4-3.9k, the
+   mixed star and the ragged mixed graph at 4 and 8 shards;
+   lane_permute_kernel_vs_plain: K3 against its plain version and
+   ``torch.index_select`` at [3, 30,000] and [3, 300,000], exactly;
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
    solve`` in a subprocess on the tutorial instance: maxsum and dpop
    must finish with cost 12, mgm, dsa, mgm2, dba and gdba with the cost
@@ -91,6 +99,16 @@ printed.
    main_path_sharded_local_search: sharded mgm (8 × 200 K9 + 8 × 200 K8)
    and dsa (8 × 200 K9), 200 cycles at 8 shards, values equal to the CPU
    run with the same start and coins;
+   main_path_sharded_mixed: ``solve -d`` on SECP-3.9k with 8 agents, 8
+   shards, 200 cycles: one K7-mixed launch per shard holding factors and
+   cycle and no other kernel's, assignment, cost and cycle equal to the
+   CPU run; sharded mgm (K9- and K8-mixed), dsa and adsa (K9-mixed) on
+   it, values equal to the CPU run;
+   main_path_amaxsum: ``solve -a amaxsum`` on the 10k/30k colouring, one
+   device, the generic engine (no kernel), equal to the CPU run;
+   main_path_sharded_amaxsum: ``solve -d -a amaxsum`` on the 10k/30k
+   colouring (8 × 200 K7-activation launches) and on SECP-3.9k (the
+   mixed kernel's activation branch), each equal to the CPU run;
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
    equal (a mixed-arity instance, except by dba and gdba: against the
@@ -102,8 +120,12 @@ printed.
    sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
    arity <= 3 and <= 4 and the 39k SECP; K7-K9: ms per launch at 8
    shards of the 10k/30k and 100k/300k colourings, and the sharded
-   maxsum/mgm/dsa cycles/s) beside its bytes bound, its plain version's
-   time, and its device time per launch from a torch.profiler trace.
+   maxsum/mgm/dsa cycles/s; their mixed branches at SECP-3.9k and
+   SECP-39k; K7's activation branch at 10k/30k, 100k/300k and SECP-3.9k
+   with the sharded amaxsum cycles/s; single-device amaxsum cycles/s; K3
+   at [3, 30,000] and [3, 300,000] beside ``torch.index_select``) beside
+   its bytes bound, its plain version's time, and its device time per
+   launch from a torch.profiler trace.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 ``{"kernels": [...]}`` (one entry per kernel: launches on its main path,
@@ -851,11 +873,14 @@ def reset_counts():
     from pydcop_tpu_torch.ops import packed_local_search as P
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
 
+    from pydcop_tpu_torch.ops.permute import lane_permute
+
     packed_cycles.launches = packed_cycles.mixed_launches = 0
     P.reset_launches()
     packed_dpop.reset_launches()
     packed_mgm2.reset_launches()
     packed_sharded.reset_launches()
+    lane_permute.launches = 0
 
 
 def read_counts():
@@ -864,6 +889,7 @@ def read_counts():
     from pydcop_tpu_torch.ops.packed_dpop import whole_sweep
     from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
     from pydcop_tpu_torch.ops.packed_mgm2 import packed_mgm2_cycles
+    from pydcop_tpu_torch.ops.permute import lane_permute
 
     return {"packed_maxsum_cycle": packed_cycles.launches,
             "ls_tables": P.ls_tables.launches,
@@ -879,7 +905,13 @@ def read_counts():
             "mgm2_mixed": packed_mgm2_cycles.mixed_launches,
             "shard_fused_ba": K.shard_fused_ba.launches,
             "shard_route_gains": K.shard_route_gains.launches,
-            "shard_tables": K.shard_tables.launches}
+            "shard_tables": K.shard_tables.launches,
+            "shard_fused_ba_mixed": K.shard_fused_ba.mixed_launches,
+            "shard_fused_ba_act": K.shard_fused_ba.act_launches,
+            "shard_fused_ba_mixed_act": K.shard_fused_ba.mixed_act_launches,
+            "shard_route_gains_mixed": K.shard_route_gains.mixed_launches,
+            "shard_tables_mixed": K.shard_tables.mixed_launches,
+            "lane_permute": lane_permute.launches}
 
 
 def breakdown(dcop, algo, cycles, dev):
@@ -1033,16 +1065,19 @@ def checked_kernels(errs, exact_only=False):
     kernel AND its plain version on the same inputs, hold them together
     (K7: atol 1e-4·(1+|x|), or exactly with ``exact_only``; K8, K9:
     exactly) and carry on with the kernel's outputs.  ``errs`` collects
-    the max abs error per kernel."""
+    the max abs error per kernel and branch (``_mixed`` for a mixed
+    layout, ``_act`` for K7 with an activation row)."""
     import contextlib
 
     import torch
 
     from pydcop_tpu_torch.ops import packed_sharded as K
 
-    def check(name, kernel, plain, exact):
+    def check(base, kernel, plain, exact):
         def run(sh, *args):
-            k = kernel(sh, *args)  # counts on ``run.launches``
+            name = base + ("_mixed" if sh.mixed is not None else "") \
+                + ("_act" if len(args) > 3 else "")
+            k = kernel(sh, *args)  # counts on the wrapper's counters
             p = plain(sh, *args)
             ks = k if isinstance(k, tuple) else (k,)
             ps = p if isinstance(p, tuple) else (p,)
@@ -1058,7 +1093,6 @@ def checked_kernels(errs, exact_only=False):
                         f"{name} shard {sh.index}: kernel differs from "
                         f"plain (max abs error {err})")
             return k
-        run.launches = 0
         return run
 
     @contextlib.contextmanager
@@ -1077,11 +1111,13 @@ def checked_kernels(errs, exact_only=False):
     return patched()
 
 
-def sharded_kernel_vs_plain(t, n_shards, cycles=20):
+def sharded_kernel_vs_plain(t, n_shards, cycles=20, exact_only=False):
     """K7, K8 and K9 against their plain versions on the card, per shard
     and per cycle, inside real sharded runs: maxsum at damping 0.5 and 0
-    (K7), mgm and dsa (K9, K8 in mgm), ``cycles`` cycles each.  Returns
-    (errs per kernel, stats)."""
+    (K7), amaxsum at activation 0.7 (K7's activation branch), mgm and
+    dsa (K9, K8 in mgm), ``cycles`` cycles each; on a mixed graph the
+    kernels' mixed branches.  Returns (errs per kernel and branch,
+    stats)."""
     import torch
 
     from pydcop_tpu_torch.parallel import ShardedLocalSearch, \
@@ -1089,9 +1125,11 @@ def sharded_kernel_vs_plain(t, n_shards, cycles=20):
 
     errs = {}
     mesh = build_mesh(n_shards, "cuda")
-    with checked_kernels(errs):
+    with checked_kernels(errs, exact_only):
         for damping in (0.5, 0.0):
             ShardedMaxSum(t, mesh, damping=damping).run(cycles)
+        # amaxsum: K7's activation branch
+        ShardedMaxSum(t, mesh, damping=0.5, activation=0.7).run(cycles)
         moved = {}
         for rule in ("mgm", "dsa"):
             eng = ShardedLocalSearch(t, mesh, rule=rule)
@@ -1101,7 +1139,13 @@ def sharded_kernel_vs_plain(t, n_shards, cycles=20):
     packs = ShardedMaxSum(t, mesh).packs
     Ns = [sh.N for sh in packs.shards]
     torch.cuda.synchronize()
+    extra = {}
+    if packs.mixed:
+        extra["slots_by_arity"] = [
+            sum(len(sh.slot_of.get(a, ())) for sh in packs.shards)
+            for a in (1, 2, 3, 4)]
     return errs, dict(
+        **extra,
         S=n_shards, N_min=min(Ns), N_max=max(Ns), Vp=packs.Vp, D=packs.D,
         max_shard_deg=max(int(sh.t_deg.max()) for sh in packs.shards),
         boundary_columns=packs.boundary.n_boundary,
@@ -1124,14 +1168,20 @@ def block_distribution(dcop, n_agents):
     return Distribution(mapping)
 
 
-def sharded_bytes_ops(packs):
+def sharded_bytes_ops(packs, act=False):
     """{kernel: (bytes, operations)} of one launch, averaged over the
     shards that launch.  Each input read once, each output written once:
     the combined beliefs / gains / values at the columns the shard
-    touches, each factor's D×D table once (K7; K9 reads the D entries
-    its values select), the slot arrays (vmask, inv_dcount, mate,
-    mate_col, gmask1), the four thread arrays; out r_new and the [D, Vp]
-    partial, or nm_part and gn."""
+    touches, each factor's table once (K7: D^a entries for an arity-a
+    factor, though the layout keeps a rotated copy per slot; K9 reads
+    the D entries its values select), the slot arrays (vmask,
+    inv_dcount, the gain masks, and the ints each slot's kernel reads:
+    on a mixed layout its arity and cost index and, for each of its
+    a - 1 siblings, the slot and column in K7 or the column in K9), the
+    four thread arrays; out r_new and
+    the [D, Vp] partial, or nm_part and the routed gains.  ``act`` adds
+    K7's activation operands: q_m, r_m and the active row in, q1 and r1
+    out."""
     D, Vp = packs.D, packs.Vp
     rows = []
     for sh in packs.shards:
@@ -1140,12 +1190,35 @@ def sharded_bytes_ops(packs):
         N = sh.N
         touched = int((sh.t_deg > 0).sum())
         walk = 4 * Vp
-        k7 = (D * touched + D * N + D * D * N // 2 + D * N + N + 2 * N
+        if sh.mixed is None:
+            n_a = {2: N}
+            sibs = 1
+            # mate and mate_col a slot
+            ints7, ints9 = 2 * N, N
+        else:
+            n_a = {a: len(sh.slot_of.get(a, ())) for a in (1, 2, 3, 4)}
+            sibs = 3
+            # arity and cost_idx a slot, and each of its a - 1 siblings'
+            # slot and column (K7) or column (K9)
+            ints7 = sum(n * 2 * a for a, n in n_a.items())
+            ints9 = sum(n * (a + 1) for a, n in n_a.items())
+        table = sum(D ** a * n // a for a, n in n_a.items())
+        k7 = (D * touched + D * N + table + D * N + N + ints7
               + walk + D * N + D * Vp)
-        k8 = touched + N + N + walk + Vp + N
-        k9 = touched + D * N + N + walk + D * Vp
-        ops7 = N * (5 * D + 1 + D * D + D * (D - 1) + D + 3 * D + D)
-        rows.append(((4 * k7, ops7), (4 * k8, 2 * N), (4 * k9, D * N)))
+        if act:
+            k7 += 2 * D * N + N + 2 * D * N
+        # per slot: the pending side of each sibling (D subtractions, D
+        # multiply-adds, D subtract-multiplies, one multiply), the factor
+        # side (binary D adds and D-1 mins a value; arity a about
+        # 3 D^(a-1) a value), vmask, damping (3) and the partial add
+        side = sum(n * (a - 1) * (5 * D + 1) for a, n in n_a.items())
+        factor = sum(n * (D * (2 * D - 1) if a == 2 else 3 * D ** a)
+                     for a, n in n_a.items() if a > 1)
+        ops7 = side + factor + N * 5 * D
+        k8 = touched + sibs * N * 2 + walk + Vp + sibs * N
+        k9 = touched + D * N + ints9 + walk + D * Vp
+        rows.append(((4 * k7, ops7), (4 * k8, 2 * sibs * N),
+                     (4 * k9, D * N)))
     n = len(rows)
     return {name: (sum(r[i][0] for r in rows) / n,
                    sum(r[i][1] for r in rows) / n)
@@ -1154,11 +1227,13 @@ def sharded_bytes_ops(packs):
                                       "packed_shard_tables"))}
 
 
-def time_sharded(t, n_shards, reps=100):
+def time_sharded(t, n_shards, reps=100, amaxsum=False):
     """Per-launch ms (CUDA events over ``reps`` rounds of one launch per
     shard), the plain versions' ms, device us per launch (profiler),
     bounds, and the sharded cycles/s of maxsum, mgm and dsa (host clock
-    over 200 cycles, ending in a synchronize)."""
+    over 200 cycles, ending in a synchronize); on a mixed graph the
+    kernels' mixed branches.  ``amaxsum``: K7's activation branch at
+    activation 0.7 instead, and the sharded amaxsum cycles/s."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_sharded as K
@@ -1166,32 +1241,49 @@ def time_sharded(t, n_shards, reps=100):
         ShardedMaxSum, build_mesh
 
     mesh = build_mesh(n_shards, "cuda")
-    ms_eng = ShardedMaxSum(t, mesh)
+    ms_eng = ShardedMaxSum(t, mesh, activation=0.7 if amaxsum else None)
     packs = ms_eng.packs
+    mixed = "_mixed" if packs.mixed else ""
     live = [sh for sh in packs.shards if sh.N]
-    _, (r_u, bel), _ = ms_eng.run(5)
-    ls = ShardedLocalSearch(t, mesh, rule="mgm")
-    x = ls.run_chunked(5, seed=0)[1]
-    unary_p, mask_p, _ = packs.common_on(x.device)
-    tables = torch.where(mask_p > 0, unary_p + sum(
-        K.shard_tables(sh, x) for sh in live), 1e30)
-    gain = K.cur_best_gain(tables, x, False)[2]
-    calls = {
-        "packed_shard_fused_ba": (
-            lambda sh: K.shard_fused_ba(sh, bel[sh.index], r_u[sh.index],
-                                        0.5),
-            lambda sh: K.shard_fused_ba_plain(sh, bel[sh.index],
-                                              r_u[sh.index], 0.5),
-            "shard_fused_ba_kernel"),
-        "packed_shard_route_gains": (
-            lambda sh: K.shard_route_gains(sh, gain),
-            lambda sh: K.shard_route_gains_plain(sh, gain),
-            "shard_route_gains_kernel"),
-        "packed_shard_tables": (
-            lambda sh: K.shard_tables(sh, x),
-            lambda sh: K.shard_tables_plain(sh, x), "shard_tables_kernel"),
-    }
-    bo = sharded_bytes_ops(packs)
+    _, state, _ = ms_eng.run(5)
+    bo = sharded_bytes_ops(packs, act=amaxsum)
+    if amaxsum:
+        q_m, r_m, r_u, bel, _ = state
+        g = torch.Generator(device="cpu").manual_seed(0)
+        act = [(torch.rand(sh.N, generator=g) < 0.7).float().cuda()
+               for sh in packs.shards]
+
+        def k7(sh):
+            s = sh.index
+            return (sh, bel[s], r_u[s], 0.5, q_m[s], r_m[s], act[s])
+        calls = {"packed_shard_fused_ba": (
+            lambda sh: K.shard_fused_ba(*k7(sh)),
+            lambda sh: K.shard_fused_ba_plain(*k7(sh)),
+            f"shard_fused_ba{mixed}_kernel")}
+    else:
+        r_u, bel = state
+        ls = ShardedLocalSearch(t, mesh, rule="mgm")
+        x = ls.run_chunked(5, seed=0)[1]
+        unary_p, mask_p, _ = packs.common_on(x.device)
+        tables = torch.where(mask_p > 0, unary_p + sum(
+            K.shard_tables(sh, x) for sh in live), 1e30)
+        gain = K.cur_best_gain(tables, x, False)[2]
+        calls = {
+            "packed_shard_fused_ba": (
+                lambda sh: K.shard_fused_ba(sh, bel[sh.index],
+                                            r_u[sh.index], 0.5),
+                lambda sh: K.shard_fused_ba_plain(sh, bel[sh.index],
+                                                  r_u[sh.index], 0.5),
+                f"shard_fused_ba{mixed}_kernel"),
+            "packed_shard_route_gains": (
+                lambda sh: K.shard_route_gains(sh, gain),
+                lambda sh: K.shard_route_gains_plain(sh, gain),
+                f"shard_route_gains{mixed}_kernel"),
+            "packed_shard_tables": (
+                lambda sh: K.shard_tables(sh, x),
+                lambda sh: K.shard_tables_plain(sh, x),
+                f"shard_tables{mixed}_kernel"),
+        }
     out = {}
     for name, (kern, plain, kname) in calls.items():
         def rounds(fn, n):
@@ -1203,17 +1295,20 @@ def time_sharded(t, n_shards, reps=100):
         plain_ms = cuda_ms(lambda: rounds(plain, 3), 1) / (3 * len(live))
         device_us = profile_us(lambda: rounds(kern, 10), [kname])[kname]
         bound, by = bound_of(*bo[name])
-        out[name] = dict(kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                         bound_by=by, bytes_per_launch=bo[name][0],
-                         profiler_kernel_us=device_us,
-                         launches_per_cycle=len(live))
+        out[name + mixed + ("_act" if amaxsum else "")] = dict(
+            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            bytes_per_launch=bo[name][0], profiler_kernel_us=device_us,
+            launches_per_cycle=len(live))
     rates = {}
-    dsa = ShardedLocalSearch(t, mesh, rule="dsa")
-    for label, run in (
-            ("maxsum", lambda: ms_eng.run(200)),
-            ("mgm", lambda: ls.run_chunked(200, seed=0)),
-            # dsa: with the draw and copy of its 200 coin rows
-            ("dsa", lambda: dsa.run_chunked(200, seed=0))):
+    if amaxsum:
+        runs = (("amaxsum", lambda: ms_eng.run(200)),)
+    else:
+        dsa = ShardedLocalSearch(t, mesh, rule="dsa")
+        runs = (("maxsum", lambda: ms_eng.run(200)),
+                ("mgm", lambda: ls.run_chunked(200, seed=0)),
+                # dsa: with the draw and copy of its 200 coin rows
+                ("dsa", lambda: dsa.run_chunked(200, seed=0)))
+    for label, run in runs:
         run()  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1221,6 +1316,72 @@ def time_sharded(t, n_shards, reps=100):
         torch.cuda.synchronize()
         rates[label] = 200 / (time.perf_counter() - t0)
     return out, rates
+
+
+def amaxsum_rate(dcop, cycles=200):
+    """Single-device amaxsum cycles/s on the card (the generic engine,
+    plain PyTorch; host clock around ``run_cycles``, which draws and
+    copies the masks, ending in a synchronize)."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+
+    solver = load_algorithm_module("amaxsum").build_solver(dcop,
+                                                           device="cuda")
+    state = solver.initial_state()
+    solver.run_cycles(state, 5)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run_cycles(state, cycles)
+    torch.cuda.synchronize()
+    return cycles / (time.perf_counter() - t0)
+
+
+def lane_permute_vs_plain_and_times(N, S=3, reps=200):
+    """K3 at [S, N]: the kernel against its plain version and against
+    ``torch.index_select`` (exactly), then ms per launch (CUDA events
+    over ``reps`` raw launches, without the wrapper's permutation
+    check), the plain version's and ``index_select``'s ms, device us
+    (profiler) and the bytes bound (x and perm read once, out written
+    once)."""
+    import ctypes
+
+    import torch
+
+    from pydcop_tpu_torch.ops import permute as KP
+
+    g = torch.Generator(device="cpu").manual_seed(N)
+    x = torch.rand((S, N), generator=g).cuda()
+    perm = torch.randperm(N, generator=g).int().cuda()
+    k = KP.lane_permute(x, perm)
+    p = KP.lane_permute_plain(x, perm)
+    lib = torch.index_select(x, 1, perm)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    if not (torch.equal(k, p) and torch.equal(k, lib)):
+        raise AssertionError(f"lane_permute N={N}: kernel differs from "
+                             f"plain (max abs error {err})")
+    out = torch.empty_like(x)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def raw():
+        e = KP._kernel()(x.data_ptr(), perm.data_ptr(), out.data_ptr(),
+                         S, N, stream)
+        if e:
+            raise RuntimeError(f"lane_permute launch failed: {e}")
+
+    for _ in range(3):
+        raw()
+    ms = cuda_ms(raw, reps)
+    plain_ms = cuda_ms(lambda: KP.lane_permute_plain(x, perm), 20)
+    library_ms = cuda_ms(lambda: torch.index_select(x, 1, perm), 20)
+    device_us = profile_us(lambda: [raw() for _ in range(10)],
+                           ["lane_permute_kernel"])["lane_permute_kernel"]
+    nbytes = 4 * (2 * S * N + N)
+    bound, by = bound_of(nbytes, 0)
+    return err, dict(kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound, bound_by=by, bytes_per_launch=nbytes,
+                     profiler_kernel_us=device_us)
 
 
 def main():
@@ -1436,13 +1597,49 @@ def main():
             fail("sharded_kernel_vs_plain", f"{name}: {e}")
         for k, v in errs.items():
             sharded_err[k] = max(sharded_err.get(k, 0.0), v)
-        if set(errs) != {"shard_fused_ba", "shard_route_gains",
-                         "shard_tables"}:
+        if set(errs) != {"shard_fused_ba", "shard_fused_ba_act",
+                         "shard_route_gains", "shard_tables"}:
             fail("sharded_kernel_vs_plain", f"{name}: only {sorted(errs)} "
                  f"were checked")
         say("sharded_kernel_vs_plain", case=name, cycles=20,
             max_abs_err=errs, seconds=round(time.perf_counter() - t0, 3),
             **stats)
+
+    # the mixed branches of K7 (with and without activation), K8 and K9
+    # against their plain versions, launch by launch, exactly
+    sharded_mixed_err = {}
+    for name in ("secp_3.9k", "secp4_3.9k", "mixed_star_deg2500",
+                 "ragged_mixed_d4"):
+        t = compile_factor_graph(mixed_dcops[name], device=dev)
+        for n_shards in (4, SHARDS):
+            t0 = time.perf_counter()
+            try:
+                errs, stats = sharded_kernel_vs_plain(t, n_shards,
+                                                      exact_only=True)
+            except AssertionError as e:
+                fail("sharded_mixed_kernel_vs_plain", f"{name} S={n_shards}:"
+                     f" {e}")
+            for k, v in errs.items():
+                sharded_mixed_err[k] = max(sharded_mixed_err.get(k, 0.0), v)
+            if set(errs) != {"shard_fused_ba_mixed", "shard_fused_ba_mixed_act",
+                             "shard_route_gains_mixed", "shard_tables_mixed"}:
+                fail("sharded_mixed_kernel_vs_plain", f"{name}: only "
+                     f"{sorted(errs)} were checked")
+            say("sharded_mixed_kernel_vs_plain", case=name, cycles=20,
+                max_abs_err=errs, seconds=round(time.perf_counter() - t0, 3),
+                **stats)
+
+    # K3: the lane permutation against its plain version (no caller on
+    # any path of the port or of the JAX package)
+    permute_rows = {}
+    for N in (30_000, 300_000):
+        try:
+            err, row = lane_permute_vs_plain_and_times(N)
+        except AssertionError as e:
+            fail("lane_permute_kernel_vs_plain", str(e))
+        permute_rows[N] = (err, row)
+        say("lane_permute_kernel_vs_plain", S=3, N=N, max_abs_err=err,
+            equal_to_index_select=True)
 
     # 3. CLI paths ---------------------------------------------------------
     from pydcop_tpu_torch.dcop import load_dcop_from_file
@@ -1715,6 +1912,130 @@ def main():
             cycles=cycles, cost=cost, equal_to_cpu=True,
             run_s=round(run_s, 3), comm=eng.comm_stats())
 
+    from pydcop_tpu_torch.parallel.partition import \
+        assigns_from_distribution
+
+    # the sharded path on a mixed-arity graph: solve -d on the bench's
+    # SECP with 8 agents, 8 shards on the card, each cycle one K7-mixed
+    # launch per shard; held to the CPU run of the same shards
+    def solve_d(dcop_, algo, expect_key, phase, instance, params=None):
+        dist_ = block_distribution(dcop_, SHARDS)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve_result(dcop_, algo, distribution=dist_,
+                           n_shards=SHARDS, cycles=cycles,
+                           algo_params=params, device="cuda")
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        assigns_ = assigns_from_distribution(
+            dist_, compile_factor_graph(dcop_, device="cpu"), SHARDS)
+        live = len(set(np.concatenate([np.asarray(a) for a in assigns_])))
+        want = {k: 0 for k in counts}
+        want[expect_key] = live * cycles
+        if counts != want:
+            fail(phase, f"{algo} on {instance}: launches {counts} in a "
+                 f"{cycles}-cycle {SHARDS}-shard solve, expected {want}")
+        cpu = solve_result(dcop_, algo, distribution=dist_, n_shards=SHARDS,
+                           cycles=cycles, algo_params=params, device="cpu")
+        if res.status != "FINISHED" or res.cycle != cycles \
+                or not math.isfinite(res.cost) \
+                or len(res.assignment) != len(dcop_.variables) \
+                or res.config["algo"] != algo:
+            fail(phase, f"{algo} on {instance}: status={res.status} "
+                 f"cycle={res.cycle} cost={res.cost} config={res.config}")
+        if (res.assignment, res.cost, res.cycle) != (
+                cpu.assignment, cpu.cost, cpu.cycle):
+            fail(phase, f"{algo} on {instance}: card cost {res.cost} at "
+                 f"cycle {res.cycle} != CPU cost {cpu.cost} at cycle "
+                 f"{cpu.cycle} (same assignment: "
+                 f"{res.assignment == cpu.assignment})")
+        say(phase, algo=algo, instance=instance, agents=len(dist_.agents),
+            shards_holding_factors=live, launches=counts, cycle=res.cycle,
+            status=res.status, cost=res.cost, cpu_cost=cpu.cost,
+            shard=res.metrics()["shard"], config=res.config,
+            msg_count=res.msg_count, solve_s=round(solve_s, 3))
+        return counts[expect_key]
+
+    main_launches["shard_fused_ba_mixed"] = solve_d(
+        secp, "maxsum", "shard_fused_ba_mixed", "main_path_sharded_mixed",
+        "secp_3.9k")
+
+    # sharded mgm (K9 + K8 mixed), dsa and adsa (K9 mixed) on the SECP, 8
+    # shards on the card against the CPU: the same start and coins
+    secp_cuda = compile_constraint_graph(secp, device=dev)
+    secp_cpu = compile_constraint_graph(secp, device="cpu")
+    for rule, expect in (
+            ("mgm", {"shard_tables_mixed": cycles,
+                     "shard_route_gains_mixed": cycles}),
+            ("dsa", {"shard_tables_mixed": cycles}),
+            ("adsa", {"shard_tables_mixed": cycles})):
+        eng = ShardedLocalSearch(secp_cuda, build_mesh(SHARDS, "cuda"),
+                                 rule=rule)
+        live = sum(1 for sh in eng.packs.shards if sh.N)
+        reset_counts()
+        t0 = time.perf_counter()
+        values = eng.run(cycles, seed=0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: live * expect.get(k, 0) for k in counts}
+        if counts != want:
+            fail("main_path_sharded_mixed", f"{rule}: launches {counts}, "
+                 f"expected {want}")
+        main_launches.update(
+            {f"{k}_{rule}": v for k, v in counts.items() if v})
+        cpu_values = ShardedLocalSearch(
+            secp_cpu, build_mesh(SHARDS, "cpu"), rule=rule).run(cycles,
+                                                                 seed=0)
+        if not np.array_equal(values, cpu_values):
+            fail("main_path_sharded_mixed", f"{rule}: "
+                 f"{int((values != cpu_values).sum())} values differ from "
+                 f"the CPU run")
+        cost = secp.solution_cost(
+            secp_cpu.assignment_from_indices(values), 10000)[1]
+        say("main_path_sharded_mixed", algo=rule, instance="secp_3.9k",
+            S=SHARDS, launches=counts, cycles=cycles, cost=cost,
+            equal_to_cpu=True, run_s=round(run_s, 3), comm=eng.comm_stats())
+
+    # amaxsum on one device: the generic engine (plain PyTorch, no
+    # kernel), the 10k/30k colouring, equal to the CPU run of the seed
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve_result(dcop, "amaxsum", cycles=cycles, device="cuda")
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    if any(counts.values()):
+        fail("main_path_amaxsum", f"launches {counts}: the generic engine "
+             f"launches no kernel of the port")
+    cpu = solve_result(dcop, "amaxsum", cycles=cycles, device="cpu")
+    if set(res.metrics()) != jax_keys or res.status != "FINISHED" \
+            or res.cycle != cycles or not math.isfinite(res.cost) \
+            or len(res.assignment) != 10_000:
+        fail("main_path_amaxsum", f"status={res.status} cycle={res.cycle} "
+             f"cost={res.cost} keys={sorted(res.metrics())}")
+    if (res.assignment, res.cost, res.cycle) != (cpu.assignment, cpu.cost,
+                                                 cpu.cycle):
+        fail("main_path_amaxsum", f"card cost {res.cost} at cycle "
+             f"{res.cycle} != CPU cost {cpu.cost} at cycle {cpu.cycle} "
+             f"(same assignment: {res.assignment == cpu.assignment})")
+    say("main_path_amaxsum", algo="amaxsum", instance="coloring_10k_30k",
+        engine="generic (plain PyTorch, no kernel)", launches=counts,
+        cycle=res.cycle, status=res.status, cost=res.cost,
+        cpu_cost=cpu.cost, msg_count=res.msg_count,
+        solve_s=round(solve_s, 3), harness=res.metrics()["harness"])
+
+    # sharded amaxsum: solve -d with 8 agents, each cycle one K7
+    # activation launch per shard (the binary colouring, then the SECP
+    # through the mixed kernel's activation branch)
+    main_launches["shard_fused_ba_act"] = solve_d(
+        dcop, "amaxsum", "shard_fused_ba_act", "main_path_sharded_amaxsum",
+        "coloring_10k_30k")
+    main_launches["shard_fused_ba_mixed_act"] = solve_d(
+        secp, "amaxsum", "shard_fused_ba_mixed_act",
+        "main_path_sharded_amaxsum", "secp_3.9k")
+
     # every test instance, by every algorithm of the port, on the card
     # and on the CPU: the same run (maxsum without noise, as the parity
     # tests run it; the local-search coins come from CPU generators)
@@ -1860,6 +2181,41 @@ def main():
         say("times", kernel="sharded_cycles", size=name, S=SHARDS,
             cycles_per_s=rates, nvidia_smi=smi)
 
+    sharded_note = ("no single PyTorch call computes a shard's rotated "
+                    "MaxSum cycle, routed gains or partial tables")
+    for name, t, amaxsum in (
+            ("secp_3.9k", compile_factor_graph(secp, device=dev), False),
+            (big_secp, compile_factor_graph(mixed_dcops[big_secp],
+                                            device=dev), False),
+            ("secp_3.9k", compile_factor_graph(secp, device=dev), True),
+            (big_secp, compile_factor_graph(mixed_dcops[big_secp],
+                                            device=dev), True),
+            ("10k_30k", primary_t, True),
+            ("100k_300k", big_t, True)):
+        out, rates = time_sharded(t, SHARDS, amaxsum=amaxsum)
+        for kname, row in out.items():
+            timing[name, kname] = (row["kernel_ms"], row["plain_ms"],
+                                   row["bound_ms"], row["bound_by"])
+            say("times", kernel=kname, size=name, S=SHARDS, **row,
+                kernel_busy_share=(
+                    row["profiler_kernel_us"] / (row["kernel_ms"] * 1e3)
+                    if row["profiler_kernel_us"] else None),
+                library_ms=None, library_note=sharded_note, nvidia_smi=smi)
+        say("times", kernel="sharded_cycles", size=name, S=SHARDS,
+            cycles_per_s=rates, nvidia_smi=smi)
+    say("times", kernel="amaxsum_cycles", size="10k_30k",
+        engine="generic (plain PyTorch, no kernel)",
+        cycles_per_s={"amaxsum": amaxsum_rate(dcop)}, nvidia_smi=smi)
+    for N, (_, row) in permute_rows.items():
+        timing[f"N{N}", "lane_permute"] = (row["kernel_ms"], row["plain_ms"],
+                                           row["bound_ms"], row["bound_by"],
+                                           row["library_ms"])
+        say("times", kernel="lane_permute", size=f"3x{N}", **row,
+            kernel_busy_share=(
+                row["profiler_kernel_us"] / (row["kernel_ms"] * 1e3)
+                if row["profiler_kernel_us"] else None),
+            library_note="torch.index_select(x, 1, perm)", nvidia_smi=smi)
+
     entries = [
         ("packed_maxsum_cycle", "pydcop_tpu_torch/csrc/packed_maxsum.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1505",
@@ -1905,19 +2261,49 @@ def main():
         ("packed_shard_tables", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:319",
          main_launches["shard_tables_mgm"], sharded_err["shard_tables"]),
+        ("packed_shard_fused_ba_act", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:180",
+         main_launches["shard_fused_ba_act"],
+         sharded_err["shard_fused_ba_act"]),
+        ("packed_shard_fused_ba_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:180",
+         main_launches["shard_fused_ba_mixed"],
+         sharded_mixed_err["shard_fused_ba_mixed"]),
+        ("packed_shard_fused_ba_mixed_act",
+         "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:180",
+         main_launches["shard_fused_ba_mixed_act"],
+         sharded_mixed_err["shard_fused_ba_mixed_act"]),
+        ("packed_shard_route_gains_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:258",
+         main_launches["shard_route_gains_mixed_mgm"],
+         sharded_mixed_err["shard_route_gains_mixed"]),
+        ("packed_shard_tables_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
+         "pydcop_tpu/ops/pallas_sharded.py:319",
+         main_launches["shard_tables_mixed_mgm"],
+         sharded_mixed_err["shard_tables_mixed"]),
+        # K3 has no caller on any path of the port (nor of the JAX
+        # package): no main-path launch to count
+        ("lane_permute", "pydcop_tpu_torch/csrc/permute.cu",
+         "pydcop_tpu/ops/pallas_permute.py:88", 0,
+         max(err for err, _ in permute_rows.values())),
     ]
-    sizes_of = {"dpop_whole_sweep": "bench_tree_10k"}
+    sizes_of = {"dpop_whole_sweep": "bench_tree_10k",
+                "packed_shard_fused_ba_act": "10k_30k",
+                "lane_permute": "N30000"}
     kernels = []
     for name, source, replaces, launches, err in entries:
-        ms, plain, bound, by = timing[
+        row = timing[
             sizes_of.get(name, "secp_3.9k" if "mixed" in name
                          else "10k_30k"),
             name]
+        ms, plain, bound, by = row[:4]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": row[4] if len(row) > 4 else None,
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,9 +6,10 @@ same JSON as the JAX package's ``solve``.  The options ported so far are
 ``-a``, ``-p``, ``--cycles``, ``--seed``, ``--device``, the dpop
 shorthands ``--dpop-budget-mb``, ``--i-bound`` and ``--dpop-no-prune``,
 and ``-d`` with a distribution YAML file, which drives a sharded maxsum
-solve (one shard per visible device), with ``--shard-overlap`` and
-``--shard-boundary-threshold`` (plus the global ``--timeout`` and
-``--output``).  ``-d`` with a strategy name is not ported and fails.
+or amaxsum solve (one shard per visible device), with
+``--shard-overlap`` and ``--shard-boundary-threshold`` (plus the global
+``--timeout`` and ``--output``).  ``-d`` with a strategy name is not
+ported and fails.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ def set_parser(subparsers):
         "-d", "--distribution", default=None,
         help="a distribution YAML file, which drives the solve: factors "
         "are sharded by host agent onto one shard per visible device "
-        "(maxsum only; other algorithms reject an explicit placement). "
+        "(maxsum and amaxsum; other algorithms reject an explicit "
+        "placement). "
         "Distribution strategy names are not ported")
     parser.add_argument("--shard-overlap",
                         choices=["off", "exact", "stale"], default=None,

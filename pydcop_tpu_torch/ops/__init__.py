@@ -9,6 +9,10 @@
   (local tables, MGM and DSA cycles), kernels in ``csrc/local_search.cu``;
 * ``packed_mgm2``: the packed all-binary MGM-2 engine, kernels in
   ``csrc/mgm2.cu``;
+* ``packed_sharded``: the per-shard kernels of the sharded engines,
+  ``csrc/sharded.cu``;
+* ``permute``: a lane permutation ``out[:, t] = x[:, perm[t]]``,
+  ``csrc/permute.cu``;
 * ``cuda_build``: builds and loads the CUDA kernels at first use.
 """
 from pydcop_tpu_torch.ops.compile import (

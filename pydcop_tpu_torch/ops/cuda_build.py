@@ -30,6 +30,7 @@ SOURCES: Dict[str, str] = {
     "dpop_sweep": "csrc/dpop_sweep.cu",
     "mgm2": "csrc/mgm2.cu",
     "sharded": "csrc/sharded.cu",
+    "permute": "csrc/permute.cu",
 }
 
 #: ``-fmad=false``: no contraction of a*b + c into one fused multiply-add,

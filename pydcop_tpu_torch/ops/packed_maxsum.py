@@ -238,15 +238,17 @@ def pack_binary_for_gpu(t: FactorGraphTensors
     )
 
 
-def pack_mixed_for_gpu(t: FactorGraphTensors
+def pack_mixed_for_gpu(t: FactorGraphTensors, all_binary: bool = False
                        ) -> Optional[PackedMaxSumGraph]:
     """The mixed-arity layout of ``t`` on ``t``'s device, or None out of
     the JAX mixed packer's scope: a factor of arity outside 1-4, D > 8,
     D > 5 when a factor has arity 3 or 4, or no factors; and None for an
-    all-binary graph, which takes :func:`pack_binary_for_gpu`'s layout."""
+    all-binary graph, which takes :func:`pack_binary_for_gpu`'s layout —
+    unless ``all_binary`` is set (a shard of a mixed graph that holds
+    binary factors only still takes the mixed layout)."""
     by_arity = {b.arity: b for b in t.buckets if b.n_factors > 0}
-    if set(by_arity) in (set(), {2}) or any(a not in ARITIES
-                                            for a in by_arity):
+    if not by_arity or any(a not in ARITIES for a in by_arity) \
+            or (set(by_arity) == {2} and not all_binary):
         return None
     V, D = t.n_vars, t.max_domain_size
     if D > MAX_D or (D > MAX_D_NARY and max(by_arity) >= 3):

@@ -19,15 +19,18 @@ them on the one H100, or on the CPU.  That keeps the S launches and the
 cross-shard combine of every cycle real on one card; a speed-up across
 cards needs several cards.
 
-Ported: all-binary graphs, dense collectives (``overlap`` None, "auto",
-"off" or "dense" — JAX states that its compact "exact" mode equals the
-dense psum bit for bit), float32, ``mgm``/``dsa``/``adsa``.  Each of these
-raises :class:`~pydcop_tpu_torch.errors.NotPortedError`: mixed-arity
-graphs, ``overlap="exact"|"stale"``, ``exchange=True``, amaxsum's
-``activation``, ``precision`` other than f32, ``sentinel=True``,
-``use_packed=False`` (the generic ``[E, D]`` sharded engine),
-``rule="dba"|"gdba"``, and the operand editing of the JAX engines
-(``get_operand``, ``set_operand``, ``edit_factor``, ``state_to_host``).
+Ported: all-binary and mixed-arity (1-4) graphs in the packers' scope
+(``parallel/packed_mesh.py``), dense collectives (``overlap`` None,
+"auto", "off" or "dense" — JAX states that its compact "exact" mode
+equals the dense psum bit for bit), float32, amaxsum's ``activation``,
+``mgm``/``dsa``/``adsa``.  Each of these raises
+:class:`~pydcop_tpu_torch.errors.NotPortedError`: a graph out of the
+packers' scope (arity > 4, D > 8, D > 5 with a ternary or quaternary
+factor), ``overlap="exact"|"stale"``, ``exchange=True``, ``precision``
+other than f32, ``sentinel=True``, ``use_packed=False`` (the generic
+``[E, D]`` sharded engine), ``rule="dba"|"gdba"``, and the operand
+editing of the JAX engines (``get_operand``, ``set_operand``,
+``edit_factor``, ``state_to_host``).
 """
 from __future__ import annotations
 
@@ -219,7 +222,21 @@ class ShardedMaxSum(_ShardedEngine):
     and the combined beliefs, one copy per shard (shards on one device
     share it).  Values are the masked argmin of the final beliefs.
 
-    ``assigns`` (a one-bucket list of factor → shard arrays) overrides the
+    ``activation`` < 1 runs amaxsum (the JAX package's emulation of
+    asynchronous MaxSum): each cycle only the slots whose uniform draw is
+    below ``activation`` commit their new messages, the others keep the
+    previous cycle's.  Cycle n's mask is applied at the start of launch
+    n+1, where the rotation moved cycle n's variable side, so the state
+    becomes ``(q_m, r_m, r_u, beliefs, pending)``: the committed messages,
+    the unmasked ones, the beliefs, and the pending mask per shard.  The
+    uniforms are drawn on the CPU from a ``torch.Generator`` seeded with
+    ``run``'s ``seed`` at a fresh start (a continuation draws on), one
+    ``[cycles, N_s]`` array per shard in shard order
+    (:meth:`draw_uniforms`, the hook through which a test feeds the JAX
+    package's draws); the JAX package draws its own per (cycle, shard)
+    from ``jax.random``, so the mask streams differ (a stated deviation).
+
+    ``assigns`` (one factor → shard array per bucket) overrides the
     locality partition — how an explicit placement drives the sharding.
     """
 
@@ -233,43 +250,63 @@ class ShardedMaxSum(_ShardedEngine):
                  exchange: Optional[bool] = None,
                  sentinel: bool = False,
                  precision: Optional[str] = None):
-        if activation is not None and activation < 1.0:
-            _refuse("activation (amaxsum)", "K7's activation branch comes "
-                    "with amaxsum")
         super().__init__(tensors, mesh, assigns, overlap,
                          boundary_threshold, exchange, use_packed,
                          sentinel, precision, extra_dense=0)
         self.damping = float(damping)
+        self.activation = (None if activation is None or activation >= 1.0
+                           else float(activation))
+        self.coins = torch.Generator(device="cpu")
         sp = self.packs
         self._zeros = [None if sh.N else torch.zeros(
             (sp.D, sp.Vp), dtype=torch.float32, device=dev)
             for sh, dev in zip(sp.shards, self.mesh)]
 
+    def _slot_state(self):
+        """Zero [D, N_s] messages per shard."""
+        sp = self.packs
+        return tuple(torch.zeros((sp.D, sh.N), dtype=torch.float32,
+                                 device=dev)
+                     for sh, dev in zip(sp.shards, self.mesh))
+
     def init_messages(self):
         """The zero state, as (q, r): both are the same opaque state."""
         sp = self.packs
-        r_u = tuple(torch.zeros((sp.D, sh.N), dtype=torch.float32,
-                                device=dev)
-                    for sh, dev in zip(sp.shards, self.mesh))
         bel = {dev: torch.zeros((sp.D, sp.Vp), dtype=torch.float32,
                                 device=dev) for dev in self.devices}
-        state = (r_u, tuple(bel[dev] for dev in self.mesh))
+        bel = tuple(bel[dev] for dev in self.mesh)
+        if self.activation is None:
+            state = (self._slot_state(), bel)
+        else:
+            # on the zero state the pending mask selects between zeros
+            pend = tuple(torch.ones(sh.N, dtype=torch.float32, device=dev)
+                         for sh, dev in zip(sp.shards, self.mesh))
+            state = (self._slot_state(), self._slot_state(),
+                     self._slot_state(), bel, pend)
         return state, state
 
     def _validate_continuation(self, q, r) -> None:
         sp = self.packs
-        want = ([(sp.D, sh.N) for sh in sp.shards],
-                [(sp.D, sp.Vp)] * self.n_shards)
+        slots = [(sp.D, sh.N) for sh in sp.shards]
+        bel = [(sp.D, sp.Vp)] * self.n_shards
+        want = [slots, bel] if self.activation is None else \
+            [slots, slots, slots, bel, [(sh.N,) for sh in sp.shards]]
         for name, s in (("q", q), ("r", r)):
-            ok = isinstance(s, tuple) and len(s) == 2 and all(
+            ok = isinstance(s, tuple) and len(s) == len(want) and all(
                 isinstance(part, tuple)
                 and [tuple(t.shape) for t in part] == w
                 for part, w in zip(s, want))
             if not ok:
                 raise ValueError(
                     f"continuation state mismatch: {name} must be the "
-                    f"(r_u, beliefs) state of a prior run() of the same "
-                    f"solver configuration")
+                    f"state of a prior run() of the same solver "
+                    f"configuration")
+
+    def _combine(self, parts):
+        totals = self._by_device(all_sum(parts, self.mesh))
+        beliefs = {dev: self.packs.common_on(dev)[0] + tot
+                   for dev, tot in totals.items()}
+        return tuple(beliefs[dev] for dev in self.mesh)
 
     def cycle(self, r_u: Sequence[torch.Tensor],
               bel: Sequence[torch.Tensor]):
@@ -283,29 +320,68 @@ class ShardedMaxSum(_ShardedEngine):
             r_new, part = K.shard_fused_ba(sh, bel[s], r_u[s], self.damping)
             r_next.append(r_new)
             parts.append(part)
-        totals = self._by_device(all_sum(parts, self.mesh))
-        beliefs = {dev: self.packs.common_on(dev)[0] + tot
-                   for dev, tot in totals.items()}
-        return tuple(r_next), tuple(beliefs[dev] for dev in self.mesh)
+        return tuple(r_next), self._combine(parts)
+
+    def cycle_act(self, state, active):
+        """One amaxsum cycle from ``state`` = (q_m, r_m, r_u, beliefs,
+        pending); ``active`` is this cycle's mask per shard ([N_s]
+        float32 on the shard's device), which becomes the next pending
+        mask."""
+        q_m, r_m, r_u, bel, pend = state
+        q1s, r1s, r_next, parts = [], [], [], []
+        for s, sh in enumerate(self.shards):
+            if sh.N == 0:
+                q1s.append(q_m[s])
+                r1s.append(r_m[s])
+                r_next.append(r_u[s])
+                parts.append(self._zeros[s])
+                continue
+            r_new, part, q1, r1 = K.shard_fused_ba(
+                sh, bel[s], r_u[s], self.damping, q_m[s], r_m[s], pend[s])
+            q1s.append(q1)
+            r1s.append(r1)
+            r_next.append(r_new)
+            parts.append(part)
+        return (tuple(q1s), tuple(r1s), tuple(r_next), self._combine(parts),
+                tuple(active))
+
+    def draw_uniforms(self, n: int) -> List[torch.Tensor]:
+        """The activation uniforms of the next ``n`` cycles: one [n, N_s]
+        float32 array per shard, in shard order, on the CPU."""
+        return [torch.rand((n, sh.N), generator=self.coins)
+                for sh in self.shards]
 
     def values_of(self, bel: torch.Tensor) -> torch.Tensor:
         """Masked argmin per column (= variable), first index on ties."""
         mask_p = self.packs.common_on(bel.device)[1]
         return torch.argmin(torch.where(mask_p > 0, bel, PAD_COST), dim=0)
 
-    def run(self, cycles: int = 20, q=None, r=None):
+    def run(self, cycles: int = 20, q=None, r=None, seed: int = 0):
         """Run ``cycles`` sharded cycles; returns (values [V] on the host,
         q, r).  Pass the previous call's (q, r) to continue instead of
         restarting from zero messages (they are one opaque state,
-        validated against this solver)."""
+        validated against this solver).  ``seed`` seeds amaxsum's mask
+        draws at a fresh start."""
         if q is None or r is None:
             q, _ = self.init_messages()
+            self.coins.manual_seed(seed)
         else:
             self._validate_continuation(q, r)
-        r_u, bel = q
-        for _ in range(int(cycles)):
-            r_u, bel = self.cycle(r_u, bel)
-        state = (r_u, bel)
+        cycles = int(cycles)
+        state = q
+        if self.activation is None:
+            r_u, bel = state
+            for _ in range(cycles):
+                r_u, bel = self.cycle(r_u, bel)
+            state = (r_u, bel)
+        else:
+            draws = self.draw_uniforms(cycles)
+            masks = [(torch.as_tensor(u, dtype=torch.float32)
+                      < self.activation).float().to(dev)
+                     for u, dev in zip(draws, self.mesh)]
+            for c in range(cycles):
+                state = self.cycle_act(state, [m[c] for m in masks])
+        bel = state[-1 if self.activation is None else 3]
         values = self.values_of(bel[0]).cpu().numpy().astype(np.int32)
         return values, state, state
 
@@ -393,14 +469,14 @@ class ShardedLocalSearch(_ShardedEngine):
                 nm_parts.append(self._zeros[s][0])
                 gns.append(None)
                 continue
-            nm, gn = K.shard_route_gains(sh, gains[dev])
+            nm, *gn = K.shard_route_gains(sh, gains[dev])
             nm_parts.append(nm)
             gns.append(gn)
         neigh_max = {dev: torch.clamp_min(t, 0.0) for dev, t in
                      self._by_device(all_max(nm_parts, self.mesh)).items()}
         idx_parts = [
             self._big[s] if sh.N == 0
-            else K.tiebreak_idx_partial(sh, neigh_max[dev], gns[s])
+            else K.tiebreak_idx_partial(sh, neigh_max[dev], *gns[s])
             for s, (sh, dev) in enumerate(zip(self.shards, self.mesh))]
         idx_at_max = self._by_device(all_min(idx_parts, self.mesh))
         return {dev: K.mgm_decision(gains[dev],

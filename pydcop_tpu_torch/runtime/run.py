@@ -5,9 +5,9 @@ Equivalent capability to the reference's pydcop/infrastructure/run.py
 to tensors on the device → run synchronous rounds.  A ``Distribution``
 object (e.g. loaded from a distribution YAML) drives a sharded solve: the
 factors go to the shards of their host agents
-(:func:`_solve_under_placement`, maxsum only).  A distribution strategy
-given by name, checkpointing, warm-repair headroom and the elastic driver
-each refuse with :class:`~pydcop_tpu_torch.errors.NotPortedError`.
+(:func:`_solve_under_placement`, maxsum and amaxsum).  A distribution
+strategy given by name, checkpointing, warm-repair headroom and the
+elastic driver each refuse with :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -62,8 +62,8 @@ def solve_result(
     at ``timeout``.
 
     ``distribution`` as a ``Distribution`` object drives a sharded maxsum
-    solve (:func:`_solve_under_placement`) over ``n_shards`` shards of
-    ``device`` — by default one per visible device of its kind: the card
+    or amaxsum solve (:func:`_solve_under_placement`) over ``n_shards``
+    shards of ``device`` — by default one per visible device of its kind: the card
     count on cuda, 1 on the CPU.  ``shard_overlap`` and
     ``shard_boundary_threshold`` choose its collective path as in the JAX
     package (only the dense one is ported); they and ``n_shards`` apply
@@ -119,12 +119,13 @@ def _solve_under_placement(
     shard_boundary_threshold: float = 0.5,
     n_shards: Optional[int] = None,
 ) -> SolveResult:
-    """A sharded maxsum solve whose factor→shard assignment follows an
-    explicit placement: agents fold (sorted, round-robin) onto the shards
-    and each factor lands on its host agent's shard.  The complete
-    host-driven algorithms have no device placement to drive, so asking
-    for one fails loudly instead of being ignored; amaxsum (the JAX
-    package's other placement-driven algorithm) is not ported."""
+    """A sharded maxsum or amaxsum solve whose factor→shard assignment
+    follows an explicit placement: agents fold (sorted, round-robin) onto
+    the shards and each factor lands on its host agent's shard.  amaxsum
+    rides the same engine with its per-edge activation mask
+    (``ShardedMaxSum(activation=...)``).  The other algorithms have no
+    device placement to drive, so asking for one fails loudly instead of
+    being ignored."""
     import numpy as np
 
     from pydcop_tpu_torch.algorithms import DEFAULT_INFINITY
@@ -135,11 +136,7 @@ def _solve_under_placement(
     from pydcop_tpu_torch.runtime.stats import resolved_config
 
     name = algo.algo if isinstance(algo, AlgorithmDef) else algo
-    if name == "amaxsum":
-        raise NotPortedError(
-            "amaxsum is not ported to the PyTorch package yet (with it "
-            "comes the activation branch of the sharded MaxSum kernel)")
-    if name != "maxsum":
+    if name not in ("maxsum", "amaxsum"):
         raise ValueError(
             f"an explicit distribution can only drive device sharding "
             f"for the factor-graph BP family (maxsum/amaxsum), not "
@@ -157,8 +154,15 @@ def _solve_under_placement(
         )
     damping = algo_def.params.get("damping")
     damping = 0.5 if damping is None else float(damping)  # 0 is valid
+    activation = None
+    if algo_def.algo == "amaxsum":
+        from pydcop_tpu_torch.algorithms.amaxsum import DEFAULT_ACTIVATION
+
+        activation = float(
+            algo_def.params.get("activation", DEFAULT_ACTIVATION))
     sharded = ShardedMaxSum(tensors, mesh, damping=damping,
-                            assigns=assigns, overlap=shard_overlap,
+                            assigns=assigns, activation=activation,
+                            overlap=shard_overlap,
                             boundary_threshold=shard_boundary_threshold,
                             precision=algo_def.params.get("precision"))
     n_cycles = cycles or 30
@@ -193,7 +197,7 @@ def _solve_under_placement(
         time=perf_counter() - t0,
         shard=sharded.comm_stats(),
         config=resolved_config(
-            "maxsum", "sharded_mesh",
+            algo_def.algo, "sharded_mesh",
             overlap=shard_overlap or "default",
             boundary_threshold=shard_boundary_threshold,
             precision=sharded.precision,

@@ -3,8 +3,9 @@ of the JAX package (``pydcop_tpu``), not even its JAX-free modules.
 
 The test process itself has JAX loaded (``tests/conftest.py`` imports
 it), so the import check runs in a fresh interpreter: it imports the
-port (its sharded engines included), solves the tutorial instance on the
-CPU (maxsum, dpop, and maxsum sharded by a placement) and reports every
+port (its sharded engines and K3's wrapper included), solves the
+tutorial instance on the CPU (maxsum, dpop, maxsum and amaxsum sharded by
+a placement) and reports every
 JAX or JAX-package module that got loaded.  A source scan backs it up for code
 paths a single solve does not reach."""
 import ast
@@ -26,7 +27,8 @@ import pydcop_tpu_torch
 from pydcop_tpu_torch.cli import make_parser
 from pydcop_tpu_torch.dcop import load_dcop_from_file
 from pydcop_tpu_torch.ops import cuda_build, packed_dpop, packed_maxsum
-from pydcop_tpu_torch.ops import packed_sharded
+from pydcop_tpu_torch.ops import packed_sharded, permute
+from pydcop_tpu_torch.algorithms import amaxsum
 from pydcop_tpu_torch.distribution import Distribution, load_dist, yaml_dist
 from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
 from pydcop_tpu_torch.parallel import boundary, collectives, packed_mesh
@@ -40,10 +42,13 @@ dist = load_dist(yaml_dist(Distribution(
     {"a0": comps[0::2], "a1": comps[1::2]})))
 sharded = solve_result(dcop, "maxsum", distribution=dist, n_shards=2,
                        device="cpu")
+asharded = solve_result(dcop, "amaxsum", distribution=dist, n_shards=2,
+                        cycles=40, device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pydcop_tpu"))
 print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost,
-                  "sharded_cost": sharded.cost, "bad": bad}))
+                  "sharded_cost": sharded.cost,
+                  "amaxsum_status": asharded.status, "bad": bad}))
 """
 
 
@@ -57,6 +62,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["cost"] == 12 and got["dpop_cost"] == 12
     assert got["sharded_cost"] == 12
+    assert got["amaxsum_status"] == "FINISHED"
     assert got["bad"] == []
 
 

@@ -326,11 +326,28 @@ def _secp_tensors():
         device="cpu")
 
 
+def _wide_nary_tensors(arity=3, D=6):
+    """One factor of ``arity`` over D values: out of the packers' scope
+    (D <= 5 with a ternary or quaternary factor, arity <= 4)."""
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+
+    names = "xyzuvw"[:arity]
+    return compile_factor_graph(load_dcop(f"""
+name: wide
+objective: min
+domains: {{d: {{values: {list(range(D))}}}}}
+variables:
+{chr(10).join(f"  {n}: {{domain: d}}" for n in names)}
+constraints:
+  c: {{type: intention, function: "{' + '.join(names)}"}}
+agents: [a1]
+"""), device="cpu")
+
+
 REFUSALS = {
     "overlap_exact": lambda t: ShardedMaxSum(t, _cpu(2), overlap="exact"),
     "overlap_stale": lambda t: ShardedMaxSum(t, _cpu(2), overlap="stale"),
     "exchange": lambda t: ShardedMaxSum(t, _cpu(2), exchange=True),
-    "activation": lambda t: ShardedMaxSum(t, _cpu(2), activation=0.5),
     "precision_bf16": lambda t: ShardedMaxSum(t, _cpu(2), precision="bf16"),
     "sentinel": lambda t: ShardedMaxSum(t, _cpu(2), sentinel=True),
     "generic_engine": lambda t: ShardedMaxSum(t, _cpu(2), use_packed=False),
@@ -348,6 +365,16 @@ REFUSALS = {
     "edit_factor": lambda t: ShardedMaxSum(t, _cpu(2)).edit_factor(0, 0, 0),
     "state_to_host": lambda t: ShardedMaxSum(t, _cpu(2)).state_to_host(
         None, None),
+    "mixed_wide_ternary_maxsum": lambda t: ShardedMaxSum(
+        _wide_nary_tensors(), _cpu(2)),
+    "mixed_wide_ternary_local_search": lambda t: ShardedLocalSearch(
+        _wide_nary_tensors(), _cpu(2)),
+    "arity_5": lambda t: ShardedMaxSum(_wide_nary_tensors(5, 2), _cpu(2)),
+}
+#: what the refusals above used to hold and now runs: amaxsum's
+#: activation, and mixed-arity graphs on both engines
+LIFTED = {
+    "activation": lambda t: ShardedMaxSum(t, _cpu(2), activation=0.5),
     "mixed_maxsum": lambda t: ShardedMaxSum(_secp_tensors(), _cpu(2)),
     "mixed_local_search": lambda t: ShardedLocalSearch(_secp_tensors(),
                                                        _cpu(2)),
@@ -360,15 +387,27 @@ def test_unported_options_refuse(what):
         REFUSALS[what](_binary_tensors())
 
 
+@pytest.mark.parametrize("what", sorted(LIFTED))
+def test_lifted_refusals_run(what):
+    eng = LIFTED[what](_binary_tensors())
+    if isinstance(eng, ShardedMaxSum):
+        values, _, _ = eng.run(cycles=3)
+    else:
+        values = eng.run(cycles=3)
+    assert values.shape == (eng.packs.Vp,)
+    assert eng.packs.mixed == what.startswith("mixed")
+
+
 def test_unported_solve_paths_refuse():
     d = load_dcop_from_file([os.path.join(INST, "graph_coloring_tuto.yaml")])
     dist = _full_distribution(d, 3, Distribution)
     with pytest.raises(NotPortedError, match="by name"):
         solve_result(d, "maxsum", distribution="adhoc", device="cpu")
-    with pytest.raises(NotPortedError, match="amaxsum"):
-        solve_result(d, "amaxsum", distribution=dist, device="cpu")
-    with pytest.raises(ValueError, match="maxsum"):
-        solve_result(d, "dpop", distribution=dist, device="cpu")
+    res = solve_result(d, "amaxsum", distribution=dist, device="cpu")
+    assert res.status == "FINISHED" and res.config["algo"] == "amaxsum"
+    for algo in ("dpop", "mgm"):
+        with pytest.raises(ValueError, match="maxsum/amaxsum"):
+            solve_result(d, algo, distribution=dist, device="cpu")
     with pytest.raises(ValueError, match="n_shards"):
         solve_result(d, "maxsum", n_shards=2, device="cpu")
     big_d = tensors_from_numpy(numpy_fields(jax_compile_binary(

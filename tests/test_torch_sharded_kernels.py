@@ -10,7 +10,7 @@ Both packages shard the same compiled arrays with the same factor→shard
 assignment.  Their layouts differ (the TPU layout pads to 128 lanes and
 routes through Clos plans), so slot arrays are compared edge by edge
 through each layout's slot map (JAX ``slot_maps[s]``, the port's
-``slot_of_edge``, both over the shard's local edges ``p*F_s + k``) and
+``slot_of[2]``, both over the shard's local edges ``p*F_s + k``) and
 column arrays variable by variable (JAX ``var_order``; the port's column
 is the variable).  Tolerances: K7 ``np.allclose(atol=1e-4)`` on r_new and
 the partial beliefs (as the packed-vs-generic checks of the JAX tests),
@@ -159,14 +159,14 @@ def test_k7_plain_matches_jax(name, n_shards, s, damping):
     jbel, jr = _to_jax_cols(sp, bel), _to_jax_slots(sp, s, r)
     tbel = torch.as_tensor(bel)
     tr = torch.zeros((D, sh.N))
-    tr[:, sh.slot_of_edge] = torch.as_tensor(r)
+    tr[:, sh.slot_of[2]] = torch.as_tensor(r)
     args = (sp.cost_rows[s], sp.vmask[s], sp.inv_dcount[s],
             _shard_consts(sp, s), damping)
     for _ in range(2):  # the second launch from the first one's outputs
         jr, jpart = packed_shard_fused_ba(sp.pg0, jbel, jr, None, None,
                                           None, *args, interpret=True)
         tr, tpart = K.shard_fused_ba(sh, tbel, tr, damping)
-        np.testing.assert_allclose(tr.numpy()[:, sh.slot_of_edge],
+        np.testing.assert_allclose(tr.numpy()[:, sh.slot_of[2]],
                                    _jax_slots(sp, s, jr), atol=1e-4)
         np.testing.assert_allclose(tpart.numpy(), _jax_cols(sp, jpart),
                                    atol=1e-4)
@@ -204,7 +204,7 @@ def test_k8_plain_matches_jax(name, n_shards, s):
         sp.gmask1[s], interpret=True)
     tnm, tgn = K.shard_route_gains(sh, torch.as_tensor(gain))
     assert np.array_equal(tnm.numpy(), _jax_cols(sp, jnm)[0])
-    assert np.array_equal(tgn.numpy()[sh.slot_of_edge],
+    assert np.array_equal(tgn.numpy()[sh.slot_of[2]],
                           _jax_slots(sp, s, jgn)[0])
 
 
@@ -246,7 +246,7 @@ def test_move_rule_helpers_match_jax(name, n_shards, s):
     gain = _gains(rng, V)
     nm = np.maximum(_gains(rng, V), gain)  # a combined neighbourhood max
     _, gn = K.shard_route_gains(sh, torch.as_tensor(gain))
-    jgn = _to_jax_slots(sp, s, gn.numpy()[sh.slot_of_edge][None])
+    jgn = _to_jax_slots(sp, s, gn.numpy()[sh.slot_of[2]][None])
     jidx = _tiebreak_idx_partial(
         sp.pg0, _bucket_expand(sp.pg0, _to_jax_cols(sp, nm[None]), 1), jgn,
         sp.mate_idx[s])
@@ -278,7 +278,7 @@ def test_wrappers_check_their_operands():
 def _cuda_packs(name, n_shards):
     sp, packs = _both(name, n_shards)
     t = tensors_from_numpy(numpy_fields(INSTANCES[name]()), device="cuda")
-    assigns = [packs.assign]
+    assigns = packs.assigns
     return build_shard_packs(t, [torch.device("cuda")] * n_shards, assigns)
 
 

@@ -102,9 +102,9 @@ def test_unported_options_refuse():
     with pytest.raises(NotPortedError):
         solve_result(dcop, "maxsum", device="cpu",
                      algo_params={"precision": "bf16"})
-    with pytest.raises(ImportError, match="available: \\['adsa', 'dba', "
-                       "'dpop', 'dsa', 'dsatuto', 'gdba', 'maxsum', 'mgm', "
-                       "'mgm2', 'mixeddsa'\\]"):
+    with pytest.raises(ImportError, match="available: \\['adsa', 'amaxsum', "
+                       "'dba', 'dpop', 'dsa', 'dsatuto', 'gdba', 'maxsum', "
+                       "'mgm', 'mgm2', 'mixeddsa'\\]"):
         solve_result(dcop, "syncbb", device="cpu")
 
 
