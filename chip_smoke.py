@@ -53,18 +53,20 @@ printed.
    for each favor at threshold 0.5 (x equal after every cycle; offers,
    accepted pairs and pair moves printed; some graph must make pair
    moves);
-   sharded_kernel_vs_plain: the per-shard kernels K7 (shard_fused_ba),
-   K8 (shard_route_gains) and K9 (shard_tables) against their plain
-   versions on the same inputs, launch by launch inside 20-cycle sharded
-   runs on the card (maxsum at damping 0.5 and 0, mgm, dsa): the 10k/30k
-   and 100k/300k colourings at 8 shards, the degree-2,500 star and the
-   unequal-domains graph at 4, the hard colouring (K8's ties) at 8;
-   tolerance K7 atol 1e-4·(1+|x|), K8 and K9 max abs error 0; there
+   sharded_kernel_vs_plain: K7 (device_fused_ba) and K9 (device_tables),
+   one launch a cycle over the card's group of shards, and the per-shard
+   K8 (shard_route_gains) against their plain versions on the same
+   inputs, launch by launch inside 20-cycle sharded runs on the card
+   (maxsum at damping 0.5 and 0, mgm, dsa), exactly (max abs error 0):
+   the 10k/30k and 100k/300k colourings at 8 shards, the degree-2,500
+   star and the unequal-domains graph at 4, the hard colouring (K8's
+   ties) at 8, and the 10k/30k colouring with its 8 shards in two groups
+   on the card (the launches write partials, as on two cards); there
    also amaxsum (activation 0.7) through K7's activation branch;
    sharded_mixed_kernel_vs_plain: the mixed branches of K7 (with and
    without activation), K8 and K9 against their plain versions, launch
-   by launch, exactly (max abs error 0), on SECP-3.9k, SECP4-3.9k, the
-   mixed star and the ragged mixed graph at 4 and 8 shards;
+   by launch, exactly, on SECP-3.9k, SECP4-3.9k, the mixed star and the
+   ragged mixed graph at 4 and 8 shards, SECP4-3.9k also in two groups;
    lane_permute_kernel_vs_plain: K3 against its plain version and
    ``torch.index_select`` at [3, 30,000] and [3, 300,000], exactly;
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
@@ -93,21 +95,22 @@ printed.
    assignment and stop cycle equal to the CPU run, and the breakdown;
    main_path_sharded: ``solve_result`` with a placement of 8 agents
    (blocks of variables) over the 10k/30k colouring, ``n_shards=8``, 200
-   cycles on the card: 8 × 200 K7 launches, assignment, cost and cycle
+   cycles on the card: 200 K7 launches (one a cycle over the 8 shards,
+   the shard-order combine inside), assignment, cost and cycle
    equal to the same call on the CPU, and the number of values that
    differ from single-device maxsum (printed, not gated);
-   main_path_sharded_local_search: sharded mgm (8 × 200 K9 + 8 × 200 K8)
-   and dsa (8 × 200 K9), 200 cycles at 8 shards, values equal to the CPU
+   main_path_sharded_local_search: sharded mgm (200 K9 + 8 × 200 K8)
+   and dsa (200 K9), 200 cycles at 8 shards, values equal to the CPU
    run with the same start and coins;
    main_path_sharded_mixed: ``solve -d`` on SECP-3.9k with 8 agents, 8
-   shards, 200 cycles: one K7-mixed launch per shard holding factors and
-   cycle and no other kernel's, assignment, cost and cycle equal to the
+   shards, 200 cycles: one K7-mixed launch a cycle and no other
+   kernel's, assignment, cost and cycle equal to the
    CPU run; sharded mgm (K9- and K8-mixed), dsa and adsa (K9-mixed) on
    it, values equal to the CPU run;
    main_path_amaxsum: ``solve -a amaxsum`` on the 10k/30k colouring, one
    device, the generic engine (no kernel), equal to the CPU run;
    main_path_sharded_amaxsum: ``solve -d -a amaxsum`` on the 10k/30k
-   colouring (8 × 200 K7-activation launches) and on SECP-3.9k (the
+   colouring (200 K7-activation launches) and on SECP-3.9k (200 of the
    mixed kernel's activation branch), each equal to the CPU run;
    instances: every test instance solved on the card and on the CPU by
    every algorithm of the port: assignment, cost and stop cycle must be
@@ -118,8 +121,9 @@ printed.
    of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
    sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
-   arity <= 3 and <= 4 and the 39k SECP; K7-K9: ms per launch at 8
-   shards of the 10k/30k and 100k/300k colourings, and the sharded
+   arity <= 3 and <= 4 and the 39k SECP; K7 and K9: ms per cycle (one
+   launch) and K8 ms per launch at 8 shards of the 10k/30k and 100k/300k
+   colourings, and the sharded
    maxsum/mgm/dsa cycles/s; their mixed branches at SECP-3.9k and
    SECP-39k; K7's activation branch at 10k/30k, 100k/300k and SECP-3.9k
    with the sharded amaxsum cycles/s; single-device amaxsum cycles/s; K3
@@ -260,28 +264,35 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_us(run, names):
+def profile_us(run, names, tries=3):
     """Device time per launch of each kernel whose name contains one of
     ``names``, from torch.profiler's CUDA trace of ``run()`` (None for a
-    kernel the trace holds no device time for)."""
+    kernel the trace holds no device time for).  A trace that misses a
+    kernel is taken again, up to ``tries`` traces in all (the chip
+    machine's traces have dropped a kernel's records now and then)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
     out = {}
-    for name in names:
-        total_us, n = 0.0, 0
-        for e in prof.key_averages():
-            if name in e.key:
-                total_us += getattr(e, "device_time_total",
-                                    getattr(e, "cuda_time_total", 0.0))
-                n += e.count
-        out[name] = total_us / n if n and total_us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        for name in names:
+            total_us, n = 0.0, 0
+            for e in events:
+                if name in e.key:
+                    total_us += getattr(e, "device_time_total",
+                                        getattr(e, "cuda_time_total", 0.0))
+                    n += e.count
+            if out.get(name) is None:
+                out[name] = total_us / n if n and total_us else None
+        if all(v is not None for v in out.values()):
+            break
     return out
 
 
@@ -903,14 +914,14 @@ def read_counts():
             "dpop_value_level": whole_sweep.value_launches,
             "mgm2": packed_mgm2_cycles.launches,
             "mgm2_mixed": packed_mgm2_cycles.mixed_launches,
-            "shard_fused_ba": K.shard_fused_ba.launches,
+            "device_fused_ba": K.device_fused_ba.launches,
             "shard_route_gains": K.shard_route_gains.launches,
-            "shard_tables": K.shard_tables.launches,
-            "shard_fused_ba_mixed": K.shard_fused_ba.mixed_launches,
-            "shard_fused_ba_act": K.shard_fused_ba.act_launches,
-            "shard_fused_ba_mixed_act": K.shard_fused_ba.mixed_act_launches,
+            "device_tables": K.device_tables.launches,
+            "device_fused_ba_mixed": K.device_fused_ba.mixed_launches,
+            "device_fused_ba_act": K.device_fused_ba.act_launches,
+            "device_fused_ba_mixed_act": K.device_fused_ba.mixed_act_launches,
             "shard_route_gains_mixed": K.shard_route_gains.mixed_launches,
-            "shard_tables_mixed": K.shard_tables.mixed_launches,
+            "device_tables_mixed": K.device_tables.mixed_launches,
             "lane_permute": lane_permute.launches}
 
 
@@ -1060,25 +1071,26 @@ def is_mixed(dcop):
 SHARDS = 8
 
 
-def checked_kernels(errs, exact_only=False):
+def checked_kernels(errs):
     """Context manager: while active, the engines' K7/K8/K9 calls run the
     kernel AND its plain version on the same inputs, hold them together
-    (K7: atol 1e-4·(1+|x|), or exactly with ``exact_only``; K8, K9:
-    exactly) and carry on with the kernel's outputs.  ``errs`` collects
-    the max abs error per kernel and branch (``_mixed`` for a mixed
-    layout, ``_act`` for K7 with an activation row)."""
+    exactly (max abs error 0: K7 and K9 launch once per device over its
+    group of shards, K8 once per shard) and carry on with the kernel's
+    outputs.  ``errs`` collects the max abs error per kernel and branch
+    (``_mixed`` for a mixed layout, ``_act`` for K7 with an activation
+    row)."""
     import contextlib
 
     import torch
 
     from pydcop_tpu_torch.ops import packed_sharded as K
 
-    def check(base, kernel, plain, exact):
-        def run(sh, *args):
-            name = base + ("_mixed" if sh.mixed is not None else "") \
-                + ("_act" if len(args) > 3 else "")
-            k = kernel(sh, *args)  # counts on the wrapper's counters
-            p = plain(sh, *args)
+    def check(base, kernel, plain):
+        def run(where, *args):
+            name = base + ("_mixed" if getattr(where, "mixed", None)
+                           else "") + ("_act" if len(args) > 3 else "")
+            k = kernel(where, *args)  # counts on the wrapper's counters
+            p = plain(where, *args)
             ks = k if isinstance(k, tuple) else (k,)
             ps = p if isinstance(p, tuple) else (p,)
             torch.cuda.synchronize()
@@ -1086,46 +1098,59 @@ def checked_kernels(errs, exact_only=False):
                 d = (a.double() - b.double()).abs()
                 err = float(d.max()) if d.numel() else 0.0
                 errs[name] = max(errs.get(name, 0.0), err)
-                ok = (torch.equal(a, b) if exact else
-                      bool(torch.all(d <= TOL * (1 + b.double().abs()))))
-                if not ok:
+                if not torch.equal(a, b):
                     raise AssertionError(
-                        f"{name} shard {sh.index}: kernel differs from "
-                        f"plain (max abs error {err})")
+                        f"{name}: kernel differs from plain (max abs error "
+                        f"{err})")
             return k
         return run
 
     @contextlib.contextmanager
     def patched():
-        real = (K.shard_fused_ba, K.shard_route_gains, K.shard_tables)
-        K.shard_fused_ba = check("shard_fused_ba", real[0],
-                                 K.shard_fused_ba_plain, exact_only)
+        real = (K.device_fused_ba, K.shard_route_gains, K.device_tables)
+        K.device_fused_ba = check("device_fused_ba", real[0],
+                                  K.device_fused_ba_plain)
         K.shard_route_gains = check("shard_route_gains", real[1],
-                                    K.shard_route_gains_plain, True)
-        K.shard_tables = check("shard_tables", real[2],
-                               K.shard_tables_plain, True)
+                                    K.shard_route_gains_plain)
+        K.device_tables = check("device_tables", real[2],
+                                K.device_tables_plain)
         try:
             yield
         finally:
-            K.shard_fused_ba, K.shard_route_gains, K.shard_tables = real
+            K.device_fused_ba, K.shard_route_gains, K.device_tables = real
     return patched()
 
 
-def sharded_kernel_vs_plain(t, n_shards, cycles=20, exact_only=False):
-    """K7, K8 and K9 against their plain versions on the card, per shard
-    and per cycle, inside real sharded runs: maxsum at damping 0.5 and 0
-    (K7), amaxsum at activation 0.7 (K7's activation branch), mgm and
-    dsa (K9, K8 in mgm), ``cycles`` cycles each; on a mixed graph the
-    kernels' mixed branches.  Returns (errs per kernel and branch,
-    stats)."""
+def split_groups(devices):
+    """Two groups of shards (even, odd) on one card, as two cards would
+    hold them: each K7/K9 launch writes its shards' partials and the
+    engine adds them in shard order (the partials branch)."""
+    n = len(devices)
+    return [list(range(0, n, 2)), list(range(1, n, 2))]
+
+
+def sharded_kernel_vs_plain(t, n_shards, cycles=20, split=False):
+    """K7, K8 and K9 against their plain versions on the card, launch by
+    launch inside real sharded runs: maxsum at damping 0.5 and 0 (K7),
+    amaxsum at activation 0.7 (K7's activation branch), mgm and dsa (K9,
+    K8 in mgm), ``cycles`` cycles each; on a mixed graph the kernels'
+    mixed branches.  ``split``: the shards in two groups on the card
+    (:func:`split_groups`), so K7 and K9 write partials.  Returns (errs
+    per kernel and branch, stats)."""
+    import contextlib
+    from unittest import mock
+
     import torch
 
     from pydcop_tpu_torch.parallel import ShardedLocalSearch, \
-        ShardedMaxSum, build_mesh
+        ShardedMaxSum, build_mesh, packed_mesh
 
     errs = {}
     mesh = build_mesh(n_shards, "cuda")
-    with checked_kernels(errs, exact_only):
+    grouping = (mock.patch.object(packed_mesh, "_device_groups",
+                                  split_groups) if split
+                else contextlib.nullcontext())
+    with checked_kernels(errs), grouping:
         for damping in (0.5, 0.0):
             ShardedMaxSum(t, mesh, damping=damping).run(cycles)
         # amaxsum: K7's activation branch
@@ -1136,7 +1161,7 @@ def sharded_kernel_vs_plain(t, n_shards, cycles=20, exact_only=False):
             x0 = eng.run_chunked(0, seed=1)[1]
             _, x, _ = eng.run_chunked(cycles, x=x0, seed=1)
             moved[rule] = int((x != x0).sum())
-    packs = ShardedMaxSum(t, mesh).packs
+        packs = ShardedMaxSum(t, mesh).packs
     Ns = [sh.N for sh in packs.shards]
     torch.cuda.synchronize()
     extra = {}
@@ -1145,7 +1170,7 @@ def sharded_kernel_vs_plain(t, n_shards, cycles=20, exact_only=False):
             sum(len(sh.slot_of.get(a, ())) for sh in packs.shards)
             for a in (1, 2, 3, 4)]
     return errs, dict(
-        **extra,
+        **extra, groups=[list(g.index) for g in packs.groups],
         S=n_shards, N_min=min(Ns), N_max=max(Ns), Vp=packs.Vp, D=packs.D,
         max_shard_deg=max(int(sh.t_deg.max()) for sh in packs.shards),
         boundary_columns=packs.boundary.n_boundary,
@@ -1169,44 +1194,59 @@ def block_distribution(dcop, n_agents):
 
 
 def sharded_bytes_ops(packs, act=False):
-    """{kernel: (bytes, operations)} of one launch, averaged over the
-    shards that launch.  Each input read once, each output written once:
-    the combined beliefs / gains / values at the columns the shard
-    touches, each factor's table once (K7: D^a entries for an arity-a
-    factor, though the layout keeps a rotated copy per slot; K9 reads
-    the D entries its values select), the slot arrays (vmask,
-    inv_dcount, the gain masks, and the ints each slot's kernel reads:
-    on a mixed layout its arity and cost index and, for each of its
-    a - 1 siblings, the slot and column in K7 or the column in K9), the
-    four thread arrays; out r_new and
-    the [D, Vp] partial, or nm_part and the routed gains.  ``act`` adds
-    K7's activation operands: q_m, r_m and the active row in, q1 and r1
-    out."""
+    """{kernel: (bytes, operations)} of one launch.  K7 and K9 launch once
+    a cycle over the card's group of shards; each input is read once: the
+    combined beliefs (K7) or the values (K9) at the columns some shard
+    touches, once for the group, not once per shard; each factor's table
+    once (K7: D^a entries for an arity-a factor, though the layout keeps a
+    rotated copy per slot; K9 the D entries its values select); the slot
+    arrays (vmask, inv_dcount, and the ints each slot's kernel reads:
+    binary the mate and its column (K7) or the column (K9); mixed K7 the
+    cost index, the a - 1 siblings' slot and column and the phase-1 item
+    (slot, shard), mixed K9 the arity, the cost index and the a - 1
+    siblings' columns); the walk as the launch reads it (the threads'
+    columns, the column offsets, each slot's entry and shard in its
+    column's list, and the shard descriptors); the
+    unary row (K9 also the mask).  Out: r_new (K7) and ONE [D, Vp] result,
+    where the per-shard launches wrote S partials.  ``act`` adds K7's
+    activation operands: q_m, r_m and the active row in (and each slot's
+    column on a mixed layout), q1 and r1 out.  Operations: each slot's
+    pending sides, factor side, vmask, damping and partial add, and the
+    S + 1 adds a (column, value) of the combine.  K8 still launches once
+    per shard: its row is one launch's, averaged over the shards that
+    launch (each reads the gains at the columns it touches, its slots'
+    masks and sibling columns, its four walk arrays; writes nm_part and
+    the routed gains)."""
     D, Vp = packs.D, packs.Vp
-    rows = []
+    g = packs.groups[0]
+    S = len(g.shards)
+    touched = int(((g.cptr[1:] - g.cptr[:-1]) > 0).sum())
+    # corder, cptr, and each slot's entry and shard in the column lists
+    walk = Vp + (Vp + 1) + 2 * g.n_slots + 2 * 10 * S
+    k7 = D * touched + walk + 2 * D * Vp
+    k9 = touched + walk + 3 * D * Vp
+    ops7 = S * D * Vp
+    ops9 = S * D * Vp
+    k8_rows = []
     for sh in packs.shards:
         if not sh.N:
             continue
         N = sh.N
-        touched = int((sh.t_deg > 0).sum())
-        walk = 4 * Vp
         if sh.mixed is None:
             n_a = {2: N}
             sibs = 1
-            # mate and mate_col a slot
             ints7, ints9 = 2 * N, N
         else:
             n_a = {a: len(sh.slot_of.get(a, ())) for a in (1, 2, 3, 4)}
             sibs = 3
-            # arity and cost_idx a slot, and each of its a - 1 siblings'
-            # slot and column (K7) or column (K9)
-            ints7 = sum(n * 2 * a for a, n in n_a.items())
+            ints7 = sum(n * (2 * a + 1) for a, n in n_a.items())
             ints9 = sum(n * (a + 1) for a, n in n_a.items())
         table = sum(D ** a * n // a for a, n in n_a.items())
-        k7 = (D * touched + D * N + table + D * N + N + ints7
-              + walk + D * N + D * Vp)
+        k7 += D * N + table + D * N + N + ints7 + D * N
         if act:
             k7 += 2 * D * N + N + 2 * D * N
+            if sh.mixed is not None:
+                k7 += N
         # per slot: the pending side of each sibling (D subtractions, D
         # multiply-adds, D subtract-multiplies, one multiply), the factor
         # side (binary D adds and D-1 mins a value; arity a about
@@ -1214,26 +1254,28 @@ def sharded_bytes_ops(packs, act=False):
         side = sum(n * (a - 1) * (5 * D + 1) for a, n in n_a.items())
         factor = sum(n * (D * (2 * D - 1) if a == 2 else 3 * D ** a)
                      for a, n in n_a.items() if a > 1)
-        ops7 = side + factor + N * 5 * D
-        k8 = touched + sibs * N * 2 + walk + Vp + sibs * N
-        k9 = touched + D * N + ints9 + walk + D * Vp
-        rows.append(((4 * k7, ops7), (4 * k8, 2 * sibs * N),
-                     (4 * k9, D * N)))
-    n = len(rows)
-    return {name: (sum(r[i][0] for r in rows) / n,
-                   sum(r[i][1] for r in rows) / n)
-            for i, name in enumerate(("packed_shard_fused_ba",
-                                      "packed_shard_route_gains",
-                                      "packed_shard_tables"))}
+        ops7 += side + factor + N * 5 * D
+        k9 += D * N + ints9
+        ops9 += D * N
+        touched_s = int((sh.t_deg > 0).sum())
+        k8_rows.append((4 * (touched_s + sibs * N * 2 + 4 * Vp + Vp
+                             + sibs * N), 2 * sibs * N))
+    n = len(k8_rows)
+    return {"packed_shard_fused_ba": (4 * k7, ops7),
+            "packed_shard_route_gains": (
+                sum(r[0] for r in k8_rows) / n, sum(r[1] for r in k8_rows) / n),
+            "packed_shard_tables": (4 * k9, ops9)}
 
 
 def time_sharded(t, n_shards, reps=100, amaxsum=False):
-    """Per-launch ms (CUDA events over ``reps`` rounds of one launch per
-    shard), the plain versions' ms, device us per launch (profiler),
-    bounds, and the sharded cycles/s of maxsum, mgm and dsa (host clock
-    over 200 cycles, ending in a synchronize); on a mixed graph the
-    kernels' mixed branches.  ``amaxsum``: K7's activation branch at
-    activation 0.7 instead, and the sharded amaxsum cycles/s."""
+    """K7 and K9 per cycle (one launch a cycle over the card's group of
+    shards; CUDA events over ``reps`` back-to-back launches), K8 per
+    launch (``reps`` rounds of one launch per shard), the plain versions'
+    ms, device us per launch (profiler), bounds, and the sharded cycles/s
+    of maxsum, mgm and dsa (host clock over 200 cycles, ending in a
+    synchronize); on a mixed graph the kernels' mixed branches.
+    ``amaxsum``: K7's activation branch at activation 0.7 instead, and the
+    sharded amaxsum cycles/s."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_sharded as K
@@ -1243,62 +1285,56 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
     mesh = build_mesh(n_shards, "cuda")
     ms_eng = ShardedMaxSum(t, mesh, activation=0.7 if amaxsum else None)
     packs = ms_eng.packs
+    g = packs.groups[0]
     mixed = "_mixed" if packs.mixed else ""
     live = [sh for sh in packs.shards if sh.N]
     _, state, _ = ms_eng.run(5)
     bo = sharded_bytes_ops(packs, act=amaxsum)
     if amaxsum:
         q_m, r_m, r_u, bel, _ = state
-        g = torch.Generator(device="cpu").manual_seed(0)
-        act = [(torch.rand(sh.N, generator=g) < 0.7).float().cuda()
-               for sh in packs.shards]
-
-        def k7(sh):
-            s = sh.index
-            return (sh, bel[s], r_u[s], 0.5, q_m[s], r_m[s], act[s])
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        act = (torch.rand(g.n_slots, generator=gen) < 0.7).float().to(
+            g.device)
+        k7 = (g, bel[0], g.slab_of(r_u), 0.5, g.slab_of(q_m),
+              g.slab_of(r_m), act)
         calls = {"packed_shard_fused_ba": (
-            lambda sh: K.shard_fused_ba(*k7(sh)),
-            lambda sh: K.shard_fused_ba_plain(*k7(sh)),
-            f"shard_fused_ba{mixed}_kernel")}
+            lambda: K.device_fused_ba(*k7),
+            lambda: K.device_fused_ba_plain(*k7),
+            "device_fused_ba_kernel", 1)}
     else:
         r_u, bel = state
+        r = g.slab_of(r_u)
         ls = ShardedLocalSearch(t, mesh, rule="mgm")
         x = ls.run_chunked(5, seed=0)[1]
-        unary_p, mask_p, _ = packs.common_on(x.device)
-        tables = torch.where(mask_p > 0, unary_p + sum(
-            K.shard_tables(sh, x) for sh in live), 1e30)
-        gain = K.cur_best_gain(tables, x, False)[2]
+        gain = K.cur_best_gain(K.device_tables(g, x), x, False)[2]
         calls = {
             "packed_shard_fused_ba": (
-                lambda sh: K.shard_fused_ba(sh, bel[sh.index],
-                                            r_u[sh.index], 0.5),
-                lambda sh: K.shard_fused_ba_plain(sh, bel[sh.index],
-                                                  r_u[sh.index], 0.5),
-                f"shard_fused_ba{mixed}_kernel"),
+                lambda: K.device_fused_ba(g, bel[0], r, 0.5),
+                lambda: K.device_fused_ba_plain(g, bel[0], r, 0.5),
+                "device_fused_ba_kernel", 1),
             "packed_shard_route_gains": (
-                lambda sh: K.shard_route_gains(sh, gain),
-                lambda sh: K.shard_route_gains_plain(sh, gain),
-                f"shard_route_gains{mixed}_kernel"),
+                lambda: [K.shard_route_gains(sh, gain) for sh in live],
+                lambda: [K.shard_route_gains_plain(sh, gain) for sh in live],
+                f"shard_route_gains{mixed}_kernel", len(live)),
             "packed_shard_tables": (
-                lambda sh: K.shard_tables(sh, x),
-                lambda sh: K.shard_tables_plain(sh, x),
-                f"shard_tables{mixed}_kernel"),
+                lambda: K.device_tables(g, x),
+                lambda: K.device_tables_plain(g, x),
+                f"device_tables{mixed}_kernel", 1),
         }
     out = {}
-    for name, (kern, plain, kname) in calls.items():
-        def rounds(fn, n):
-            for _ in range(n):
-                for sh in live:
-                    fn(sh)
-        rounds(kern, 3)  # warm-up
-        ms = cuda_ms(lambda: rounds(kern, reps), 1) / (reps * len(live))
-        plain_ms = cuda_ms(lambda: rounds(plain, 3), 1) / (3 * len(live))
-        device_us = profile_us(lambda: rounds(kern, 10), [kname])[kname]
+    for name, (kern, plain, kname, per_cycle) in calls.items():
+        for _ in range(3):  # warm-up
+            kern()
+        cycle_ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 3)
+        device_us = profile_us(lambda: [kern() for _ in range(10)],
+                               [kname])[kname]
         bound, by = bound_of(*bo[name])
         out[name + mixed + ("_act" if amaxsum else "")] = dict(
-            kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-            bytes_per_launch=bo[name][0], profiler_kernel_us=device_us,
-            launches_per_cycle=len(live))
+            kernel_ms=cycle_ms / per_cycle, plain_ms=plain_ms / per_cycle,
+            bound_ms=bound, bound_by=by, bytes_per_launch=bo[name][0],
+            profiler_kernel_us=device_us, launches_per_cycle=per_cycle,
+            ms_per_cycle=cycle_ms)
     rates = {}
     if amaxsum:
         runs = (("amaxsum", lambda: ms_eng.run(200)),)
@@ -1316,6 +1352,76 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
         torch.cuda.synchronize()
         rates[label] = 200 / (time.perf_counter() - t0)
     return out, rates
+
+
+#: one A/B turn (run in a fresh process from the root of a tree, the
+#: tree's own chip_smoke.py and kernels): K7 (maxsum and amaxsum) and the
+#: local-search kernels at 8 shards on the four sharded sizes, through the
+#: tree's ``time_sharded``, as per-cycle rows
+AB_TURN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as C
+from pydcop_tpu_torch.ops import cuda_build
+from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays, \
+    compile_factor_graph
+cuda_build.build_all()
+dev = torch.device("cuda")
+graphs = {}
+for name, V, E in (("10k_30k", 10_000, 30_000),
+                   ("100k_300k", 100_000, 300_000)):
+    ei, ej, mats, un = C.coloring_arrays(V, E)
+    graphs[name] = compile_binary_from_arrays(ei, ej, mats, V, unary=un,
+                                              device=dev)
+graphs["secp_3.9k"] = compile_factor_graph(C.secp_dcop(1, 2), device=dev)
+graphs["secp4_39k"] = compile_factor_graph(
+    C.secp_dcop(C.SECP_BIG_SCALE, 3), device=dev)
+for name, t in graphs.items():
+    for amaxsum in (False, True):
+        out, rates = C.time_sharded(t, C.SHARDS, amaxsum=amaxsum)
+        for k, row in out.items():
+            n = row["launches_per_cycle"]
+            us = row["profiler_kernel_us"]
+            print(json.dumps({
+                "size": name, "kernel": k, "launches_per_cycle": n,
+                "ms_per_cycle": row["kernel_ms"] * n,
+                "device_us_per_cycle": None if us is None else us * n,
+                "bound_ms_per_cycle": row["bound_ms"] * n,
+                "plain_ms_per_cycle": row["plain_ms"] * n}), flush=True)
+        print(json.dumps({"size": name, "amaxsum": amaxsum,
+                          "cycles_per_s": rates}), flush=True)
+"""
+
+
+def ab_sharded(parent):
+    """The sharded kernels of the tree at ``parent`` against this tree's,
+    on this card, in turns: parent, change, change, parent; each turn a
+    fresh process in its tree (:data:`AB_TURN`).  Prints one JSON line a
+    row, tagged with the turn and the tree, and writes them to
+    ``chiprun_out/ab_sharded.jsonl``."""
+    rows = []
+    for turn, (label, tree) in enumerate((("parent", parent), ("change", ROOT),
+                                          ("change", ROOT),
+                                          ("parent", parent))):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", AB_TURN], cwd=tree,
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            fail("ab_sharded", f"{label} turn {turn}: rc={proc.returncode} "
+                 f"{proc.stderr[-3000:]}")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("{"):
+                row = dict(json.loads(ln), turn=turn, tree=label)
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+        say("ab_sharded", turn=turn, tree=label,
+            seconds=round(time.perf_counter() - t0, 3))
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "ab_sharded.jsonl"),
+              "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    return rows
 
 
 def amaxsum_rate(dcop, cycles=200):
@@ -1414,6 +1520,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
+    if sys.argv[1:2] == ["--ab"]:
+        # python3 chip_smoke.py --ab PARENT_TREE: the A/B of the sharded
+        # kernels only (no other phase, no result lines)
+        say("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0))
+        ab_sharded(os.path.abspath(sys.argv[2]))
+        print(smi, flush=True)
+        return
     build_s = cuda_build.build_all()
     ptxas = " | ".join(
         ln.strip() for log in cuda_build.build_logs.values()
@@ -1577,28 +1690,31 @@ def main():
         fail("mgm2_kernel_vs_plain", "no mixed graph made a pair move: the "
              "pairing of the mixed branch went unchecked")
 
-    # the per-shard kernels K7-K9 against their plain versions, launch by
-    # launch inside real sharded runs on the card
+    # K7 and K9 (one launch per cycle over the card's group of shards) and
+    # K8 (per shard) against their plain versions, launch by launch inside
+    # real sharded runs on the card, exactly; "split": the shards in two
+    # groups on the card, so K7 and K9 write partials
     sharded_cases = {
-        "coloring_10k_30k": (primary_t, SHARDS),
-        "coloring_100k_300k": (big_t, SHARDS),
-        "star_deg2500": (star_tensors(2500, dev), 4),
+        "coloring_10k_30k": (primary_t, SHARDS, False),
+        "coloring_10k_30k_split": (primary_t, SHARDS, True),
+        "coloring_100k_300k": (big_t, SHARDS, False),
+        "star_deg2500": (star_tensors(2500, dev), 4, False),
         "unequal_domains_d4": (
-            unequal_domains_tensors(5000, 15_000, 4, dev), 4),
+            unequal_domains_tensors(5000, 15_000, 4, dev), 4, False),
         "hard_coloring_10k_30k": (
-            hard_coloring_tensors(10_000, 30_000, dev), SHARDS),
+            hard_coloring_tensors(10_000, 30_000, dev), SHARDS, False),
     }
     sharded_err = {}
-    for name, (t, n_shards) in sharded_cases.items():
+    for name, (t, n_shards, split) in sharded_cases.items():
         t0 = time.perf_counter()
         try:
-            errs, stats = sharded_kernel_vs_plain(t, n_shards)
+            errs, stats = sharded_kernel_vs_plain(t, n_shards, split=split)
         except AssertionError as e:
             fail("sharded_kernel_vs_plain", f"{name}: {e}")
         for k, v in errs.items():
             sharded_err[k] = max(sharded_err.get(k, 0.0), v)
-        if set(errs) != {"shard_fused_ba", "shard_fused_ba_act",
-                         "shard_route_gains", "shard_tables"}:
+        if set(errs) != {"device_fused_ba", "device_fused_ba_act",
+                         "shard_route_gains", "device_tables"}:
             fail("sharded_kernel_vs_plain", f"{name}: only {sorted(errs)} "
                  f"were checked")
         say("sharded_kernel_vs_plain", case=name, cycles=20,
@@ -1611,23 +1727,27 @@ def main():
     for name in ("secp_3.9k", "secp4_3.9k", "mixed_star_deg2500",
                  "ragged_mixed_d4"):
         t = compile_factor_graph(mixed_dcops[name], device=dev)
-        for n_shards in (4, SHARDS):
+        for n_shards, split in ((4, False), (SHARDS, False), (SHARDS, True)):
+            if split and name != "secp4_3.9k":
+                continue
             t0 = time.perf_counter()
             try:
                 errs, stats = sharded_kernel_vs_plain(t, n_shards,
-                                                      exact_only=True)
+                                                      split=split)
             except AssertionError as e:
                 fail("sharded_mixed_kernel_vs_plain", f"{name} S={n_shards}:"
                      f" {e}")
             for k, v in errs.items():
                 sharded_mixed_err[k] = max(sharded_mixed_err.get(k, 0.0), v)
-            if set(errs) != {"shard_fused_ba_mixed", "shard_fused_ba_mixed_act",
-                             "shard_route_gains_mixed", "shard_tables_mixed"}:
+            if set(errs) != {"device_fused_ba_mixed",
+                             "device_fused_ba_mixed_act",
+                             "shard_route_gains_mixed",
+                             "device_tables_mixed"}:
                 fail("sharded_mixed_kernel_vs_plain", f"{name}: only "
                      f"{sorted(errs)} were checked")
             say("sharded_mixed_kernel_vs_plain", case=name, cycles=20,
-                max_abs_err=errs, seconds=round(time.perf_counter() - t0, 3),
-                **stats)
+                split=split, max_abs_err=errs,
+                seconds=round(time.perf_counter() - t0, 3), **stats)
 
     # K3: the lane permutation against its plain version (no caller on
     # any path of the port or of the JAX package)
@@ -1834,8 +1954,9 @@ def main():
             **breakdown(csp, algo, cycles, dev))
 
     # the sharded path: solve -d with a placement of 8 agents, 8 shards on
-    # the card, each cycle 8 K7 launches and one ordered sum; the card is
-    # held to the CPU run (the plain versions) of the same shards
+    # the card, each cycle one K7 launch over the 8 shards with the ordered
+    # sum inside; the card is held to the CPU run (the plain versions) of
+    # the same shards
     from pydcop_tpu_torch.ops.compile import compile_constraint_graph
     from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
 
@@ -1848,11 +1969,11 @@ def main():
     solve_s = time.perf_counter() - t0
     counts = read_counts()
     want = {k: 0 for k in counts}
-    want["shard_fused_ba"] = SHARDS * cycles
+    want["device_fused_ba"] = cycles
     if counts != want:
         fail("main_path_sharded", f"launches {counts} in a {cycles}-cycle "
              f"{SHARDS}-shard solve, expected {want}")
-    main_launches.update(shard_fused_ba=counts["shard_fused_ba"])
+    main_launches.update(device_fused_ba=counts["device_fused_ba"])
     cpu = solve_result(dcop, "maxsum", distribution=dist, n_shards=SHARDS,
                        cycles=cycles, device="cpu")
     if res.status != "FINISHED" or res.cycle != cycles \
@@ -1881,9 +2002,11 @@ def main():
     # start and coins (drawn on the CPU from the seed)
     cg_cuda = compile_constraint_graph(dcop, device=dev)
     cg_cpu = compile_constraint_graph(dcop, device="cpu")
+    # (one K9 launch a cycle; K8 one a shard)
     for rule, expect in (
-            ("mgm", {"shard_tables": cycles, "shard_route_gains": cycles}),
-            ("dsa", {"shard_tables": cycles})):
+            ("mgm", {"device_tables": cycles,
+                     "shard_route_gains": SHARDS * cycles}),
+            ("dsa", {"device_tables": cycles})):
         eng = ShardedLocalSearch(cg_cuda, build_mesh(SHARDS, "cuda"),
                                  rule=rule)
         reset_counts()
@@ -1892,7 +2015,7 @@ def main():
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = read_counts()
-        want = {k: SHARDS * expect.get(k, 0) for k in counts}
+        want = {k: expect.get(k, 0) for k in counts}
         if counts != want:
             fail("main_path_sharded_local_search", f"{rule}: launches "
                  f"{counts}, expected {want}")
@@ -1917,7 +2040,7 @@ def main():
 
     # the sharded path on a mixed-arity graph: solve -d on the bench's
     # SECP with 8 agents, 8 shards on the card, each cycle one K7-mixed
-    # launch per shard; held to the CPU run of the same shards
+    # launch over them; held to the CPU run of the same shards
     def solve_d(dcop_, algo, expect_key, phase, instance, params=None):
         dist_ = block_distribution(dcop_, SHARDS)
         reset_counts()
@@ -1932,7 +2055,7 @@ def main():
             dist_, compile_factor_graph(dcop_, device="cpu"), SHARDS)
         live = len(set(np.concatenate([np.asarray(a) for a in assigns_])))
         want = {k: 0 for k in counts}
-        want[expect_key] = live * cycles
+        want[expect_key] = cycles
         if counts != want:
             fail(phase, f"{algo} on {instance}: launches {counts} in a "
                  f"{cycles}-cycle {SHARDS}-shard solve, expected {want}")
@@ -1957,8 +2080,8 @@ def main():
             msg_count=res.msg_count, solve_s=round(solve_s, 3))
         return counts[expect_key]
 
-    main_launches["shard_fused_ba_mixed"] = solve_d(
-        secp, "maxsum", "shard_fused_ba_mixed", "main_path_sharded_mixed",
+    main_launches["device_fused_ba_mixed"] = solve_d(
+        secp, "maxsum", "device_fused_ba_mixed", "main_path_sharded_mixed",
         "secp_3.9k")
 
     # sharded mgm (K9 + K8 mixed), dsa and adsa (K9 mixed) on the SECP, 8
@@ -1966,10 +2089,10 @@ def main():
     secp_cuda = compile_constraint_graph(secp, device=dev)
     secp_cpu = compile_constraint_graph(secp, device="cpu")
     for rule, expect in (
-            ("mgm", {"shard_tables_mixed": cycles,
-                     "shard_route_gains_mixed": cycles}),
-            ("dsa", {"shard_tables_mixed": cycles}),
-            ("adsa", {"shard_tables_mixed": cycles})):
+            ("mgm", {"device_tables_mixed": 1,
+                     "shard_route_gains_mixed": SHARDS}),
+            ("dsa", {"device_tables_mixed": 1}),
+            ("adsa", {"device_tables_mixed": 1})):
         eng = ShardedLocalSearch(secp_cuda, build_mesh(SHARDS, "cuda"),
                                  rule=rule)
         live = sum(1 for sh in eng.packs.shards if sh.N)
@@ -1979,7 +2102,8 @@ def main():
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = read_counts()
-        want = {k: live * expect.get(k, 0) for k in counts}
+        # K9 once a cycle; K8 once a cycle per shard holding factors
+        want = {k: cycles * min(expect.get(k, 0), live) for k in counts}
         if counts != want:
             fail("main_path_sharded_mixed", f"{rule}: launches {counts}, "
                  f"expected {want}")
@@ -2027,13 +2151,13 @@ def main():
         solve_s=round(solve_s, 3), harness=res.metrics()["harness"])
 
     # sharded amaxsum: solve -d with 8 agents, each cycle one K7
-    # activation launch per shard (the binary colouring, then the SECP
-    # through the mixed kernel's activation branch)
-    main_launches["shard_fused_ba_act"] = solve_d(
-        dcop, "amaxsum", "shard_fused_ba_act", "main_path_sharded_amaxsum",
+    # activation launch over the 8 shards (the binary colouring, then the
+    # SECP through the mixed kernel's activation branch)
+    main_launches["device_fused_ba_act"] = solve_d(
+        dcop, "amaxsum", "device_fused_ba_act", "main_path_sharded_amaxsum",
         "coloring_10k_30k")
-    main_launches["shard_fused_ba_mixed_act"] = solve_d(
-        secp, "amaxsum", "shard_fused_ba_mixed_act",
+    main_launches["device_fused_ba_mixed_act"] = solve_d(
+        secp, "amaxsum", "device_fused_ba_mixed_act",
         "main_path_sharded_amaxsum", "secp_3.9k")
 
     # every test instance, by every algorithm of the port, on the card
@@ -2253,35 +2377,35 @@ def main():
          mixed_mgm2_err),
         ("packed_shard_fused_ba", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:180",
-         main_launches["shard_fused_ba"], sharded_err["shard_fused_ba"]),
+         main_launches["device_fused_ba"], sharded_err["device_fused_ba"]),
         ("packed_shard_route_gains", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:258",
          main_launches["shard_route_gains_mgm"],
          sharded_err["shard_route_gains"]),
         ("packed_shard_tables", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:319",
-         main_launches["shard_tables_mgm"], sharded_err["shard_tables"]),
+         main_launches["device_tables_mgm"], sharded_err["device_tables"]),
         ("packed_shard_fused_ba_act", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:180",
-         main_launches["shard_fused_ba_act"],
-         sharded_err["shard_fused_ba_act"]),
+         main_launches["device_fused_ba_act"],
+         sharded_err["device_fused_ba_act"]),
         ("packed_shard_fused_ba_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:180",
-         main_launches["shard_fused_ba_mixed"],
-         sharded_mixed_err["shard_fused_ba_mixed"]),
+         main_launches["device_fused_ba_mixed"],
+         sharded_mixed_err["device_fused_ba_mixed"]),
         ("packed_shard_fused_ba_mixed_act",
          "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:180",
-         main_launches["shard_fused_ba_mixed_act"],
-         sharded_mixed_err["shard_fused_ba_mixed_act"]),
+         main_launches["device_fused_ba_mixed_act"],
+         sharded_mixed_err["device_fused_ba_mixed_act"]),
         ("packed_shard_route_gains_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:258",
          main_launches["shard_route_gains_mixed_mgm"],
          sharded_mixed_err["shard_route_gains_mixed"]),
         ("packed_shard_tables_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:319",
-         main_launches["shard_tables_mixed_mgm"],
-         sharded_mixed_err["shard_tables_mixed"]),
+         main_launches["device_tables_mixed_mgm"],
+         sharded_mixed_err["device_tables_mixed"]),
         # K3 has no caller on any path of the port (nor of the JAX
         # package): no main-path launch to count
         ("lane_permute", "pydcop_tpu_torch/csrc/permute.cu",

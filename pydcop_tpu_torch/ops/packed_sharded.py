@@ -1,36 +1,48 @@
-"""Per-shard kernels of the sharded engines (all-binary and mixed-arity
-branches, and MaxSum's activation branch).
+"""Kernels of the sharded engines (all-binary and mixed-arity branches,
+and MaxSum's activation branch).
 
-The counterpart of the JAX package's ``ops/pallas_sharded.py``.  Each
-kernel computes ONE shard's part of a cycle on that shard's layout
-(:class:`~pydcop_tpu_torch.parallel.packed_mesh.ShardLayout`) and device;
-the engines (``parallel/mesh.py``) combine the shards' partials with the
-ordered collectives of ``parallel/collectives.py``:
+The counterpart of the JAX package's ``ops/pallas_sharded.py``.  There
+each kernel computes one shard's part of a cycle, one shard per device,
+and ``psum`` combines them.  Here K7 and K9 launch once per DEVICE per
+cycle, over the group of shards the device holds
+(:class:`~pydcop_tpu_torch.parallel.packed_mesh.ShardGroup`), with the
+shard-order combine inside the launch:
 
-* :func:`shard_fused_ba` (K7, ``packed_shard_fused_ba``) — one sharded
-  MaxSum cycle, rotated: the previous cycle's variable side (expand the
-  combined beliefs to the slots, subtract r, centre on the valid values'
-  mean) then this cycle's factor side (min over the cost rows plus the
-  siblings' q — the arity-masked update on a mixed layout — vmask,
-  damping) and the per-column partial beliefs.  With an activation row
-  (amaxsum) the commit selects of the previous cycle run between the
-  two sides: ``q1 = active ? q : q_m`` at every slot, ``r1 = active ?
-  r_u : r_m``, damping against ``r1``, and the launch also returns q1
-  and r1, the next masked carry;
-* :func:`shard_route_gains` (K8, ``packed_shard_route_gains``) — the
-  shard's half of MGM's arbitration: each slot's siblings' gains (one on
-  a binary layout; three rows, masked by arity, on a mixed one) and the
-  per-column maximum over the shard's slots;
-* :func:`shard_tables` (K9, ``packed_shard_tables``) — the shard's partial
-  local cost tables at the current assignment, without unary costs.
+* :func:`device_fused_ba` (K7, ``packed_shard_fused_ba``) — one sharded
+  MaxSum cycle of every shard of the group, rotated: the previous cycle's
+  variable side (expand the combined beliefs to the slots, subtract r,
+  centre on the valid values' mean) then this cycle's factor side (min
+  over the cost rows plus the siblings' q — the arity-masked update on a
+  mixed layout — vmask, damping), and the beliefs: unary + the shards'
+  partials added in shard order (a whole group), or the partials.  With
+  an activation row (amaxsum) the commit selects of the previous cycle
+  run between the two sides: ``q1 = active ? q : q_m`` at every slot,
+  ``r1 = active ? r_u : r_m``, damping against ``r1``, and the launch
+  also returns q1 and r1, the next masked carry;
+* :func:`device_tables` (K9, ``packed_shard_tables``) — the local cost
+  tables at the current assignment: ``where(mask > 0, unary + the
+  shards' partials in shard order, PAD_COST)``, or the partials;
+* :func:`shard_route_gains` (K8, ``packed_shard_route_gains``) — still
+  one launch per shard: the shard's half of MGM's arbitration, each
+  slot's siblings' gains (one on a binary layout; three rows, masked by
+  arity, on a mixed one) and the per-column maximum over its slots.
+
+The group's slot operands are slabs: one allocation per operand, shard
+k's ``[R, N_k]`` piece contiguous at ``R * soff[k]`` (the shards'
+``ShardLayout`` fields are views of them).  The state K7 takes and
+returns is laid out the same way: ``r_u``, ``q_m``, ``r_m``, ``r_new``,
+``q1``, ``r1`` are ``[D * n_slots]`` slabs and ``active`` an
+``[n_slots]`` one (:meth:`ShardGroup.views` cuts them per shard).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/sharded.cu``)
 on CUDA tensors and counts the launch, per branch: ``.launches`` (the
 binary kernel), ``.mixed_launches`` (the mixed one), and for K7
 ``.act_launches`` / ``.mixed_act_launches`` (with activation).  On CPU
-tensors it runs the plain PyTorch version beside it, the same arithmetic
-in the same order.  A build or launch failure on CUDA raises; nothing
-falls back.
+tensors it runs the plain PyTorch version beside it: the per-shard plain
+versions (:func:`shard_fused_ba_plain`, :func:`shard_tables_plain`, the
+arithmetic of one shard, what the tests hold against the JAX package's
+per-shard Pallas kernels) followed by the same ordered combine.  A build
+or launch failure on CUDA raises; nothing falls back.
 
 The rest of a cycle — the variable side after the combine, MGM's
 tie-break partial and decision (``_cur_best_gain``,
@@ -47,12 +59,14 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from pydcop_tpu_torch.ops.compile import PAD_COST
 from pydcop_tpu_torch.ops.packed_maxsum import ARITIES, MAX_D, \
     MAX_D_NARY, _mixed_r_new
 from pydcop_tpu_torch.ops.segments import ordered_sum
 
 if TYPE_CHECKING:  # the layout module imports nothing of this one
-    from pydcop_tpu_torch.parallel.packed_mesh import ShardLayout
+    from pydcop_tpu_torch.parallel.packed_mesh import ShardGroup, \
+        ShardLayout
 
 #: float-encoded "no neighbour at the maximum" (``_BIG_IDX``)
 BIG_IDX = 1e9
@@ -218,18 +232,79 @@ def mgm_decision(gain, idx_row, neigh_max, idx_at_max) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# plain versions of the device-level launches
+# ---------------------------------------------------------------------------
+
+
+def _combined(group: ShardGroup, parts, fill=None) -> torch.Tensor:
+    """The group's per-shard [R, Vp] partials, as the device-level kernel
+    writes them: ``unary + ((p_0 + p_1) + ...)`` in shard order for a
+    whole group (``fill``: where(mask > 0, that, fill)), else stacked
+    [S, R, Vp]."""
+    if not group.whole:
+        return torch.stack(parts)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    out = group.unary_p + total
+    if fill is None:
+        return out
+    return torch.where(group.mask_p > 0, out, fill)
+
+
+def device_fused_ba_plain(group: ShardGroup, bel_g: torch.Tensor,
+                          r_u: torch.Tensor, damping: float,
+                          q_m: Optional[torch.Tensor] = None,
+                          r_m: Optional[torch.Tensor] = None,
+                          active: Optional[torch.Tensor] = None):
+    """K7 over a device's group of shards: :func:`shard_fused_ba_plain` on
+    each shard's views of the slabs, then the shards' partials combined
+    in shard order (:func:`_combined`).  Returns (r_new slab, result)
+    and with ``active`` also the (q1, r1) slabs."""
+    D = group.D
+    rs = group.views(r_u, D)
+    acts = ([None] * 3 if active is None else
+            [group.views(q_m, D), group.views(r_m, D),
+             group.views(active, None)])
+    outs = []
+    for k, sh in enumerate(group.shards):
+        extra = [] if active is None else [a[k] for a in acts]
+        if sh.N == 0:  # launches nothing, adds +0
+            zero = torch.zeros((D, group.Vp), dtype=torch.float32,
+                               device=bel_g.device)
+            outs.append((rs[k], zero, *extra[:2]))
+            continue
+        outs.append(shard_fused_ba_plain(sh, bel_g, rs[k], damping, *extra))
+    r_new = group.slab_of([o[0] for o in outs])
+    result = _combined(group, [o[1] for o in outs])
+    if active is None:
+        return r_new, result
+    return (r_new, result, group.slab_of([o[2] for o in outs]),
+            group.slab_of([o[3] for o in outs]))
+
+
+def device_tables_plain(group: ShardGroup, x: torch.Tensor) -> torch.Tensor:
+    """K9 over a device's group of shards: :func:`shard_tables_plain` per
+    shard, then ``where(mask > 0, unary + ordered sum, PAD_COST)`` for a
+    whole group, else the stacked partials."""
+    parts = [shard_tables_plain(sh, x) if sh.N else torch.zeros(
+        (group.D, group.Vp), dtype=torch.float32, device=x.device)
+        for sh in group.shards]
+    return _combined(group, parts, PAD_COST)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 _fns = {}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "shard_fused_ba": [P] * 18 + [I] * 3 + [F, F, I, P],
-    "shard_fused_ba_mixed": [P] * 27 + [I] * 7 + [F, F, I, P],
+    "device_fused_ba": [P] * 32 + [I] * 4 + [F, F, I, I, P, P],
+    "device_tables": [P] * 11 + [I] * 3 + [F, P],
+    "device_tables_mixed": [P] * 18 + [I] * 4 + [F, P],
     "shard_route_gains": [P] * 9 + [I] * 2 + [P],
     "shard_route_gains_mixed": [P] * 15 + [I] * 2 + [P],
-    "shard_tables": [P] * 8 + [I] * 3 + [P],
-    "shard_tables_mixed": [P] * 15 + [I] * 6 + [P],
 }
 
 
@@ -245,84 +320,43 @@ def _kernel(name: str):
     return _fns[name]
 
 
-def _check(sh: ShardLayout, name: str, x: torch.Tensor, shape,
+def _check(where, name: str, x: torch.Tensor, shape,
            dtype=torch.float32) -> None:
+    """``x`` must have the dtype, shape and device of the shard or group
+    ``where`` and be contiguous."""
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(
             f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if x.device != sh.device:
-        raise ValueError(
-            f"{name} is on {x.device} but shard {sh.index} is on "
-            f"{sh.device}")
+    if x.device != where.device:
+        raise ValueError(f"{name} is on {x.device} but the kernel's "
+                         f"operands are on {where.device}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_ready(sh: ShardLayout, what: str) -> bool:
-    """True when the wrapper must launch the kernel (a CUDA shard); False
-    for the plain version (a CPU shard)."""
-    if sh.device.type == "cpu":
+def _nary(where) -> bool:
+    """The shard or group has a ternary or quaternary slot."""
+    if hasattr(where, "aseg"):  # a ShardGroup: its slots in arity order
+        return where.aseg[4] > where.aseg[2]
+    return where.mixed is not None and any(
+        sl.numel() for sl in where.mixed.slots[2:])
+
+
+def _launch_ready(where, what: str) -> bool:
+    """True when the wrapper must launch the kernel (a CUDA shard or
+    group); False for the plain version (the CPU)."""
+    if where.device.type == "cpu":
         return False
-    if sh.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, not {sh.device}")
-    if not 1 <= sh.D <= MAX_D:
+    if where.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {where.device}")
+    if not 1 <= where.D <= MAX_D:
         raise ValueError(f"{what} takes D in [1, {MAX_D}]")
-    if sh.mixed is not None and sh.D > MAX_D_NARY and any(
-            sl.numel() for sl in sh.mixed.slots[2:]):
+    if where.D > MAX_D_NARY and _nary(where):
         raise ValueError(f"{what} takes ternary and quaternary slots at "
                          f"D <= {MAX_D_NARY}")
     return True
-
-
-def _walk(sh: ShardLayout) -> tuple:
-    return (sh.tcol.data_ptr(), sh.t_deg.data_ptr(), sh.t_slot0.data_ptr(),
-            sh.t_stride.data_ptr())
-
-
-def _mixed_args(sh: ShardLayout) -> tuple:
-    """The per-arity cost arrays, arity, cost index and sibling columns of
-    a mixed layout, as ``struct Mixed`` of ``csrc/sharded.cu`` opens."""
-    m = sh.mixed
-    return (*(c.data_ptr() for c in m.costs), m.arity.data_ptr(),
-            m.cost_idx.data_ptr(), sh.mate_col.data_ptr(),
-            m.mate2_col.data_ptr(), m.mate3_col.data_ptr())
-
-
-def _widths(sh: ShardLayout) -> tuple:
-    return tuple(int(sl.numel()) for sl in sh.mixed.slots)
-
-
-def _fused_ba_args(sh: ShardLayout) -> tuple:
-    """K7's layout operands, which follow its state operands."""
-    if sh.mixed is None:
-        return (sh.cost_rows.data_ptr(), sh.vmask.data_ptr(),
-                sh.inv_dcount.data_ptr(), sh.mate.data_ptr(),
-                sh.mate_col.data_ptr(), *_walk(sh), sh.D, sh.N, sh.Vp)
-    m = sh.mixed
-    return (*_mixed_args(sh), sh.mate.data_ptr(), m.mate2.data_ptr(),
-            m.mate3.data_ptr(), sh.vmask.data_ptr(), sh.inv_dcount.data_ptr(),
-            *_walk(sh), sh.D, sh.N, sh.Vp, *_widths(sh))
-
-
-def _route_gains_args(sh: ShardLayout) -> tuple:
-    """K8's layout operands, which follow its state operands."""
-    if sh.mixed is None:
-        return (sh.gmask1.data_ptr(), sh.mate_col.data_ptr(), *_walk(sh),
-                sh.N, sh.Vp)
-    m = sh.mixed
-    return (sh.gmask1.data_ptr(), m.gmask2.data_ptr(), m.gmask3.data_ptr(),
-            sh.mate_col.data_ptr(), m.mate2_col.data_ptr(),
-            m.mate3_col.data_ptr(), *_walk(sh), sh.N, sh.Vp)
-
-
-def _tables_args(sh: ShardLayout) -> tuple:
-    """K9's layout operands, which follow its state operands."""
-    if sh.mixed is None:
-        return (sh.cost_rows.data_ptr(), sh.mate_col.data_ptr(), *_walk(sh),
-                sh.D, sh.N, sh.Vp)
-    return (*_mixed_args(sh), *_walk(sh), sh.D, sh.Vp, *_widths(sh))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -343,53 +377,129 @@ def _count(wrapper: str, counter: str) -> None:
     setattr(fn, counter, getattr(fn, counter) + 1)
 
 
-def shard_fused_ba(sh: ShardLayout, bel_g: torch.Tensor, r_u: torch.Tensor,
-                   damping: float = 0.0,
-                   q_m: Optional[torch.Tensor] = None,
-                   r_m: Optional[torch.Tensor] = None,
-                   active: Optional[torch.Tensor] = None):
-    """One shard's rotated MaxSum cycle: from the combined beliefs of the
-    previous cycle ``bel_g`` [D, Vp] (unary included) and the shard's
-    unmasked messages ``r_u`` [D, N], return (r_new [D, N], partial
-    beliefs [D, Vp] without unary).  On a zero state the pending variable
-    side is a no-op.
+def _ptrs(*ts) -> tuple:
+    return tuple(t.data_ptr() for t in ts)
 
-    With ``active`` ([N] float32, 1 where the previous cycle's messages
-    commit) and the masked carry ``q_m``, ``r_m`` [D, N] (amaxsum), the
-    launch commits before the factor side and returns (r_new, partial,
-    q1, r1).  The inputs are not modified."""
-    _check(sh, "bel_g", bel_g, (sh.D, sh.Vp))
-    _check(sh, "r_u", r_u, (sh.D, sh.N))
+
+def _group_args(g: ShardGroup, kernel: str, aseg) -> tuple:
+    """The layout operands of a device-level kernel, in the order of its
+    C entry (after the state operands); ``aseg`` is the host array K7
+    reads the arity offsets from."""
+    sl = g.slabs
+    walk = _ptrs(g.desc, g.corder, g.cptr, g.centry, g.cshard)
+    dims = (g.D, g.Vp)
+    if kernel == "device_fused_ba":
+        if g.mixed:  # cost1..cost4, cost_idx, slot_col, mate..mate3_col
+            layout = _ptrs(*(sl[f"cost{a}"] for a in ARITIES),
+                           *(sl[f] for f in ("cost_idx", "slot_col", "mate",
+                                             "mate2", "mate3", "mate_col",
+                                             "mate2_col", "mate3_col")))
+        else:  # the cost rows as the arity-2 piece; no other arity
+            layout = (None, sl["cost_rows"].data_ptr(), None, None, None,
+                      *_ptrs(sl["slot_col"], sl["mate"]), None, None,
+                      sl["mate_col"].data_ptr(), None, None)
+        return (g.unary_p.data_ptr(), *layout,
+                *_ptrs(sl["vmask"], sl["inv_dcount"], g.items,
+                       g.item_shard),
+                ctypes.cast(aseg, ctypes.c_void_p).value, *walk, *dims,
+                int(g.mixed), int(_nary(g)))
+    if kernel == "device_tables":
+        return (g.unary_p.data_ptr(), g.mask_p.data_ptr(),
+                *_ptrs(sl["cost_rows"], sl["mate_col"]), *walk, *dims)
+    return (g.unary_p.data_ptr(), g.mask_p.data_ptr(),
+            *_ptrs(*(sl[f"cost{a}"] for a in ARITIES), sl["arity"],
+                   sl["cost_idx"], sl["mate_col"], sl["mate2_col"],
+                   sl["mate3_col"]), *walk, *dims, int(_nary(g)))
+
+
+def _result(g: ShardGroup, rows: int, like: torch.Tensor) -> torch.Tensor:
+    """The device-level kernels' result: [rows, Vp] for a whole group,
+    else the [S, rows, Vp] partials, zeroed (the kernels write a shard's
+    partial of a column only where it has slots there)."""
+    if g.whole:
+        return torch.empty((rows, g.Vp), dtype=torch.float32,
+                           device=like.device)
+    return torch.zeros((len(g.shards), rows, g.Vp), dtype=torch.float32,
+                       device=like.device)
+
+
+def device_fused_ba(group: ShardGroup, bel_g: torch.Tensor,
+                    r_u: torch.Tensor, damping: float = 0.0,
+                    q_m: Optional[torch.Tensor] = None,
+                    r_m: Optional[torch.Tensor] = None,
+                    active: Optional[torch.Tensor] = None):
+    """One rotated MaxSum cycle of every shard a device holds, in one
+    launch: from the combined beliefs of the previous cycle ``bel_g``
+    [D, Vp] (unary included) and the shards' unmasked messages ``r_u``
+    (a [D * n_slots] slab, shard k's [D, N_k] piece at D * soff[k]),
+    return (r_new slab, result): for a whole group the combined beliefs
+    [D, Vp], unary + the shards' partials added in shard order; else the
+    partials [S, D, Vp].  On a zero state the pending variable side is a
+    no-op.
+
+    With ``active`` (an [n_slots] slab, 1 where the previous cycle's
+    messages commit) and the masked carry ``q_m``, ``r_m`` (slabs as
+    ``r_u``; amaxsum), the launch commits before the factor side and
+    returns (r_new, result, q1, r1).  The inputs are not modified."""
+    D, N = group.D, group.n_slots
+    _check(group, "bel_g", bel_g, (D, group.Vp))
+    _check(group, "r_u", r_u, (D * N,))
     act = active is not None
     if act:
-        _check(sh, "q_m", q_m, (sh.D, sh.N))
-        _check(sh, "r_m", r_m, (sh.D, sh.N))
-        _check(sh, "active", active, (sh.N,))
+        _check(group, "q_m", q_m, (D * N,))
+        _check(group, "r_m", r_m, (D * N,))
+        _check(group, "active", active, (N,))
     elif q_m is not None or r_m is not None:
         raise ValueError("q_m and r_m go with an activation row")
-    if not _launch_ready(sh, "shard_fused_ba"):
-        return shard_fused_ba_plain(sh, bel_g, r_u, damping, q_m, r_m,
-                                    active)
+    if not _launch_ready(group, "device_fused_ba"):
+        return device_fused_ba_plain(group, bel_g, r_u, damping, q_m, r_m,
+                                     active)
     r_out = torch.empty_like(r_u)
-    partial = torch.empty_like(bel_g)
+    result = _result(group, D, bel_g)
     q1 = r1 = None
     act_ptrs = (None,) * 5
     if act:
         q1, r1 = torch.empty_like(r_u), torch.empty_like(r_u)
         act_ptrs = (q_m.data_ptr(), r_m.data_ptr(), active.data_ptr(),
                     q1.data_ptr(), r1.data_ptr())
-    name = "shard_fused_ba" + ("_mixed" if sh.mixed is not None else "")
-    err = _kernel(name)(
+    aseg = (ctypes.c_longlong * 5)(*group.aseg)
+    err = _kernel("device_fused_ba")(
         bel_g.data_ptr(), r_u.data_ptr(), *act_ptrs[:3], r_out.data_ptr(),
-        partial.data_ptr(), *act_ptrs[3:], *_fused_ba_args(sh),
-        float(damping), float(1.0 - damping), 1 if damping else 0,
-        _stream(bel_g))
-    _raise_on(err, "shard_fused_ba")
-    _count("shard_fused_ba", ("mixed_" if sh.mixed is not None else "")
+        *act_ptrs[3:], result.data_ptr(),
+        *_group_args(group, "device_fused_ba", aseg), float(damping),
+        float(1.0 - damping), 1 if damping else 0, 1 if group.whole else 0,
+        group.barrier.data_ptr(), _stream(bel_g))
+    _raise_on(err, "device_fused_ba")
+    _count("device_fused_ba", ("mixed_" if group.mixed else "")
            + ("act_" if act else "") + "launches")
     if act:
-        return r_out, partial, q1, r1
-    return r_out, partial
+        return r_out, result, q1, r1
+    return r_out, result
+
+
+def device_tables(group: ShardGroup, x: torch.Tensor) -> torch.Tensor:
+    """The local cost tables of every shard a device holds, in one launch,
+    at the assignment ``x`` ([Vp] int32 value indices in column order):
+    for a whole group ``where(mask > 0, unary + the shards' partials in
+    shard order, PAD_COST)`` [D, Vp], else the partials (no unary)
+    [S, D, Vp]."""
+    _check(group, "x", x, (group.Vp,), torch.int32)
+    if not _launch_ready(group, "device_tables"):
+        return device_tables_plain(group, x)
+    result = _result(group, group.D, x)
+    name = "device_tables" + ("_mixed" if group.mixed else "")
+    err = _kernel(name)(x.data_ptr(), result.data_ptr(),
+                        *_group_args(group, name, None),
+                        1 if group.whole else 0,
+                        float(PAD_COST), _stream(x))
+    _raise_on(err, "device_tables")
+    _count("device_tables",
+           "mixed_launches" if group.mixed else "launches")
+    return result
+
+
+def _walk(sh: ShardLayout) -> tuple:
+    return _ptrs(sh.tcol, sh.t_deg, sh.t_slot0, sh.t_stride)
 
 
 def shard_route_gains(sh: ShardLayout, gain: torch.Tensor):
@@ -398,49 +508,39 @@ def shard_route_gains(sh: ShardLayout, gain: torch.Tensor):
     gains over the shard's slots, 0 where it has none; gn [N], each
     slot's mate's gain times ``gmask1``), and on a mixed layout also gn2
     and gn3, the second and third siblings' gains times ``gmask2`` /
-    ``gmask3``."""
+    ``gmask3``.  One launch per shard."""
     _check(sh, "gain", gain, (sh.Vp,))
     if not _launch_ready(sh, "shard_route_gains"):
         return shard_route_gains_plain(sh, gain)
     nm_part = torch.empty_like(gain)
     gns = [torch.empty((sh.N,), dtype=torch.float32, device=gain.device)
            for _ in range(1 if sh.mixed is None else 3)]
-    name = "shard_route_gains" + ("_mixed" if sh.mixed is not None else "")
+    if sh.mixed is None:
+        name = "shard_route_gains"
+        layout = (sh.gmask1.data_ptr(), sh.mate_col.data_ptr(), *_walk(sh))
+    else:
+        m = sh.mixed
+        name = "shard_route_gains_mixed"
+        layout = (*_ptrs(sh.gmask1, m.gmask2, m.gmask3, sh.mate_col,
+                         m.mate2_col, m.mate3_col), *_walk(sh))
     err = _kernel(name)(gain.data_ptr(), nm_part.data_ptr(),
-                        *(g.data_ptr() for g in gns),
-                        *_route_gains_args(sh), _stream(gain))
+                        *(g.data_ptr() for g in gns), *layout, sh.N, sh.Vp,
+                        _stream(gain))
     _raise_on(err, "shard_route_gains")
     _count("shard_route_gains",
            "mixed_launches" if sh.mixed is not None else "launches")
     return (nm_part, *gns)
 
 
-def shard_tables(sh: ShardLayout, x: torch.Tensor) -> torch.Tensor:
-    """The shard's partial local cost tables [D, Vp] (no unary) at the
-    assignment ``x`` ([Vp] int32 value indices in column order)."""
-    _check(sh, "x", x, (sh.Vp,), torch.int32)
-    if not _launch_ready(sh, "shard_tables"):
-        return shard_tables_plain(sh, x)
-    partial = torch.empty((sh.D, sh.Vp), dtype=torch.float32,
-                          device=x.device)
-    name = "shard_tables" + ("_mixed" if sh.mixed is not None else "")
-    err = _kernel(name)(x.data_ptr(), partial.data_ptr(),
-                        *_tables_args(sh), _stream(x))
-    _raise_on(err, "shard_tables")
-    _count("shard_tables",
-           "mixed_launches" if sh.mixed is not None else "launches")
-    return partial
-
-
-_WRAPPERS = {fn.__name__: fn for fn in (shard_fused_ba, shard_route_gains,
-                                        shard_tables)}
+_WRAPPERS = {fn.__name__: fn for fn in (device_fused_ba, device_tables,
+                                        shard_route_gains)}
 
 
 def reset_launches() -> None:
     """Zero the launch counters of the three wrappers, every branch."""
     for fn in _WRAPPERS.values():
         fn.launches = fn.mixed_launches = 0
-    fn = _WRAPPERS["shard_fused_ba"]
+    fn = _WRAPPERS["device_fused_ba"]
     fn.act_launches = fn.mixed_act_launches = 0
 
 

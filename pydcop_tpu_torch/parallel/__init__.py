@@ -1,5 +1,6 @@
 """Sharded engines: factors split over S shards in one process, with the
-per-shard kernels of ``ops/packed_sharded.py`` and ordered collectives.
+kernels of ``ops/packed_sharded.py`` (K7 and K9 one launch per device
+over its group of shards) and ordered collectives.
 
 The counterpart of the JAX package's ``parallel/`` (its ``shard_map``
 engines over a device mesh), for all-binary graphs; see

@@ -13,7 +13,9 @@ CUDA).  Max and min are exact in any order; they take the same loop.
 
 Shards may share a device (all on one H100, or on the CPU): the result
 is placed once per distinct device, and shards on one device share one
-tensor.  A shard that holds no factor passes the operation's identity
+tensor.  Where one device holds every shard, K7's and K9's launch adds
+the partials in this order itself (``ops/packed_sharded.py``) and only
+MGM's max and min come here; across devices every combine does.  A shard that holds no factor passes the operation's identity
 (zeros for the sums and the gain maxima, the "no index" sentinel for the
 tie-break minima) — it launches nothing.
 """

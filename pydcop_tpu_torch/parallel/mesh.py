@@ -6,18 +6,21 @@ paths of ``ShardedMaxSum`` and ``ShardedLocalSearch``, ``build_mesh``,
 ``CommPlan`` in dense mode).  There one process drives every local device
 through ``shard_map``; here one process drives S shards, each a packed
 layout of its own factor subset on its own device
-(:mod:`pydcop_tpu_torch.parallel.packed_mesh`).  Every cycle launches one
-per-shard kernel per shard (``ops/packed_sharded.py``) and combines the
-shards' partials with the ordered collectives of
-:mod:`pydcop_tpu_torch.parallel.collectives` — the counterpart of the
-cycle's ``psum`` (and MGM's ``pmax``/``pmin`` pair).  Variables are
-replicated: the variable side of a cycle runs on every distinct device
-of the mesh, from the same combined values.
-
-When there are fewer devices than shards, shards share a device: all of
-them on the one H100, or on the CPU.  That keeps the S launches and the
-cross-shard combine of every cycle real on one card; a speed-up across
-cards needs several cards.
+(:mod:`pydcop_tpu_torch.parallel.packed_mesh`).  The shards a device
+holds form one group, and every cycle launches K7 (MaxSum) or K9 (the
+local-search tables) ONCE PER DEVICE over its group
+(``ops/packed_sharded.py``).  When one device holds every shard (all of
+them on the one H100, or on the CPU) that launch also adds the shards'
+partials in shard order — the counterpart of the cycle's ``psum`` — and
+writes the combined result; otherwise each launch writes its shards'
+partials and the ordered collectives of
+:mod:`pydcop_tpu_torch.parallel.collectives` combine them in shard
+order.  MGM's arbitration (K8 and its ``pmax``/``pmin`` pair) stays one
+launch per shard with the ordered collectives.  Variables are
+replicated: the variable side of a cycle runs once per group, from the
+same combined values.  The per-shard state the engines hand out (the
+``run`` state, ``init_messages``) is views of one allocation per group
+(``ShardGroup.views``).
 
 Ported: all-binary and mixed-arity (1-4) graphs in the packers' scope
 (``parallel/packed_mesh.py``), dense collectives (``overlap`` None,
@@ -35,7 +38,7 @@ editing of the JAX engines (``get_operand``, ``set_operand``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -172,17 +175,53 @@ class _ShardedEngine:
         self.comm = _plan_comm(overlap, boundary_threshold, exchange,
                                self.packs.boundary, self.packs.Vp,
                                self.packs.D, extra_dense)
-        #: the distinct devices, in the order of their first shard
-        self.devices: List[torch.device] = list(dict.fromkeys(self.mesh))
 
     @property
     def shards(self):
         return self.packs.shards
 
-    def _by_device(self, per_shard: Sequence[torch.Tensor]
-                   ) -> Dict[torch.device, torch.Tensor]:
-        """A per-shard list of replicated tensors → one per device."""
-        return {dev: t for dev, t in zip(self.mesh, per_shard)}
+    @property
+    def groups(self):
+        return self.packs.groups
+
+    def _gathered(self, results, fill=None) -> List[torch.Tensor]:
+        """The groups' device-level results → one combined [R, Vp] tensor
+        per group.  A whole group's launch combined already; else the
+        groups' per-shard partials are added in shard order across the
+        devices and the unary row after them (``fill``: where(mask > 0,
+        that, fill)), as the launch does for a whole group."""
+        if self.groups[0].whole:
+            return list(results)
+        parts = [None] * self.n_shards
+        for g, res in zip(self.groups, results):
+            for k, s in enumerate(g.index):
+                parts[s] = res[k]
+        totals = all_sum(parts, self.mesh)
+        out = []
+        for g in self.groups:
+            tot = g.unary_p + totals[g.index[0]]
+            if fill is not None:
+                tot = torch.where(g.mask_p > 0, tot, fill)
+            out.append(tot)
+        return out
+
+    def _slabs(self, per_shard: Sequence[torch.Tensor]
+               ) -> List[torch.Tensor]:
+        """Per-shard [R, N_s] (or [N_s]) tensors → one slab per group."""
+        return [g.slab_of([per_shard[s] for s in g.index])
+                for g in self.groups]
+
+    def _per_shard(self, per_group: Sequence[torch.Tensor],
+                   rows: Optional[int] = None, slab: bool = True) -> tuple:
+        """One slab per group → the shards' views of them (``rows`` as
+        :meth:`ShardGroup.views`); ``slab=False``: one replicated tensor
+        per group, shared by its shards."""
+        out = [None] * self.n_shards
+        for g, t in zip(self.groups, per_group):
+            pieces = g.views(t, rows) if slab else [t] * len(g.index)
+            for s, v in zip(g.index, pieces):
+                out[s] = v
+        return tuple(out)
 
     def comm_stats(self) -> dict:
         """The collective path and partition quality as a plain dict
@@ -212,15 +251,16 @@ class _ShardedEngine:
 
 class ShardedMaxSum(_ShardedEngine):
     """MaxSum with the factors split over the shards of ``mesh`` (a list of
-    devices, :func:`build_mesh` by default): one K7 launch per shard and
-    one ordered sum of partial beliefs per cycle.
+    devices, :func:`build_mesh` by default): one K7 launch per device per
+    cycle, the shard-order sum of the partial beliefs inside it when one
+    device holds every shard.
 
     The schedule is the JAX packed engine's, rotated: launch n runs cycle
     n-1's variable side (from the combined beliefs) and cycle n's factor
-    side; then ``beliefs = unary + Σ_s partial_s``.  The continuation
-    state is ``(r_u, beliefs)``: each shard's unmasked factor messages
-    and the combined beliefs, one copy per shard (shards on one device
-    share it).  Values are the masked argmin of the final beliefs.
+    side; then ``beliefs = unary + Σ_s partial_s`` in shard order.  The
+    continuation state is ``(r_u, beliefs)``: each shard's unmasked factor
+    messages and the combined beliefs, one copy per shard (shards on one
+    device share it).  Values are the masked argmin of the final beliefs.
 
     ``activation`` < 1 runs amaxsum (the JAX package's emulation of
     asynchronous MaxSum): each cycle only the slots whose uniform draw is
@@ -257,32 +297,48 @@ class ShardedMaxSum(_ShardedEngine):
         self.activation = (None if activation is None or activation >= 1.0
                            else float(activation))
         self.coins = torch.Generator(device="cpu")
-        sp = self.packs
-        self._zeros = [None if sh.N else torch.zeros(
-            (sp.D, sp.Vp), dtype=torch.float32, device=dev)
-            for sh, dev in zip(sp.shards, self.mesh)]
 
-    def _slot_state(self):
-        """Zero [D, N_s] messages per shard."""
-        sp = self.packs
-        return tuple(torch.zeros((sp.D, sh.N), dtype=torch.float32,
-                                 device=dev)
-                     for sh, dev in zip(sp.shards, self.mesh))
+    def _zero_state(self):
+        """The zero state, one slab (or beliefs) per group."""
+        D, Vp = self.packs.D, self.packs.Vp
+        f32 = dict(dtype=torch.float32)
+        slots = [torch.zeros(D * g.n_slots, device=g.device, **f32)
+                 for g in self.groups]
+        bel = [torch.zeros((D, Vp), device=g.device, **f32)
+               for g in self.groups]
+        if self.activation is None:
+            return slots, bel
+        # on the zero state the pending mask selects between zeros
+        pend = [torch.ones(g.n_slots, device=g.device, **f32)
+                for g in self.groups]
+        return slots, [s.clone() for s in slots], \
+            [s.clone() for s in slots], bel, pend
+
+    def _shard_state(self, state) -> tuple:
+        """The groups' state → the per-shard tuples run() hands out."""
+        D = self.packs.D
+        if self.activation is None:
+            r_u, bel = state
+            return (self._per_shard(r_u, D),
+                    self._per_shard(bel, slab=False))
+        q_m, r_m, r_u, bel, pend = state
+        return (self._per_shard(q_m, D), self._per_shard(r_m, D),
+                self._per_shard(r_u, D), self._per_shard(bel, slab=False),
+                self._per_shard(pend))
+
+    def _group_state(self, state) -> tuple:
+        """Per-shard tuples → the groups' state (one copy per group)."""
+        bel = [state[-1 if self.activation is None else 3][g.index[0]]
+               for g in self.groups]
+        if self.activation is None:
+            return self._slabs(state[0]), bel
+        q_m, r_m, r_u, _, pend = state
+        return (self._slabs(q_m), self._slabs(r_m), self._slabs(r_u), bel,
+                self._slabs(pend))
 
     def init_messages(self):
         """The zero state, as (q, r): both are the same opaque state."""
-        sp = self.packs
-        bel = {dev: torch.zeros((sp.D, sp.Vp), dtype=torch.float32,
-                                device=dev) for dev in self.devices}
-        bel = tuple(bel[dev] for dev in self.mesh)
-        if self.activation is None:
-            state = (self._slot_state(), bel)
-        else:
-            # on the zero state the pending mask selects between zeros
-            pend = tuple(torch.ones(sh.N, dtype=torch.float32, device=dev)
-                         for sh, dev in zip(sp.shards, self.mesh))
-            state = (self._slot_state(), self._slot_state(),
-                     self._slot_state(), bel, pend)
+        state = self._shard_state(self._zero_state())
         return state, state
 
     def _validate_continuation(self, q, r) -> None:
@@ -302,48 +358,27 @@ class ShardedMaxSum(_ShardedEngine):
                     f"state of a prior run() of the same solver "
                     f"configuration")
 
-    def _combine(self, parts):
-        totals = self._by_device(all_sum(parts, self.mesh))
-        beliefs = {dev: self.packs.common_on(dev)[0] + tot
-                   for dev, tot in totals.items()}
-        return tuple(beliefs[dev] for dev in self.mesh)
-
     def cycle(self, r_u: Sequence[torch.Tensor],
               bel: Sequence[torch.Tensor]):
-        """One sharded cycle: (r_u', beliefs') per shard."""
-        r_next, parts = [], []
-        for s, sh in enumerate(self.shards):
-            if sh.N == 0:
-                r_next.append(r_u[s])
-                parts.append(self._zeros[s])
-                continue
-            r_new, part = K.shard_fused_ba(sh, bel[s], r_u[s], self.damping)
-            r_next.append(r_new)
-            parts.append(part)
-        return tuple(r_next), self._combine(parts)
+        """One sharded cycle over the groups' r_u slabs and beliefs:
+        (r_u', beliefs') per group."""
+        outs = [K.device_fused_ba(g, b, r, self.damping)
+                for g, b, r in zip(self.groups, bel, r_u)]
+        return ([o[0] for o in outs],
+                self._gathered([o[1] for o in outs]))
 
     def cycle_act(self, state, active):
-        """One amaxsum cycle from ``state`` = (q_m, r_m, r_u, beliefs,
-        pending); ``active`` is this cycle's mask per shard ([N_s]
-        float32 on the shard's device), which becomes the next pending
-        mask."""
+        """One amaxsum cycle from the groups' ``state`` = (q_m, r_m, r_u,
+        beliefs, pending); ``active`` is this cycle's mask per group
+        ([n_slots] float32 on the group's device), which becomes the next
+        pending mask."""
         q_m, r_m, r_u, bel, pend = state
-        q1s, r1s, r_next, parts = [], [], [], []
-        for s, sh in enumerate(self.shards):
-            if sh.N == 0:
-                q1s.append(q_m[s])
-                r1s.append(r_m[s])
-                r_next.append(r_u[s])
-                parts.append(self._zeros[s])
-                continue
-            r_new, part, q1, r1 = K.shard_fused_ba(
-                sh, bel[s], r_u[s], self.damping, q_m[s], r_m[s], pend[s])
-            q1s.append(q1)
-            r1s.append(r1)
-            r_next.append(r_new)
-            parts.append(part)
-        return (tuple(q1s), tuple(r1s), tuple(r_next), self._combine(parts),
-                tuple(active))
+        outs = [K.device_fused_ba(g, b, r, self.damping, qm, rm, p)
+                for g, b, r, qm, rm, p in zip(self.groups, bel, r_u, q_m,
+                                              r_m, pend)]
+        return ([o[2] for o in outs], [o[3] for o in outs],
+                [o[0] for o in outs],
+                self._gathered([o[1] for o in outs]), list(active))
 
     def draw_uniforms(self, n: int) -> List[torch.Tensor]:
         """The activation uniforms of the next ``n`` cycles: one [n, N_s]
@@ -363,12 +398,12 @@ class ShardedMaxSum(_ShardedEngine):
         validated against this solver).  ``seed`` seeds amaxsum's mask
         draws at a fresh start."""
         if q is None or r is None:
-            q, _ = self.init_messages()
+            state = self._zero_state()
             self.coins.manual_seed(seed)
         else:
             self._validate_continuation(q, r)
+            state = self._group_state(q)
         cycles = int(cycles)
-        state = q
         if self.activation is None:
             r_u, bel = state
             for _ in range(cycles):
@@ -376,22 +411,23 @@ class ShardedMaxSum(_ShardedEngine):
             state = (r_u, bel)
         else:
             draws = self.draw_uniforms(cycles)
-            masks = [(torch.as_tensor(u, dtype=torch.float32)
-                      < self.activation).float().to(dev)
-                     for u, dev in zip(draws, self.mesh)]
+            masks = [(torch.cat([draws[s] for s in g.index], dim=1)
+                      < self.activation).float().to(g.device)
+                     for g in self.groups]
             for c in range(cycles):
                 state = self.cycle_act(state, [m[c] for m in masks])
         bel = state[-1 if self.activation is None else 3]
         values = self.values_of(bel[0]).cpu().numpy().astype(np.int32)
-        return values, state, state
+        out = self._shard_state(state)
+        return values, out, out
 
 
 class ShardedLocalSearch(_ShardedEngine):
     """MGM, DSA or ADSA with the constraints split over the shards of
     ``mesh`` (a list of devices, :func:`build_mesh` by default).
 
-    One cycle: K9 on every shard, the ordered sum of partial tables,
-    ``tables = where(mask, unary + total, PAD_COST)``, then cur / best /
+    One cycle: K9 once per device, ``tables = where(mask, unary + the
+    shards' partial tables in shard order, PAD_COST)``, then cur / best /
     gain (best with the prefer-change nudge for dsa and adsa) and the move
     rule.  DSA: move iff gain > 1e-9 and the coin < probability.  ADSA:
     the variant's want-rule, a wake coin < activation and a move coin <
@@ -433,14 +469,11 @@ class ShardedLocalSearch(_ShardedEngine):
         self.rule = rule
         self.probability = float(probability)
         self.params = params
-        sp = self.packs
-        self._zeros, self._big = [], []
-        for sh, dev in zip(sp.shards, self.mesh):
-            empty = sh.N == 0
-            self._zeros.append(torch.zeros((sp.D, sp.Vp), device=dev)
-                               if empty else None)
-            self._big.append(torch.full((sp.Vp,), K.BIG_IDX, device=dev)
-                             if empty else None)
+        # what an empty shard passes to MGM's max and min
+        Vp = self.packs.Vp
+        self._zeros = [torch.zeros(Vp, device=dev) for dev in self.mesh]
+        self._big = [torch.full((Vp,), K.BIG_IDX, device=dev)
+                     for dev in self.mesh]
 
     # -- continuation state ------------------------------------------------
 
@@ -460,56 +493,49 @@ class ShardedLocalSearch(_ShardedEngine):
 
     # -- one cycle -----------------------------------------------------------
 
-    def _mgm_move(self, gains: Dict[torch.device, torch.Tensor]):
-        """{device: move mask} from {device: gain}: K8 per shard, the
-        ordered max, the tie-break partials, the ordered min."""
-        nm_parts, gns = [], []
-        for s, (sh, dev) in enumerate(zip(self.shards, self.mesh)):
-            if sh.N == 0:
-                nm_parts.append(self._zeros[s][0])
-                gns.append(None)
-                continue
-            nm, *gn = K.shard_route_gains(sh, gains[dev])
-            nm_parts.append(nm)
-            gns.append(gn)
-        neigh_max = {dev: torch.clamp_min(t, 0.0) for dev, t in
-                     self._by_device(all_max(nm_parts, self.mesh)).items()}
-        idx_parts = [
-            self._big[s] if sh.N == 0
-            else K.tiebreak_idx_partial(sh, neigh_max[dev], *gns[s])
-            for s, (sh, dev) in enumerate(zip(self.shards, self.mesh))]
-        idx_at_max = self._by_device(all_min(idx_parts, self.mesh))
-        return {dev: K.mgm_decision(gains[dev],
-                                    self.packs.common_on(dev)[2],
-                                    neigh_max[dev], idx_at_max[dev])
-                for dev in self.devices}
+    def _mgm_move(self, gains: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The move mask per group from the gains per group: K8 per shard,
+        the ordered max, the tie-break partials, the ordered min."""
+        nm_parts, gns = list(self._zeros), [None] * self.n_shards
+        for g, gain in zip(self.groups, gains):
+            for s, sh in zip(g.index, g.shards):
+                if sh.N:
+                    nm_parts[s], *gns[s] = K.shard_route_gains(sh, gain)
+        maxed = all_max(nm_parts, self.mesh)
+        neigh_max = [torch.clamp_min(maxed[g.index[0]], 0.0)
+                     for g in self.groups]
+        idx_parts = list(self._big)
+        for g, nm in zip(self.groups, neigh_max):
+            for s, sh in zip(g.index, g.shards):
+                if sh.N:
+                    idx_parts[s] = K.tiebreak_idx_partial(sh, nm, *gns[s])
+        idx_at_max = all_min(idx_parts, self.mesh)
+        return [K.mgm_decision(gain, self.packs.common_on(g.device)[2], nm,
+                               idx_at_max[g.index[0]])
+                for g, gain, nm in zip(self.groups, gains, neigh_max)]
 
     def cycle(self, x: torch.Tensor, coins=None) -> torch.Tensor:
         """One sharded cycle from the assignment ``x``; ``coins`` is this
         cycle's uniforms per variable (dsa: the move row; adsa: (wake,
         move)), on the first shard's device, or None for mgm."""
-        xs = {dev: x if dev == x.device else x.to(dev)
-              for dev in self.devices}
-        parts = [self._zeros[s] if sh.N == 0 else K.shard_tables(sh, xs[dev])
-                 for s, (sh, dev) in enumerate(zip(self.shards, self.mesh))]
-        totals = self._by_device(all_sum(parts, self.mesh))
+        xs = [x if g.device == x.device else x.to(g.device)
+              for g in self.groups]
+        tables = self._gathered(
+            [K.device_tables(g, xg) for g, xg in zip(self.groups, xs)],
+            PAD_COST)
         prefer = self.rule in ("dsa", "adsa")
-        cbg = {}
-        for dev in self.devices:
-            unary_p, mask_p, _ = self.packs.common_on(dev)
-            tables = torch.where(mask_p > 0, unary_p + totals[dev], PAD_COST)
-            cbg[dev] = K.cur_best_gain(tables, xs[dev], prefer)
+        cbg = [K.cur_best_gain(t, xg, prefer) for t, xg in zip(tables, xs)]
         if self.rule == "mgm":
-            moves = self._mgm_move({d: g for d, (_, _, g) in cbg.items()})
+            moves = self._mgm_move([gain for _, _, gain in cbg])
         else:
-            moves = {}
-            for dev, (cur, best, gain) in cbg.items():
-                c = [u.to(dev) for u in coins]
+            moves = []
+            for g, xg, (cur, best, gain) in zip(self.groups, xs, cbg):
+                c = [u.to(g.device) for u in coins]
                 if self.rule == "dsa":
-                    moves[dev] = (gain > K.EPS) & (c[0] < self.probability)
+                    moves.append((gain > K.EPS) & (c[0] < self.probability))
                     continue
                 improving = gain > K.EPS
-                lateral = (gain <= K.EPS) & (best != xs[dev])
+                lateral = (gain <= K.EPS) & (best != xg)
                 variant = self.params.get("variant", "B")
                 if variant == "A":
                     want = improving
@@ -518,11 +544,10 @@ class ShardedLocalSearch(_ShardedEngine):
                 else:
                     want = improving | lateral
                 activation = float(self.params.get("activation", 0.5))
-                moves[dev] = want & (c[1] < self.probability) \
-                    & (c[0] < activation)
-        dev0 = self.mesh[0]
-        _, best, _ = cbg[dev0]
-        return torch.where(moves[dev0], best, xs[dev0])
+                moves.append(want & (c[1] < self.probability)
+                             & (c[0] < activation))
+        _, best, _ = cbg[0]  # group 0 holds shard 0, on x's device
+        return torch.where(moves[0], best, xs[0])
 
     # -- runs --------------------------------------------------------------
 

@@ -30,6 +30,19 @@ over slot classes reserved on every shard, dummy slots) exist so that
 one SPMD trace serves every shard; the port launches per shard and has
 no dummy slot, so its arity masks are the shard's own occupancy.
 
+The shards that share a device form a :class:`ShardGroup`, in shard
+order, laid out for the device-level kernels K7 and K9
+(``ops/packed_sharded.py::device_fused_ba``, ``device_tables``): each
+array those kernels read is ONE allocation per group, the shards' pieces
+contiguous in it (``[R, N_s]`` each, at ``R * soff[k]``), and the
+shards' fields are views of it, so one base pointer and the group's
+descriptor table (``ShardGroup.desc``) reach every shard while each
+shard still sees its own ``[R, N_s]`` tensors.  The group also carries
+each column's slots over all its shards in shard order, then rank order
+(``cptr``, ``centry``, ``cshard``: the order the kernels add them in), the
+column order of the kernels' threads (``corder``) and the slots in arity
+order (``items``).
+
 The JAX packer's TPU machinery — one forced layout of 128-lane padded
 degree classes shared by every shard, the Clos plans, the per-shard
 degree limit of 96 — does not carry over: any graph in the packers'
@@ -130,6 +143,88 @@ class ShardLayout:
         return self.tcol.device
 
 
+#: the ShardLayout fields the device-level kernels read, one slab each per
+#: group (``cost_rows`` on the all-binary layout only)
+SLAB_FIELDS = ("cost_rows", "vmask", "inv_dcount", "mate", "slot_col",
+               "mate_col")
+#: the ShardMixed fields they read on the mixed layout (and the per-arity
+#: cost arrays, slabs "cost1".."cost4")
+SLAB_MIXED = ("arity", "cost_idx", "mate2", "mate3", "mate2_col",
+              "mate3_col")
+#: columns of a descriptor row: soff, N, the element offset of each
+#: arity's cost piece in its slab (4), that piece's width (4)
+DESC_COLS = 10
+
+
+@dataclasses.dataclass
+class ShardGroup:
+    """The shards one device holds, in shard order, laid out for the
+    device-level kernels (one launch per device per cycle).
+
+    ``whole`` is true when the group holds every shard of the mesh (all
+    shards on one card, or on the CPU): the kernels then write the
+    combined result (unary + the shards' partials added in shard order).
+    Otherwise they write each shard's partial and the engine combines the
+    groups' partials in shard order (``parallel/collectives.py``)."""
+
+    device: torch.device
+    index: Tuple[int, ...]   # the shards' indices in the mesh
+    shards: List[ShardLayout]
+    whole: bool
+    D: int
+    Vp: int
+    #: slot offset of each shard in the slabs, and the group's slot count
+    #: last (len S_g + 1)
+    soff: Tuple[int, ...]
+    #: one allocation per field of SLAB_FIELDS / SLAB_MIXED, and
+    #: "cost1".."cost4" on the mixed layout
+    slabs: Dict[str, torch.Tensor]
+    #: [S_g, DESC_COLS] int64 per-shard offsets and widths
+    desc: torch.Tensor
+    #: [Vp] int32 column of each kernel thread: by the group's degree,
+    #: largest first (ties in column order)
+    corder: torch.Tensor
+    #: the slots of each column, CSR: column c's are centry[cptr[c]:
+    #: cptr[c + 1]] ([n_slots] int32 slot in the group's slabs, soff[k] +
+    #: the shard's slot), by shard, then rank — the order of the sum —, and
+    #: cshard the shard (position in the group) of each
+    cptr: torch.Tensor
+    centry: torch.Tensor
+    cshard: torch.Tensor
+    unary_p: torch.Tensor  # [D, Vp] unary * mask, on the device
+    mask_p: torch.Tensor   # [D, Vp]
+    #: [n_slots] int32 local slot and int32 shard (position in the group)
+    #: of every slot, by arity (all arity 2 on the all-binary layout),
+    #: then shard, then slot: K7's phase-1 work list
+    items: torch.Tensor
+    item_shard: torch.Tensor
+    #: item offset of each arity 1-4, and n_slots last (5 entries)
+    aseg: Tuple[int, ...]
+    #: [2] int32 the count and generation of K7's grid barrier
+    barrier: torch.Tensor
+    mixed: bool = False
+
+    @property
+    def n_slots(self) -> int:
+        return self.soff[-1]
+
+    def views(self, slab: torch.Tensor, rows: Optional[int]) -> List:
+        """The shards' pieces of a ``[rows * n_slots]`` slab laid out as
+        the group's (``[rows, N_s]`` views; ``[N_s]`` when ``rows`` is
+        None), in the group's shard order."""
+        r = 1 if rows is None else rows
+        out = []
+        for k, sh in enumerate(self.shards):
+            piece = slab[r * self.soff[k]: r * self.soff[k + 1]]
+            out.append(piece if rows is None else piece.view(rows, sh.N))
+        return out
+
+    def slab_of(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One slab from the shards' ``[R, N_s]`` (or ``[N_s]``) pieces,
+        in the group's shard order."""
+        return torch.cat([p.reshape(-1) for p in pieces])
+
+
 @dataclasses.dataclass
 class ShardPacks:
     """The shards' layouts over the common column map (column = variable),
@@ -145,6 +240,9 @@ class ShardPacks:
     assigns: List[np.ndarray]
     boundary: BoundaryInfo
     mixed: bool = False  # the shards take the mixed-arity layout
+    #: the shards grouped by device, groups in the order of their first
+    #: shard
+    groups: List[ShardGroup] = dataclasses.field(default_factory=list)
     _common: Dict[torch.device, Tuple[torch.Tensor, ...]] = \
         dataclasses.field(default_factory=dict, repr=False)
 
@@ -252,6 +350,116 @@ def _shard_layout(t: FactorGraphTensors, index: int,
     )
 
 
+def _device_groups(devices: Sequence[torch.device]) -> List[List[int]]:
+    """The shards of each distinct device, in shard order; the groups in
+    the order of their first shard."""
+    by: Dict[torch.device, List[int]] = {}
+    for s, dev in enumerate(devices):
+        by.setdefault(torch.device(dev), []).append(s)
+    return list(by.values())
+
+
+def _into_slab(shards: Sequence[ShardLayout], get, put) -> torch.Tensor:
+    """One allocation holding the pieces ``get(sh)`` of the shards, in
+    order; each shard's piece is replaced (``put(sh, view)``) by its view
+    of the slab."""
+    pieces = [get(sh) for sh in shards]
+    slab = torch.cat([p.reshape(-1) for p in pieces])
+    off = 0
+    for sh, p in zip(shards, pieces):
+        put(sh, slab[off: off + p.numel()].view(p.shape))
+        off += p.numel()
+    return slab
+
+
+def _build_group(shards: List[ShardLayout], index: Sequence[int],
+                 whole: bool, mixed: bool, unary_p: torch.Tensor,
+                 mask_p: torch.Tensor) -> ShardGroup:
+    """The group of ``shards`` (one device's, in shard order): their
+    kernel operands moved into one slab per field, the descriptors, the
+    column walk and, on a mixed graph, the slots in arity order."""
+    sh0 = shards[0]
+    dev, D, Vp = sh0.device, sh0.D, sh0.Vp
+    i32 = dict(dtype=torch.int32, device=dev)
+    soff = tuple(int(x) for x in np.concatenate(
+        [[0], np.cumsum([sh.N for sh in shards])]))
+    slabs = {}
+    for f in SLAB_FIELDS:
+        if f == "cost_rows" and mixed:
+            continue
+        slabs[f] = _into_slab(shards, lambda sh, f=f: getattr(sh, f),
+                              lambda sh, v, f=f: setattr(sh, f, v))
+    widths = np.zeros((len(shards), 4), dtype=np.int64)
+    for k, sh in enumerate(shards):
+        if not mixed:
+            widths[k, 1] = sh.N
+        elif sh.mixed is not None:
+            widths[k] = [int(sl.numel()) for sl in sh.mixed.slots]
+    if mixed:
+        for f in SLAB_MIXED:
+            slabs[f] = _into_slab(
+                shards,
+                lambda sh, f=f: (getattr(sh.mixed, f) if sh.mixed is not None
+                                 else torch.zeros(0, **i32)),
+                lambda sh, v, f=f: (setattr(sh.mixed, f, v)
+                                    if sh.mixed is not None else None))
+        for a in ARITIES:
+            def put(sh, v, a=a):
+                if sh.mixed is not None:
+                    costs = list(sh.mixed.costs)
+                    costs[a - 1] = v
+                    sh.mixed.costs = tuple(costs)
+            slabs[f"cost{a}"] = _into_slab(
+                shards,
+                lambda sh, a=a: (sh.mixed.costs[a - 1] if sh.mixed is not None
+                                 else torch.zeros((D ** a, 0),
+                                                  dtype=torch.float32,
+                                                  device=dev)),
+                put)
+    cols = np.zeros(4, dtype=np.int64)
+    desc = np.zeros((len(shards), DESC_COLS), dtype=np.int64)
+    for k in range(len(shards)):
+        desc[k, 0], desc[k, 1] = soff[k], soff[k + 1] - soff[k]
+        for a in range(4):
+            desc[k, 2 + a] = D ** (a + 1) * cols[a]
+            desc[k, 6 + a] = widths[k, a]
+            cols[a] += widths[k, a]
+
+    # a shard's slots of a column run up in rank order (slot0 + j*stride),
+    # so ordering the group's slots by (column, group slot) lists each
+    # column's slots by shard, then rank
+    col = slabs["slot_col"].long()
+    n = soff[-1]
+    centry = torch.argsort(col * max(n, 1) + torch.arange(n, device=dev))
+    deg = torch.bincount(col, minlength=Vp)
+    cptr = torch.zeros(Vp + 1, dtype=torch.int64, device=dev)
+    cptr[1:] = torch.cumsum(deg, dim=0)
+    cshard = torch.searchsorted(
+        torch.as_tensor(soff[1:], device=dev), centry, right=True)
+    corder = torch.argsort(deg, descending=True, stable=True)
+    # K7's phase-1 work list: the slots by arity (every slot of the
+    # all-binary layout is of arity 2), then shard, then slot
+    items, owner, aseg = [], [], [0]
+    for a in ARITIES:
+        for k, sh in enumerate(shards):
+            if sh.mixed is not None:
+                sl = sh.mixed.slots[a - 1].int()
+            else:
+                sl = torch.arange(sh.N if a == 2 else 0, **i32)
+            items.append(sl)
+            owner.append(torch.full((sl.numel(),), k, **i32))
+        aseg.append(int(sum(t.numel() for t in items)))
+    return ShardGroup(
+        device=dev, index=tuple(index), shards=list(shards), whole=whole,
+        D=D, Vp=Vp, soff=soff, slabs=slabs,
+        desc=torch.as_tensor(desc, device=dev), corder=corder.int(),
+        cptr=cptr.int(), centry=centry.int(), cshard=cshard.int(),
+        unary_p=unary_p,
+        mask_p=mask_p, mixed=mixed, items=torch.cat(items),
+        item_shard=torch.cat(owner), aseg=tuple(aseg),
+        barrier=torch.zeros(2, **i32))
+
+
 def build_shard_packs(
     tensors: FactorGraphTensors,
     devices: Sequence[torch.device],
@@ -309,9 +517,16 @@ def build_shard_packs(
     mask = tensors.domain_mask.detach().cpu().numpy()
     unary = tensors.unary_costs.detach().cpu().numpy()
     mask_p = np.ascontiguousarray(mask.T)
-    return ShardPacks(
+    packs = ShardPacks(
         D=D, Vp=V, n_shards=n_shards, shards=shards,
         unary_p=np.ascontiguousarray(unary.T) * mask_p, mask_p=mask_p,
         assigns=assigns, mixed=mixed,
         boundary=analyze_boundary(vis, assigns, V, n_shards),
     )
+    index = _device_groups(devices)
+    for idx in index:
+        unary_d, mask_d, _ = packs.common_on(shards[idx[0]].device)
+        packs.groups.append(_build_group(
+            [shards[s] for s in idx], idx, len(index) == 1, mixed, unary_d,
+            mask_d))
+    return packs

@@ -129,11 +129,11 @@ def test_maxsum_with_empty_shards_equals_jax():
     assign = np.where(np.arange(F) % 2 == 0, 0, 2).astype(np.int32)
     jax_engine, port = _maxsum_pair("coloring_60", 4, assign=assign)
     assert [sh.N for sh in port.packs.shards][1::2] == [0, 0]
-    before = K.shard_fused_ba.launches
+    before = K.device_fused_ba.launches
     jv, _, _ = jax_engine.run(cycles=8)
     v, (r_u, bel), _ = port.run(cycles=8)
     assert np.array_equal(v, np.asarray(jv))
-    assert K.shard_fused_ba.launches == before  # CPU: the plain versions
+    assert K.device_fused_ba.launches == before  # CPU: the plain versions
     # one factor on 6 shards, and a variable no factor touches
     d = load_dcop("""
 name: untouched

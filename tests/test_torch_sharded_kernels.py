@@ -1,6 +1,8 @@
-"""The port's per-shard kernels (``ops/packed_sharded.py``: K7
-``shard_fused_ba``, K8 ``shard_route_gains``, K9 ``shard_tables``, their
-plain versions here) against the JAX package's Pallas kernels of
+"""The port's sharded kernels (``ops/packed_sharded.py``: the per-shard
+plain versions of K7 ``shard_fused_ba_plain`` and K9
+``shard_tables_plain``, which the device-level launches run shard by
+shard, and K8 ``shard_route_gains``) against the JAX package's Pallas
+kernels of
 ``ops/pallas_sharded.py`` run in interpret mode, called directly on one
 shard's operands from JAX's ``parallel/packed_mesh.py::build_shard_packs``
 (no ``shard_map``), and the plain helpers of the move rule against their
@@ -17,7 +19,8 @@ the partial beliefs (as the packed-vs-generic checks of the JAX tests),
 K8, K9 and the move-rule helpers exactly.
 
 The CUDA kernels cannot run here: the tests marked ``cuda`` hold each one
-against its plain version where a GPU is visible.
+(K7 and K9 as one launch over a device's group of shards) against its
+plain version where a GPU is visible.
 """
 import functools
 
@@ -165,7 +168,7 @@ def test_k7_plain_matches_jax(name, n_shards, s, damping):
     for _ in range(2):  # the second launch from the first one's outputs
         jr, jpart = packed_shard_fused_ba(sp.pg0, jbel, jr, None, None,
                                           None, *args, interpret=True)
-        tr, tpart = K.shard_fused_ba(sh, tbel, tr, damping)
+        tr, tpart = K.shard_fused_ba_plain(sh, tbel, tr, damping)
         np.testing.assert_allclose(tr.numpy()[:, sh.slot_of[2]],
                                    _jax_slots(sp, s, jr), atol=1e-4)
         np.testing.assert_allclose(tpart.numpy(), _jax_cols(sp, jpart),
@@ -178,8 +181,8 @@ def test_k7_plain_matches_jax(name, n_shards, s, damping):
 def test_k7_zero_state_pending_side_is_a_no_op():
     _, packs = _both("random", 2)
     sh = packs.shards[0]
-    r, part = K.shard_fused_ba(sh, torch.zeros((packs.D, packs.Vp)),
-                               torch.zeros((packs.D, sh.N)), 0.5)
+    r, part = K.shard_fused_ba_plain(sh, torch.zeros((packs.D, packs.Vp)),
+                                     torch.zeros((packs.D, sh.N)), 0.5)
     # with q = 0 the factor side is the masked min over the other value
     D = packs.D
     rows = sh.cost_rows.reshape(D, D, sh.N)
@@ -219,7 +222,7 @@ def test_k9_plain_matches_jax(name, n_shards, s):
     slabs = [sp.cost_rows[s][j * D:(j + 1) * D] for j in range(D)]
     jt = packed_shard_tables(sp.pg0, _to_jax_cols(sp, x[None]), slabs,
                              _shard_consts(sp, s), interpret=True)
-    tt = K.shard_tables(sh, torch.as_tensor(x))
+    tt = K.shard_tables_plain(sh, torch.as_tensor(x))
     assert np.array_equal(tt.numpy(), _jax_cols(sp, jt))
 
 
@@ -262,17 +265,17 @@ def test_move_rule_helpers_match_jax(name, n_shards, s):
 
 def test_wrappers_check_their_operands():
     _, packs = _both("random", 2)
-    sh = packs.shards[0]
+    sh, g = packs.shards[0], packs.groups[0]
     D, V = packs.D, packs.Vp
-    bel, r = torch.zeros((D, V)), torch.zeros((D, sh.N))
+    bel, r = torch.zeros((D, V)), torch.zeros(D * g.n_slots)
     with pytest.raises(TypeError):
-        K.shard_fused_ba(sh, bel.double(), r)
+        K.device_fused_ba(g, bel.double(), r)
     with pytest.raises(ValueError):
-        K.shard_fused_ba(sh, bel, r[:, :-1])
+        K.device_fused_ba(g, bel, r[:-1])
     with pytest.raises(ValueError):
         K.shard_route_gains(sh, torch.zeros(V - 1))
     with pytest.raises(TypeError):
-        K.shard_tables(sh, torch.zeros(V))  # values must be int32
+        K.device_tables(g, torch.zeros(V))  # values must be int32
 
 
 def _cuda_packs(name, n_shards):
@@ -290,19 +293,20 @@ def _need_gpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("damping", [0.0, 0.5])
 def test_k7_kernel_matches_plain_on_gpu(damping):
+    """One K7 launch over the card's 4 shards: the new messages and the
+    combined beliefs equal the plain version bit for bit."""
     _need_gpu()
     packs = _cuda_packs("unequal_domains", 4)
+    grp = packs.groups[0]
     g = torch.Generator(device="cpu").manual_seed(0)
-    for sh in packs.shards:
-        bel = torch.rand((packs.D, packs.Vp), generator=g).cuda()
-        r = torch.rand((packs.D, sh.N), generator=g).cuda()
-        before = K.shard_fused_ba.launches
-        kr, kp = K.shard_fused_ba(sh, bel, r, damping)
-        assert K.shard_fused_ba.launches == before + 1
-        pr, pp = K.shard_fused_ba_plain(sh, bel, r, damping)
-        torch.cuda.synchronize()
-        for a, b in ((kr, pr), (kp, pp)):
-            assert torch.all((a - b).abs() <= 1e-4 * (1 + b.abs()))
+    bel = torch.rand((packs.D, packs.Vp), generator=g).cuda()
+    r = torch.rand(packs.D * grp.n_slots, generator=g).cuda()
+    before = K.device_fused_ba.launches
+    k = K.device_fused_ba(grp, bel, r, damping)
+    assert K.device_fused_ba.launches == before + 1
+    p = K.device_fused_ba_plain(grp, bel, r, damping)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
 @pytest.mark.cuda
@@ -324,7 +328,9 @@ def test_k9_kernel_matches_plain_on_gpu():
     rng = np.random.default_rng(2)
     x = (rng.uniform(0, 1, packs.Vp) * packs.mask_p.sum(0)).astype(np.int32)
     x = torch.as_tensor(x).cuda()
-    for sh in packs.shards:
-        k, p = K.shard_tables(sh, x), K.shard_tables_plain(sh, x)
-        torch.cuda.synchronize()
-        assert torch.equal(k, p)
+    grp = packs.groups[0]
+    before = K.device_tables.launches
+    k, p = K.device_tables(grp, x), K.device_tables_plain(grp, x)
+    assert K.device_tables.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)

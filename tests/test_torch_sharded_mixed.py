@@ -146,9 +146,9 @@ def test_every_shard_takes_the_mixed_layout():
     kinds = [sorted(sh.slot_of) for sh in port.packs.shards]
     assert [1] in kinds and any(3 in k for k in kinds)
     assert all(sh.mixed is not None for sh in port.packs.shards if sh.N)
-    before = K.shard_fused_ba.mixed_launches
+    before = K.device_fused_ba.mixed_launches
     port.run(cycles=2)
-    assert K.shard_fused_ba.mixed_launches == before  # CPU: plain versions
+    assert K.device_fused_ba.mixed_launches == before  # CPU: plain versions
 
 
 def _ls_pair(name, n_shards, rule, **kw):

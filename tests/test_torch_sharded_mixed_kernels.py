@@ -1,8 +1,9 @@
-"""The mixed-arity and activation branches of the port's per-shard kernels
-(``ops/packed_sharded.py``: K7 ``shard_fused_ba`` on a mixed layout and
-with an activation row, K8 ``shard_route_gains`` with the second and
-third siblings, K9 ``shard_tables`` on a mixed layout, their plain
-versions here) against the JAX package's Pallas kernels of
+"""The mixed-arity and activation branches of the port's sharded kernels
+(``ops/packed_sharded.py``: the per-shard plain versions of K7
+``shard_fused_ba_plain`` on a mixed layout and with an activation row and
+of K9 ``shard_tables_plain`` on a mixed layout, which the device-level
+launches run shard by shard, and K8 ``shard_route_gains`` with the second
+and third siblings) against the JAX package's Pallas kernels of
 ``ops/pallas_sharded.py`` in interpret mode, called directly on one
 shard's operands from JAX's ``parallel/packed_mesh.py::build_shard_packs``
 and its ``mixed=`` bundle (``parallel/mesh.py::_mixed_bundle``), no
@@ -25,7 +26,8 @@ on the real slots.  Tolerances: K7 ``np.allclose(atol=1e-4)`` (as the JAX packag
 packed-vs-generic checks), K8, K9, the tie-break partial and K3 exactly.
 
 The CUDA kernels cannot run here: the tests marked ``cuda`` hold each one
-against its plain version where a GPU is visible.
+(K7 and K9 as one launch over a device's group of shards) against its
+plain version where a GPU is visible.
 """
 import functools
 from unittest import mock
@@ -197,7 +199,8 @@ def test_k7_mixed_plain_matches_jax(name, n_shards, s, damping):
         sp.cost_rows[s], sp.vmask[s], sp.inv_dcount[s],
         _consts(sp.consts, s), damping, mixed=_bundle(sp, s),
         interpret=True)
-    r_new, part = K.shard_fused_ba(sh, torch.as_tensor(bel), r, damping)
+    r_new, part = K.shard_fused_ba_plain(sh, torch.as_tensor(bel), r,
+                                         damping)
     ps, js = _pairs(sh, jslot)
     _close(r_new.numpy()[:, ps], np.asarray(jr_new)[:, js])
     _close(part.numpy(), _jax_cols(sp, jpart))
@@ -222,7 +225,8 @@ def test_k7_activation_plain_matches_jax(name, n_shards, s):
         sp.pg0, _to_jax_cols(sp, bel), jr, jqm, jrm, ja, sp.cost_rows[s],
         sp.vmask[s], sp.inv_dcount[s], _consts(sp.consts, s), 0.5,
         mixed=_bundle(sp, s), interpret=True)
-    out = K.shard_fused_ba(sh, torch.as_tensor(bel), r, 0.5, qm, rm, a[0])
+    out = K.shard_fused_ba_plain(sh, torch.as_tensor(bel), r, 0.5, qm, rm,
+                                 a[0])
     ps, js = _pairs(sh, jslot)
     for k in (0, 2, 3):  # r_new, q1, r1
         _close(out[k].numpy()[:, ps], np.asarray(jout[k])[:, js])
@@ -305,7 +309,7 @@ def test_k9_mixed_plain_matches_jax(name, n_shards, s):
     jt = packed_shard_tables(sp.pg0, _to_jax_cols(sp, x[None]),
                              sp.cost_rows[s], _consts(sp.consts, s),
                              mixed=_bundle(sp, s), interpret=True)
-    tt = K.shard_tables(sh, torch.as_tensor(x))
+    tt = K.shard_tables_plain(sh, torch.as_tensor(x))
     assert np.array_equal(tt.numpy(), _jax_cols(sp, jt))
 
 
@@ -363,13 +367,13 @@ def test_k3_checks_its_permutation():
 
 def test_activation_wrapper_checks_its_operands():
     _, _, packs = _both("secp3", 4)
-    sh = next(sh for sh in packs.shards if sh.N)
-    D, V = packs.D, packs.Vp
-    bel, r = torch.zeros((D, V)), torch.zeros((D, sh.N))
+    g = packs.groups[0]
+    D, V, N = packs.D, packs.Vp, g.n_slots
+    bel, r = torch.zeros((D, V)), torch.zeros(D * N)
     with pytest.raises(ValueError):
-        K.shard_fused_ba(sh, bel, r, 0.5, r, r, torch.ones(sh.N + 1))
+        K.device_fused_ba(g, bel, r, 0.5, r, r, torch.ones(N + 1))
     with pytest.raises(ValueError, match="activation"):
-        K.shard_fused_ba(sh, bel, r, 0.5, r, r)
+        K.device_fused_ba(g, bel, r, 0.5, r, r)
 
 
 # -- the kernels against their plain versions, on the card ----------------
@@ -388,29 +392,32 @@ def _cuda_packs(name, n_shards):
                              packs.assigns)
 
 
-def _within(a, b):
-    return bool(torch.all((a - b).abs() <= 1e-4 * (1 + b.abs())))
+def _random_state(packs, grp, seed, act):
+    """(bel, r_u, and with ``act`` q_m, r_m, active) on the card, the
+    slot rows as the group's slabs."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    D, N = packs.D, grp.n_slots
+    bel = torch.rand((D, packs.Vp), generator=g).cuda()
+    r, qm, rm = (torch.rand(D * N, generator=g).cuda() for _ in range(3))
+    extra = ((qm, rm, (torch.rand(N, generator=g) < 0.6).float().cuda())
+             if act else ())
+    return bel, r, extra
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("damping", [0.0, 0.5])
 @pytest.mark.parametrize("act", [False, True])
 def test_k7_mixed_kernel_matches_plain_on_gpu(act, damping):
+    """One mixed K7 launch over the card's 4 shards equals the plain
+    version bit for bit."""
     _need_gpu()
     packs = _cuda_packs("secp4", 4)
-    g = torch.Generator(device="cpu").manual_seed(0)
-    for sh in packs.shards:
-        if not sh.N:
-            continue
-        bel = torch.rand((packs.D, packs.Vp), generator=g).cuda()
-        r, qm, rm = (torch.rand((packs.D, sh.N), generator=g).cuda()
-                     for _ in range(3))
-        extra = ((qm, rm, (torch.rand(sh.N, generator=g) < 0.6).float()
-                  .cuda()) if act else ())
-        k = K.shard_fused_ba(sh, bel, r, damping, *extra)
-        p = K.shard_fused_ba_plain(sh, bel, r, damping, *extra)
-        torch.cuda.synchronize()
-        assert all(_within(a, b) for a, b in zip(k, p))
+    grp = packs.groups[0]
+    bel, r, extra = _random_state(packs, grp, 0, act)
+    k = K.device_fused_ba(grp, bel, r, damping, *extra)
+    p = K.device_fused_ba_plain(grp, bel, r, damping, *extra)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
 
 
 @pytest.mark.cuda
@@ -425,18 +432,14 @@ def test_k7_activation_kernel_matches_plain_on_gpu():
     packs = build_shard_packs(
         tensors_from_numpy(numpy_fields(jt), device="cuda"),
         [torch.device("cuda")] * 4)
-    g = torch.Generator(device="cpu").manual_seed(1)
-    before = K.shard_fused_ba.act_launches
-    for sh in packs.shards:
-        bel = torch.rand((packs.D, packs.Vp), generator=g).cuda()
-        r, qm, rm = (torch.rand((packs.D, sh.N), generator=g).cuda()
-                     for _ in range(3))
-        act = (torch.rand(sh.N, generator=g) < 0.6).float().cuda()
-        k = K.shard_fused_ba(sh, bel, r, 0.5, qm, rm, act)
-        p = K.shard_fused_ba_plain(sh, bel, r, 0.5, qm, rm, act)
-        torch.cuda.synchronize()
-        assert all(_within(a, b) for a, b in zip(k, p))
-    assert K.shard_fused_ba.act_launches == before + len(packs.shards)
+    grp = packs.groups[0]
+    bel, r, extra = _random_state(packs, grp, 1, True)
+    before = K.device_fused_ba.act_launches
+    k = K.device_fused_ba(grp, bel, r, 0.5, *extra)
+    p = K.device_fused_ba_plain(grp, bel, r, 0.5, *extra)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert K.device_fused_ba.act_launches == before + 1
 
 
 @pytest.mark.cuda
@@ -452,10 +455,12 @@ def test_k8_k9_mixed_kernels_match_plain_on_gpu():
             continue
         k8 = K.shard_route_gains(sh, gain)
         p8 = K.shard_route_gains_plain(sh, gain)
-        k9, p9 = K.shard_tables(sh, x), K.shard_tables_plain(sh, x)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(k8, p8))
-        assert torch.equal(k9, p9)
+    grp = packs.groups[0]
+    k9, p9 = K.device_tables(grp, x), K.device_tables_plain(grp, x)
+    torch.cuda.synchronize()
+    assert torch.equal(k9, p9)
 
 
 @pytest.mark.cuda
