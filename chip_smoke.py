@@ -53,20 +53,22 @@ printed.
    for each favor at threshold 0.5 (x equal after every cycle; offers,
    accepted pairs and pair moves printed; some graph must make pair
    moves);
-   sharded_kernel_vs_plain: K7 (device_fused_ba) and K9 (device_tables),
-   one launch a cycle over the card's group of shards, and the per-shard
-   K8 (shard_route_gains) against their plain versions on the same
-   inputs, launch by launch inside 20-cycle sharded runs on the card
-   (maxsum at damping 0.5 and 0, mgm, dsa), exactly (max abs error 0):
-   the 10k/30k and 100k/300k colourings at 8 shards, the degree-2,500
-   star and the unequal-domains graph at 4, the hard colouring (K8's
-   ties) at 8, and the 10k/30k colouring with its 8 shards in two groups
-   on the card (the launches write partials, as on two cards); there
-   also amaxsum (activation 0.7) through K7's activation branch;
+   sharded_kernel_vs_plain: K7 (device_fused_ba), K8 (device_mgm_move,
+   MGM's whole arbitration) and K9 (device_tables), each one launch a
+   cycle over the card's group of shards, against their plain versions
+   on the same inputs, launch by launch inside 20-cycle sharded runs on
+   the card (maxsum at damping 0.5 and 0, mgm, dsa), exactly (max abs
+   error 0): the 10k/30k and 100k/300k colourings at 8 shards, the
+   degree-2,500 star and the unequal-domains graph at 4, the hard
+   colouring (K8's ties) at 8, and the 10k/30k colouring with its 8
+   shards in two groups on the card (the launches write partials, as on
+   two cards: K8 in its "max" and "min" modes); there also amaxsum
+   (activation 0.7) through K7's activation branch;
    sharded_mixed_kernel_vs_plain: the mixed branches of K7 (with and
    without activation), K8 and K9 against their plain versions, launch
    by launch, exactly, on SECP-3.9k, SECP4-3.9k, the mixed star and the
-   ragged mixed graph at 4 and 8 shards, SECP4-3.9k also in two groups;
+   ragged mixed graph at 4 and 8 shards, SECP4-3.9k also in two groups
+   (K8-mixed in both modes);
    lane_permute_kernel_vs_plain: K3 against its plain version and
    ``torch.index_select`` at [3, 30,000] and [3, 300,000], exactly;
 3. cli / cli_local_search / cli_dpop: ``python -m pydcop_tpu_torch
@@ -99,14 +101,14 @@ printed.
    the shard-order combine inside), assignment, cost and cycle
    equal to the same call on the CPU, and the number of values that
    differ from single-device maxsum (printed, not gated);
-   main_path_sharded_local_search: sharded mgm (200 K9 + 8 × 200 K8)
+   main_path_sharded_local_search: sharded mgm (200 K9 + 200 K8)
    and dsa (200 K9), 200 cycles at 8 shards, values equal to the CPU
    run with the same start and coins;
    main_path_sharded_mixed: ``solve -d`` on SECP-3.9k with 8 agents, 8
    shards, 200 cycles: one K7-mixed launch a cycle and no other
    kernel's, assignment, cost and cycle equal to the
-   CPU run; sharded mgm (K9- and K8-mixed), dsa and adsa (K9-mixed) on
-   it, values equal to the CPU run;
+   CPU run; sharded mgm (200 K9-mixed + 200 K8-mixed), dsa and adsa
+   (K9-mixed) on it, values equal to the CPU run;
    main_path_amaxsum: ``solve -a amaxsum`` on the 10k/30k colouring, one
    device, the generic engine (no kernel), equal to the CPU run;
    main_path_sharded_amaxsum: ``solve -d -a amaxsum`` on the 10k/30k
@@ -121,9 +123,9 @@ printed.
    of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
    sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
-   arity <= 3 and <= 4 and the 39k SECP; K7 and K9: ms per cycle (one
-   launch) and K8 ms per launch at 8 shards of the 10k/30k and 100k/300k
-   colourings, and the sharded
+   arity <= 3 and <= 4 and the 39k SECP; K7, K8 and K9: ms per cycle (one
+   launch; K8 also MGM's whole arbitration through the engine) at 8
+   shards of the 10k/30k and 100k/300k colourings, and the sharded
    maxsum/mgm/dsa cycles/s; their mixed branches at SECP-3.9k and
    SECP-39k; K7's activation branch at 10k/30k, 100k/300k and SECP-3.9k
    with the sharded amaxsum cycles/s; single-device amaxsum cycles/s; K3
@@ -915,12 +917,12 @@ def read_counts():
             "mgm2": packed_mgm2_cycles.launches,
             "mgm2_mixed": packed_mgm2_cycles.mixed_launches,
             "device_fused_ba": K.device_fused_ba.launches,
-            "shard_route_gains": K.shard_route_gains.launches,
+            "device_mgm_move": K.device_mgm_move.launches,
             "device_tables": K.device_tables.launches,
             "device_fused_ba_mixed": K.device_fused_ba.mixed_launches,
             "device_fused_ba_act": K.device_fused_ba.act_launches,
             "device_fused_ba_mixed_act": K.device_fused_ba.mixed_act_launches,
-            "shard_route_gains_mixed": K.shard_route_gains.mixed_launches,
+            "device_mgm_move_mixed": K.device_mgm_move.mixed_launches,
             "device_tables_mixed": K.device_tables.mixed_launches,
             "lane_permute": lane_permute.launches}
 
@@ -1074,23 +1076,30 @@ SHARDS = 8
 def checked_kernels(errs):
     """Context manager: while active, the engines' K7/K8/K9 calls run the
     kernel AND its plain version on the same inputs, hold them together
-    exactly (max abs error 0: K7 and K9 launch once per device over its
-    group of shards, K8 once per shard) and carry on with the kernel's
-    outputs.  ``errs`` collects the max abs error per kernel and branch
-    (``_mixed`` for a mixed layout, ``_act`` for K7 with an activation
-    row)."""
+    exactly (max abs error 0: each launches once per device over its
+    group of shards) and carry on with the kernel's outputs.  ``errs``
+    collects the max abs error per kernel and branch (``_mixed`` for a
+    mixed layout, ``_act`` for K7 with an activation row, ``_max`` /
+    ``_min`` for K8's modes on a group that holds only some shards)."""
     import contextlib
+    import inspect
 
     import torch
 
     from pydcop_tpu_torch.ops import packed_sharded as K
 
     def check(base, kernel, plain):
-        def run(where, *args):
-            name = base + ("_mixed" if getattr(where, "mixed", None)
-                           else "") + ("_act" if len(args) > 3 else "")
-            k = kernel(where, *args)  # counts on the wrapper's counters
-            p = plain(where, *args)
+        sig = inspect.signature(kernel)
+
+        def run(where, *args, **kwargs):
+            given = sig.bind(where, *args, **kwargs).arguments
+            mode = given.get("mode", "move")
+            name = (base + ("_mixed" if getattr(where, "mixed", None)
+                            else "")
+                    + ("_act" if given.get("active") is not None else "")
+                    + ("" if mode == "move" else "_" + mode))
+            k = kernel(where, *args, **kwargs)  # counts on the wrapper
+            p = plain(where, *args, **kwargs)
             ks = k if isinstance(k, tuple) else (k,)
             ps = p if isinstance(p, tuple) else (p,)
             torch.cuda.synchronize()
@@ -1107,17 +1116,17 @@ def checked_kernels(errs):
 
     @contextlib.contextmanager
     def patched():
-        real = (K.device_fused_ba, K.shard_route_gains, K.device_tables)
+        real = (K.device_fused_ba, K.device_mgm_move, K.device_tables)
         K.device_fused_ba = check("device_fused_ba", real[0],
                                   K.device_fused_ba_plain)
-        K.shard_route_gains = check("shard_route_gains", real[1],
-                                    K.shard_route_gains_plain)
+        K.device_mgm_move = check("device_mgm_move", real[1],
+                                  K.device_mgm_move_plain)
         K.device_tables = check("device_tables", real[2],
                                 K.device_tables_plain)
         try:
             yield
         finally:
-            K.device_fused_ba, K.shard_route_gains, K.device_tables = real
+            K.device_fused_ba, K.device_mgm_move, K.device_tables = real
     return patched()
 
 
@@ -1135,8 +1144,8 @@ def sharded_kernel_vs_plain(t, n_shards, cycles=20, split=False):
     amaxsum at activation 0.7 (K7's activation branch), mgm and dsa (K9,
     K8 in mgm), ``cycles`` cycles each; on a mixed graph the kernels'
     mixed branches.  ``split``: the shards in two groups on the card
-    (:func:`split_groups`), so K7 and K9 write partials.  Returns (errs
-    per kernel and branch, stats)."""
+    (:func:`split_groups`), so K7 and K9 write partials and K8 runs its
+    "max" and "min" modes.  Returns (errs per kernel and branch, stats)."""
     import contextlib
     from unittest import mock
 
@@ -1212,11 +1221,25 @@ def sharded_bytes_ops(packs, act=False):
     activation operands: q_m, r_m and the active row in (and each slot's
     column on a mixed layout), q1 and r1 out.  Operations: each slot's
     pending sides, factor side, vmask, damping and partial add, and the
-    S + 1 adds a (column, value) of the combine.  K8 still launches once
-    per shard: its row is one launch's, averaged over the shards that
-    launch (each reads the gains at the columns it touches, its slots'
-    masks and sibling columns, its four walk arrays; writes nm_part and
-    the routed gains)."""
+    S + 1 adds a (column, value) of the combine.
+
+    K8 launches once a cycle over the group too (the move mask of a whole
+    group): it reads the gains [Vp] once, each real sibling's column,
+    mask and variable index (12 bytes; one sibling a binary slot, a - 1
+    a mixed slot of arity a), the walk as it reads it (corder [Vp], cptr
+    [Vp + 1], centry [n_slots]) and idx_row [Vp], and writes one byte a
+    column:
+
+        bytes = 4 Vp + 12 siblings + 4 (2 Vp + 1 + n_slots) + 4 Vp + Vp
+
+    operations: a multiply, a max, a compare and a min a sibling, 8 a
+    column (the threshold and the decision).  The per-shard design it
+    replaced made one launch a shard: ``packed_shard_route_gains_per_shard``
+    adds up those launches' rows (each read the gains at the columns it
+    touches, its slots' masks and sibling columns, its four walk arrays,
+    and wrote nm_part and the routed gains), 8 x the per-launch bound at
+    8 shards, with nothing for the plain launches of the arbitration that
+    followed them."""
     D, Vp = packs.D, packs.Vp
     g = packs.groups[0]
     S = len(g.shards)
@@ -1227,7 +1250,7 @@ def sharded_bytes_ops(packs, act=False):
     k9 = touched + walk + 3 * D * Vp
     ops7 = S * D * Vp
     ops9 = S * D * Vp
-    k8_rows = []
+    k8_old, sibs8 = [], 0
     for sh in packs.shards:
         if not sh.N:
             continue
@@ -1258,24 +1281,27 @@ def sharded_bytes_ops(packs, act=False):
         k9 += D * N + ints9
         ops9 += D * N
         touched_s = int((sh.t_deg > 0).sum())
-        k8_rows.append((4 * (touched_s + sibs * N * 2 + 4 * Vp + Vp
-                             + sibs * N), 2 * sibs * N))
-    n = len(k8_rows)
+        k8_old.append((4 * (touched_s + sibs * N * 2 + 4 * Vp + Vp
+                            + sibs * N), 2 * sibs * N))
+        sibs8 += sum(n * (a - 1) for a, n in n_a.items())
+    k8 = 4 * Vp + 12 * sibs8 + 4 * (2 * Vp + 1 + g.n_slots) + 4 * Vp + Vp
     return {"packed_shard_fused_ba": (4 * k7, ops7),
-            "packed_shard_route_gains": (
-                sum(r[0] for r in k8_rows) / n, sum(r[1] for r in k8_rows) / n),
+            "packed_shard_route_gains": (k8, 4 * sibs8 + 8 * Vp),
+            "packed_shard_route_gains_per_shard": (
+                sum(r[0] for r in k8_old), sum(r[1] for r in k8_old)),
             "packed_shard_tables": (4 * k9, ops9)}
 
 
 def time_sharded(t, n_shards, reps=100, amaxsum=False):
-    """K7 and K9 per cycle (one launch a cycle over the card's group of
-    shards; CUDA events over ``reps`` back-to-back launches), K8 per
-    launch (``reps`` rounds of one launch per shard), the plain versions'
-    ms, device us per launch (profiler), bounds, and the sharded cycles/s
-    of maxsum, mgm and dsa (host clock over 200 cycles, ending in a
-    synchronize); on a mixed graph the kernels' mixed branches.
-    ``amaxsum``: K7's activation branch at activation 0.7 instead, and the
-    sharded amaxsum cycles/s."""
+    """K7, K8 and K9 per cycle (one launch a cycle over the card's group
+    of shards; CUDA events over ``reps`` back-to-back launches), the plain
+    versions' ms, device us per launch (profiler), bounds (K8 also the
+    per-shard design's, ``per_shard_design_bound_ms``, and MGM's whole
+    arbitration through the engine, ``mgm_arbitration_ms``), and the
+    sharded cycles/s of maxsum, mgm and dsa (host clock over 200 cycles,
+    ending in a synchronize); on a mixed graph the kernels' mixed
+    branches.  ``amaxsum``: K7's activation branch at activation 0.7
+    instead, and the sharded amaxsum cycles/s."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_sharded as K
@@ -1287,7 +1313,6 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
     packs = ms_eng.packs
     g = packs.groups[0]
     mixed = "_mixed" if packs.mixed else ""
-    live = [sh for sh in packs.shards if sh.N]
     _, state, _ = ms_eng.run(5)
     bo = sharded_bytes_ops(packs, act=amaxsum)
     if amaxsum:
@@ -1307,15 +1332,16 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
         ls = ShardedLocalSearch(t, mesh, rule="mgm")
         x = ls.run_chunked(5, seed=0)[1]
         gain = K.cur_best_gain(K.device_tables(g, x), x, False)[2]
+        row = packs.common_on(g.device)[2]
         calls = {
             "packed_shard_fused_ba": (
                 lambda: K.device_fused_ba(g, bel[0], r, 0.5),
                 lambda: K.device_fused_ba_plain(g, bel[0], r, 0.5),
                 "device_fused_ba_kernel", 1),
             "packed_shard_route_gains": (
-                lambda: [K.shard_route_gains(sh, gain) for sh in live],
-                lambda: [K.shard_route_gains_plain(sh, gain) for sh in live],
-                f"shard_route_gains{mixed}_kernel", len(live)),
+                lambda: K.device_mgm_move(g, gain, row),
+                lambda: K.device_mgm_move_plain(g, gain, row),
+                "device_mgm_move_kernel", 1),
             "packed_shard_tables": (
                 lambda: K.device_tables(g, x),
                 lambda: K.device_tables_plain(g, x),
@@ -1335,6 +1361,12 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
             bound_ms=bound, bound_by=by, bytes_per_launch=bo[name][0],
             profiler_kernel_us=device_us, launches_per_cycle=per_cycle,
             ms_per_cycle=cycle_ms)
+    if not amaxsum:
+        k8 = out["packed_shard_route_gains" + mixed]
+        k8["per_shard_design_bound_ms"] = bound_of(
+            *bo["packed_shard_route_gains_per_shard"])[0]
+        k8["mgm_arbitration_ms"] = cuda_ms(lambda: ls._mgm_move([gain]),
+                                           reps)
     rates = {}
     if amaxsum:
         runs = (("amaxsum", lambda: ms_eng.run(200)),)
@@ -1357,13 +1389,17 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
 #: one A/B turn (run in a fresh process from the root of a tree, the
 #: tree's own chip_smoke.py and kernels): K7 (maxsum and amaxsum) and the
 #: local-search kernels at 8 shards on the four sharded sizes, through the
-#: tree's ``time_sharded``, as per-cycle rows
+#: tree's ``time_sharded``, as per-cycle rows; and MGM's whole
+#: arbitration a cycle (CUDA events around 100 calls of the engine's
+#: ``_mgm_move`` from one cycle's gains)
 AB_TURN = r"""
 import json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as C
 from pydcop_tpu_torch.ops import cuda_build
+from pydcop_tpu_torch.ops import packed_sharded as K
+from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
 from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays, \
     compile_factor_graph
 cuda_build.build_all()
@@ -1378,6 +1414,14 @@ graphs["secp_3.9k"] = compile_factor_graph(C.secp_dcop(1, 2), device=dev)
 graphs["secp4_39k"] = compile_factor_graph(
     C.secp_dcop(C.SECP_BIG_SCALE, 3), device=dev)
 for name, t in graphs.items():
+    eng = ShardedLocalSearch(t, build_mesh(C.SHARDS, "cuda"), rule="mgm")
+    x = eng.run_chunked(5, seed=0)[1]
+    gain = K.cur_best_gain(K.device_tables(eng.groups[0], x), x, False)[2]
+    for _ in range(3):
+        eng._mgm_move([gain])
+    print(json.dumps({"size": name, "mgm_arbitration_ms_per_cycle":
+                      C.cuda_ms(lambda: eng._mgm_move([gain]), 100)}),
+          flush=True)
     for amaxsum in (False, True):
         out, rates = C.time_sharded(t, C.SHARDS, amaxsum=amaxsum)
         for k, row in out.items():
@@ -1690,10 +1734,11 @@ def main():
         fail("mgm2_kernel_vs_plain", "no mixed graph made a pair move: the "
              "pairing of the mixed branch went unchecked")
 
-    # K7 and K9 (one launch per cycle over the card's group of shards) and
-    # K8 (per shard) against their plain versions, launch by launch inside
-    # real sharded runs on the card, exactly; "split": the shards in two
-    # groups on the card, so K7 and K9 write partials
+    # K7, K8 and K9 (one launch per cycle over the card's group of shards)
+    # against their plain versions, launch by launch inside real sharded
+    # runs on the card, exactly; "split": the shards in two groups on the
+    # card, so K7 and K9 write partials and K8 runs its "max" and "min"
+    # modes
     sharded_cases = {
         "coloring_10k_30k": (primary_t, SHARDS, False),
         "coloring_10k_30k_split": (primary_t, SHARDS, True),
@@ -1713,8 +1758,10 @@ def main():
             fail("sharded_kernel_vs_plain", f"{name}: {e}")
         for k, v in errs.items():
             sharded_err[k] = max(sharded_err.get(k, 0.0), v)
+        k8 = ({"device_mgm_move_max", "device_mgm_move_min"} if split
+              else {"device_mgm_move"})
         if set(errs) != {"device_fused_ba", "device_fused_ba_act",
-                         "shard_route_gains", "device_tables"}:
+                         "device_tables"} | k8:
             fail("sharded_kernel_vs_plain", f"{name}: only {sorted(errs)} "
                  f"were checked")
         say("sharded_kernel_vs_plain", case=name, cycles=20,
@@ -1739,10 +1786,11 @@ def main():
                      f" {e}")
             for k, v in errs.items():
                 sharded_mixed_err[k] = max(sharded_mixed_err.get(k, 0.0), v)
+            k8 = ({"device_mgm_move_mixed_max", "device_mgm_move_mixed_min"}
+                  if split else {"device_mgm_move_mixed"})
             if set(errs) != {"device_fused_ba_mixed",
                              "device_fused_ba_mixed_act",
-                             "shard_route_gains_mixed",
-                             "device_tables_mixed"}:
+                             "device_tables_mixed"} | k8:
                 fail("sharded_mixed_kernel_vs_plain", f"{name}: only "
                      f"{sorted(errs)} were checked")
             say("sharded_mixed_kernel_vs_plain", case=name, cycles=20,
@@ -2002,10 +2050,9 @@ def main():
     # start and coins (drawn on the CPU from the seed)
     cg_cuda = compile_constraint_graph(dcop, device=dev)
     cg_cpu = compile_constraint_graph(dcop, device="cpu")
-    # (one K9 launch a cycle; K8 one a shard)
+    # (one K9 and one K8 launch a cycle)
     for rule, expect in (
-            ("mgm", {"device_tables": cycles,
-                     "shard_route_gains": SHARDS * cycles}),
+            ("mgm", {"device_tables": cycles, "device_mgm_move": cycles}),
             ("dsa", {"device_tables": cycles})):
         eng = ShardedLocalSearch(cg_cuda, build_mesh(SHARDS, "cuda"),
                                  rule=rule)
@@ -2085,25 +2132,23 @@ def main():
         "secp_3.9k")
 
     # sharded mgm (K9 + K8 mixed), dsa and adsa (K9 mixed) on the SECP, 8
-    # shards on the card against the CPU: the same start and coins
+    # shards on the card against the CPU: the same start and coins; one
+    # launch of each a cycle
     secp_cuda = compile_constraint_graph(secp, device=dev)
     secp_cpu = compile_constraint_graph(secp, device="cpu")
     for rule, expect in (
-            ("mgm", {"device_tables_mixed": 1,
-                     "shard_route_gains_mixed": SHARDS}),
+            ("mgm", {"device_tables_mixed": 1, "device_mgm_move_mixed": 1}),
             ("dsa", {"device_tables_mixed": 1}),
             ("adsa", {"device_tables_mixed": 1})):
         eng = ShardedLocalSearch(secp_cuda, build_mesh(SHARDS, "cuda"),
                                  rule=rule)
-        live = sum(1 for sh in eng.packs.shards if sh.N)
         reset_counts()
         t0 = time.perf_counter()
         values = eng.run(cycles, seed=0)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         counts = read_counts()
-        # K9 once a cycle; K8 once a cycle per shard holding factors
-        want = {k: cycles * min(expect.get(k, 0), live) for k in counts}
+        want = {k: cycles * expect.get(k, 0) for k in counts}
         if counts != want:
             fail("main_path_sharded_mixed", f"{rule}: launches {counts}, "
                  f"expected {want}")
@@ -2300,13 +2345,13 @@ def main():
                     if row["profiler_kernel_us"] else None),
                 library_ms=None,
                 library_note="no single PyTorch call computes a shard's "
-                "rotated MaxSum cycle, routed gains or partial tables",
+                "rotated MaxSum cycle, MGM's arbitration or partial tables",
                 nvidia_smi=smi)
         say("times", kernel="sharded_cycles", size=name, S=SHARDS,
             cycles_per_s=rates, nvidia_smi=smi)
 
     sharded_note = ("no single PyTorch call computes a shard's rotated "
-                    "MaxSum cycle, routed gains or partial tables")
+                    "MaxSum cycle, MGM's arbitration or partial tables")
     for name, t, amaxsum in (
             ("secp_3.9k", compile_factor_graph(secp, device=dev), False),
             (big_secp, compile_factor_graph(mixed_dcops[big_secp],
@@ -2380,8 +2425,9 @@ def main():
          main_launches["device_fused_ba"], sharded_err["device_fused_ba"]),
         ("packed_shard_route_gains", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:258",
-         main_launches["shard_route_gains_mgm"],
-         sharded_err["shard_route_gains"]),
+         main_launches["device_mgm_move_mgm"],
+         max(v for k, v in sharded_err.items()
+             if k.startswith("device_mgm_move"))),
         ("packed_shard_tables", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:319",
          main_launches["device_tables_mgm"], sharded_err["device_tables"]),
@@ -2400,8 +2446,9 @@ def main():
          sharded_mixed_err["device_fused_ba_mixed_act"]),
         ("packed_shard_route_gains_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:258",
-         main_launches["shard_route_gains_mixed_mgm"],
-         sharded_mixed_err["shard_route_gains_mixed"]),
+         main_launches["device_mgm_move_mixed_mgm"],
+         max(v for k, v in sharded_mixed_err.items()
+             if k.startswith("device_mgm_move"))),
         ("packed_shard_tables_mixed", "pydcop_tpu_torch/csrc/sharded.cu",
          "pydcop_tpu/ops/pallas_sharded.py:319",
          main_launches["device_tables_mixed_mgm"],

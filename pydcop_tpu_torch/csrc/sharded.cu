@@ -10,12 +10,16 @@
 //                              is given)
 //   device_tables           <- packed_shard_tables      (K9, binary)
 //   device_tables_mixed     <- packed_shard_tables      (K9, mixed=)
-//   shard_route_gains       <- packed_shard_route_gains (K8, binary)
-//   shard_route_gains_mixed <- packed_shard_route_gains (K8, consts2/3)
+//   device_mgm_move         <- packed_shard_route_gains (K8, binary)
+//   device_mgm_move_mixed   <- packed_shard_route_gains (K8, consts2/3)
+//                              with MGM's arbitration after it
+//                              (_tiebreak_idx_partial, _mgm_decision of
+//                              pydcop_tpu/ops/pallas_local_search.py)
 //
-// K7 and K9 launch ONCE PER DEVICE per cycle, over the group of shards
-// the device holds (parallel/packed_mesh.py::ShardGroup), where the TPU
-// runs one shard per device inside shard_map and psums the partials.
+// K7, K8 and K9 launch ONCE PER DEVICE per cycle (K8 twice on a device
+// that holds only some shards), over the group of shards the device holds
+// (parallel/packed_mesh.py::ShardGroup), where the TPU runs one shard per
+// device inside shard_map and psums the partials.
 // Each shard keeps its own layout over the common column map (one column
 // per variable): its slots are the var-grouped slots of
 // ops/packed_maxsum.py built from the shard's degrees.  The group holds
@@ -86,10 +90,26 @@
 // cost_a[(row*D) + i] with row = x1, x1*D + x2, (x1*D + x2)*D + x3 mixed,
 // cost1[i] on a unary slot; a whole group writes where(mask > 0, unary +
 // total, pad).
-// K8 (per shard, host-issued, one launch per shard): gn[s] =
-// gain[col(mate(s))] * gmask1[s] (mixed: gn2, gn3 from the second and
-// third siblings times gmask2, gmask3); nm_part[col] = max over the
-// column's slots of max(gn, gn2, gn3), from 0.
+//
+// K8, one phase, one thread per column c: MGM's whole neighbourhood
+// arbitration.  Where the TPU runs packed_shard_route_gains per shard
+// (each slot's siblings' routed gains gn = gain[col(sibling)] * gmask and
+// the per-column max over the shard's slots), a pmax, the tie-break
+// partial per shard and a pmin, a whole group does it all in the launch:
+//   nm       = max(0, max over c's slots and siblings of gn)
+//   idx      = min over c's slots and siblings with gn >= nm - EPS of the
+//              sibling's variable index, BIG_IDX where none
+//   move[c]  = gain[c] > 0 && (gain[c] > nm + EPS ||
+//              (|gain[c] - nm| <= EPS && idx_row[c] < idx))
+// No grid barrier is needed: every step reads only column c's own slots
+// (a slot's own column is c, so the threshold it is held to is c's nm)
+// and column c's gain, so the thread that owns c finishes it alone.  Max
+// and min are exact in any order; the walk takes the column lists K9
+// walks.  A group that holds only some shards (several cards) runs the
+// same kernel twice: mode kMax writes its partial nm, the engine takes
+// the ordered max across the devices and clamps it at 0, then mode kMin
+// writes the partial idx at that nm, the engine takes the ordered min and
+// decides (parallel/mesh.py::ShardedLocalSearch._mgm_move).
 //
 // Built with -fmad=false, so each multiply and add rounds as in the plain
 // PyTorch versions (ops/packed_sharded.py *_plain).
@@ -110,6 +130,16 @@
 // pending q in phase 1, and the ordered walk of the longest column in
 // phase 2 and K9 (kBatch loads in flight at a time).  Shared memory and
 // TMA are not used; the sibling gathers are not coalesced.
+// K8 reads the gains, each slot's siblings' column, mask and index (12
+// bytes a sibling), the walk (corder, cptr, centry) and idx_row once and
+// writes one byte a column (chip_smoke.py::sharded_bytes_ops): about 1 MB
+// at 10k/30k, 0.3 us at 3.35 TB/s.  Before, 8 launches and ~120 plain
+// PyTorch launches of the arbitration a cycle held the MGM cycle to the
+// host (PERF.md, PR 9); the one launch leaves the scattered loads of a
+// column's walk (centry, then the sibling's column, mask and index, then
+// its gain: a 32-byte sector each), the first kCache slots' loads in
+// flight together and kept in registers, so the tie-break walk does not
+// read them again.
 #include <cuda_runtime.h>
 
 namespace {
@@ -121,6 +151,10 @@ constexpr int kCoopThreads = 256;
 // limit), so the D^3 / D^4 loops are compiled only there
 constexpr int kMaxDNary = 5;
 constexpr int kDescCols = 10;
+// MGM's gain/tie epsilon and its float-encoded "no neighbour" index, the
+// plain versions' EPS and BIG_IDX (ops/packed_sharded.py) as floats
+constexpr float kEps = 1e-9f;
+constexpr float kBigIdx = 1e9f;
 
 // A read-only load.  NC routes it through the non-coherent (read-only)
 // cache, which the struct members below do not get on their own: they
@@ -585,61 +619,106 @@ __global__ void device_tables_mixed_kernel(
   store_table<D>(out, unary, mask, combine, pad, c, vp, total);
 }
 
-__global__ void shard_route_gains_kernel(
-    const float* __restrict__ gain, const float* __restrict__ gmask1,
-    float* __restrict__ nm_part, float* __restrict__ gn,
-    const int* __restrict__ mate_col, const int* __restrict__ tcol,
-    const int* __restrict__ t_deg, const int* __restrict__ t_slot0,
-    const int* __restrict__ t_stride, int Vp) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Vp) return;
-  const int c = tcol[t];
-  const int deg = t_deg[t];
-  const size_t s0 = static_cast<size_t>(t_slot0[t]);
-  const size_t stride = static_cast<size_t>(t_stride[t]);
-  float nm = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-    const float g = gain[mate_col[s]] * gmask1[s];
-    gn[s] = g;
-    nm = fmaxf(nm, g);
-  }
-  nm_part[c] = nm;
-}
-
-// gain at column col (-1: column 0, which the mask zeroes) times the mask
+// The gain MGM routes from sibling column col (-1: column 0, which the
+// mask zeroes) times the slot's mask, as the plain version's _at * gmask.
 __device__ __forceinline__ float routed(const float* __restrict__ gain,
                                         int col, float mask) {
   return gain[col < 0 ? 0 : col] * mask;
 }
 
-__global__ void shard_route_gains_mixed_kernel(
-    const float* __restrict__ gain, const float* __restrict__ gmask1,
-    const float* __restrict__ gmask2, const float* __restrict__ gmask3,
-    float* __restrict__ nm_part, float* __restrict__ gn,
-    float* __restrict__ gn2, float* __restrict__ gn3,
-    const int* __restrict__ mate_col, const int* __restrict__ mate2_col,
-    const int* __restrict__ mate3_col, const int* __restrict__ tcol,
-    const int* __restrict__ t_deg, const int* __restrict__ t_slot0,
-    const int* __restrict__ t_stride, int Vp) {
+// K8's operands: the group's slabs of each slot's siblings (row r: the
+// first, second and third sibling; the binary layout has the first only)
+// and the launch's rows.  mode: kMove (a whole group: the move mask),
+// kMax (the group's partial neighbourhood max), kMin (the group's partial
+// tie-break index at the combined neigh_max).
+enum { kMove = 0, kMax = 1, kMin = 2 };
+
+struct Arbiter {
+  const int* col[3];
+  const float* mask[3];
+  const float* idx[3];
+  const float* gain;
+  const float* idx_row;    // kMove
+  const float* neigh_max;  // kMin
+  float* part;             // kMax, kMin: [Vp]
+  unsigned char* move;     // kMove: [Vp] bool
+};
+
+// One thread per column c (by the group's degree, largest first), over
+// c's slots in the group's column lists: the neighbourhood max from 0,
+// then the smallest sibling index whose routed gain is within EPS of it,
+// then MGM's decision for c.  The first kCache slots' routed gains and
+// indices are loaded together and kept in registers for the tie-break,
+// so each of them is read once; a longer column reads its other slots
+// again in the second walk.
+template <int SIBS>
+__global__ void device_mgm_move_kernel(Arbiter A, Walk W, int Vp, int mode) {
+  constexpr int kCache = SIBS == 1 ? 8 : 4;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Vp) return;
-  const int c = tcol[t];
-  const int deg = t_deg[t];
-  const size_t s0 = static_cast<size_t>(t_slot0[t]);
-  const size_t stride = static_cast<size_t>(t_stride[t]);
-  float nm = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-    const float g1 = routed(gain, mate_col[s], gmask1[s]);
-    const float g2 = routed(gain, mate2_col[s], gmask2[s]);
-    const float g3 = routed(gain, mate3_col[s], gmask3[s]);
-    gn[s] = g1;
-    gn2[s] = g2;
-    gn3[s] = g3;
-    nm = fmaxf(nm, fmaxf(fmaxf(g1, g2), g3));
+  const int c = W.corder[t];
+  const int lo = W.cptr[c];
+  const int hi = W.cptr[c + 1];
+  const int n = hi - lo;
+  float gv[kCache][SIBS];
+  float iv[kCache][SIBS];
+#pragma unroll
+  for (int u = 0; u < kCache; ++u) {
+    if (u < n) {
+      const size_t g = static_cast<size_t>(W.centry[lo + u]);
+#pragma unroll
+      for (int r = 0; r < SIBS; ++r) {
+        gv[u][r] = routed(A.gain, A.col[r][g], A.mask[r][g]);
+        iv[u][r] = mode == kMax ? kBigIdx : A.idx[r][g];
+      }
+    }
   }
-  nm_part[c] = nm;
+  float nm = 0.0f;
+  if (mode == kMin) {
+    nm = A.neigh_max[c];
+  } else {
+#pragma unroll
+    for (int u = 0; u < kCache; ++u) {
+      if (u < n) {
+#pragma unroll
+        for (int r = 0; r < SIBS; ++r) nm = fmaxf(nm, gv[u][r]);
+      }
+    }
+    for (int e = lo + kCache; e < hi; ++e) {
+      const size_t g = static_cast<size_t>(W.centry[e]);
+#pragma unroll
+      for (int r = 0; r < SIBS; ++r)
+        nm = fmaxf(nm, routed(A.gain, A.col[r][g], A.mask[r][g]));
+    }
+    if (mode == kMax) {
+      A.part[c] = nm;
+      return;
+    }
+  }
+  const float thr = nm - kEps;
+  float idx = kBigIdx;
+#pragma unroll
+  for (int u = 0; u < kCache; ++u) {
+    if (u < n) {
+#pragma unroll
+      for (int r = 0; r < SIBS; ++r)
+        if (gv[u][r] >= thr) idx = fminf(idx, iv[u][r]);
+    }
+  }
+  for (int e = lo + kCache; e < hi; ++e) {
+    const size_t g = static_cast<size_t>(W.centry[e]);
+#pragma unroll
+    for (int r = 0; r < SIBS; ++r)
+      if (routed(A.gain, A.col[r][g], A.mask[r][g]) >= thr)
+        idx = fminf(idx, A.idx[r][g]);
+  }
+  if (mode == kMin) {
+    A.part[c] = idx;
+    return;
+  }
+  const float gc = A.gain[c];
+  const bool tie = (fabsf(gc - nm) <= kEps) && (A.idx_row[c] < idx);
+  A.move[c] = (gc > 0.0f) && ((gc > nm + kEps) || tie);
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -743,6 +822,38 @@ int launch_k7(Pending P, Out O, Mixed M, Items I, const long long* desc,
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
       dim3(kCoopThreads), args, 0, st));
+}
+
+inline Arbiter make_arbiter(const int* const* cols,
+                            const float* const* masks,
+                            const float* const* idxs, const float* gain,
+                            const float* idx_row, const float* neigh_max,
+                            float* part, unsigned char* move) {
+  Arbiter A;
+  for (int r = 0; r < 3; ++r) {
+    A.col[r] = cols[r];
+    A.mask[r] = masks[r];
+    A.idx[r] = idxs[r];
+  }
+  A.gain = gain;
+  A.idx_row = idx_row;
+  A.neigh_max = neigh_max;
+  A.part = part;
+  A.move = move;
+  return A;
+}
+
+template <int SIBS>
+int launch_k8(const Arbiter& A, const int* corder, const int* cptr,
+              const int* centry, int Vp, int mode, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode < kMove || mode > kMin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
+  const Walk W = make_walk(corder, cptr, centry, nullptr);
+  device_mgm_move_kernel<SIBS><<<blocks_for(Vp), kThreads, 0, st>>>(A, W, Vp,
+                                                                  mode);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -870,35 +981,38 @@ extern "C" int device_tables_mixed(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8, binary (no value rows, so no D): one launch per shard.
-extern "C" int shard_route_gains(const float* gain, float* nm_part,
-                                 float* gn, const float* gmask1,
-                                 const int* mate_col, const int* tcol,
-                                 const int* t_deg, const int* t_slot0,
-                                 const int* t_stride, int N, int Vp,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (void)N;
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  shard_route_gains_kernel<<<blocks_for(Vp), kThreads, 0, st>>>(
-      gain, gmask1, nm_part, gn, mate_col, tcol, t_deg, t_slot0, t_stride,
-      Vp);
-  return static_cast<int>(cudaGetLastError());
+// K8, binary: one launch per device per MGM cycle (no value rows, so no D).
+// mode 0: move [Vp] bool from gain, idx_row (a whole group); 1: part [Vp]
+// the group's partial neighbourhood max; 2: part [Vp] the group's partial
+// tie-break index at neigh_max.  Pointers a mode does not use may be null.
+extern "C" int device_mgm_move(const float* gain, const float* idx_row,
+                               const float* neigh_max, float* part,
+                               unsigned char* move, const float* gmask1,
+                               const int* mate_col, const float* mate_idx,
+                               const int* corder, const int* cptr,
+                               const int* centry, int Vp, int mode,
+                               void* stream) {
+  const int* cols[3] = {mate_col, nullptr, nullptr};
+  const float* masks[3] = {gmask1, nullptr, nullptr};
+  const float* idxs[3] = {mate_idx, nullptr, nullptr};
+  return launch_k8<1>(make_arbiter(cols, masks, idxs, gain, idx_row,
+                                   neigh_max, part, move),
+                      corder, cptr, centry, Vp, mode, stream);
 }
 
-// K8, mixed.
-extern "C" int shard_route_gains_mixed(
-    const float* gain, float* nm_part, float* gn, float* gn2, float* gn3,
-    const float* gmask1, const float* gmask2, const float* gmask3,
-    const int* mate_col, const int* mate2_col, const int* mate3_col,
-    const int* tcol, const int* t_deg, const int* t_slot0,
-    const int* t_stride, int N, int Vp, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (void)N;
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  shard_route_gains_mixed_kernel<<<blocks_for(Vp), kThreads, 0, st>>>(
-      gain, gmask1, gmask2, gmask3, nm_part, gn, gn2, gn3, mate_col,
-      mate2_col, mate3_col, tcol, t_deg, t_slot0, t_stride, Vp);
-  return static_cast<int>(cudaGetLastError());
+// K8, mixed: every slot's three sibling rows, masked by arity.
+extern "C" int device_mgm_move_mixed(
+    const float* gain, const float* idx_row, const float* neigh_max,
+    float* part, unsigned char* move, const float* gmask1,
+    const float* gmask2, const float* gmask3, const int* mate_col,
+    const int* mate2_col, const int* mate3_col, const float* mate_idx,
+    const float* mate2_idx, const float* mate3_idx, const int* corder,
+    const int* cptr, const int* centry, int Vp, int mode, void* stream) {
+  const int* cols[3] = {mate_col, mate2_col, mate3_col};
+  const float* masks[3] = {gmask1, gmask2, gmask3};
+  const float* idxs[3] = {mate_idx, mate2_idx, mate3_idx};
+  return launch_k8<3>(make_arbiter(cols, masks, idxs, gain, idx_row,
+                                   neigh_max, part, move),
+                      corder, cptr, centry, Vp, mode, stream);
 }
 #undef D_CASES

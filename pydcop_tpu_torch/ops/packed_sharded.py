@@ -3,10 +3,10 @@ and MaxSum's activation branch).
 
 The counterpart of the JAX package's ``ops/pallas_sharded.py``.  There
 each kernel computes one shard's part of a cycle, one shard per device,
-and ``psum`` combines them.  Here K7 and K9 launch once per DEVICE per
-cycle, over the group of shards the device holds
-(:class:`~pydcop_tpu_torch.parallel.packed_mesh.ShardGroup`), with the
-shard-order combine inside the launch:
+and ``psum`` / ``pmax`` / ``pmin`` combine them.  Here K7, K8 and K9
+launch once per DEVICE per cycle, over the group of shards the device
+holds (:class:`~pydcop_tpu_torch.parallel.packed_mesh.ShardGroup`), with
+the shard-order combine inside the launch:
 
 * :func:`device_fused_ba` (K7, ``packed_shard_fused_ba``) — one sharded
   MaxSum cycle of every shard of the group, rotated: the previous cycle's
@@ -22,10 +22,13 @@ shard-order combine inside the launch:
 * :func:`device_tables` (K9, ``packed_shard_tables``) — the local cost
   tables at the current assignment: ``where(mask > 0, unary + the
   shards' partials in shard order, PAD_COST)``, or the partials;
-* :func:`shard_route_gains` (K8, ``packed_shard_route_gains``) — still
-  one launch per shard: the shard's half of MGM's arbitration, each
-  slot's siblings' gains (one on a binary layout; three rows, masked by
-  arity, on a mixed one) and the per-column maximum over its slots.
+* :func:`device_mgm_move` (K8, ``packed_shard_route_gains`` and the
+  arbitration after it) — MGM's move mask from the combined gains: each
+  slot's siblings' routed gains (one on a binary layout; three rows,
+  masked by arity, on a mixed one), the neighbourhood max, the smallest
+  sibling index at that max and the decision, all per column; on a group
+  that holds only some shards, the partial max or the partial tie-break
+  index instead (``mode``).
 
 The group's slot operands are slabs: one allocation per operand, shard
 k's ``[R, N_k]`` piece contiguous at ``R * soff[k]`` (the shards'
@@ -39,17 +42,17 @@ on CUDA tensors and counts the launch, per branch: ``.launches`` (the
 binary kernel), ``.mixed_launches`` (the mixed one), and for K7
 ``.act_launches`` / ``.mixed_act_launches`` (with activation).  On CPU
 tensors it runs the plain PyTorch version beside it: the per-shard plain
-versions (:func:`shard_fused_ba_plain`, :func:`shard_tables_plain`, the
-arithmetic of one shard, what the tests hold against the JAX package's
-per-shard Pallas kernels) followed by the same ordered combine.  A build
-or launch failure on CUDA raises; nothing falls back.
+versions (:func:`shard_fused_ba_plain`, :func:`shard_tables_plain`,
+:func:`shard_route_gains_plain` with :func:`tiebreak_idx_partial` and
+:func:`mgm_decision`, the arithmetic of one shard, what the tests hold
+against the JAX package's per-shard Pallas kernels and XLA helpers)
+followed by the same ordered combine.  A build or launch failure on CUDA
+raises; nothing falls back.
 
-The rest of a cycle — the variable side after the combine, MGM's
-tie-break partial and decision (``_cur_best_gain``,
-``_tiebreak_idx_partial``, ``_mgm_decision`` of the JAX package's
-``ops/pallas_local_search.py``, XLA code there) — is plain PyTorch:
-:func:`cur_best_gain`, :func:`tiebreak_idx_partial`, :func:`mgm_decision`.
-Their constants are the JAX package's: indices float-encoded with
+The rest of a cycle — the variable side after the combine
+(``_cur_best_gain`` of the JAX package's ``ops/pallas_local_search.py``,
+XLA code there) — is plain PyTorch: :func:`cur_best_gain`.  The
+constants are the JAX package's: indices float-encoded with
 :data:`BIG_IDX` for "no neighbour", ties within :data:`EPS` in float32.
 """
 from __future__ import annotations
@@ -293,6 +296,44 @@ def device_tables_plain(group: ShardGroup, x: torch.Tensor) -> torch.Tensor:
     return _combined(group, parts, PAD_COST)
 
 
+#: K8's modes: the move mask (a whole group), the group's partial
+#: neighbourhood max, the group's partial tie-break index
+MGM_MODES = ("move", "max", "min")
+
+
+def device_mgm_move_plain(group: ShardGroup, gain: torch.Tensor,
+                          idx_row: Optional[torch.Tensor] = None,
+                          mode: str = "move",
+                          neigh_max: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """K8 over a device's group of shards: :func:`shard_route_gains_plain`
+    per shard, the ordered ``all_max`` of their partials over the group
+    (``mode`` "max" stops here), clamped at 0; :func:`tiebreak_idx_partial`
+    per shard at that ``neigh_max`` (given, in ``mode`` "min"), the ordered
+    ``all_min`` ("min" stops here); :func:`mgm_decision`.  A shard that
+    holds no factor passes the identity (0, BIG_IDX)."""
+    # imported here: the parallel package imports this module
+    from pydcop_tpu_torch.parallel.collectives import all_max, all_min
+
+    devs = [group.device] * len(group.shards)
+    routed = [shard_route_gains_plain(sh, gain) if sh.N else None
+              for sh in group.shards]
+    if mode != "min":
+        zero = torch.zeros_like(gain)
+        nm = all_max([zero if r is None else r[0] for r in routed],
+                     devs)[0]
+        if mode == "max":
+            return nm
+        neigh_max = torch.clamp_min(nm, 0.0)
+    big = torch.full_like(gain, BIG_IDX)
+    idx = all_min([big if r is None else
+                   tiebreak_idx_partial(sh, neigh_max, *r[1:])
+                   for sh, r in zip(group.shards, routed)], devs)[0]
+    if mode == "min":
+        return idx
+    return mgm_decision(gain, idx_row, neigh_max, idx)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -303,8 +344,8 @@ _ARGTYPES = {
     "device_fused_ba": [P] * 32 + [I] * 4 + [F, F, I, I, P, P],
     "device_tables": [P] * 11 + [I] * 3 + [F, P],
     "device_tables_mixed": [P] * 18 + [I] * 4 + [F, P],
-    "shard_route_gains": [P] * 9 + [I] * 2 + [P],
-    "shard_route_gains_mixed": [P] * 15 + [I] * 2 + [P],
+    "device_mgm_move": [P] * 11 + [I] * 2 + [P],
+    "device_mgm_move_mixed": [P] * 17 + [I] * 2 + [P],
 }
 
 
@@ -498,42 +539,72 @@ def device_tables(group: ShardGroup, x: torch.Tensor) -> torch.Tensor:
     return result
 
 
-def _walk(sh: ShardLayout) -> tuple:
-    return _ptrs(sh.tcol, sh.t_deg, sh.t_slot0, sh.t_stride)
+def device_mgm_move(group: ShardGroup, gain: torch.Tensor,
+                    idx_row: Optional[torch.Tensor] = None,
+                    mode: str = "move",
+                    neigh_max: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """MGM's neighbourhood arbitration over every shard a device holds, in
+    one launch, from the combined gains ``gain`` [Vp].  ``mode``:
 
+    * "move" (a group that holds every shard): the move mask [Vp] bool of
+      ``mgm_decision`` — move iff the own gain is positive and the strict
+      neighbourhood max, ties within EPS to the smaller variable index
+      (``idx_row`` [Vp] float32, each column's variable index);
+    * "max": the group's partial neighbourhood max [Vp] (each column's
+      siblings' routed gains over the group's slots, from 0);
+    * "min": the group's partial tie-break index [Vp] at the combined,
+      clamped ``neigh_max`` [Vp] (BIG_IDX where no sibling is at it).
 
-def shard_route_gains(sh: ShardLayout, gain: torch.Tensor):
-    """The shard's half of MGM's arbitration from the combined gains
-    ``gain`` [Vp]: (nm_part [Vp], the per-column max of the siblings'
-    gains over the shard's slots, 0 where it has none; gn [N], each
-    slot's mate's gain times ``gmask1``), and on a mixed layout also gn2
-    and gn3, the second and third siblings' gains times ``gmask2`` /
-    ``gmask3``.  One launch per shard."""
-    _check(sh, "gain", gain, (sh.Vp,))
-    if not _launch_ready(sh, "shard_route_gains"):
-        return shard_route_gains_plain(sh, gain)
-    nm_part = torch.empty_like(gain)
-    gns = [torch.empty((sh.N,), dtype=torch.float32, device=gain.device)
-           for _ in range(1 if sh.mixed is None else 3)]
-    if sh.mixed is None:
-        name = "shard_route_gains"
-        layout = (sh.gmask1.data_ptr(), sh.mate_col.data_ptr(), *_walk(sh))
+    Across devices the engine runs "max", the ordered max, "min", the
+    ordered min and :func:`mgm_decision`."""
+    if mode not in MGM_MODES:
+        raise ValueError(f"mode must be one of {MGM_MODES}, got {mode!r}")
+    _check(group, "gain", gain, (group.Vp,))
+    if mode == "move":
+        if not group.whole:
+            raise ValueError("mode 'move' takes a group that holds every "
+                             "shard; run 'max' and 'min' across devices")
+        if idx_row is None:
+            raise ValueError("mode 'move' takes idx_row")
+        _check(group, "idx_row", idx_row, (group.Vp,))
+    elif idx_row is not None:
+        raise ValueError("idx_row goes with mode 'move'")
+    if mode == "min":
+        if neigh_max is None:
+            raise ValueError("mode 'min' takes neigh_max")
+        _check(group, "neigh_max", neigh_max, (group.Vp,))
+    elif neigh_max is not None:
+        raise ValueError("neigh_max goes with mode 'min'")
+    if not _launch_ready(group, "device_mgm_move"):
+        return device_mgm_move_plain(group, gain, idx_row, mode, neigh_max)
+    out = torch.empty((group.Vp,), device=gain.device,
+                      dtype=torch.bool if mode == "move" else torch.float32)
+    sl = group.slabs
+    if group.mixed:
+        name = "device_mgm_move_mixed"
+        sibs = _ptrs(*(sl[f] for f in ("gmask1", "gmask2", "gmask3",
+                                       "mate_col", "mate2_col", "mate3_col",
+                                       "mate_idx", "mate2_idx",
+                                       "mate3_idx")))
     else:
-        m = sh.mixed
-        name = "shard_route_gains_mixed"
-        layout = (*_ptrs(sh.gmask1, m.gmask2, m.gmask3, sh.mate_col,
-                         m.mate2_col, m.mate3_col), *_walk(sh))
-    err = _kernel(name)(gain.data_ptr(), nm_part.data_ptr(),
-                        *(g.data_ptr() for g in gns), *layout, sh.N, sh.Vp,
-                        _stream(gain))
-    _raise_on(err, "shard_route_gains")
-    _count("shard_route_gains",
-           "mixed_launches" if sh.mixed is not None else "launches")
-    return (nm_part, *gns)
+        name = "device_mgm_move"
+        sibs = _ptrs(sl["gmask1"], sl["mate_col"], sl["mate_idx"])
+    move = out.data_ptr() if mode == "move" else None
+    err = _kernel(name)(
+        gain.data_ptr(), None if idx_row is None else idx_row.data_ptr(),
+        None if neigh_max is None else neigh_max.data_ptr(),
+        None if mode == "move" else out.data_ptr(), move, *sibs,
+        *_ptrs(group.corder, group.cptr, group.centry), group.Vp,
+        MGM_MODES.index(mode), _stream(gain))
+    _raise_on(err, "device_mgm_move")
+    _count("device_mgm_move",
+           "mixed_launches" if group.mixed else "launches")
+    return out
 
 
 _WRAPPERS = {fn.__name__: fn for fn in (device_fused_ba, device_tables,
-                                        shard_route_gains)}
+                                        device_mgm_move)}
 
 
 def reset_launches() -> None:

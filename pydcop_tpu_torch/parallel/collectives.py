@@ -13,11 +13,12 @@ CUDA).  Max and min are exact in any order; they take the same loop.
 
 Shards may share a device (all on one H100, or on the CPU): the result
 is placed once per distinct device, and shards on one device share one
-tensor.  Where one device holds every shard, K7's and K9's launch adds
-the partials in this order itself (``ops/packed_sharded.py``) and only
-MGM's max and min come here; across devices every combine does.  A shard that holds no factor passes the operation's identity
-(zeros for the sums and the gain maxima, the "no index" sentinel for the
-tie-break minima) — it launches nothing.
+tensor.  Where one device holds every shard, the launches of K7, K8 and
+K9 combine the shards themselves (``ops/packed_sharded.py``) and nothing
+comes here; across devices every combine does, one partial per device
+(K8) or per shard (K7, K9).  A shard that holds no factor passes the
+operation's identity (zeros for the sums and the gain maxima, the "no
+index" sentinel for the tie-break minima) — it launches nothing.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def _all_reduce(parts: Sequence[torch.Tensor],
                 combine: Callable) -> List[torch.Tensor]:
     if len(parts) != len(devices) or not parts:
         raise ValueError(
-            f"one partial per shard: got {len(parts)} partials for "
-            f"{len(devices)} shards")
+            f"one partial per entry of devices: got {len(parts)} partials "
+            f"for {len(devices)} devices")
     acc = parts[0]
     for p in parts[1:]:
         acc = combine(acc, p.to(acc.device))

@@ -15,12 +15,13 @@ partials in shard order — the counterpart of the cycle's ``psum`` — and
 writes the combined result; otherwise each launch writes its shards'
 partials and the ordered collectives of
 :mod:`pydcop_tpu_torch.parallel.collectives` combine them in shard
-order.  MGM's arbitration (K8 and its ``pmax``/``pmin`` pair) stays one
-launch per shard with the ordered collectives.  Variables are
-replicated: the variable side of a cycle runs once per group, from the
-same combined values.  The per-shard state the engines hand out (the
-``run`` state, ``init_messages``) is views of one allocation per group
-(``ShardGroup.views``).
+order.  MGM's arbitration (K8 with its ``pmax``/``pmin`` pair) is one
+launch per device as well, the whole arbitration inside it when one
+device holds every shard, else two with the ordered max and min between
+them.  Variables are replicated: the variable side of a cycle runs once
+per group, from the same combined values.  The per-shard state the
+engines hand out (the ``run`` state, ``init_messages``) is views of one
+allocation per group (``ShardGroup.views``).
 
 Ported: all-binary and mixed-arity (1-4) graphs in the packers' scope
 (``parallel/packed_mesh.py``), dense collectives (``overlap`` None,
@@ -431,9 +432,10 @@ class ShardedLocalSearch(_ShardedEngine):
     gain (best with the prefer-change nudge for dsa and adsa) and the move
     rule.  DSA: move iff gain > 1e-9 and the coin < probability.  ADSA:
     the variant's want-rule, a wake coin < activation and a move coin <
-    probability.  MGM: K8 on every shard, the ordered max of the
-    neighbourhood partials (clamped at 0), the tie-break partial per
-    shard, the ordered min, then the decision.
+    probability.  MGM: K8 once per device, the whole neighbourhood
+    arbitration inside it when one device holds every shard (across
+    devices: the groups' partial maxima, their ordered max clamped at 0,
+    the partial tie-break indices, their ordered min, the decision).
 
     The assignment is an int32 ``[V]`` tensor (column = variable) on the
     first shard's device.  Coins are uniforms per variable per cycle in
@@ -469,11 +471,6 @@ class ShardedLocalSearch(_ShardedEngine):
         self.rule = rule
         self.probability = float(probability)
         self.params = params
-        # what an empty shard passes to MGM's max and min
-        Vp = self.packs.Vp
-        self._zeros = [torch.zeros(Vp, device=dev) for dev in self.mesh]
-        self._big = [torch.full((Vp,), K.BIG_IDX, device=dev)
-                     for dev in self.mesh]
 
     # -- continuation state ------------------------------------------------
 
@@ -494,25 +491,24 @@ class ShardedLocalSearch(_ShardedEngine):
     # -- one cycle -----------------------------------------------------------
 
     def _mgm_move(self, gains: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The move mask per group from the gains per group: K8 per shard,
-        the ordered max, the tie-break partials, the ordered min."""
-        nm_parts, gns = list(self._zeros), [None] * self.n_shards
-        for g, gain in zip(self.groups, gains):
-            for s, sh in zip(g.index, g.shards):
-                if sh.N:
-                    nm_parts[s], *gns[s] = K.shard_route_gains(sh, gain)
-        maxed = all_max(nm_parts, self.mesh)
-        neigh_max = [torch.clamp_min(maxed[g.index[0]], 0.0)
-                     for g in self.groups]
-        idx_parts = list(self._big)
-        for g, nm in zip(self.groups, neigh_max):
-            for s, sh in zip(g.index, g.shards):
-                if sh.N:
-                    idx_parts[s] = K.tiebreak_idx_partial(sh, nm, *gns[s])
-        idx_at_max = all_min(idx_parts, self.mesh)
-        return [K.mgm_decision(gain, self.packs.common_on(g.device)[2], nm,
-                               idx_at_max[g.index[0]])
-                for g, gain, nm in zip(self.groups, gains, neigh_max)]
+        """The move mask per group from the gains per group: one K8 launch
+        when one device holds every shard; across devices each group's
+        partial neighbourhood max, their ordered max clamped at 0, each
+        group's partial tie-break index, their ordered min, then the
+        decision."""
+        rows = [self.packs.common_on(g.device)[2] for g in self.groups]
+        if self.groups[0].whole:
+            return [K.device_mgm_move(self.groups[0], gains[0], rows[0])]
+        devs = [g.device for g in self.groups]
+        maxed = all_max([K.device_mgm_move(g, gain, mode="max")
+                         for g, gain in zip(self.groups, gains)], devs)
+        neigh_max = [torch.clamp_min(m, 0.0) for m in maxed]
+        idx_at_max = all_min(
+            [K.device_mgm_move(g, gain, mode="min", neigh_max=nm)
+             for g, gain, nm in zip(self.groups, gains, neigh_max)], devs)
+        return [K.mgm_decision(gain, row, nm, idx)
+                for gain, row, nm, idx in zip(gains, rows, neigh_max,
+                                              idx_at_max)]
 
     def cycle(self, x: torch.Tensor, coins=None) -> torch.Tensor:
         """One sharded cycle from the assignment ``x``; ``coins`` is this

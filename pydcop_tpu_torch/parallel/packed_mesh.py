@@ -31,17 +31,17 @@ one SPMD trace serves every shard; the port launches per shard and has
 no dummy slot, so its arity masks are the shard's own occupancy.
 
 The shards that share a device form a :class:`ShardGroup`, in shard
-order, laid out for the device-level kernels K7 and K9
-(``ops/packed_sharded.py::device_fused_ba``, ``device_tables``): each
-array those kernels read is ONE allocation per group, the shards' pieces
-contiguous in it (``[R, N_s]`` each, at ``R * soff[k]``), and the
-shards' fields are views of it, so one base pointer and the group's
-descriptor table (``ShardGroup.desc``) reach every shard while each
-shard still sees its own ``[R, N_s]`` tensors.  The group also carries
-each column's slots over all its shards in shard order, then rank order
-(``cptr``, ``centry``, ``cshard``: the order the kernels add them in), the
-column order of the kernels' threads (``corder``) and the slots in arity
-order (``items``).
+order, laid out for the device-level kernels K7, K8 and K9
+(``ops/packed_sharded.py::device_fused_ba``, ``device_mgm_move``,
+``device_tables``): each array those kernels read is ONE allocation per
+group, the shards' pieces contiguous in it (``[R, N_s]`` each, at ``R *
+soff[k]``), and the shards' fields are views of it, so one base pointer
+and the group's descriptor table (``ShardGroup.desc``) reach every shard
+while each shard still sees its own ``[R, N_s]`` tensors.  The group
+also carries each column's slots over all its shards in shard order,
+then rank order (``cptr``, ``centry``, ``cshard``: the order the kernels
+add them in), the column order of the kernels' threads (``corder``) and
+the slots in arity order (``items``).
 
 The JAX packer's TPU machinery — one forced layout of 128-lane padded
 degree classes shared by every shard, the Clos plans, the per-shard
@@ -144,13 +144,17 @@ class ShardLayout:
 
 
 #: the ShardLayout fields the device-level kernels read, one slab each per
-#: group (``cost_rows`` on the all-binary layout only)
+#: group (``cost_rows`` on the all-binary layout only; ``gmask1`` and
+#: ``mate_idx`` are MGM's arbitration, K8)
 SLAB_FIELDS = ("cost_rows", "vmask", "inv_dcount", "mate", "slot_col",
-               "mate_col")
+               "mate_col", "gmask1", "mate_idx")
 #: the ShardMixed fields they read on the mixed layout (and the per-arity
 #: cost arrays, slabs "cost1".."cost4")
 SLAB_MIXED = ("arity", "cost_idx", "mate2", "mate3", "mate2_col",
-              "mate3_col")
+              "mate3_col", "gmask2", "gmask3", "mate2_idx", "mate3_idx")
+#: the float32 fields of SLAB_MIXED (an empty shard's piece takes their
+#: dtype)
+_MIXED_F32 = ("gmask2", "gmask3", "mate2_idx", "mate3_idx")
 #: columns of a descriptor row: soff, N, the element offset of each
 #: arity's cost piece in its slab (4), that piece's width (4)
 DESC_COLS = 10
@@ -400,7 +404,9 @@ def _build_group(shards: List[ShardLayout], index: Sequence[int],
             slabs[f] = _into_slab(
                 shards,
                 lambda sh, f=f: (getattr(sh.mixed, f) if sh.mixed is not None
-                                 else torch.zeros(0, **i32)),
+                                 else torch.zeros(0, device=dev, dtype=(
+                                     torch.float32 if f in _MIXED_F32
+                                     else torch.int32))),
                 lambda sh, v, f=f: (setattr(sh.mixed, f, v)
                                     if sh.mixed is not None else None))
         for a in ARITIES:

@@ -1,7 +1,8 @@
 """The port's sharded kernels (``ops/packed_sharded.py``: the per-shard
 plain versions of K7 ``shard_fused_ba_plain`` and K9
 ``shard_tables_plain``, which the device-level launches run shard by
-shard, and K8 ``shard_route_gains``) against the JAX package's Pallas
+shard, and K8 ``shard_route_gains_plain``, which ``device_mgm_move``'s
+plain version runs shard by shard) against the JAX package's Pallas
 kernels of
 ``ops/pallas_sharded.py`` run in interpret mode, called directly on one
 shard's operands from JAX's ``parallel/packed_mesh.py::build_shard_packs``
@@ -19,7 +20,7 @@ the partial beliefs (as the packed-vs-generic checks of the JAX tests),
 K8, K9 and the move-rule helpers exactly.
 
 The CUDA kernels cannot run here: the tests marked ``cuda`` hold each one
-(K7 and K9 as one launch over a device's group of shards) against its
+(K7, K8 and K9 as one launch over a device's group of shards) against its
 plain version where a GPU is visible.
 """
 import functools
@@ -205,7 +206,7 @@ def test_k8_plain_matches_jax(name, n_shards, s):
     jnm, jgn = packed_shard_route_gains(
         sp.pg0, _to_jax_cols(sp, gain[None]), _shard_consts(sp, s),
         sp.gmask1[s], interpret=True)
-    tnm, tgn = K.shard_route_gains(sh, torch.as_tensor(gain))
+    tnm, tgn = K.shard_route_gains_plain(sh, torch.as_tensor(gain))
     assert np.array_equal(tnm.numpy(), _jax_cols(sp, jnm)[0])
     assert np.array_equal(tgn.numpy()[sh.slot_of[2]],
                           _jax_slots(sp, s, jgn)[0])
@@ -248,7 +249,7 @@ def test_move_rule_helpers_match_jax(name, n_shards, s):
         assert np.array_equal(gain.numpy(), _jax_cols(sp, jgain)[0])
     gain = _gains(rng, V)
     nm = np.maximum(_gains(rng, V), gain)  # a combined neighbourhood max
-    _, gn = K.shard_route_gains(sh, torch.as_tensor(gain))
+    _, gn = K.shard_route_gains_plain(sh, torch.as_tensor(gain))
     jgn = _to_jax_slots(sp, s, gn.numpy()[sh.slot_of[2]][None])
     jidx = _tiebreak_idx_partial(
         sp.pg0, _bucket_expand(sp.pg0, _to_jax_cols(sp, nm[None]), 1), jgn,
@@ -273,7 +274,7 @@ def test_wrappers_check_their_operands():
     with pytest.raises(ValueError):
         K.device_fused_ba(g, bel, r[:-1])
     with pytest.raises(ValueError):
-        K.shard_route_gains(sh, torch.zeros(V - 1))
+        K.device_mgm_move(g, torch.zeros(V - 1), torch.zeros(V))
     with pytest.raises(TypeError):
         K.device_tables(g, torch.zeros(V))  # values must be int32
 
@@ -311,14 +312,27 @@ def test_k7_kernel_matches_plain_on_gpu(damping):
 
 @pytest.mark.cuda
 def test_k8_kernel_matches_plain_on_gpu():
+    """One K8 launch over the card's 3 shards (the move mask), and the two
+    modes of a device that holds only some shards, equal the plain
+    version bit for bit."""
     _need_gpu()
     packs = _cuda_packs("integer_coloring", 3)
-    gain = torch.as_tensor(_gains(np.random.default_rng(1), packs.Vp))
-    for sh in packs.shards:
-        k = K.shard_route_gains(sh, gain.cuda())
-        p = K.shard_route_gains_plain(sh, gain.cuda())
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(k, p))
+    grp = packs.groups[0]
+    gain = torch.as_tensor(_gains(np.random.default_rng(1),
+                                  packs.Vp)).cuda()
+    row = packs.common_on(grp.device)[2]
+    before = K.device_mgm_move.launches
+    k = K.device_mgm_move(grp, gain, row)
+    assert K.device_mgm_move.launches == before + 1
+    p = K.device_mgm_move_plain(grp, gain, row)
+    torch.cuda.synchronize()
+    assert k.dtype == torch.bool and torch.equal(k, p)
+    nm = K.device_mgm_move(grp, gain, mode="max")
+    assert torch.equal(nm, K.device_mgm_move_plain(grp, gain, mode="max"))
+    nm = torch.clamp_min(nm, 0.0)
+    assert torch.equal(K.device_mgm_move(grp, gain, mode="min", neigh_max=nm),
+                       K.device_mgm_move_plain(grp, gain, mode="min",
+                                               neigh_max=nm))
 
 
 @pytest.mark.cuda

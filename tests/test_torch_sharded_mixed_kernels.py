@@ -2,8 +2,9 @@
 (``ops/packed_sharded.py``: the per-shard plain versions of K7
 ``shard_fused_ba_plain`` on a mixed layout and with an activation row and
 of K9 ``shard_tables_plain`` on a mixed layout, which the device-level
-launches run shard by shard, and K8 ``shard_route_gains`` with the second
-and third siblings) against the JAX package's Pallas kernels of
+launches run shard by shard, and K8 ``shard_route_gains_plain`` with the
+second and third siblings, which ``device_mgm_move``'s plain version runs
+shard by shard) against the JAX package's Pallas kernels of
 ``ops/pallas_sharded.py`` in interpret mode, called directly on one
 shard's operands from JAX's ``parallel/packed_mesh.py::build_shard_packs``
 and its ``mixed=`` bundle (``parallel/mesh.py::_mixed_bundle``), no
@@ -26,7 +27,7 @@ on the real slots.  Tolerances: K7 ``np.allclose(atol=1e-4)`` (as the JAX packag
 packed-vs-generic checks), K8, K9, the tie-break partial and K3 exactly.
 
 The CUDA kernels cannot run here: the tests marked ``cuda`` hold each one
-(K7 and K9 as one launch over a device's group of shards) against its
+(K7, K8 and K9 as one launch over a device's group of shards) against its
 plain version where a GPU is visible.
 """
 import functools
@@ -269,7 +270,7 @@ def test_k8_mixed_and_tiebreak_plain_match_jax(name, n_shards, s):
         gmask2=gm2 if has2 else None,
         consts3=_consts(sp.consts3, s) if has3 else None,
         gmask3=gm3 if has3 else None, interpret=True)
-    nm, gn, gn2, gn3 = K.shard_route_gains(sh, torch.as_tensor(gain))
+    nm, gn, gn2, gn3 = K.shard_route_gains_plain(sh, torch.as_tensor(gain))
     assert np.array_equal(nm.numpy(), _jax_cols(sp, jout[0])[0])
     ps, js = _pairs(sh, jslot)
     # the port's masks are JAX's section masks on the real slots (the
@@ -450,14 +451,14 @@ def test_k8_k9_mixed_kernels_match_plain_on_gpu():
     gain = torch.as_tensor(_gains(rng, packs.Vp)).cuda()
     x = (rng.uniform(0, 1, packs.Vp) * packs.mask_p.sum(0)).astype(np.int32)
     x = torch.as_tensor(x).cuda()
-    for sh in packs.shards:
-        if not sh.N:
-            continue
-        k8 = K.shard_route_gains(sh, gain)
-        p8 = K.shard_route_gains_plain(sh, gain)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(k8, p8))
     grp = packs.groups[0]
+    row = packs.common_on(grp.device)[2]
+    before = K.device_mgm_move.mixed_launches
+    k8 = K.device_mgm_move(grp, gain, row)
+    assert K.device_mgm_move.mixed_launches == before + 1
+    p8 = K.device_mgm_move_plain(grp, gain, row)
+    torch.cuda.synchronize()
+    assert torch.equal(k8, p8)
     k9, p9 = K.device_tables(grp, x), K.device_tables_plain(grp, x)
     torch.cuda.synchronize()
     assert torch.equal(k9, p9)
