@@ -41,9 +41,12 @@ printed.
    generator at 100,000 nodes, and 3,000-node forest, ragged-domain and
    max-mode trees: assign equal, msg and cs with max abs error 0, and
    assign equal to the level scan's;
-   mixed_kernel_vs_plain: the mixed branches of the MaxSum kernel and of
-   the three local-search kernels against their plain versions (the same
-   rules as above) on five mixed-arity graphs: the JAX bench's SECP
+   mixed_kernel_vs_plain: the mixed branches of the MaxSum kernel (one
+   cooperative launch a cycle, two phases) and of the three local-search
+   kernels against their plain versions (the same rules as above; the
+   MaxSum kernel's q, r, beliefs and values also equal, ``torch.equal``,
+   after one call of 20 cycles and after two consecutive calls of 10) on
+   five mixed-arity graphs: the JAX bench's SECP
    (generate_secp(3000 lights, 900 models, 300 rules, seed 1), arity <= 3
    at max_model_size 2 and <= 4 at 3), the latter at 10x (30,000 lights),
    a star whose hub holds 2,500 unary, binary and ternary factors, and a
@@ -133,6 +136,13 @@ printed.
    its bytes bound, its plain version's time, and its device time per
    launch from a torch.profiler trace.
 
+``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,sharded]`` runs no
+phase above: it times K1's mixed branch on the three SECPs (events and
+device µs a cycle, blocks, equality with the plain version, SECP maxsum
+cycles/s) and the sharded kernels with the sharded rates, in turns of
+the tree at PARENT_TREE and this one (parent, change, change, parent),
+into ``ab_sharded.jsonl`` in the output directory.
+
 The last three lines are the card (``nvidia-smi`` name and power limit),
 ``{"kernels": [...]}`` (one entry per kernel: launches on its main path,
 max error against the plain version, times and bound) and
@@ -213,9 +223,12 @@ def unequal_domains_tensors(V, F, D, device, seed=5):
     return tensors_from_numpy(f, device=device)
 
 
-def kernel_vs_plain(pg, damping, cycles=20):
+def kernel_vs_plain(pg, damping, cycles=20, exact=False):
     """Run the kernel and the plain version from the same state; return
-    (max abs error, near-tie value mismatches).  Raises on a mismatch."""
+    (max abs error, near-tie value mismatches).  Raises on a mismatch.
+    ``exact``: q, r and beliefs must also be equal (``torch.equal``), in
+    one call of ``cycles`` cycles and in two consecutive calls of half as
+    many each."""
     import torch
 
     from pydcop_tpu_torch.ops.packed_maxsum import (
@@ -239,6 +252,18 @@ def kernel_vs_plain(pg, damping, cycles=20):
                 f"kernel {name} differs from plain: {int(bad.sum())} "
                 f"entries beyond atol {TOL}*(1+|x|), max {float(d.max())}")
         err = max(err, float(d.max()))
+    if exact:
+        hq, hr, _, _ = packed_cycles(pg, q, r, cycles // 2, damping=damping)
+        two = packed_cycles(pg, hq, hr, cycles - cycles // 2,
+                            damping=damping)
+        torch.cuda.synchronize()
+        for how, out in (("one call", (kq, kr, kb, kv)), ("two calls", two)):
+            for name, a, b in zip(("q", "r", "beliefs", "values"), out,
+                                  (pq, pr, pb, pv)):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"kernel {name} ({how}) is not equal to plain: "
+                        f"{int((a != b).sum())} entries differ")
     differ = kv != pv
     ties = 0
     if differ.any():
@@ -352,11 +377,21 @@ def time_kernel(pg, reps=200):
         lambda: packed_cycles_plain(pg, q, r, 20, damping=0.5), 1) / 20
     nbytes = packed_bytes(pg)
     bound, by = bound_of(nbytes, packed_ops(pg))
+    # "packed_maxsum_mixed" is a part of the mixed kernel's name in this
+    # tree and in its parents (the A/B times both)
     name = ("packed_maxsum_cycle_kernel" if pg.mixed is None
-            else "packed_maxsum_mixed_kernel")
+            else "packed_maxsum_mixed")
     device_us = profile_us(
         lambda: packed_cycles(pg, q, r, 50, damping=0.5), [name])[name]
     return ms, plain, bound, by, nbytes, device_us
+
+
+def mixed_launch_blocks(pg):
+    """Blocks of one launch of the mixed MaxSum kernel on this card, as
+    the wrapper sizes its grid."""
+    from pydcop_tpu_torch.ops import packed_maxsum as PM
+
+    return PM.mixed_blocks(pg, *PM._capacity(pg.D))
 
 
 def hard_coloring_tensors(V, E, device, seed=3):
@@ -1398,21 +1433,61 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as C
 from pydcop_tpu_torch.ops import cuda_build
+from pydcop_tpu_torch.ops import packed_maxsum as PM
 from pydcop_tpu_torch.ops import packed_sharded as K
 from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
 from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays, \
     compile_factor_graph
 cuda_build.build_all()
 dev = torch.device("cuda")
+sections = sys.argv[1].split(",")
+# K1-mixed: one call of 200 cycles (events), the profiler's device time,
+# the grid, equality with the plain version after 20 cycles, and the
+# single-device SECP maxsum cycles/s of a 200-cycle solve; only what both
+# trees' packed_maxsum and chip_smoke have in common is used
+secps = {"secp_3.9k": (1, 2), "secp4_3.9k": (1, 3),
+         "secp4_39k": (C.SECP_BIG_SCALE, 3)}
+for name, (scale, mms) in secps.items():
+    if "k1_mixed" not in sections:
+        break
+    dcop = C.secp_dcop(scale, mms)
+    pg = PM.pack_for_gpu(compile_factor_graph(dcop, device=dev))
+    if hasattr(PM, "mixed_blocks"):
+        design = "two phases, cooperative"
+        blocks = PM.mixed_blocks(pg, *PM._capacity(pg.D))
+    else:
+        design = "one thread a column"
+        blocks = -(-pg.Vp // 128)
+    q, r = PM.packed_init_state(pg)
+    kout = PM.packed_cycles(pg, q, r, 20, damping=0.5)
+    pout = PM.packed_cycles_plain(pg, q, r, 20, damping=0.5)
+    torch.cuda.synchronize()
+    ms, plain, bound, by, nbytes, device_us = C.time_kernel(pg)
+    row = {"size": name, "kernel": "packed_maxsum_mixed_cycle",
+           "design": design, "blocks": blocks, "events_us_per_cycle": ms * 1e3,
+           "device_us_per_cycle": device_us, "bound_us": bound * 1e3,
+           "plain_ms": plain,
+           "max_abs_err": max(float((a - b).abs().max())
+                              for a, b in zip(kout[:3], pout[:3])),
+           "equal": all(torch.equal(a, b) for a, b in zip(kout, pout))}
+    if name != "secp4_3.9k":
+        row["maxsum_cycles_per_s"] = C.breakdown(
+            dcop, "maxsum", 200, dev)["cycles_per_s"]
+    print(json.dumps(row), flush=True)
+# the sharded kernels at 8 shards, MGM's whole arbitration a cycle and
+# the sharded rates
 graphs = {}
 for name, V, E in (("10k_30k", 10_000, 30_000),
                    ("100k_300k", 100_000, 300_000)):
+    if "sharded" not in sections:
+        break
     ei, ej, mats, un = C.coloring_arrays(V, E)
     graphs[name] = compile_binary_from_arrays(ei, ej, mats, V, unary=un,
                                               device=dev)
-graphs["secp_3.9k"] = compile_factor_graph(C.secp_dcop(1, 2), device=dev)
-graphs["secp4_39k"] = compile_factor_graph(
-    C.secp_dcop(C.SECP_BIG_SCALE, 3), device=dev)
+if "sharded" in sections:
+    graphs["secp_3.9k"] = compile_factor_graph(C.secp_dcop(1, 2), device=dev)
+    graphs["secp4_39k"] = compile_factor_graph(
+        C.secp_dcop(C.SECP_BIG_SCALE, 3), device=dev)
 for name, t in graphs.items():
     eng = ShardedLocalSearch(t, build_mesh(C.SHARDS, "cuda"), rule="mgm")
     x = eng.run_chunked(5, seed=0)[1]
@@ -1438,28 +1513,36 @@ for name, t in graphs.items():
 """
 
 
-def ab_sharded(parent):
-    """The sharded kernels of the tree at ``parent`` against this tree's,
-    on this card, in turns: parent, change, change, parent; each turn a
-    fresh process in its tree (:data:`AB_TURN`).  Prints one JSON line a
-    row, tagged with the turn and the tree, and writes them to
-    ``chiprun_out/ab_sharded.jsonl``."""
+#: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
+AB_SECTIONS = ("k1_mixed", "sharded")
+
+
+def ab_kernels(parent, sections=AB_SECTIONS):
+    """The kernels of the tree at ``parent`` against this tree's, on this
+    card, in turns: parent, change, change, parent; each turn a fresh
+    process in its tree (:data:`AB_TURN`) running ``sections``: K1's
+    mixed branch on the SECPs with the single-device SECP maxsum rates
+    (``k1_mixed``), and the sharded kernels with the sharded rates
+    (``sharded``).  Prints one JSON line a row, tagged with the turn and
+    the tree, and writes them to ``ab_sharded.jsonl`` in the output
+    directory."""
     rows = []
     for turn, (label, tree) in enumerate((("parent", parent), ("change", ROOT),
                                           ("change", ROOT),
                                           ("parent", parent))):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", AB_TURN], cwd=tree,
-                              capture_output=True, text=True, timeout=1200)
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_TURN, ",".join(sections)], cwd=tree,
+            capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
-            fail("ab_sharded", f"{label} turn {turn}: rc={proc.returncode} "
+            fail("ab_kernels", f"{label} turn {turn}: rc={proc.returncode} "
                  f"{proc.stderr[-3000:]}")
         for ln in proc.stdout.splitlines():
             if ln.startswith("{"):
                 row = dict(json.loads(ln), turn=turn, tree=label)
                 rows.append(row)
                 print(json.dumps(row), flush=True)
-        say("ab_sharded", turn=turn, tree=label,
+        say("ab_kernels", turn=turn, tree=label, sections=list(sections),
             seconds=round(time.perf_counter() - t0, 3))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "ab_sharded.jsonl"),
@@ -1550,7 +1633,7 @@ def main():
     from pydcop_tpu_torch.ops import cuda_build
     from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays
     from pydcop_tpu_torch.ops.packed_local_search import pack_from_pg
-    from pydcop_tpu_torch.ops.packed_maxsum import pack_for_gpu
+    from pydcop_tpu_torch.ops.packed_maxsum import mixed_work, pack_for_gpu
     from pydcop_tpu_torch.ops.packed_mgm2 import LAUNCHES_PER_CYCLE, \
         pack_mgm2_from_pls
     from pydcop_tpu_torch.runtime import solve_result
@@ -1565,10 +1648,15 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     if sys.argv[1:2] == ["--ab"]:
-        # python3 chip_smoke.py --ab PARENT_TREE: the A/B of the sharded
-        # kernels only (no other phase, no result lines)
+        # python3 chip_smoke.py --ab PARENT_TREE [SECTIONS]: the A/B of
+        # K1-mixed and of the sharded kernels (SECTIONS, comma-separated,
+        # default both), no other phase, no result lines
+        sections = (sys.argv[3].split(",") if len(sys.argv) > 3
+                    else AB_SECTIONS)
+        if not set(sections) <= set(AB_SECTIONS):
+            fail("ab_kernels", f"sections {sections}: not in {AB_SECTIONS}")
         say("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0))
-        ab_sharded(os.path.abspath(sys.argv[2]))
+        ab_kernels(os.path.abspath(sys.argv[2]), sections)
         print(smi, flush=True)
         return
     build_s = cuda_build.build_all()
@@ -1700,7 +1788,7 @@ def main():
         slots = [int(sl.numel()) for sl in pg.mixed.slots]
         for damping in (0.5, 0.0):
             try:
-                err, ties = kernel_vs_plain(pg, damping)
+                err, ties = kernel_vs_plain(pg, damping, exact=True)
             except AssertionError as e:
                 fail("mixed_kernel_vs_plain", f"{name} damping={damping}: "
                      f"{e}")
@@ -1708,7 +1796,8 @@ def main():
             say("mixed_kernel_vs_plain", kernel="packed_maxsum_mixed_cycle",
                 case=name, damping=damping, D=pg.D, N=pg.N, Vp=pg.Vp,
                 slots_by_arity=slots, max_deg=int(pg.col_deg.max()),
-                max_abs_err=err, near_tie_value_diffs=ties,
+                units=mixed_work(pg), blocks=mixed_launch_blocks(pg),
+                equal=True, max_abs_err=err, near_tie_value_diffs=ties,
                 build_dcop_s=round(build_s, 3),
                 compile_pack_s=round(prep_s, 3))
         try:
@@ -2297,7 +2386,8 @@ def main():
         ms, plain, bound, by, nbytes, device_us = time_kernel(pg)
         timing[name, "packed_maxsum_mixed_cycle"] = (ms, plain, bound, by)
         say("times", kernel="packed_maxsum_mixed_cycle", size=name, N=pg.N,
-            Vp=pg.Vp, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
+            Vp=pg.Vp, units=mixed_work(pg), blocks=mixed_launch_blocks(pg),
+            kernel_ms=ms, plain_ms=plain, bound_ms=bound,
             bound_by=by, bytes_per_cycle=nbytes,
             profiler_kernel_us=device_us,
             kernel_busy_share=device_us / (ms * 1e3) if device_us else None,
@@ -2462,6 +2552,10 @@ def main():
     sizes_of = {"dpop_whole_sweep": "bench_tree_10k",
                 "packed_shard_fused_ba_act": "10k_30k",
                 "lane_permute": "N30000"}
+    designs = {"packed_maxsum_mixed_cycle": (
+        "one cooperative launch a cycle, two phases: the slots' r' over the "
+        "grid (a ternary or quaternary slot one thread a value), a grid "
+        "barrier, one thread a column")}
     kernels = []
     for name, source, replaces, launches, err in entries:
         row = timing[
@@ -2475,6 +2569,7 @@ def main():
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by,
             "library_ms": row[4] if len(row) > 4 else None,
+            **({"design": designs[name]} if name in designs else {}),
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,51 @@
+// The grid barrier of the port's cooperative launches and the capacity
+// query that sizes them, shared by packed_maxsum.cu (K1's mixed branch)
+// and sharded.cu (K7).  A cooperative launch
+// (cudaLaunchCooperativeKernel) keeps every block of its grid resident,
+// or is refused, so the blocks may wait for one another here.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// All blocks of a cooperative launch meet here; the stores made before it
+// are visible to every block after it (read them with __ldcg: a block's
+// L1 may hold a line another block wrote).  bar[0] counts the blocks that
+// arrived and returns to 0; bar[1] is the generation the last one bumps.
+// The two words belong to the caller: zero before the first launch that
+// uses them, and never shared by launches that may run at the same time.
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The resident-block capacity of a cooperative kernel launched with
+// `threads` threads a block on the current device (0 when it cannot be
+// asked).
+inline int coop_capacity(const void* kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+}  // namespace

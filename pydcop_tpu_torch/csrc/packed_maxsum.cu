@@ -29,34 +29,67 @@
 // variables sorted by degree (mixed: by their per-arity degree tuple);
 // the columns of one class share a block of slots, and column c's k-th
 // slot is col_slot0[c] + k * col_stride[c].  A mixed column's slots run
-// unary, binary, ternary, quaternary, so the threads of a class block
-// meet the same arity at the same rank.  The mixed layout keeps one cost
-// array per arity, [D^a, N_a] over that arity's slots only, and each
-// slot's column in it (cost_idx); slots of a class block at one rank have
-// neighbouring cost_idx, so those loads coalesce too.  One thread owns
-// one column: at each rank k the threads of a warp touch neighbouring
-// slots (coalesced), and a thread stops at its column's true degree, so a
-// hub of any degree is one longer loop (no hub splitting, no padding to
-// a degree class).
+// unary, binary, ternary, quaternary.  The mixed layout keeps one cost
+// array per arity, [D^a, n_a] over that arity's slots only, and the slot
+// of each of its columns (slots_a, ascending: cost column t belongs to
+// slot slots_a[t]).
 //
-// One launch per cycle: the only reads across columns are q_in at the
-// sibling slots, of the PREVIOUS cycle.  Everything after them — r' of
-// the column's slots, its belief and q' of its slots — is owned by the
-// column's thread.  So q is double-buffered across launches (q_in and
-// q_out never alias), while r may be updated in place (r_in == r_out):
-// each r element is read and then written by its owner thread only.
+// The binary cycle is one launch of one thread per column: at each rank
+// k the threads of a warp touch neighbouring slots (coalesced), and a
+// thread stops at its column's true degree, so a hub of any degree is one
+// longer loop (no hub splitting, no padding to a degree class).  The only
+// reads across columns are q_in at the sibling slots, of the PREVIOUS
+// cycle; everything after them — r' of the column's slots, its belief and
+// q' of its slots — is owned by the column's thread.  So q is
+// double-buffered across launches (q_in and q_out never alias), while r
+// may be updated in place (r_in == r_out): each r element is read and
+// then written by one thread only.
+//
+// The mixed cycle is ONE cooperative launch (cudaLaunchCooperativeKernel:
+// every block resident, or the launch is refused) of two phases with a
+// grid barrier between them (grid_sync.cuh).  Phase 1 spreads the slots'
+// r' over the grid, in arity order: one work unit a unary or binary slot
+// (all D values; a binary slot gathers its sibling's q once), D units a
+// ternary or quaternary slot, one a value i, each gathering the
+// siblings' q and searching the D^(a-1) candidates of its value.  Unit u
+// of arity a takes cost column t = u mod n_a and value i = u div n_a, so
+// the lanes of a warp read neighbouring columns of one cost row
+// (coalesced); a value's cost entries are loaded D^2 at a time before
+// its minimum runs over them, so their loads are in flight together.  A
+// unit reads r_in[i,s] and writes r_out[i,s] for its own values only, so
+// r may still be updated in place.  Phase 2 is one thread per column
+// (grid-stride): the belief sum of its slots' r' in rank order from 0,
+// then q' of each slot, as the binary kernel does, kBatch slots' loads
+// in flight at a time; r' written by other blocks is read through L2
+// (__ldcg).  fminf is exact in any order for non-NaN values, and each sum
+// keeps its order, so the split changes no result.  The barrier words
+// belong to the caller (the wrapper allocates them zeroed for each
+// call).
 //
 // Bound: memory.  Binary: per slot per cycle D*D cost floats, D gathered
 // q floats, 2*D r floats, D q floats, D vmask floats, the mate index and
 // inv_dcount: ~104 B at D=3, ~6.2 MB a cycle at 60k slots (the
 // 10k-variable / 30k-constraint coloring) — about 2 us at 3.35 TB/s.
-// Mixed: an arity-a slot reads D^a cost floats and (a-1)*D gathered q
-// floats (the SECP instances: D=5, so a ternary slot reads 500 B of
-// cost, a quaternary slot 2.5 kB); the D^a candidate loops stay in
-// registers.  The design answers the bound only by reading each operand
-// once and coalescing all but the sibling gathers; shared-memory staging
-// and TMA are not used.
+// Mixed: the bound counts a factor's table once (chip_smoke.py
+// packed_bytes), but the layout stores a rotated copy per slot, and the
+// mixed kernel reads each slot's copy once: D^a floats an arity-a slot
+// (the SECP instances: D=5, so a ternary slot 500 B, a quaternary slot
+// 2.5 kB; at SECP-39k 45 MB of quaternary rows, 13.4 us at 3.35 TB/s
+// against a 7.5 us bound), and (a-1)*D gathered q floats a unit.  What
+// held the one-thread-a-column mixed kernel back was latency: 31 blocks
+// at SECP-3.9k, each thread walking its column's slots and searching
+// every value's D^(a-1) candidates serially (55x its bound; 24x at
+// SECP-39k).  Phase 1 puts a thread on each (slot, value) of the
+// ternary and quaternary slots instead.  Measured on the H100 (PERF.md,
+// K1-mixed): the batched loads of both phases took SECP-39k from 74 to 44
+// us a cycle, though their registers (96 at D=5) halve the resident
+// blocks; a cap of 64 registers (spills) or unbatched phase-2 loads
+// gave more blocks and 50-51 us.  Shared-memory staging and TMA are not
+// used: each cost entry is read once, so there is nothing to reuse; the
+// sibling gathers are not coalesced.
 #include <cuda_runtime.h>
+
+#include "grid_sync.cuh"
 
 namespace {
 
@@ -132,19 +165,31 @@ __global__ void packed_maxsum_cycle_kernel(
 // refuses D > 5 with such factors); the D^3/D^4 loops are compiled only
 // up to it
 constexpr int kMaxDNary = 5;
+// threads per block of the mixed kernel (a cooperative launch)
+constexpr int kMixedThreads = 128;
 
+// The mixed layout's per-arity operands.  Named fields, not arrays: a
+// member picked by a runtime arity from an array would put the struct in
+// local memory.
 struct MixedArgs {
   const float* cost1;  // [D, n1]
   const float* cost2;  // [D^2, n2]
   const float* cost3;  // [D^3, n3]
   const float* cost4;  // [D^4, n4]
-  const int* arity;     // [N]
-  const int* cost_idx;  // [N]
-  const int* mate;      // [N] first sibling slot (-1 on unary slots)
-  const int* mate2;     // [N] second sibling slot (-1 below arity 3)
-  const int* mate3;     // [N] third sibling slot (-1 below arity 4)
+  const long long* slots1;  // [n1] the slot of each column of cost1
+  const long long* slots2;  // [n2]
+  const long long* slots3;  // [n3]
+  const long long* slots4;  // [n4]
+  const int* mate;   // [N] first sibling slot (-1 on unary slots)
+  const int* mate2;  // [N] second sibling slot (-1 below arity 3)
+  const int* mate3;  // [N] third sibling slot (-1 below arity 4)
   size_t n1, n2, n3, n4;
 };
+
+template <class T>
+__device__ __forceinline__ T by_arity(int a, T v1, T v2, T v3, T v4) {
+  return a == 1 ? v1 : a == 2 ? v2 : a == 3 ? v3 : v4;
+}
 
 template <int D>
 __device__ __forceinline__ void gather_q(const float* __restrict__ q,
@@ -154,138 +199,202 @@ __device__ __forceinline__ void gather_q(const float* __restrict__ q,
   for (int j = 0; j < D; ++j) out[j] = q[j * n + m];
 }
 
-// r' of one mixed slot, in the Pallas kernel's order (see the header)
+// r' at value i of the arity-a slot in column t of cost_a, before vmask,
+// in the Pallas kernel's order (see the header); q1..q3 are the
+// siblings' q.  The cost entries a candidate search reads are loaded
+// first, D^2 at a time (all of a ternary value's, a quaternary value's
+// for one j), so their loads are in flight together; the minimum then
+// runs over them in order.
 template <int D>
-__device__ __forceinline__ void mixed_r(const MixedArgs& A,
-                                        const float* __restrict__ q_in,
-                                        size_t n, size_t s, float rn[D]) {
-  const int a = A.arity[s];
-  const size_t ci = static_cast<size_t>(A.cost_idx[s]);
-  if (a == 1) {
-#pragma unroll
-    for (int i = 0; i < D; ++i) rn[i] = A.cost1[i * A.n1 + ci];
-    return;
-  }
-  float q1[D];
-  gather_q<D>(q_in, n, A.mate[s], q1);
+__device__ __forceinline__ float slot_value(const MixedArgs& A, int a,
+                                             size_t t, int i,
+                                             const float q1[D],
+                                             const float q2[D],
+                                             const float q3[D]) {
+  const float* cost = by_arity(a, A.cost1, A.cost2, A.cost3, A.cost4);
+  const size_t w = by_arity(a, A.n1, A.n2, A.n3, A.n4);
+  if (a == 1) return __ldg(cost + i * w + t);
   if (a == 2) {
+    float cv[D];
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float best = A.cost2[i * A.n2 + ci] + q1[0];
+    for (int j = 0; j < D; ++j) cv[j] = __ldg(cost + (j * D + i) * w + t);
+    float best = cv[0] + q1[0];
 #pragma unroll
-      for (int j = 1; j < D; ++j)
-        best = fminf(best, A.cost2[(j * D + i) * A.n2 + ci] + q1[j]);
-      rn[i] = best;
-    }
-    return;
+    for (int j = 1; j < D; ++j) best = fminf(best, cv[j] + q1[j]);
+    return best;
   }
   if constexpr (D <= kMaxDNary) {
-    float q2[D];
-    gather_q<D>(q_in, n, A.mate2[s], q2);
+    float cv[D * D];
     if (a == 3) {
 #pragma unroll
-      for (int i = 0; i < D; ++i) {
-        float best = (A.cost3[i * A.n3 + ci] + q1[0]) + q2[0];
+      for (int jk = 0; jk < D * D; ++jk)
+        cv[jk] = __ldg(cost + (jk * D + i) * w + t);
+      float best = (cv[0] + q1[0]) + q2[0];
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
+      for (int j = 0; j < D; ++j) {
 #pragma unroll
-          for (int k = 0; k < D; ++k) {
-            if (j == 0 && k == 0) continue;
-            const float cand =
-                (A.cost3[((j * D + k) * D + i) * A.n3 + ci] + q1[j]) + q2[k];
-            best = fminf(best, cand);
-          }
+        for (int k = 0; k < D; ++k) {
+          if (j == 0 && k == 0) continue;
+          best = fminf(best, (cv[j * D + k] + q1[j]) + q2[k]);
         }
-        rn[i] = best;
       }
-      return;
+      return best;
     }
-    float q3[D];
-    gather_q<D>(q_in, n, A.mate3[s], q3);
-    float best[D];
+    float best = 0.0f;
 #pragma unroll
     for (int j = 0; j < D; ++j) {
+      // rows ((j*D + k)*D + m)*D + i for every (k, m)
+#pragma unroll
+      for (int km = 0; km < D * D; ++km)
+        cv[km] = __ldg(cost + ((j * D * D + km) * D + i) * w + t);
 #pragma unroll
       for (int k = 0; k < D; ++k) {
         const float qjk = q1[j] + q2[k];
 #pragma unroll
         for (int m = 0; m < D; ++m) {
-          const size_t row = static_cast<size_t>(((j * D + k) * D + m) * D);
-#pragma unroll
-          for (int i = 0; i < D; ++i) {
-            const float cand = (A.cost4[(row + i) * A.n4 + ci] + qjk) + q3[m];
-            best[i] = (j == 0 && k == 0 && m == 0) ? cand
-                                                   : fminf(best[i], cand);
-          }
+          const float cand = (cv[k * D + m] + qjk) + q3[m];
+          best = (j == 0 && k == 0 && m == 0) ? cand : fminf(best, cand);
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < D; ++i) rn[i] = best[i];
+    return best;
   } else {
-    // unreachable: the packer gives no arity-3/4 slot at this D
-#pragma unroll
-    for (int i = 0; i < D; ++i) rn[i] = 0.0f;
+    return 0.0f;  // unreachable: the packer gives no arity-3/4 slot at this D
   }
 }
 
 template <int D>
-__global__ void packed_maxsum_mixed_kernel(
-    const float* __restrict__ q_in, float* __restrict__ q_out,
-    const float* r_in, float* r_out, float* __restrict__ beliefs,
-    MixedArgs A, const float* __restrict__ unary,
-    const float* __restrict__ vmask, const float* __restrict__ inv_dcount,
-    const int* __restrict__ col_deg, const int* __restrict__ col_slot0,
-    const int* __restrict__ col_stride, int N, int Vp, float damping,
-    float keep, int use_damping) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Vp) return;
-  const int deg = col_deg[c];
-  const size_t s0 = static_cast<size_t>(col_slot0[c]);
-  const size_t stride = static_cast<size_t>(col_stride[c]);
+__global__ void __launch_bounds__(kMixedThreads)
+    packed_maxsum_mixed_coop_kernel(
+        const float* __restrict__ q_in, float* __restrict__ q_out,
+        const float* r_in, float* r_out, float* __restrict__ beliefs,
+        MixedArgs A, const float* __restrict__ unary,
+        const float* __restrict__ vmask,
+        const float* __restrict__ inv_dcount,
+        const int* __restrict__ col_deg, const int* __restrict__ col_slot0,
+        const int* __restrict__ col_stride, int N, int Vp, float damping,
+        float keep, int use_damping, unsigned* bar) {
+  const size_t tid =
+      static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
   const size_t n = static_cast<size_t>(N);
 
-  float acc[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) acc[i] = 0.0f;
-
-  // factor side of every slot of this column (unary, binary, ternary,
-  // quaternary ranks in turn), and the belief sum in slot order
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-    float rn[D];
-    mixed_r<D>(A, q_in, n, s, rn);
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float v = rn[i] * vmask[i * n + s];
-      if (use_damping) v = damping * r_in[i * n + s] + keep * v;
-      r_out[i * n + s] = v;
-      acc[i] += v;
+  // phase 1: r' of every slot.  Work units in arity order: n_a units of
+  // arity 1 and 2, D * n_a of arity 3 and 4; arity a's units end at ea.
+  const size_t e1 = A.n1;
+  const size_t e2 = e1 + A.n2;
+  const size_t e3 = e2 + D * A.n3;
+  const size_t e4 = e3 + D * A.n4;
+  for (size_t u = tid; u < e4; u += nthreads) {
+    const int a = u < e1 ? 1 : u < e2 ? 2 : u < e3 ? 3 : 4;
+    const size_t na = by_arity(a, A.n1, A.n2, A.n3, A.n4);
+    const size_t local = u - by_arity(a, size_t{0}, e1, e2, e3);
+    const bool split = a >= 3;
+    const size_t t = split ? local % na : local;
+    const int i0 = split ? static_cast<int>(local / na) : 0;
+    const int i1 = split ? i0 + 1 : D;
+    const size_t s = static_cast<size_t>(
+        __ldg(by_arity(a, A.slots1, A.slots2, A.slots3, A.slots4) + t));
+    float q1[D], q2[D], q3[D];
+    if (a >= 2) gather_q<D>(q_in, n, __ldg(A.mate + s), q1);
+    if (a >= 3) gather_q<D>(q_in, n, __ldg(A.mate2 + s), q2);
+    if (a >= 4) gather_q<D>(q_in, n, __ldg(A.mate3 + s), q3);
+    for (int i = i0; i < i1; ++i) {
+      const size_t at = static_cast<size_t>(i) * n + s;
+      float v = slot_value<D>(A, a, t, i, q1, q2, q3) * vmask[at];
+      if (use_damping) v = damping * r_in[at] + keep * v;
+      r_out[at] = v;
     }
   }
 
-  float bel[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    bel[i] = unary[i * static_cast<size_t>(Vp) + c] + acc[i];
-    beliefs[i * static_cast<size_t>(Vp) + c] = bel[i];
-  }
+  grid_barrier(bar);
 
-  // variable side, as the binary kernel's
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-    float qv[D];
-    float vm[D];
-    float total = 0.0f;
+  // phase 2: one thread per column, as the binary kernel's: the belief
+  // sum in slot order (rank 0 first), then the variable side; kBatch
+  // slots' loads in flight at a time
+  constexpr int kBatch = D <= 4 ? 8 : 4;
+  const size_t vp = static_cast<size_t>(Vp);
+  for (size_t c = tid; c < vp; c += nthreads) {
+    const int deg = col_deg[c];
+    const size_t s0 = static_cast<size_t>(col_slot0[c]);
+    const size_t stride = static_cast<size_t>(col_stride[c]);
+    float acc[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) acc[i] = 0.0f;
+    for (int k0 = 0; k0 < deg; k0 += kBatch) {
+      float v[kBatch][D];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (k0 + b >= deg) break;
+        const size_t s = s0 + static_cast<size_t>(k0 + b) * stride;
+#pragma unroll
+        for (int i = 0; i < D; ++i) v[b][i] = __ldcg(r_out + i * n + s);
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (k0 + b >= deg) break;
+#pragma unroll
+        for (int i = 0; i < D; ++i) acc[i] += v[b][i];
+      }
+    }
+    float bel[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      vm[i] = vmask[i * n + s];
-      qv[i] = bel[i] - r_out[i * n + s];
-      total += qv[i] * vm[i];
+      bel[i] = unary[i * vp + c] + acc[i];
+      beliefs[i * vp + c] = bel[i];
     }
-    const float mean = total * inv_dcount[s];
+    for (int k0 = 0; k0 < deg; k0 += kBatch) {
+      float rv[kBatch][D];
+      float vm[kBatch][D];
+      float dinv[kBatch];
 #pragma unroll
-    for (int i = 0; i < D; ++i) q_out[i * n + s] = (qv[i] - mean) * vm[i];
+      for (int b = 0; b < kBatch; ++b) {
+        if (k0 + b >= deg) break;
+        const size_t s = s0 + static_cast<size_t>(k0 + b) * stride;
+        dinv[b] = inv_dcount[s];
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          rv[b][i] = __ldcg(r_out + i * n + s);
+          vm[b][i] = vmask[i * n + s];
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (k0 + b >= deg) break;
+        const size_t s = s0 + static_cast<size_t>(k0 + b) * stride;
+        float qv[D];
+        float total = 0.0f;
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          qv[i] = bel[i] - rv[b][i];
+          total += qv[i] * vm[b][i];
+        }
+        const float mean = total * dinv[b];
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+          q_out[i * n + s] = (qv[i] - mean) * vm[b][i];
+      }
+    }
+  }
+}
+
+// the mixed kernel at domain size D (nullptr outside [1, 8])
+const void* mixed_kernel(int D) {
+  switch (D) {
+#define PACKED_MAXSUM_MIXED_CASE(DD) \
+  case DD:                           \
+    return reinterpret_cast<const void*>(packed_maxsum_mixed_coop_kernel<DD>);
+    PACKED_MAXSUM_MIXED_CASE(1)
+    PACKED_MAXSUM_MIXED_CASE(2)
+    PACKED_MAXSUM_MIXED_CASE(3)
+    PACKED_MAXSUM_MIXED_CASE(4)
+    PACKED_MAXSUM_MIXED_CASE(5)
+    PACKED_MAXSUM_MIXED_CASE(6)
+    PACKED_MAXSUM_MIXED_CASE(7)
+    PACKED_MAXSUM_MIXED_CASE(8)
+#undef PACKED_MAXSUM_MIXED_CASE
+    default:
+      return nullptr;
   }
 }
 
@@ -339,31 +448,51 @@ extern "C" int packed_maxsum_cycle(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The mixed-layout cycle: launches one cycle on `stream` and returns
-// cudaGetLastError().  D must be in [1, 8] (ternary and quaternary slots
-// only up to 5, which the packer guarantees); anything else returns
-// cudaErrorInvalidValue without launching.  n1..n4 are the widths of the
-// per-arity cost arrays.
+// The resident-block capacity of the mixed kernel at domain size D on the
+// current device (0 when D is outside [1, 8] or the device cannot be
+// asked), and its threads a block in *threads: the wrapper launches at
+// most that many blocks.
+extern "C" int packed_maxsum_mixed_capacity(int D, int* threads) {
+  if (threads) *threads = kMixedThreads;
+  const void* kernel = mixed_kernel(D);
+  return kernel ? coop_capacity(kernel, kMixedThreads) : 0;
+}
+
+// The mixed-layout cycle: one cooperative launch of `blocks` blocks on
+// `stream` (at most packed_maxsum_mixed_capacity(D)); returns the
+// launch's error (0 on success).  D must be in [1, 8] (ternary and
+// quaternary slots only up to 5, which the packer guarantees); n1..n4 are
+// the widths of the per-arity cost arrays and slots1..slots4 their slots;
+// `work` must be phase 1's unit count, n1 + n2 + D * (n3 + n4); `bar`
+// is two unsigned ints, zero before the first launch of a call, left with
+// a zero count.  Anything else returns cudaErrorInvalidValue without
+// launching.
 extern "C" int packed_maxsum_mixed_cycle(
     const float* q_in, float* q_out, const float* r_in, float* r_out,
     float* beliefs, const float* cost1, const float* cost2,
-    const float* cost3, const float* cost4, const int* arity,
-    const int* cost_idx, const int* mate, const int* mate2, const int* mate3,
-    const float* unary, const float* vmask, const float* inv_dcount,
-    const int* col_deg, const int* col_slot0, const int* col_stride, int D,
-    int N, int Vp, int n1, int n2, int n3, int n4, float damping, float keep,
-    int use_damping, void* stream) {
+    const float* cost3, const float* cost4, const long long* slots1,
+    const long long* slots2, const long long* slots3,
+    const long long* slots4, const int* mate, const int* mate2,
+    const int* mate3, const float* unary, const float* vmask,
+    const float* inv_dcount, const int* col_deg, const int* col_slot0,
+    const int* col_stride, int D, int N, int Vp, int n1, int n2, int n3,
+    int n4, int work, int blocks, float damping, float keep, int use_damping,
+    unsigned* bar, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  if (D > kMaxDNary && (n3 > 0 || n4 > 0))
+  const void* kernel = mixed_kernel(D);
+  if (kernel == nullptr || (D > kMaxDNary && (n3 > 0 || n4 > 0)) ||
+      work != n1 + n2 + D * (n3 + n4) || blocks < 1 || bar == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
   MixedArgs A;
   A.cost1 = cost1;
   A.cost2 = cost2;
   A.cost3 = cost3;
   A.cost4 = cost4;
-  A.arity = arity;
-  A.cost_idx = cost_idx;
+  A.slots1 = slots1;
+  A.slots2 = slots2;
+  A.slots3 = slots3;
+  A.slots4 = slots4;
   A.mate = mate;
   A.mate2 = mate2;
   A.mate3 = mate3;
@@ -371,26 +500,13 @@ extern "C" int packed_maxsum_mixed_cycle(
   A.n2 = static_cast<size_t>(n2);
   A.n3 = static_cast<size_t>(n3);
   A.n4 = static_cast<size_t>(n4);
-  constexpr int kThreads = 128;
-  const int blocks = (Vp + kThreads - 1) / kThreads;
-#define PACKED_MAXSUM_MIXED_CASE(DD)                                         \
-  case DD:                                                                   \
-    packed_maxsum_mixed_kernel<DD><<<blocks, kThreads, 0, st>>>(              \
-        q_in, q_out, r_in, r_out, beliefs, A, unary, vmask, inv_dcount,       \
-        col_deg, col_slot0, col_stride, N, Vp, damping, keep, use_damping);   \
-    break;
-  switch (D) {
-    PACKED_MAXSUM_MIXED_CASE(1)
-    PACKED_MAXSUM_MIXED_CASE(2)
-    PACKED_MAXSUM_MIXED_CASE(3)
-    PACKED_MAXSUM_MIXED_CASE(4)
-    PACKED_MAXSUM_MIXED_CASE(5)
-    PACKED_MAXSUM_MIXED_CASE(6)
-    PACKED_MAXSUM_MIXED_CASE(7)
-    PACKED_MAXSUM_MIXED_CASE(8)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef PACKED_MAXSUM_MIXED_CASE
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&q_in,      &q_out,      &r_in,   &r_out, &beliefs,
+                  &A,         &unary,      &vmask,  &inv_dcount,
+                  &col_deg,   &col_slot0,  &col_stride,
+                  &N,         &Vp,         &damping, &keep, &use_damping,
+                  &bar};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      const_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+      dim3(kMixedThreads), args, 0, st);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

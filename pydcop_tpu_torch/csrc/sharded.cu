@@ -142,6 +142,8 @@
 // read them again.
 #include <cuda_runtime.h>
 
+#include "grid_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -424,27 +426,6 @@ __device__ __forceinline__ float slot_value(const Mixed& M, const Desc& d,
   } else {
     return 0.0f;  // unreachable: no arity-3/4 slot on this layout or D
   }
-}
-
-// All blocks of a cooperative launch meet here; phase 1's stores are
-// visible to every block after it.  bar[0] counts the blocks that arrived
-// and returns to 0; bar[1] is the generation the last one bumps.
-__device__ __forceinline__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 template <int D, bool ACT, bool MIXED>
@@ -788,27 +769,13 @@ inline Mixed make_mixed(const float* const* costs, const int* arity,
   return M;
 }
 
-// The resident-block capacity of a cooperative kernel on the current
-// device (0 when it cannot be asked).
-int coop_capacity(const void* kernel) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kCoopThreads, 0) !=
-      cudaSuccess)
-    return 0;
-  return sms * per_sm;
-}
-
 template <int D, bool ACT, bool MIXED>
 int launch_k7(Pending P, Out O, Mixed M, Items I, const long long* desc,
               Walk W, int Vp, unsigned* bar, cudaStream_t st) {
   auto kernel = device_fused_ba_kernel<D, ACT, MIXED>;
   static int cap = 0;  // asked once per instantiation
-  if (cap <= 0) cap = coop_capacity(reinterpret_cast<const void*>(kernel));
+  if (cap <= 0)
+    cap = coop_capacity(reinterpret_cast<const void*>(kernel), kCoopThreads);
   if (cap <= 0) {
     const cudaError_t e = cudaGetLastError();
     return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidValue);

@@ -4,10 +4,11 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface and loaded
 with ``ctypes`` — no PyTorch headers, so a build takes seconds.  The
 library lands in ``pydcop_tpu_torch/_build/`` under a name that carries
-the hash of its source, so an edited source is rebuilt and an unchanged
-one is reused.  Nothing is built when a module is imported: the first
-launch on a CUDA tensor builds, or :func:`build_all` does it up front
-(one ``nvcc`` process per source, all started together).
+the hash of its source and of the shared headers (``csrc/*.cuh``), so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing is built when a module is imported: the first launch on a CUDA
+tensor builds, or :func:`build_all` does it up front (one ``nvcc``
+process per source, all started together).
 """
 from __future__ import annotations
 
@@ -66,9 +67,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name``, named by the hash of its source and
+    of the ``csrc/*.cuh`` headers a source may include."""
     src = PKG_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Tuple[Path, Path, subprocess.Popen]:

@@ -31,10 +31,13 @@ re-laid for a GPU:
   the Pallas kernel's contract.
 
 :func:`packed_cycles` launches the hand-written CUDA kernel
-(``csrc/packed_maxsum.cu``, one launch per cycle; the mixed layout has a
-kernel of its own) on CUDA tensors and runs :func:`packed_cycles_plain`,
-the same arithmetic in torch ops, only on CPU tensors.  A build or launch
-failure on CUDA raises; nothing falls back.
+(``csrc/packed_maxsum.cu``, one launch per cycle: one thread a column on
+the binary layout; on the mixed layout one cooperative launch of two
+phases, the slots' r' spread over the grid — a ternary or quaternary slot
+one thread a value — then a grid barrier and one thread a column) on CUDA
+tensors and runs :func:`packed_cycles_plain`, the same arithmetic in torch
+ops, only on CPU tensors.  A build or launch failure on CUDA raises;
+nothing falls back.
 
 Engine choice (:func:`solver_layout`, the solvers' ``use_packed``): an
 all-binary graph packs on every device; a mixed-arity graph packs by
@@ -492,10 +495,38 @@ def _kernel(mixed: bool):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = getattr(load("packed_maxsum"), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([P] * 20 + [I] * 7 if mixed else [P] * 13 + [I] * 3) \
-            + [F, F, I, P]
+        fn.argtypes = ([P] * 22 + [I] * 9 + [F, F, I, P, P] if mixed
+                       else [P] * 13 + [I] * 3 + [F, F, I, P])
         _kernel_fns[name] = fn
     return _kernel_fns[name]
+
+
+def _capacity(D: int) -> Tuple[int, int]:
+    """(resident blocks, threads a block) of the mixed kernel at domain
+    size ``D`` on the current CUDA device (0 blocks when the device cannot
+    be asked)."""
+    from pydcop_tpu_torch.ops.cuda_build import load
+
+    fn = load("packed_maxsum").packed_maxsum_mixed_capacity
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    threads = ctypes.c_int(0)
+    return int(fn(D, ctypes.byref(threads))), int(threads.value)
+
+
+def mixed_work(pg: PackedMaxSumGraph) -> int:
+    """Phase 1's work units of the mixed kernel: one a unary or binary
+    slot, D a ternary or quaternary slot (one a value)."""
+    n1, n2, n3, n4 = (int(sl.numel()) for sl in pg.mixed.slots)
+    return n1 + n2 + pg.D * (n3 + n4)
+
+
+def mixed_blocks(pg: PackedMaxSumGraph, capacity: int, threads: int) -> int:
+    """Blocks of one mixed launch: enough for one thread a unit of phase
+    1 or a column of phase 2, at most ``capacity`` (both phases are
+    grid-stride loops)."""
+    need = -(-max(mixed_work(pg), pg.Vp) // threads)
+    return max(1, min(capacity, need))
 
 
 def _layout_args(pg: PackedMaxSumGraph):
@@ -507,12 +538,17 @@ def _layout_args(pg: PackedMaxSumGraph):
                 pg.col_slot0.data_ptr(), pg.col_stride.data_ptr(),
                 pg.D, pg.N, pg.Vp)
     m = pg.mixed
-    return (*(c.data_ptr() for c in m.costs), m.arity.data_ptr(),
-            m.cost_idx.data_ptr(), pg.mate.data_ptr(), m.mate2.data_ptr(),
-            m.mate3.data_ptr(), pg.unary_p.data_ptr(), pg.vmask.data_ptr(),
-            pg.inv_dcount.data_ptr(), pg.col_deg.data_ptr(),
-            pg.col_slot0.data_ptr(), pg.col_stride.data_ptr(),
-            pg.D, pg.N, pg.Vp, *(int(sl.numel()) for sl in m.slots))
+    return (*(c.data_ptr() for c in m.costs),
+            *(sl.data_ptr() for sl in m.slots), pg.mate.data_ptr(),
+            m.mate2.data_ptr(), m.mate3.data_ptr(), pg.unary_p.data_ptr(),
+            pg.vmask.data_ptr(), pg.inv_dcount.data_ptr(),
+            pg.col_deg.data_ptr(), pg.col_slot0.data_ptr(),
+            pg.col_stride.data_ptr(), pg.D, pg.N, pg.Vp,
+            *(int(sl.numel()) for sl in m.slots))
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def packed_cycles(
@@ -539,14 +575,32 @@ def packed_cycles(
         raise ValueError(f"packed_cycles runs on cuda or cpu, not {q.device}")
     if not 1 <= pg.D <= MAX_D:
         raise ValueError(f"the packed kernel takes D in [1, {MAX_D}]")
+    return _launch_cycles(pg, q, r, n_cycles, damping)
+
+
+def _launch_cycles(pg: PackedMaxSumGraph, q: torch.Tensor, r: torch.Tensor,
+                   n_cycles: int, damping: float):
+    """:func:`packed_cycles` on CUDA tensors: the kernel's launches, or
+    RuntimeError.  The mixed kernel's grid barrier takes two words that
+    this call allocates zeroed and no other call shares."""
     mixed = pg.mixed is not None
     fn = _kernel(mixed)
     layout = _layout_args(pg)
+    tail = ()
+    if mixed:
+        capacity, threads = _capacity(pg.D)
+        if capacity <= 0:
+            raise RuntimeError(
+                "packed_maxsum mixed cycle: the device reports no resident "
+                "block for the cooperative launch")
+        layout += (mixed_work(pg), mixed_blocks(pg, capacity, threads))
+        bar = torch.zeros(2, dtype=torch.int32, device=q.device)
+        tail = (bar.data_ptr(),)
     bufs = [torch.empty_like(q), torch.empty_like(q)]
     r_out = torch.empty_like(r)
     beliefs = torch.empty((pg.D, pg.Vp), dtype=torch.float32,
                           device=q.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    stream = _stream(q)
     use_damping = 1 if damping else 0
     q_in, r_in = q, r
     for i in range(n_cycles):
@@ -554,7 +608,7 @@ def packed_cycles(
         err = fn(
             q_in.data_ptr(), q_out.data_ptr(), r_in.data_ptr(),
             r_out.data_ptr(), beliefs.data_ptr(), *layout,
-            float(damping), float(1.0 - damping), use_damping, stream,
+            float(damping), float(1.0 - damping), use_damping, *tail, stream,
         )
         if err != 0:
             raise RuntimeError(

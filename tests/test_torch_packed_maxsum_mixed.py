@@ -18,8 +18,14 @@ The instance shapes are those of
 ``tests/unit/test_mixed_arity_packing.py``.
 
 The CUDA kernel cannot run here; ``test_mixed_kernel_matches_plain_on_gpu``
-holds it against the plain version where a GPU is visible.
+holds it against the plain version where a GPU is visible (exactly,
+``torch.equal``).  Here the layout that the kernel's phase 1 relies on is
+checked, and the wrapper's CUDA branch is driven with the C entry
+replaced by a stand-in: a failed launch or a device with no resident
+block raises and never runs the plain version, and each call hands the
+kernel barrier words of its own, zeroed.
 """
+import ctypes
 from unittest import mock
 
 import numpy as np
@@ -31,8 +37,11 @@ from pydcop_tpu.dcop.objects import Domain, Variable
 from pydcop_tpu.dcop.relations import NAryMatrixRelation
 from pydcop_tpu.ops import pallas_maxsum as jpm
 from pydcop_tpu.ops.compile import compile_factor_graph as jax_compile
+from pydcop_tpu_torch.ops import packed_maxsum as pm
 from pydcop_tpu_torch.ops.compile import numpy_fields, tensors_from_numpy
 from pydcop_tpu_torch.ops.packed_maxsum import (
+    mixed_blocks,
+    mixed_work,
     pack_binary_for_gpu,
     pack_for_gpu,
     pack_mixed_for_gpu,
@@ -283,6 +292,130 @@ def test_fused_mixed_call_equals_single_cycles():
     assert packed_cycles.mixed_launches == 0
 
 
+def _secp_bench(max_model_size):
+    """The JAX bench's SECP (``bench.py`` ``bench_mixed_arity``), built and
+    compiled by the port."""
+    from pydcop_tpu_torch.generators import generate_secp
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+
+    return compile_factor_graph(
+        generate_secp(n_lights=3000, n_models=900, n_rules=300,
+                      max_model_size=max_model_size, seed=1), device="cpu")
+
+
+PHASE1_GRAPHS = dict(
+    {name: (lambda b=build: _tensors(b())) for name, build in
+     INSTANCES.items()},
+    secp_bench_2=lambda: _secp_bench(2), secp_bench_3=lambda: _secp_bench(3))
+
+
+@pytest.mark.parametrize("name", sorted(PHASE1_GRAPHS))
+def test_layout_the_mixed_kernel_reads(name):
+    """What phase 1 of the mixed kernel relies on: cost column t of arity
+    a belongs to slot ``slots_a[t]`` (the kernel reads column t of a
+    slot's unit directly), each sibling index is set exactly below the
+    slot's arity, and the wrapper's unit count is one a unary or binary
+    slot and D a ternary or quaternary slot."""
+    pg = pack_for_gpu(PHASE1_GRAPHS[name]())
+    m = pg.mixed
+    assert m is not None
+    arity = m.arity.long()
+    for a, sl in zip(range(1, 5), m.slots):
+        assert sl.dtype == torch.int64 and sl.is_contiguous()
+        assert torch.equal(m.cost_idx.long()[sl], torch.arange(sl.numel()))
+        assert torch.all(arity[sl] == a)
+    assert sum(int(sl.numel()) for sl in m.slots) == pg.N
+    for need, mate in ((2, pg.mate), (3, m.mate2), (4, m.mate3)):
+        assert torch.equal(mate >= 0, arity >= need)
+        assert torch.all(mate[arity < need] == -1)
+        assert int(mate.max()) < pg.N
+    units = int(torch.where(arity >= 3, pg.D, 1).sum())
+    n1, n2, n3, n4 = (int(sl.numel()) for sl in m.slots)
+    assert mixed_work(pg) == units == n1 + n2 + pg.D * (n3 + n4)
+    # the grid: a thread a unit or a column, within the capacity
+    need = -(-max(units, pg.Vp) // 128)
+    assert mixed_blocks(pg, 10 ** 6, 128) == need
+    assert mixed_blocks(pg, 3, 128) == min(3, need)
+    assert mixed_blocks(pg, 1, 128) == 1
+
+
+class _Entry:
+    """A stand-in for the mixed C entry: records each launch's barrier
+    words as it finds them, leaves them dirty, returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls, self.bars = rc, [], []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        words = (ctypes.c_uint32 * 2).from_address(args[-2])
+        self.bars.append((args[-2], tuple(words)))
+        words[0], words[1] = 7, 7
+        return self.rc
+
+
+def _cuda_branch(monkeypatch, entry, capacity=(264, 128)):
+    """Patch the CUDA branch of ``packed_cycles`` to run on CPU tensors
+    with ``entry`` as its kernel; the plain version must not run."""
+    def never(*args, **kwargs):
+        raise AssertionError("the CUDA branch ran the plain version")
+
+    monkeypatch.setattr(pm, "_kernel", lambda mixed: entry)
+    monkeypatch.setattr(pm, "_capacity", lambda D: capacity)
+    monkeypatch.setattr(pm, "_stream", lambda x: ctypes.c_void_p(0))
+    monkeypatch.setattr(pm, "packed_cycles_plain", never)
+
+
+@pytest.mark.parametrize("rc", [2, 720])
+def test_failed_mixed_launch_raises(monkeypatch, rc):
+    pg = pack_for_gpu(_tensors(INSTANCES["quaternary"]()))
+    q, r = packed_init_state(pg)
+    entry = _Entry(rc)
+    _cuda_branch(monkeypatch, entry)
+    before = packed_cycles.mixed_launches
+    with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
+        pm._launch_cycles(pg, q, r, 3, 0.5)
+    assert len(entry.calls) == 1
+    assert packed_cycles.mixed_launches == before
+
+
+def test_no_resident_block_raises_without_launching(monkeypatch):
+    pg = pack_for_gpu(_tensors(INSTANCES["secp12"]()))
+    q, r = packed_init_state(pg)
+    entry = _Entry()
+    _cuda_branch(monkeypatch, entry, capacity=(0, 128))
+    with pytest.raises(RuntimeError, match="no resident block"):
+        pm._launch_cycles(pg, q, r, 2, 0.0)
+    assert entry.calls == []
+
+
+def test_each_call_owns_zeroed_barrier_words(monkeypatch):
+    pg = pack_for_gpu(_tensors(INSTANCES["mixed_hub"]()))
+    fields = dict(vars(pg))
+    q, r = packed_init_state(pg)
+    entry = _Entry()
+    _cuda_branch(monkeypatch, entry, capacity=(5, 64))
+    before = packed_cycles.mixed_launches
+    for _ in range(2):
+        first = len(entry.calls)
+        pm._launch_cycles(pg, q, r, 3, 0.5)
+        bars = entry.bars[first:]
+        # one pair of words for the call's three launches, zero at its
+        # first launch although the previous call left its words dirty
+        assert len({ptr for ptr, _ in bars}) == 1
+        assert bars[0][1] == (0, 0)
+    assert packed_cycles.mixed_launches == before + 6
+    # the unit count and the grid the wrapper passes (after D, N, Vp and
+    # n1..n4, before damping, keep, use_damping, the barrier, the stream)
+    for args in entry.calls:
+        assert args[-7] == mixed_work(pg)
+        assert args[-6] == mixed_blocks(pg, 5, 64) == 5
+        assert args[-5:-2] == (0.5, 0.5, 1)
+    # nothing of a launch is cached on the layout object
+    assert vars(pg).keys() == fields.keys()
+    assert all(vars(pg)[k] is v for k, v in fields.items())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(INSTANCES))
 def test_mixed_kernel_matches_plain_on_gpu(name):
@@ -297,5 +430,13 @@ def test_mixed_kernel_matches_plain_on_gpu(name):
     pq, pr, pb, pv = packed_cycles_plain(pg, q, r, 20, damping=0.5)
     torch.cuda.synchronize()
     for a, b in ((kq, pq), (kr, pr), (kb, pb)):
-        assert torch.all((a - b).abs() <= 1e-4 * (1 + b.abs()))
+        assert torch.equal(a, b)
     assert torch.equal(kv, pv)
+    # two consecutive calls on one graph, each with barrier words of its
+    # own, continue the cycles exactly
+    hq, hr, _, _ = packed_cycles(pg, q, r, 10, damping=0.5)
+    cq, cr, cb, cv = packed_cycles(pg, hq, hr, 10, damping=0.5)
+    assert packed_cycles.mixed_launches == before + 40
+    torch.cuda.synchronize()
+    for a, b in ((cq, pq), (cr, pr), (cb, pb), (cv, pv)):
+        assert torch.equal(a, b)
