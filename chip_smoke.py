@@ -32,10 +32,16 @@ printed.
    one x and one set of uniforms: tables, cur, best and gain equal (max
    abs error 0), x equal after 20 MGM cycles and after 20 cycles of DSA
    A/B/C, mixeddsa and adsa;
-   mgm2_kernel_vs_plain: the MGM-2 kernels against their plain version
-   on those four instances and the 100k/300k colouring, from one x and
-   one set of coins: x equal after 20 cycles for each favor at
-   threshold 0.5 and for unilateral at thresholds 0 and 1;
+   mgm2_kernel_vs_plain: the MGM-2 kernel (one cooperative launch a
+   call, the six rounds of each cycle phases split by grid barriers)
+   against its plain version on those four instances and the 100k/300k
+   colouring, from one x and one set of coins: x equal after 20 cycles
+   for each favor at threshold 0.5 and for unilateral at thresholds 0
+   and 1, at the wrapper's grid and at forced grids of 1 and 3 blocks;
+   and on the near-tie instances of ``mgm2_tie_case`` (binary and mixed
+   layouts: the response and winner rounds walk a column's slots again,
+   a column has no slot): x equal to the plain version's and to the
+   exact rule's for each favor at those grids;
    dpop_kernel_vs_plain: the whole-sweep DPOP kernel against its plain
    version on the JAX bench's 10,000-node random tree (D=10), the same
    generator at 100,000 nodes, and 3,000-node forest, ragged-domain and
@@ -51,11 +57,11 @@ printed.
    at max_model_size 2 and <= 4 at 3), the latter at 10x (30,000 lights),
    a star whose hub holds 2,500 unary, binary and ternary factors, and a
    6,000-variable graph of arity 1-4 with domains of 4 and 3 values;
-   there also the mixed branch of the MGM-2 kernels against its plain
+   there also the mixed branch of the MGM-2 kernel against its plain
    version, cycle by cycle for 20 cycles from one x and one set of coins,
-   for each favor at threshold 0.5 (x equal after every cycle; offers,
-   accepted pairs and pair moves printed; some graph must make pair
-   moves);
+   for each favor at threshold 0.5, at the wrapper's grid and at forced
+   grids of 1 and 3 blocks (x equal after every cycle; offers, accepted
+   pairs and pair moves printed; some graph must make pair moves);
    sharded_kernel_vs_plain: K7 (device_fused_ba), K8 (device_mgm_move,
    MGM's whole arbitration) and K9 (device_tables), each one launch a
    cycle over the card's group of shards, against their plain versions
@@ -83,8 +89,9 @@ printed.
    maxsum, mgm, dsa and mgm2, and on the 10,000-node tree for dpop; every
    launch counter is zeroed just before each solve, and just after it
    the kernels of that path must have launched once per cycle (mgm: 200
-   ls_tables + 200 mgm_move; dsa: 200 dsa_cycle; mgm2: the 6 × 200
-   launches its host loop reports, and the cost of the CPU run), or for
+   ls_tables + 200 mgm_move; dsa: 200 dsa_cycle; mgm2: one launch a
+   chunk, 2 for the harness's two chunks of 100 cycles, and the cost of
+   the CPU run), or for
    dpop once per tree level and phase (L UTIL + L VALUE launches, engine
    "wholesweep", cost equal to the CPU run's); then each path piece by
    piece (graph, compile, pack, cycles or sweep, coin draw and copy,
@@ -92,7 +99,7 @@ printed.
    main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm,
    dsa and mgm2 through the mixed kernels (200 launches of the mixed
    MaxSum kernel; 200 + 200 of ls_tables and mgm_move; 200 of dsa_cycle;
-   6 x 200 of the mixed MGM-2 kernels), the cost equal to the CPU run of
+   2 of the mixed MGM-2 kernel), the cost equal to the CPU run of
    the same engine (``use_packed=True``);
    main_path_breakout: dba and gdba (A/NZ/E), 200 cycles on a
    10,000-variable / 30,000-constraint 3-colouring posed as a CSP (cost 1
@@ -123,7 +130,8 @@ printed.
    CPU run with ``use_packed=True``, the card's engine; the CPU default,
    the generic engine, is printed beside it);
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
-   of launches, after warm-up; MGM-2: 200 cycles of one call) at 10k/30k
+   of launches, after warm-up; MGM-2: 200 cycles of one call, its
+   device time the one launch's over its cycles, its grid) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
    sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
    arity <= 3 and <= 4 and the 39k SECP; K7, K8 and K9: ms per cycle (one
@@ -136,12 +144,16 @@ printed.
    its bytes bound, its plain version's time, and its device time per
    launch from a torch.profiler trace.
 
-``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,sharded]`` runs no
-phase above: it times K1's mixed branch on the three SECPs (events and
-device µs a cycle, blocks, equality with the plain version, SECP maxsum
-cycles/s) and the sharded kernels with the sharded rates, in turns of
-the tree at PARENT_TREE and this one (parent, change, change, parent),
-into ``ab_sharded.jsonl`` in the output directory.
+``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,mgm2,sharded]`` runs
+no phase above: it times K1's mixed branch on the three SECPs (events
+and device µs a cycle, blocks, equality with the plain version, SECP
+maxsum cycles/s), K6 on 10k/30k, 100k/300k, SECP-3.9k and SECP-39k
+(events and device µs a cycle, blocks, equality with the plain version
+after 20 cycles, the cycles-only rate of a 200-cycle mgm2 solve, its
+coins' draw and copy a chunk and its rate with them) and
+the sharded kernels with the sharded rates, in turns of the tree at
+PARENT_TREE and this one (parent, change, change, parent), into
+``ab_sharded.jsonl`` in the output directory.
 
 The last three lines are the card (``nvidia-smi`` name and power limit),
 ``{"kernels": [...]}`` (one entry per kernel: launches on its main path,
@@ -557,9 +569,18 @@ def time_ls(pls, reps=200):
 #: offer meets an offerer) once
 MGM2_RULES = [("unilateral", 0.5), ("no", 0.5), ("coordinated", 0.5),
               ("unilateral", 0.0), ("unilateral", 1.0)]
-MGM2_KERNELS = ["mgm2_tables_kernel", "mgm2_offer_kernel",
-                "mgm2_response_kernel", "mgm2_commit_kernel",
-                "mgm2_winner_kernel", "mgm2_go_kernel"]
+#: the MGM-2 kernel's name in a profiler trace
+MGM2_KERNEL = "mgm2_coop_kernel"
+#: the grids of every MGM-2 check: the wrapper's, and 1 and 3 blocks
+#: forced (the grid-stride loops)
+MGM2_GRIDS = ("wrapper", 1, 3)
+#: the design of K6 (the ``design`` key of its rows in the kernels line)
+MGM2_DESIGN = ("one cooperative launch a call: each cycle's six rounds "
+               "(tables, offer, response, commit, winner, go) phases of "
+               "the grid, one thread a column in grid-stride loops, split "
+               "by grid barriers (6n - 1 a call); slot walks 4 slots' "
+               "loads at a time, the next 4 slots' layout entries loaded "
+               "ahead, response and winner in one walk")
 
 
 def mgm2_coins(pls, n, seed):
@@ -587,67 +608,210 @@ def mgm2_offers(pm, u_off, u_pick, threshold):
     return float(offered.sum()) / u_off.shape[0]
 
 
+def mgm2_grid(pm):
+    """(blocks, threads a block) of one MGM-2 launch on this card, as the
+    wrapper sizes its grid."""
+    from pydcop_tpu_torch.ops import packed_mgm2 as M
+
+    capacity, threads = M._capacity(pm.pls.D, pm.pls.pg.mixed is not None)
+    return M.mgm2_blocks(pm.pls.Vp, capacity, threads), threads
+
+
+def mgm2_run(pm, x, u, threshold, favor, grid):
+    """x after the cycles of coins ``u`` from the kernel, at the wrapper's
+    grid (``grid="wrapper"``) or at ``grid`` blocks."""
+    from pydcop_tpu_torch.ops import packed_mgm2 as M
+
+    if grid == "wrapper":
+        return M.packed_mgm2_cycles(pm, x, *u, threshold, favor)
+    return M._launch_cycles(pm, x, *u, threshold, favor, grid)
+
+
 def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
-    """The MGM-2 kernels against their plain version on the card, from
-    one x and one set of coins, for each rule of MGM2_RULES.  Returns
-    (max abs error over every x, stats); raises on any difference."""
+    """The MGM-2 kernel against its plain version on the card, from one
+    x and one set of coins, for each rule of MGM2_RULES, at the wrapper's
+    grid and at the forced ones.  Returns (max abs error over every x,
+    stats); raises on any difference."""
     import torch
 
-    from pydcop_tpu_torch.ops.packed_mgm2 import (
-        packed_mgm2_cycles,
-        packed_mgm2_cycles_plain,
-    )
+    from pydcop_tpu_torch.ops.packed_mgm2 import packed_mgm2_cycles_plain
 
     x = random_x_col(pm.pls, seed)
     u = mgm2_coins(pm.pls, cycles, seed)
     err, stats = 0.0, {}
     for favor, threshold in MGM2_RULES:
-        k = packed_mgm2_cycles(pm, x, *u, threshold, favor)
+        runs = {grid: mgm2_run(pm, x, u, threshold, favor, grid)
+                for grid in MGM2_GRIDS}
         p = packed_mgm2_cycles_plain(pm, x, *u, threshold, favor)
         torch.cuda.synchronize()
-        if not torch.equal(k, p):
-            raise AssertionError(
-                f"favor={favor} threshold={threshold}: x after {cycles} "
-                f"cycles differs from plain in {int((k != p).sum())} "
-                f"columns")
-        err = max(err, float((k.double() - p.double()).abs().max()))
-        stats[f"{favor}_{threshold}_moved"] = int((k != x).sum())
+        for grid, k in runs.items():
+            if not torch.equal(k, p):
+                raise AssertionError(
+                    f"favor={favor} threshold={threshold} grid={grid}: x "
+                    f"after {cycles} cycles differs from plain in "
+                    f"{int((k != p).sum())} columns")
+            err = max(err, float((k.double() - p.double()).abs().max()))
+        moved = int((runs["wrapper"] != x).sum())
+        stats[f"{favor}_{threshold}_moved"] = moved
     stats["offers_per_cycle_0.5"] = mgm2_offers(pm, u[0], u[1], 0.5)
+    stats["blocks"], stats["threads"] = mgm2_grid(pm)
+    stats["grids"] = list(MGM2_GRIDS)
     return err, stats
 
 
 def mgm2_mixed_vs_plain(pm, cycles=20, seed=0):
-    """The mixed branch of the MGM-2 kernels against its plain version on
+    """The mixed branch of the MGM-2 kernel against its plain version on
     the card, cycle by cycle from one x and one set of coins, for each
-    favor at threshold 0.5: x equal after every cycle.  Returns (max abs
-    error, stats with the offers, accepted pairs and pair moves of each
-    run, counted by the plain version); raises on any difference."""
+    favor at threshold 0.5, at the wrapper's grid and at the forced ones
+    (each run from its own x): x equal after every cycle.  Returns (max
+    abs error, stats with the offers, accepted pairs and pair moves of
+    each run, counted by the plain version); raises on any difference."""
     import torch
 
-    from pydcop_tpu_torch.ops.packed_mgm2 import (
-        mgm2_cycle_plain,
-        packed_mgm2_cycles,
-    )
+    from pydcop_tpu_torch.ops.packed_mgm2 import mgm2_cycle_plain
 
     x0 = random_x_col(pm.pls, seed)
     u = mgm2_coins(pm.pls, cycles, seed)
     err, stats = 0.0, {}
     for favor in ("unilateral", "no", "coordinated"):
-        xk = xp = x0
+        xp = x0
+        xk = dict.fromkeys(MGM2_GRIDS, x0)
         counts = {}
         for c in range(cycles):
-            xk = packed_mgm2_cycles(pm, xk, *(a[c: c + 1] for a in u), 0.5,
-                                    favor)
+            row = [a[c: c + 1] for a in u]
+            xk = {grid: mgm2_run(pm, xg, row, 0.5, favor, grid)
+                  for grid, xg in xk.items()}
             xp = mgm2_cycle_plain(pm, xp, *(a[c] for a in u), 0.5, favor,
                                   stats=counts)
             torch.cuda.synchronize()
-            if not torch.equal(xk, xp):
-                raise AssertionError(
-                    f"favor={favor}: x after cycle {c} differs from plain "
-                    f"in {int((xk != xp).sum())} columns")
-            err = max(err, float((xk.double() - xp.double()).abs().max()))
-        stats[favor] = dict(counts, moved=int((xk != x0).sum()))
+            for grid, xg in xk.items():
+                if not torch.equal(xg, xp):
+                    raise AssertionError(
+                        f"favor={favor} grid={grid}: x after cycle {c} "
+                        f"differs from plain in {int((xg != xp).sum())} "
+                        f"columns")
+                err = max(err,
+                          float((xg.double() - xp.double()).abs().max()))
+        stats[favor] = dict(counts, moved=int((xk["wrapper"] != x0).sum()))
+    stats["blocks"], stats["threads"] = mgm2_grid(pm)
+    stats["grids"] = list(MGM2_GRIDS)
     return err, stats
+
+
+#: the near-tie MGM-2 instances of :func:`mgm2_tie_case`
+MGM2_TIE_KINDS = ("response", "winner")
+
+
+def mgm2_tie_case(kind, mixed, device):
+    """A five-variable MGM-2 instance (six on the mixed layout), D = 2,
+    x all 0, one cycle, whose gains lie 6e-10 apart: under the 1e-9 tie
+    margin, so the kernel's one-walk response round (``kind`` "response")
+    or winner round ("winner") meets at column c a new maximum within
+    1e-9 of the old one and walks c's slots again.  c's slots run to n1,
+    n2, n3 in that order (edge ids 0, 1, 2).
+
+    * response: n1, n2, n3 offer c joint gains 3e-8 + (0, 6e-10, 1.2e-9)
+      (each edge costs 1e-8 at (0, 0), n_i's unary cost on value 0 is
+      0, 6e-10, 1.2e-9); only n2's and n3's lie within 1e-9 of the best,
+      so c accepts n2's offer (the lower edge id), and c and n2 move to 1
+      (a rule that kept n1's candidate would pair c with n1);
+    * winner: no offer (threshold 0); the gains are n1 1e-8, c 1.12e-8,
+      n2 1.06e-8, n3 1.12e-8 (unary costs on value 0, edges cost 0),
+      the tie-break ids the variable indices n1 0, c 1, n2 2, n3 3; only
+      n2 and n3 lie within 1e-9 of c's neighbourhood max, so c wins and
+      moves to 1 (a rule that kept n1's id 0 would stop it).
+
+    Variable 4 has no factor: its column has no slot.  On the binary
+    layout its unary cost is 1e-8 on value 0 and it moves to 1; on the
+    mixed layout the unary costs are unary factors, variable 4 has none
+    and stays, and variable 5 has only one (1e-8 on value 0) and moves
+    to 1.  Returns (statics, x [Vp], the three coins [1, Vp], threshold,
+    the x the exact rule gives in variable order)."""
+    import torch
+
+    from pydcop_tpu_torch.ops import packed_local_search as P
+    from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays, \
+        compile_factor_graph
+    from pydcop_tpu_torch.ops.packed_maxsum import pack_for_gpu
+    from pydcop_tpu_torch.ops.packed_mgm2 import pack_mgm2_from_pls
+
+    g, e = 1e-8, 6e-10
+    if kind == "response":  # c = 0; n1, n2, n3 = 1, 2, 3
+        c, ns, edge_cost = 0, (1, 2, 3), g
+        h = {0: 0.0, 1: 0.0, 2: e, 3: 2 * e}
+        threshold, want, offerers = 0.5, [1, 0, 1, 0, 0], (1, 2, 3)
+    else:  # c = 1; n1, n2, n3 = 0, 2, 3
+        c, ns, edge_cost = 1, (0, 2, 3), 0.0
+        h = {0: g, 1: g + 2 * e, 2: g + e, 3: g + 2 * e}
+        threshold, want, offerers = 0.0, [0, 1, 0, 0, 0], ()
+    mat = np.array([[edge_cost, 0.0], [0.0, 0.0]], np.float32)
+    V = 6 if mixed else 5
+    if mixed:
+        from pydcop_tpu_torch.dcop import DCOP, Domain, NAryMatrixRelation, \
+            Variable
+
+        dom = Domain("d", "d", [0, 1])
+        vs = [Variable(f"v{i}", dom) for i in range(V)]
+        dcop = DCOP(f"mgm2_tie_{kind}")
+        for v in vs:
+            dcop.add_variable(v)
+        for k, n in enumerate(ns):
+            dcop.add_constraint(NAryMatrixRelation([vs[c], vs[n]], mat,
+                                                   name=f"b{k}"))
+        for v, cost in sorted({**h, 5: g}.items()):
+            dcop.add_constraint(NAryMatrixRelation(
+                [vs[v]], np.array([cost, 0.0], np.float32), name=f"u{v}"))
+        pg = pack_for_gpu(compile_factor_graph(dcop, device=device))
+        want = want + [1]
+    else:
+        unary = np.zeros((V, 2), np.float32)
+        for v, cost in {**h, 4: g}.items():
+            unary[v, 0] = cost
+        pg = pack_for_gpu(compile_binary_from_arrays(
+            np.full(3, c), np.array(ns), np.stack([mat] * 3), V,
+            unary=unary, device=device))
+        want[4] = 1
+    if (pg.mixed is not None) != mixed:
+        raise AssertionError(f"{kind}: the {'mixed' if mixed else 'binary'} "
+                             f"layout was not taken")
+    pm = pack_mgm2_from_pls(P.pack_from_pg(pg))
+    u_off = np.full((1, V), 0.9, np.float32)
+    u_off[0, list(offerers)] = 0.1
+    u = [P.pack_uniforms(pm.pls, a) for a in
+         (u_off, np.full((1, V), 0.5), np.full((1, V), 0.9))]
+    x = torch.zeros(pm.pls.Vp, dtype=torch.int32, device=device)
+    return pm, x, u, threshold, want
+
+
+def mgm2_tie_vs_plain(mixed):
+    """The MGM-2 kernel on the near-tie instances (:func:`mgm2_tie_case`)
+    for each favor, at the wrapper's grid and the forced ones: x must
+    equal the plain version's and the exact rule's.  Raises on any
+    difference; returns the cases checked."""
+    import torch
+
+    from pydcop_tpu_torch.ops.packed_local_search import unpack_x
+    from pydcop_tpu_torch.ops.packed_mgm2 import packed_mgm2_cycles_plain
+
+    checked = 0
+    for kind in MGM2_TIE_KINDS:
+        pm, x, u, threshold, want = mgm2_tie_case(kind, mixed, "cuda")
+        for favor in ("unilateral", "no", "coordinated"):
+            p = packed_mgm2_cycles_plain(pm, x, *u, threshold, favor)
+            got = unpack_x(pm.pls, p).tolist()
+            if got != want:
+                raise AssertionError(f"{kind} favor={favor}: the plain "
+                                     f"version gives {got}, not {want}")
+            for grid in MGM2_GRIDS:
+                k = mgm2_run(pm, x, u, threshold, favor, grid)
+                torch.cuda.synchronize()
+                if not torch.equal(k, p):
+                    raise AssertionError(
+                        f"{kind} favor={favor} grid={grid}: x "
+                        f"{unpack_x(pm.pls, k).tolist()}, the plain "
+                        f"version's {got}")
+                checked += 1
+    return checked
 
 
 def mgm2_bytes_ops(pm, offers):
@@ -676,8 +840,8 @@ def mgm2_bytes_ops(pm, offers):
 def time_mgm2(pm, reps=200, threshold=0.5, favor="unilateral"):
     """(ms per cycle by CUDA events over ``reps`` cycles of one call,
     plain ms per cycle, bound ms, bound_by, bytes, device us per cycle
-    from the profiler (the six kernels' per-launch times summed), the
-    per-launch time of each kernel, offers per cycle)."""
+    from the profiler (a launch of a 50-cycle call over its 50 cycles),
+    the kernel's us per launch by name, offers per cycle)."""
     from pydcop_tpu_torch.ops.packed_mgm2 import (
         packed_mgm2_cycles,
         packed_mgm2_cycles_plain,
@@ -695,9 +859,12 @@ def time_mgm2(pm, reps=200, threshold=0.5, favor="unilateral"):
     offers = mgm2_offers(pm, u[0], u[1], threshold)
     nbytes, nops = mgm2_bytes_ops(pm, offers)
     bound, by = bound_of(nbytes, nops)
-    us = profile_us(lambda: packed_mgm2_cycles(
-        pm, x, *(a[:50] for a in u), threshold, favor), MGM2_KERNELS)
-    device_us = None if None in us.values() else sum(us.values())
+    # four calls of 50 cycles a trace: a trace that drops one launch's
+    # record still times the others
+    us = profile_us(lambda: [packed_mgm2_cycles(
+        pm, x, *(a[:50] for a in u), threshold, favor) for _ in range(4)],
+        [MGM2_KERNEL])
+    device_us = None if us[MGM2_KERNEL] is None else us[MGM2_KERNEL] / 50
     return ms, plain, bound, by, nbytes, device_us, us, offers
 
 
@@ -1422,7 +1589,8 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
 
 
 #: one A/B turn (run in a fresh process from the root of a tree, the
-#: tree's own chip_smoke.py and kernels): K7 (maxsum and amaxsum) and the
+#: tree's own chip_smoke.py and kernels): K1-mixed on the SECPs; K6 on
+#: the two colourings and two SECPs; K7 (maxsum and amaxsum) and the
 #: local-search kernels at 8 shards on the four sharded sizes, through the
 #: tree's ``time_sharded``, as per-cycle rows; and MGM's whole
 #: arbitration a cycle (CUDA events around 100 calls of the engine's
@@ -1474,6 +1642,63 @@ for name, (scale, mms) in secps.items():
         row["maxsum_cycles_per_s"] = C.breakdown(
             dcop, "maxsum", 200, dev)["cycles_per_s"]
     print(json.dumps(row), flush=True)
+# K6: one call of 200 cycles (events), the profiler's device time a
+# cycle, the grid, equality with the plain version after 20 cycles, and
+# a 200-cycle mgm2 solve (the harness's two chunks of 100): its
+# cycles-only rate (coins drawn beforehand), its coins' draw and copy a
+# chunk, and its rate with them; only what both trees' packed_mgm2 and
+# chip_smoke have in common is used
+from pydcop_tpu_torch.ops import packed_mgm2 as MG
+from pydcop_tpu_torch.ops.packed_local_search import pack_from_pg
+
+
+def k6_colouring(V, E):
+    ei, ej, mats, un = C.coloring_arrays(V, E)
+    return (PM.pack_for_gpu(compile_binary_from_arrays(
+        ei, ej, mats, V, unary=un, device=dev)),
+        lambda: C.coloring_dcop(V, E))
+
+
+def k6_secp(scale, mms):
+    dcop = C.secp_dcop(scale, mms)
+    return PM.pack_for_gpu(compile_factor_graph(dcop, device=dev)), \
+        lambda: dcop
+
+
+k6_sizes = {"10k_30k": lambda: k6_colouring(10_000, 30_000),
+            "100k_300k": lambda: k6_colouring(100_000, 300_000),
+            "secp_3.9k": lambda: k6_secp(1, 2),
+            "secp4_39k": lambda: k6_secp(C.SECP_BIG_SCALE, 3)}
+for name, make in k6_sizes.items():
+    if "mgm2" not in sections:
+        break
+    pg, make_dcop = make()
+    pm = MG.pack_mgm2_from_pls(pack_from_pg(pg))
+    if hasattr(MG, "mgm2_blocks"):
+        design = "one cooperative launch a call"
+        blocks = C.mgm2_grid(pm)[0]
+    else:
+        design = "six launches a cycle"
+        blocks = -(-pg.Vp // 128)
+    x = C.random_x_col(pm.pls, 0)
+    u = C.mgm2_coins(pm.pls, 20, 0)
+    k = MG.packed_mgm2_cycles(pm, x, *u, 0.5, "unilateral")
+    p = MG.packed_mgm2_cycles_plain(pm, x, *u, 0.5, "unilateral")
+    torch.cuda.synchronize()
+    ms, plain, bound, by, nbytes, device_us, us, offers = C.time_mgm2(pm)
+    solve = C.breakdown(make_dcop(), "mgm2", 200, dev)
+    row = {"size": name, "kernel": "packed_mgm2_cycles"
+           + ("_mixed" if pg.mixed is not None else ""),
+           "design": design, "blocks": blocks,
+           "events_us_per_cycle": ms * 1e3,
+           "device_us_per_cycle": device_us, "bound_us": bound * 1e3,
+           "plain_ms": plain, "offers_per_cycle": offers,
+           "equal": bool(torch.equal(k, p)),
+           "mgm2_cycles_per_s": solve["cycles_per_s"],
+           "mgm2_cycles_per_s_with_coins": solve["cycles_per_s_with_coins"],
+           "coin_copy_s_per_chunk": solve["coin_copy_s_per_chunk"],
+           "coin_cpu_draw_s_per_chunk": solve["coin_cpu_draw_s_per_chunk"]}
+    print(json.dumps(row), flush=True)
 # the sharded kernels at 8 shards, MGM's whole arbitration a cycle and
 # the sharded rates
 graphs = {}
@@ -1514,7 +1739,7 @@ for name, t in graphs.items():
 
 
 #: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
-AB_SECTIONS = ("k1_mixed", "sharded")
+AB_SECTIONS = ("k1_mixed", "mgm2", "sharded")
 
 
 def ab_kernels(parent, sections=AB_SECTIONS):
@@ -1522,10 +1747,10 @@ def ab_kernels(parent, sections=AB_SECTIONS):
     card, in turns: parent, change, change, parent; each turn a fresh
     process in its tree (:data:`AB_TURN`) running ``sections``: K1's
     mixed branch on the SECPs with the single-device SECP maxsum rates
-    (``k1_mixed``), and the sharded kernels with the sharded rates
-    (``sharded``).  Prints one JSON line a row, tagged with the turn and
-    the tree, and writes them to ``ab_sharded.jsonl`` in the output
-    directory."""
+    (``k1_mixed``), K6 with the mgm2 cycles-only rates (``mgm2``), and
+    the sharded kernels with the sharded rates (``sharded``).  Prints
+    one JSON line a row, tagged with the turn and the tree, and writes
+    them to ``ab_sharded.jsonl`` in the output directory."""
     rows = []
     for turn, (label, tree) in enumerate((("parent", parent), ("change", ROOT),
                                           ("change", ROOT),
@@ -1634,8 +1859,8 @@ def main():
     from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays
     from pydcop_tpu_torch.ops.packed_local_search import pack_from_pg
     from pydcop_tpu_torch.ops.packed_maxsum import mixed_work, pack_for_gpu
-    from pydcop_tpu_torch.ops.packed_mgm2 import LAUNCHES_PER_CYCLE, \
-        pack_mgm2_from_pls
+    from pydcop_tpu_torch.algorithms.base import default_chunk
+    from pydcop_tpu_torch.ops.packed_mgm2 import pack_mgm2_from_pls
     from pydcop_tpu_torch.runtime import solve_result
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1649,8 +1874,8 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip()
     if sys.argv[1:2] == ["--ab"]:
         # python3 chip_smoke.py --ab PARENT_TREE [SECTIONS]: the A/B of
-        # K1-mixed and of the sharded kernels (SECTIONS, comma-separated,
-        # default both), no other phase, no result lines
+        # K1-mixed, of K6 and of the sharded kernels (SECTIONS,
+        # comma-separated, default all), no other phase, no result lines
         sections = (sys.argv[3].split(",") if len(sys.argv) > 3
                     else AB_SECTIONS)
         if not set(sections) <= set(AB_SECTIONS):
@@ -1725,6 +1950,14 @@ def main():
         say("mgm2_kernel_vs_plain", case=name, D=pg.D, N=pg.N, Vp=pg.Vp,
             max_deg=int(pg.col_deg.max()), max_abs_err=err, cycles=20,
             **stats)
+    for mixed in (False, True):
+        try:
+            runs = mgm2_tie_vs_plain(mixed)
+        except AssertionError as e:
+            fail("mgm2_kernel_vs_plain", f"near ties (mixed={mixed}): {e}")
+        say("mgm2_kernel_vs_plain", case="near_ties",
+            layout="mixed" if mixed else "binary",
+            kinds=list(MGM2_TIE_KINDS), runs=runs, equal=True)
 
     dpop_cases = {
         "bench_tree_10k": lambda: bench_tree_dcop(10_000),
@@ -1815,7 +2048,8 @@ def main():
         except AssertionError as e:
             fail("mgm2_kernel_vs_plain", f"{name} (mixed): {e}")
         mixed_mgm2_err = max(mixed_mgm2_err, err)
-        pair_moves += sum(v.get("pair_moves", 0) for v in stats.values())
+        pair_moves += sum(v.get("pair_moves", 0) for v in stats.values()
+                          if isinstance(v, dict))
         say("mgm2_kernel_vs_plain", layout="mixed", case=name, D=pg.D,
             N=pg.N, Vp=pg.Vp, binary_slots=int(pm.deg_col.sum()),
             max_abs_err=err, cycles=20, threshold=0.5, **stats)
@@ -1931,11 +2165,13 @@ def main():
     jax_keys = {"status", "assignment", "cost", "violation", "cycle",
                 "msg_count", "msg_size", "time", "harness", "config"}
     main_launches = {}
+    # MGM-2: one launch a chunk of the harness (two chunks of 100 cycles)
+    mgm2_launches = -(-cycles // default_chunk(cycles, None, cycles))
     for algo, expect in (
             ("maxsum", {"packed_maxsum_cycle": cycles}),
             ("mgm", {"ls_tables": cycles, "mgm_move": cycles}),
             ("dsa", {"dsa_cycle": cycles}),
-            ("mgm2", {"mgm2": cycles * LAUNCHES_PER_CYCLE})):
+            ("mgm2", {"mgm2": mgm2_launches})):
         phase = {"maxsum": "main_path", "mgm2": "main_path_mgm2"}.get(
             algo, "main_path_local_search")
         reset_counts()
@@ -2020,7 +2256,7 @@ def main():
             ("maxsum", {"packed_maxsum_mixed": cycles}),
             ("mgm", {"ls_tables_mixed": cycles, "mgm_move_mixed": cycles}),
             ("dsa", {"dsa_cycle_mixed": cycles}),
-            ("mgm2", {"mgm2_mixed": cycles * LAUNCHES_PER_CYCLE})):
+            ("mgm2", {"mgm2_mixed": mgm2_launches})):
         reset_counts()
         t0 = time.perf_counter()
         res = solve_result(secp, algo, cycles=cycles, device="cuda")
@@ -2353,14 +2589,17 @@ def main():
                 library_note="no single PyTorch call computes a "
                 "local-tables gather-sum or an MGM/DSA move",
                 nvidia_smi=smi)
-        ms, plain, bound, by, nbytes, device_us, us, offers = time_mgm2(
-            pack_mgm2_from_pls(pack_from_pg(pg)))
+        pm = pack_mgm2_from_pls(pack_from_pg(pg))
+        ms, plain, bound, by, nbytes, device_us, us, offers = time_mgm2(pm)
         timing[name, "packed_mgm2_cycles"] = (ms, plain, bound, by)
+        blocks, threads = mgm2_grid(pm)
         say("times", kernel="packed_mgm2_cycles", size=name, N=pg.N,
-            Vp=pg.Vp, launches_per_cycle=LAUNCHES_PER_CYCLE, kernel_ms=ms,
+            Vp=pg.Vp, launches_per_call=1, blocks=blocks, threads=threads,
+            kernel_ms=ms,
             plain_ms=plain, bound_ms=bound, bound_by=by,
             bytes_per_cycle=nbytes, offers_per_cycle=offers,
-            profiler_kernel_us=device_us, profiler_us_by_kernel=us,
+            profiler_kernel_us=device_us,
+            profiler_us_per_launch_of_50_cycles=us,
             kernel_busy_share=(device_us / (ms * 1e3) if device_us
                                else None),
             library_ms=None,
@@ -2410,14 +2649,17 @@ def main():
 
     for name in ("secp_3.9k", "secp4_3.9k", big_secp):
         pg = mixed_pgs[name]
-        ms, plain, bound, by, nbytes, device_us, us, offers = time_mgm2(
-            pack_mgm2_from_pls(pack_from_pg(pg)))
+        pm = pack_mgm2_from_pls(pack_from_pg(pg))
+        ms, plain, bound, by, nbytes, device_us, us, offers = time_mgm2(pm)
         timing[name, "packed_mgm2_cycles_mixed"] = (ms, plain, bound, by)
+        blocks, threads = mgm2_grid(pm)
         say("times", kernel="packed_mgm2_cycles_mixed", size=name, N=pg.N,
-            Vp=pg.Vp, launches_per_cycle=LAUNCHES_PER_CYCLE, kernel_ms=ms,
+            Vp=pg.Vp, launches_per_call=1, blocks=blocks, threads=threads,
+            kernel_ms=ms,
             plain_ms=plain, bound_ms=bound, bound_by=by,
             bytes_per_cycle=nbytes, offers_per_cycle=offers,
-            profiler_kernel_us=device_us, profiler_us_by_kernel=us,
+            profiler_kernel_us=device_us,
+            profiler_us_per_launch_of_50_cycles=us,
             kernel_busy_share=(device_us / (ms * 1e3) if device_us
                                else None),
             library_ms=None,
@@ -2555,7 +2797,9 @@ def main():
     designs = {"packed_maxsum_mixed_cycle": (
         "one cooperative launch a cycle, two phases: the slots' r' over the "
         "grid (a ternary or quaternary slot one thread a value), a grid "
-        "barrier, one thread a column")}
+        "barrier, one thread a column"),
+        "packed_mgm2_cycles": MGM2_DESIGN,
+        "packed_mgm2_cycles_mixed": MGM2_DESIGN}
     kernels = []
     for name, source, replaces, launches, err in entries:
         row = timing[

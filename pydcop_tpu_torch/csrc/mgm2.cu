@@ -33,10 +33,15 @@
 // neighbourhood max and the tie-break; R only skips a slot without a
 // sibling.  The binary instantiation keeps none of those tests.
 //
-// A Pallas cycle is one kernel with the protocol's five rounds in VMEM.
-// A CUDA grid has no barrier between rounds, and every round reads what
-// the round before wrote for a neighbour, so one cycle is six dependent
-// launches on one stream, one thread per column:
+// A Pallas call is one kernel that runs the n cycles of a chunk, each
+// cycle's rounds in VMEM.  Every round reads what the round before wrote
+// for a neighbour, so on the card the rounds are six phases separated by
+// grid barriers, and one call is ONE cooperative launch
+// (cudaLaunchCooperativeKernel: every block resident, or the launch is
+// refused) of mgm2_coop_kernel that runs all n cycles.  Each phase is a
+// grid-stride loop over the columns, one thread a column, so any grid of
+// at least one block gives the same x; the wrapper launches
+// min(ceil(Vp / kThreads), capacity) blocks:
 //   T tables:   tables [D, Vp], cur, best (first minimum), own gain;
 //   O offer:    an offerer (u_off < threshold) picks the slot whose
 //               pick_rank is floor(u_pick * max(pair deg, 1)); if the mate is
@@ -47,15 +52,29 @@
 //   C commit:   an offerer learns whether its offer came back accepted;
 //               every column writes its gain and tie-break id
 //               (pid = min(own, partner) when paired);
-//   W winner:   neighbourhood max of the gains, lowest pid at the max,
-//               winner = strict max or tie with pid <= that pid;
+//   W winner:   neighbourhood max of the gains, lowest pid within 1e-9
+//               of it, winner = strict max or tie with pid <= that pid;
 //   G go:       a pair moves iff both ends win, a lone winner makes
 //               MGM's move; x double-buffered.
-// All n cycles of a chunk go out from one host call (mgm2_cycles).  The
-// scratch between rounds is per column (the offer and acceptance records
-// replace the Pallas kernel's per-slot routed rows): one float workspace
+// A grid barrier (mgm2_barrier below) stands between consecutive phases,
+// G of one cycle and T of the next included: 6n - 1 a call.  The scratch
+// between phases is per column (the offer and acceptance records replace
+// the Pallas kernel's per-slot routed rows): one float workspace
 // [(D + 4) * Vp] and one int workspace [9 * Vp], allocated by the
-// wrapper.
+// wrapper.  Everything one block writes and another reads in the same
+// launch — the workspaces and x_a / x_b — is read through L2 (__ldcg),
+// never through a pointer marked const __restrict__: a block's L1 may
+// hold a line another block has written since.  A column without slots
+// (an isolated variable) forms no slot index: its walks do not start.
+//
+// The walks over a column's slots (T, O, R, W) take kBatch slots at a
+// time and issue their loads with no branch between them, so a batch's
+// gathers are in flight together; T, R and W load a batch's layout
+// entries while the batch before waits for its gathers.  R and W keep a
+// running max and the lowest edge id / pid within 1e-9 of it in one
+// walk; only a new max within 1e-9 of the old one (where the candidates
+// kept so far may or may not stay within 1e-9 of the final max) walks
+// the slots again, so both give the two-pass rule's result exactly.
 //
 // Arithmetic, in the plain PyTorch version's order and the Pallas
 // kernel's, with -fmad=false so all round alike:
@@ -73,25 +92,31 @@
 // The mixed tables are local_search.cu's column_tables<D, true> without
 // its nudge: the slot costs from 0 in slot order, then + unary.
 //
-// Bound: memory and launches.  Per cycle the function must read x, the
+// Bound: memory and latency.  Per cycle the function must read x, the
 // three coins, the unary and mask columns, the column arrays, the slot
 // arrays and D cost floats a slot (D*D more at an offered slot), and
 // write x': about 2.6 MB at the 10k-variable / 30k-constraint colouring
-// (60k slots), 0.8 us at 3.35 TB/s.  Six dependent launches of a few us
-// each set the pace; the design answers the bound only by reading each
-// operand once, coalesced except for the mate gathers.  The mixed branch
-// reads, per slot, D floats of its arity's cost array and up to three
-// sibling columns, and per offered slot D*D floats of cost2: at the
-// 3,900-variable SECP (6,333 slots, D = 5, 95 binary factors) a few
-// hundred kB, under 0.2 us; the launches set its pace too.
+// (60k slots), 0.8 us at 3.35 TB/s.  What sets the pace is the chain of
+// six dependent phases a cycle, each a walk through dependent gathers
+// (slot -> sibling column -> its value -> cost row), and the grid barrier
+// after each; one launch a call takes the six launch gaps of a cycle
+// out, the batched walks shorten each phase's chain, and the one-walk R
+// and W halve their gathers.  The mixed branch reads, per slot, D floats
+// of its arity's cost array and up to three sibling columns, and per
+// offered slot D*D floats of cost2: at the 3,900-variable SECP (6,333
+// slots, D = 5, 95 binary factors) a few hundred kB, under 0.2 us; the
+// phases' chain sets its pace too.
 #include <cuda_runtime.h>
 
 #include <climits>
+
+#include "grid_sync.cuh"
 
 namespace {
 
 constexpr float kPadCost = 1e30f;
 constexpr float kEps = 1e-9f;
+// threads a block of the cooperative kernel
 constexpr int kThreads = 128;
 
 struct Graph {
@@ -120,7 +145,8 @@ struct Graph {
   const int* pair_deg;    // [Vp] binary slots of each column
 };
 
-// Per-column scratch between the rounds of one cycle.
+// Per-column scratch between the phases of one cycle, written by a
+// column's thread and read by its neighbours' (through L2: ld below).
 struct Work {
   float* tables;    // [D, Vp]
   float* cur;       // [Vp] current local cost
@@ -138,65 +164,177 @@ struct Work {
   int* winner;      // [Vp] 1 = won the neighbourhood
 };
 
-__device__ __forceinline__ size_t slot_of(const Graph& g, int c, int k) {
-  return static_cast<size_t>(g.col_slot0[c]) +
-         static_cast<size_t>(k) * static_cast<size_t>(g.col_stride[c]);
+// A value written in this launch, possibly by another block: read
+// through L2, past this SM's L1.
+template <typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  return __ldcg(p);
 }
+
+// All blocks of the cooperative launch meet here; the stores made before
+// it are visible to every block after it (read them with ld).  One word,
+// one atomic a block: block 0 adds 2^31 - (gridDim.x - 1), every other
+// block 1, so the word's top bit flips when the last block arrives and
+// its low bits come back to where they were; a block waits until the top
+// bit differs from the one it found.  K6 meets six barriers a cycle, and
+// on an H100 this one took 4 us a cycle off the 10k/30k colouring against
+// grid_sync.cuh's count-and-generation barrier (two atomics and a
+// generation read a block), which K1-mixed and K7 keep.  The word
+// belongs to the call: zero before the launch, shared by no other.
+__device__ __forceinline__ void mgm2_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, add);
+    volatile unsigned* word = bar;
+    while (((old ^ *word) & 0x80000000u) == 0) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Slots a thread walks at a time.  A batch's loads are issued together,
+// with no branch between them (a batch past the column's last slot
+// reads that slot again and ignores it), so a walk of deg slots waits
+// for ceil(deg / kBatch) chains of dependent loads, not deg.  4 keeps
+// the kernel at 80 registers or fewer, so 6 blocks of kThreads fit an SM
+// and the 100k-column grid (782 blocks) is resident at once.
+constexpr int kBatch = 4;
+
+// A column's slots: slot k is slot0 + k * stride (slot indices are int,
+// as the layout's int32 slot arrays).
+struct Walk {
+  int slot0;
+  int stride;
+  int deg;
+  __device__ __forceinline__ Walk(const Graph& g, int c)
+      : slot0(g.col_slot0[c]), stride(g.col_stride[c]), deg(g.col_deg[c]) {}
+  // slot k, or the last slot for k past it; only for deg >= 1 (a walk
+  // loads nothing of a column without slots)
+  __device__ __forceinline__ int slot(int k) const {
+    return slot0 + min(k, deg - 1) * stride;
+  }
+};
 
 // column of binary slot s in `cost`: the slot itself, or cost_idx[s]
 template <bool kMixed>
-__device__ __forceinline__ size_t cost_col(const Graph& g, size_t s) {
-  if constexpr (kMixed) return static_cast<size_t>(g.cost_idx[s]);
+__device__ __forceinline__ int cost_col(const Graph& g, int s) {
+  if constexpr (kMixed) return g.cost_idx[s];
   return s;
 }
 
-__device__ __forceinline__ float cost_at(const Graph& g, int row,
-                                         size_t col) {
+__device__ __forceinline__ float cost_at(const Graph& g, int row, int col) {
   return g.cost[static_cast<size_t>(row) * g.pitch + col];
 }
 
+// A batch of a column's slots for T: their layout entries (slot and
+// sibling column; on the mixed layout the arity, the sibling columns,
+// -1 read as column 0, and the cost column), loaded a batch ahead of
+// their use.
+template <bool kMixed>
+struct TableSlots {
+  int s[kBatch], m[kBatch];
+  __device__ __forceinline__ void load(const Graph& g, const Walk& walk,
+                                       int k0) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      s[j] = walk.slot(k0 + j);
+      m[j] = g.mate_col[s[j]];
+    }
+  }
+};
+
+template <>
+struct TableSlots<true> {
+  int a[kBatch], m1[kBatch], m2[kBatch], m3[kBatch], ci[kBatch];
+  __device__ __forceinline__ void load(const Graph& g, const Walk& walk,
+                                       int k0) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int s = walk.slot(k0 + j);
+      a[j] = g.arity[s];
+      m1[j] = max(g.mate_col[s], 0);
+      m2[j] = max(g.mate2_col[s], 0);
+      m3[j] = max(g.mate3_col[s], 0);
+      ci[j] = g.cost_idx[s];
+    }
+  }
+};
+
 // T: tables, cur, best, own gain (the Pallas kernel's local tables and
-// _rowmin_argfirst; the slot sum from 0, then + unary, as K2).  The same
-// arithmetic as local_search.cu's column_tables without the nudge, kept
-// in this file because the build caches a library by its source's hash.
+// _rowmin_argfirst; the slot sum from 0 in slot order, then + unary, as
+// K2).  The same arithmetic as local_search.cu's column_tables without
+// the nudge, kept in this file because the build caches a library by
+// its source's hash.
 template <int D, bool kMixed>
-__global__ void mgm2_tables_kernel(Graph g, Work w,
-                                   const int* __restrict__ x) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.Vp) return;
+__device__ __forceinline__ void tables_phase(const Graph& g, const Work& w,
+                                             const int* x, int c) {
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-  const int deg = g.col_deg[c];
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = slot_of(g, c, k);
+  const Walk walk(g, c);
+  TableSlots<kMixed> cur;
+  if (walk.deg > 0) cur.load(g, walk, 0);
+  for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+    float v[kBatch][D];
     if constexpr (kMixed) {
       // row of the siblings' values: 0, x1, x1*D + x2, (x1*D + x2)*D + x3
-      const int a = g.arity[s];
-      size_t row = 0;
-      if (a >= 2) row = static_cast<size_t>(x[g.mate_col[s]]);
-      if (a >= 3) row = row * D + static_cast<size_t>(x[g.mate2_col[s]]);
-      if (a >= 4) row = row * D + static_cast<size_t>(x[g.mate3_col[s]]);
-      // a switch, not g.mcost[a - 1]: a runtime index into the struct's
-      // arrays would put them in local memory
-      const float* cost = g.mcost[0];
-      size_t na = g.n[0];
-      switch (a) {
-        case 2: cost = g.mcost[1]; na = g.n[1]; break;
-        case 3: cost = g.mcost[2]; na = g.n[2]; break;
-        case 4: cost = g.mcost[3]; na = g.n[3]; break;
-        default: break;
+      int x1[kBatch], x2[kBatch], x3[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        x1[j] = ld(x + cur.m1[j]);
+        x2[j] = ld(x + cur.m2[j]);
+        x3[j] = ld(x + cur.m3[j]);
       }
-      const size_t ci = static_cast<size_t>(g.cost_idx[s]);
+      TableSlots<kMixed> next;
+      next.load(g, walk, k0 + kBatch);
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += cost[(row * D + d) * na + ci];
+      for (int j = 0; j < kBatch; ++j) {
+        const int a = cur.a[j];
+        size_t row = a >= 2 ? static_cast<size_t>(x1[j]) : 0;
+        if (a >= 3) row = row * D + static_cast<size_t>(x2[j]);
+        if (a >= 4) row = row * D + static_cast<size_t>(x3[j]);
+        // selects, not g.mcost[a - 1]: a runtime index into the struct's
+        // arrays would put them in local memory
+        const float* cost = a == 1   ? g.mcost[0]
+                            : a == 2 ? g.mcost[1]
+                            : a == 3 ? g.mcost[2]
+                                     : g.mcost[3];
+        const size_t na = a == 1   ? g.n[0]
+                          : a == 2 ? g.n[1]
+                          : a == 3 ? g.n[2]
+                                   : g.n[3];
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          v[j][d] = cost[(row * D + d) * na + cur.ci[j]];
+      }
+      cur = next;
     } else {
-      const int row = x[g.mate_col[s]] * D;
+      int row[kBatch];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += cost_at(g, row + d, s);
+      for (int j = 0; j < kBatch; ++j) row[j] = ld(x + cur.m[j]) * D;
+      TableSlots<kMixed> next;
+      next.load(g, walk, k0 + kBatch);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          v[j][d] = cost_at(g, row[j] + d, cur.s[j]);
+      cur = next;
+    }
+    const int nb = min(kBatch, walk.deg - k0);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (j < nb) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] += v[j][d];
+      }
     }
   }
-  const int xc = x[c];
+  const int xc = ld(x + c);
   const size_t vp = static_cast<size_t>(g.Vp);
   float t[D];
   float cv = 0.0f;
@@ -223,46 +361,46 @@ __global__ void mgm2_tables_kernel(Graph g, Work w,
 
 // O: the offer and its joint optimum at the offered (binary) slot.
 template <int D, bool kMixed>
-__global__ void mgm2_offer_kernel(Graph g, Work w, const int* __restrict__ x,
-                                  const float* __restrict__ u_off,
-                                  const float* __restrict__ u_pick,
-                                  float threshold) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.Vp) return;
+__device__ __forceinline__ void offer_phase(const Graph& g, const Work& w,
+                                            const int* x,
+                                            const float* __restrict__ u_off,
+                                            const float* __restrict__ u_pick,
+                                            float threshold, int c) {
   w.off_slot[c] = -1;
   if (!(u_off[c] < threshold)) return;
-  const int deg = g.col_deg[c];
-  int pair_deg = deg;
+  const Walk walk(g, c);
+  int pair_deg = walk.deg;
   if constexpr (kMixed) pair_deg = g.pair_deg[c];
   const int pick = static_cast<int>(
       floorf(u_pick[c] * fmaxf(static_cast<float>(pair_deg), 1.0f)));
-  long long found = -1;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = slot_of(g, c, k);
-    if (g.pick_rank[s] == pick) {
-      found = static_cast<long long>(s);
-      break;
-    }
+  int found = -1;  // the picked slot's k (pick ranks are distinct)
+  for (int k0 = 0; k0 < walk.deg && found < 0; k0 += kBatch) {
+    int rank[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) rank[j] = g.pick_rank[walk.slot(k0 + j)];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+      if (found < 0 && rank[j] == pick) found = min(k0 + j, walk.deg - 1);
   }
   if (found < 0) return;
-  const size_t s = static_cast<size_t>(found);
+  const int s = walk.slot(found);
   const int m = g.mate_col[s];
   if (u_off[m] < threshold) return;  // the mate offers too: no offer
-  const size_t cs = cost_col<kMixed>(g, s);
-  const size_t ct = cost_col<kMixed>(g, static_cast<size_t>(g.mate[s]));
-  const int xc = x[c];
-  const int xm = x[m];
+  const int cs = cost_col<kMixed>(g, s);
+  const int ct = cost_col<kMixed>(g, g.mate[s]);
+  const int xc = ld(x + c);
+  const int xm = ld(x + m);
   const size_t vp = static_cast<size_t>(g.Vp);
   float A[D], Am[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    A[d] = w.tables[static_cast<size_t>(d) * vp + c] -
+    A[d] = ld(w.tables + static_cast<size_t>(d) * vp + c) -
            cost_at(g, xm * D + d, cs);
-    Am[d] = w.tables[static_cast<size_t>(d) * vp + m] -
+    Am[d] = ld(w.tables + static_cast<size_t>(d) * vp + m) -
             cost_at(g, xc * D + d, ct);
   }
   const float cur_joint =
-      (w.cur[c] + w.cur[m]) - cost_at(g, xm * D + xc, cs);
+      (ld(w.cur + c) + ld(w.cur + m)) - cost_at(g, xm * D + xc, cs);
   float best = 0.0f;
   int du_star = 0;
 #pragma unroll
@@ -291,50 +429,107 @@ __global__ void mgm2_offer_kernel(Graph g, Work w, const int* __restrict__ x,
       dw_star = dw;
     }
   }
-  w.off_slot[c] = static_cast<int>(s);
+  w.off_slot[c] = s;
   w.off_jg[c] = fmaxf(cur_joint - best, 0.0f);
   w.off_du[c] = du_star;
   w.off_dw[c] = dw_star;
 }
 
-// The joint gain offered to me on slot s (0 when no offer arrives there;
-// a mixed unary slot has no mate).
-template <bool kMixed>
-__device__ __forceinline__ float offered_in(const Graph& g, const Work& w,
-                                            size_t s) {
-  const int m = g.mate_col[s];
-  if constexpr (kMixed) {
-    if (m < 0) return 0.0f;
+// A batch of a column's slots for R: their mate columns (-1 read as
+// column 0 on the mixed layout), mate slots and edge ids, loaded a
+// batch ahead of their use.
+struct OfferSlots {
+  int m[kBatch], ms[kBatch], edge[kBatch];
+  __device__ __forceinline__ void load(const Graph& g, const Walk& walk,
+                                       int k0) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int s = walk.slot(k0 + j);
+      m[j] = g.mate_col[s];
+      ms[j] = g.mate[s];
+      edge[j] = g.edge_id[s];
+    }
   }
-  return w.off_slot[m] == g.mate[s] ? w.off_jg[m] : 0.0f;
+};
+
+// The joint gains offered to me on a batch of slots (0 where no offer
+// arrives; a mixed unary slot has no mate).
+template <bool kMixed>
+__device__ __forceinline__ void offered_in(const Work& w,
+                                           const OfferSlots& b,
+                                           float (&jg)[kBatch]) {
+  int os[kBatch];
+  float oj[kBatch];
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const int mm = kMixed ? max(b.m[j], 0) : b.m[j];
+    os[j] = ld(w.off_slot + mm);
+    oj[j] = ld(w.off_jg + mm);
+  }
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j)
+    jg[j] = (!kMixed || b.m[j] >= 0) && os[j] == b.ms[j] ? oj[j] : 0.0f;
 }
 
 // R: take the best positive offer, lowest edge id on ties, by favor
-// (0 unilateral, 1 no, 2 coordinated).
+// (0 unilateral, 1 no, 2 coordinated).  One walk keeps the running best
+// and the lowest edge id within 1e-9 of it (a new best more than 1e-9
+// above the old one starts the candidates afresh); a new best within
+// 1e-9 of the old one walks the slots again with the final best, so the
+// result is the two-pass rule's exactly.
 template <bool kMixed>
-__global__ void mgm2_response_kernel(Graph g, Work w,
-                                     const float* __restrict__ u_fav,
-                                     int favor) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.Vp) return;
-  const int deg = g.col_deg[c];
+__device__ __forceinline__ void response_phase(
+    const Graph& g, const Work& w, const float* __restrict__ u_fav,
+    int favor, int c) {
+  const Walk walk(g, c);
   float rec = -1.0f;
-  for (int k = 0; k < deg; ++k) {
-    const float jg = offered_in<kMixed>(g, w, slot_of(g, c, k));
-    rec = fmaxf(rec, jg > kEps ? jg : -1.0f);
-  }
-  const float thr = rec - kEps;
   int first_e = INT_MAX;
   int acc = -1;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = slot_of(g, c, k);
-    const float jg = offered_in<kMixed>(g, w, s);
-    if (jg > kEps && jg >= thr && g.edge_id[s] < first_e) {
-      first_e = g.edge_id[s];
-      acc = static_cast<int>(s);
+  bool again = false;
+  OfferSlots cur;
+  if (walk.deg > 0) cur.load(g, walk, 0);
+  for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+    float jg[kBatch];
+    offered_in<kMixed>(w, cur, jg);
+    OfferSlots next;
+    next.load(g, walk, k0 + kBatch);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (!(jg[j] > kEps)) continue;
+      if (jg[j] > rec) {
+        if (jg[j] - kEps > rec) {
+          first_e = cur.edge[j];
+          acc = walk.slot(k0 + j);
+        } else {
+          again = true;
+        }
+        rec = jg[j];
+      } else if (jg[j] >= rec - kEps && cur.edge[j] < first_e) {
+        first_e = cur.edge[j];
+        acc = walk.slot(k0 + j);
+      }
+    }
+    cur = next;
+  }
+  if (again) {
+    const float thr = rec - kEps;
+    first_e = INT_MAX;
+    acc = -1;
+    for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+      OfferSlots b;
+      b.load(g, walk, k0);
+      float jg[kBatch];
+      offered_in<kMixed>(w, b, jg);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (jg[j] > kEps && jg[j] >= thr && b.edge[j] < first_e) {
+          first_e = b.edge[j];
+          acc = walk.slot(k0 + j);
+        }
+      }
     }
   }
-  const float own = w.own_gain[c];
+  const float own = ld(w.own_gain + c);
   const bool beats = rec > own + kEps;
   const bool ties = fabsf(rec - own) <= kEps;
   bool commits = beats;
@@ -344,139 +539,216 @@ __global__ void mgm2_response_kernel(Graph g, Work w,
 }
 
 // C: pairing result, gain and tie-break id of every column.
-__global__ void mgm2_commit_kernel(Graph g, Work w) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.Vp) return;
+__device__ __forceinline__ void commit_phase(const Graph& g, const Work& w,
+                                             int c) {
   int partner = -1;
   int partner_idx = INT_MAX;
   int target = 0;
   float pair_gain = 0.0f;
-  const int so = w.off_slot[c];
-  const int sa = w.acc_slot[c];
+  const int so = ld(w.off_slot + c);
+  const int sa = ld(w.acc_slot + c);
   if (so >= 0) {  // my offer: did it come back accepted?
     const int m = g.mate_col[so];
-    if (w.acc_slot[m] == g.mate[so]) {
+    if (ld(w.acc_slot + m) == g.mate[so]) {
       partner = m;
       partner_idx = g.mate_idx[so];
-      target = w.off_du[c];
-      pair_gain = w.off_jg[c];
+      target = ld(w.off_du + c);
+      pair_gain = ld(w.off_jg + c);
     }
   } else if (sa >= 0) {  // the offer I accepted
     const int m = g.mate_col[sa];
     partner = m;
     partner_idx = g.mate_idx[sa];
-    target = w.off_dw[m];
-    pair_gain = w.off_jg[m];
+    target = ld(w.off_dw + m);
+    pair_gain = ld(w.off_jg + m);
   }
   const int me = g.col_var[c];
   if (partner >= 0) {
     w.gain[c] = fmaxf(0.0f, pair_gain);
     w.pid[c] = min(me, partner_idx);
   } else {
-    w.gain[c] = w.own_gain[c];
+    w.gain[c] = ld(w.own_gain + c);
     w.pid[c] = me;
   }
   w.pair_col[c] = partner;
   w.target[c] = target;
 }
 
+// A batch of a column's slots for W: their siblings' columns (-1: no
+// sibling), loaded a batch ahead of their use.
+template <int kSibs>
+struct SiblingSlots {
+  int m[kBatch][kSibs];
+  __device__ __forceinline__ void load(const Graph& g, const Walk& walk,
+                                       int k0) {
+    const int* cols[3] = {g.mate_col, g.mate2_col, g.mate3_col};
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int r = 0; r < kSibs; ++r) m[j][r] = cols[r][walk.slot(k0 + j)];
+  }
+};
+
+// The gains and tie-break ids of a batch's siblings (a -1 column reads
+// column 0).
+template <int kSibs>
+__device__ __forceinline__ void sibling_gains(const Work& w,
+                                              const SiblingSlots<kSibs>& b,
+                                              float (&gn)[kBatch][kSibs],
+                                              int (&pn)[kBatch][kSibs]) {
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+    for (int r = 0; r < kSibs; ++r) {
+      gn[j][r] = ld(w.gain + max(b.m[j][r], 0));
+      pn[j][r] = ld(w.pid + max(b.m[j][r], 0));
+    }
+}
+
 // W: neighbourhood arbitration with the pair-shared tie-break ids, over
-// the one sibling of a binary slot, or up to three on the mixed layout
-// (a -1 column is no sibling).
+// the one sibling of a binary slot, or up to three on the mixed layout:
+// the neighbourhood max from 0, the lowest id among the gains within
+// 1e-9 of it.  One walk, as R's: a new max within 1e-9 of the old one
+// walks the slots again with the final max.
 template <bool kMixed>
-__global__ void mgm2_winner_kernel(Graph g, Work w) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.Vp) return;
+__device__ __forceinline__ void winner_phase(const Graph& g, const Work& w,
+                                             int c) {
   constexpr int kSibs = kMixed ? 3 : 1;
-  const int* cols[3] = {g.mate_col, g.mate2_col, g.mate3_col};
-  const int deg = g.col_deg[c];
+  const Walk walk(g, c);
   float nm = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = slot_of(g, c, k);
-#pragma unroll
-    for (int r = 0; r < kSibs; ++r) {
-      const int m = cols[r][s];
-      if (!kMixed || m >= 0) nm = fmaxf(nm, w.gain[m]);
-    }
-  }
-  const float thr = nm - kEps;
   int idx = INT_MAX;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = slot_of(g, c, k);
+  bool again = false;
+  SiblingSlots<kSibs> cur;
+  if (walk.deg > 0) cur.load(g, walk, 0);
+  for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+    float gn[kBatch][kSibs];
+    int pn[kBatch][kSibs];
+    sibling_gains<kSibs>(w, cur, gn, pn);
+    SiblingSlots<kSibs> next;
+    next.load(g, walk, k0 + kBatch);
 #pragma unroll
-    for (int r = 0; r < kSibs; ++r) {
-      const int m = cols[r][s];
-      if ((!kMixed || m >= 0) && w.gain[m] >= thr) idx = min(idx, w.pid[m]);
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int r = 0; r < kSibs; ++r) {
+        if (kMixed && cur.m[j][r] < 0) continue;
+        if (gn[j][r] > nm) {
+          if (gn[j][r] - kEps > nm)
+            idx = pn[j][r];
+          else
+            again = true;
+          nm = gn[j][r];
+        } else if (gn[j][r] >= nm - kEps) {
+          idx = min(idx, pn[j][r]);
+        }
+      }
+    cur = next;
+  }
+  if (again) {
+    const float thr = nm - kEps;
+    idx = INT_MAX;
+    for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+      SiblingSlots<kSibs> b;
+      b.load(g, walk, k0);
+      float gn[kBatch][kSibs];
+      int pn[kBatch][kSibs];
+      sibling_gains<kSibs>(w, b, gn, pn);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+        for (int r = 0; r < kSibs; ++r)
+          if ((!kMixed || b.m[j][r] >= 0) && gn[j][r] >= thr)
+            idx = min(idx, pn[j][r]);
     }
   }
-  const float gc = w.gain[c];
+  const float gc = ld(w.gain + c);
   w.winner[c] = (gc > kEps) &&
                 ((gc > nm + kEps) ||
-                 ((fabsf(gc - nm) <= kEps) && (w.pid[c] <= idx)));
+                 ((fabsf(gc - nm) <= kEps) && (ld(w.pid + c) <= idx)));
 }
 
 // G: a pair moves iff both ends won; a lone winner takes its best value.
-__global__ void mgm2_go_kernel(Graph g, Work w, const int* __restrict__ x_in,
-                               int* __restrict__ x_out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= g.Vp) return;
-  const int p = w.pair_col[c];
-  const bool win = w.winner[c] != 0;
-  int v = x_in[c];
+__device__ __forceinline__ void go_phase(const Work& w, const int* x,
+                                         int* x_out, int c) {
+  const int p = ld(w.pair_col + c);
+  const bool win = ld(w.winner + c) != 0;
+  int v = ld(x + c);
   if (p >= 0) {
-    if (win && w.winner[p] != 0) v = w.target[c];
+    if (win && ld(w.winner + p) != 0) v = ld(w.target + c);
   } else if (win) {
-    v = w.best[c];
+    v = ld(w.best + c);
   }
   x_out[c] = v;
 }
 
+// All n cycles of one call: for each, the six phases, each a grid-stride
+// loop over the columns, a grid barrier between consecutive phases.
+// Cycle i reads x_in (i = 0) or the previous cycle's buffer and writes
+// x_a (even i) or x_b (odd i).
 template <int D, bool kMixed>
-int run_cycles(const Graph& g, const Work& w, const int* x_in, int* x_a,
-               int* x_b, const float* u_off, const float* u_pick,
-               const float* u_fav, int n_cycles, float threshold, int favor,
-               cudaStream_t st, int* launched) {
-  const int blocks = (g.Vp + kThreads - 1) / kThreads;
+__global__ void __launch_bounds__(kThreads)
+    mgm2_coop_kernel(Graph g, Work w, const int* __restrict__ x_in,
+                     int* x_a, int* x_b, const float* __restrict__ u_off,
+                     const float* __restrict__ u_pick,
+                     const float* __restrict__ u_fav, int n_cycles,
+                     float threshold, int favor, unsigned* bar) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int step = gridDim.x * blockDim.x;
   const size_t vp = static_cast<size_t>(g.Vp);
-#define MGM2_CHECK()                                        \
-  do {                                                      \
-    const cudaError_t err = cudaGetLastError();             \
-    if (err != cudaSuccess) return static_cast<int>(err);   \
-    ++*launched;                                            \
-  } while (0)
   const int* x = x_in;
   for (int i = 0; i < n_cycles; ++i) {
     int* out = (i % 2 == 0) ? x_a : x_b;
     const size_t row = static_cast<size_t>(i) * vp;
-    mgm2_tables_kernel<D, kMixed><<<blocks, kThreads, 0, st>>>(g, w, x);
-    MGM2_CHECK();
-    mgm2_offer_kernel<D, kMixed><<<blocks, kThreads, 0, st>>>(
-        g, w, x, u_off + row, u_pick + row, threshold);
-    MGM2_CHECK();
-    mgm2_response_kernel<kMixed><<<blocks, kThreads, 0, st>>>(
-        g, w, u_fav + row, favor);
-    MGM2_CHECK();
-    mgm2_commit_kernel<<<blocks, kThreads, 0, st>>>(g, w);
-    MGM2_CHECK();
-    mgm2_winner_kernel<kMixed><<<blocks, kThreads, 0, st>>>(g, w);
-    MGM2_CHECK();
-    mgm2_go_kernel<<<blocks, kThreads, 0, st>>>(g, w, x, out);
-    MGM2_CHECK();
+    if (i > 0) mgm2_barrier(bar);
+    for (int c = first; c < g.Vp; c += step)
+      tables_phase<D, kMixed>(g, w, x, c);
+    mgm2_barrier(bar);
+    for (int c = first; c < g.Vp; c += step)
+      offer_phase<D, kMixed>(g, w, x, u_off + row, u_pick + row, threshold,
+                             c);
+    mgm2_barrier(bar);
+    for (int c = first; c < g.Vp; c += step)
+      response_phase<kMixed>(g, w, u_fav + row, favor, c);
+    mgm2_barrier(bar);
+    for (int c = first; c < g.Vp; c += step) commit_phase(g, w, c);
+    mgm2_barrier(bar);
+    for (int c = first; c < g.Vp; c += step) winner_phase<kMixed>(g, w, c);
+    mgm2_barrier(bar);
+    for (int c = first; c < g.Vp; c += step) go_phase(w, x, out, c);
     x = out;
   }
-#undef MGM2_CHECK
-  return 0;
 }
 
-// Splits the scratch and runs the cycles of one branch (D in [1, 8]).
-template <bool kMixed>
-int launch(const Graph& g, const int* x_in, int* x_a, int* x_b,
+// the kernel of one branch at domain size D (nullptr outside [1, 8])
+const void* coop_kernel(int D, bool mixed) {
+  switch (D) {
+#define MGM2_CASE(DD)                                                  \
+  case DD:                                                             \
+    return mixed                                                       \
+               ? reinterpret_cast<const void*>(mgm2_coop_kernel<DD, true>) \
+               : reinterpret_cast<const void*>(mgm2_coop_kernel<DD, false>);
+    MGM2_CASE(1)
+    MGM2_CASE(2)
+    MGM2_CASE(3)
+    MGM2_CASE(4)
+    MGM2_CASE(5)
+    MGM2_CASE(6)
+    MGM2_CASE(7)
+    MGM2_CASE(8)
+#undef MGM2_CASE
+    default:
+      return nullptr;
+  }
+}
+
+// Splits the scratch and makes the one cooperative launch of a call.
+int launch(bool mixed, Graph g, const int* x_in, int* x_a, int* x_b,
            const float* u_off, const float* u_pick, const float* u_fav,
            float* fwork, int* iwork, int D, int n_cycles, float threshold,
-           int favor, void* stream, int* launched) {
-  if (n_cycles < 1 || favor < 0 || favor > 2)
+           int favor, int blocks, unsigned* bar, void* stream) {
+  const void* kernel = coop_kernel(D, mixed);
+  if (kernel == nullptr || n_cycles < 1 || favor < 0 || favor > 2 ||
+      g.Vp <= 0 || blocks < 1 || bar == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (g.Vp <= 0) return static_cast<int>(cudaGetLastError());
   const size_t vp = static_cast<size_t>(g.Vp);
   Work w;
   w.tables = fwork;
@@ -493,25 +765,13 @@ int launch(const Graph& g, const int* x_in, int* x_a, int* x_b,
   w.pair_col = w.pid + vp;
   w.target = w.pair_col + vp;
   w.winner = w.target + vp;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-#define MGM2_CASE(DD)                                                      \
-  case DD:                                                                 \
-    return run_cycles<DD, kMixed>(g, w, x_in, x_a, x_b, u_off, u_pick,     \
-                                  u_fav, n_cycles, threshold, favor, st,   \
-                                  launched);
-    MGM2_CASE(1)
-    MGM2_CASE(2)
-    MGM2_CASE(3)
-    MGM2_CASE(4)
-    MGM2_CASE(5)
-    MGM2_CASE(6)
-    MGM2_CASE(7)
-    MGM2_CASE(8)
-#undef MGM2_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  void* args[] = {&g,      &w,        &x_in,      &x_a,
+                  &x_b,    &u_off,    &u_pick,    &u_fav,
+                  &n_cycles, &threshold, &favor, &bar};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      const_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 Graph make_graph(const float* unary, const float* mask, const int* mate,
@@ -538,16 +798,26 @@ Graph make_graph(const float* unary, const float* mask, const int* mate,
 
 }  // namespace
 
+// The resident-block capacity of the kernel of one branch (mixed 0 or 1)
+// at domain size D on the current device (0 when D is outside [1, 8] or
+// the device cannot be asked), and its threads a block in *threads: a
+// call launches at most that many blocks.
+extern "C" int mgm2_capacity(int D, int mixed, int* threads) {
+  if (threads) *threads = kThreads;
+  const void* kernel = coop_kernel(D, mixed != 0);
+  return kernel ? coop_capacity(kernel, kThreads) : 0;
+}
+
 // Both entries run n_cycles MGM-2 cycles on `stream` from x_in (left
-// unchanged): cycle i writes x_a for even i and x_b for odd i, so the
-// result is in x_a when n_cycles is odd and in x_b when it is even.
-// fwork holds (D + 4) * Vp floats and iwork 9 * Vp ints of scratch.
-// favor: 0 unilateral, 1 no, 2 coordinated.  `launched` lives in HOST
-// memory: one is added to it for each kernel launch that went out (six
-// per cycle).  Returns 0, or the first launch error (cudaGetLastError
-// after each launch) without launching the rest; D outside [1, 8],
-// n_cycles < 1 or favor outside [0, 2] return cudaErrorInvalidValue
-// without launching.
+// unchanged) in ONE cooperative launch of `blocks` blocks (at most
+// mgm2_capacity(D, ...)): cycle i writes x_a for even i and x_b for odd
+// i, so the result is in x_a when n_cycles is odd and in x_b when it is
+// even.  fwork holds (D + 4) * Vp floats and iwork 9 * Vp ints of
+// scratch; `bar` is one unsigned int, zero before the launch, which no
+// other launch in flight may share.  favor: 0 unilateral, 1 no, 2
+// coordinated.  Returns the launch's error (0 on success); D outside
+// [1, 8], n_cycles < 1, favor outside [0, 2], Vp < 1, blocks < 1 or no
+// `bar` return cudaErrorInvalidValue without launching.
 
 // The binary branch: cost is cost_rows [D*D, N].
 extern "C" int mgm2_cycles(
@@ -558,15 +828,14 @@ extern "C" int mgm2_cycles(
     const int* col_deg, const int* col_slot0, const int* col_stride,
     const int* pick_rank, const int* edge_id, float* fwork, int* iwork,
     int D, int N, int Vp, int n_cycles, float threshold, int favor,
-    void* stream, int* launched) {
+    int blocks, unsigned* bar, void* stream) {
   Graph g = make_graph(unary, mask, mate, mate_col, mate_idx, col_var,
                        col_deg, col_slot0, col_stride, pick_rank, edge_id,
                        N, Vp);
   g.cost = cost;
   g.pitch = static_cast<size_t>(N);
-  return launch<false>(g, x_in, x_a, x_b, u_off, u_pick, u_fav, fwork,
-                       iwork, D, n_cycles, threshold, favor, stream,
-                       launched);
+  return launch(false, g, x_in, x_a, x_b, u_off, u_pick, u_fav, fwork, iwork,
+                D, n_cycles, threshold, favor, blocks, bar, stream);
 }
 
 // The mixed branch: cost1..cost4 are the per-arity cost arrays of widths
@@ -584,7 +853,7 @@ extern "C" int mgm2_cycles_mixed(
     const int* col_stride, const int* pick_rank, const int* edge_id,
     const int* pair_deg, float* fwork, int* iwork, int D, int N, int Vp,
     int n1, int n2, int n3, int n4, int n_cycles, float threshold,
-    int favor, void* stream, int* launched) {
+    int favor, int blocks, unsigned* bar, void* stream) {
   Graph g = make_graph(unary, mask, mate, mate_col, mate_idx, col_var,
                        col_deg, col_slot0, col_stride, pick_rank, edge_id,
                        N, Vp);
@@ -603,7 +872,6 @@ extern "C" int mgm2_cycles_mixed(
   g.mate2_col = mate2_col;
   g.mate3_col = mate3_col;
   g.pair_deg = pair_deg;
-  return launch<true>(g, x_in, x_a, x_b, u_off, u_pick, u_fav, fwork,
-                      iwork, D, n_cycles, threshold, favor, stream,
-                      launched);
+  return launch(true, g, x_in, x_a, x_b, u_off, u_pick, u_fav, fwork, iwork,
+                D, n_cycles, threshold, favor, blocks, bar, stream);
 }

@@ -29,19 +29,19 @@ the pair moves read the binary cost array only, and the gain and go
 arbitration runs over every sibling of every slot
 (``pallas_mgm2.py:329-360``).
 
-:func:`packed_mgm2_cycles` launches the hand-written CUDA kernels of
-``csrc/mgm2.cu`` (six dependent launches a cycle, all cycles of a chunk
-from one host call; the mixed layout has entries of its own) on CUDA
-tensors and runs :func:`packed_mgm2_cycles_plain`, the same arithmetic
-in torch ops, only on CPU tensors.  A build or launch failure raises;
-nothing falls back.
+:func:`packed_mgm2_cycles` launches the hand-written CUDA kernel of
+``csrc/mgm2.cu`` on CUDA tensors: ONE cooperative launch a call runs all
+its cycles, the six rounds of each a phase of the grid, split by grid
+barriers (the mixed layout has an entry of its own).  It runs
+:func:`packed_mgm2_cycles_plain`, the same arithmetic in torch ops, only
+on CPU tensors.  A build or launch failure raises; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,9 +59,6 @@ from pydcop_tpu_torch.ops.packed_local_search import (
 
 #: favor modes of the response round, as the kernel numbers them
 FAVORS = {"unilateral": 0, "no": 1, "coordinated": 2}
-#: kernel launches of one cycle (tables, offer, response, commit, winner,
-#: go)
-LAUNCHES_PER_CYCLE = 6
 
 
 @dataclass
@@ -289,9 +286,28 @@ def _kernel(mixed: bool):
         fn.restype = ctypes.c_int
         n_ptr, n_int = (28, 8) if mixed else (20, 4)
         fn.argtypes = ([P] * n_ptr + [I] * n_int
-                       + [ctypes.c_float, I, P, ctypes.POINTER(I)])
+                       + [ctypes.c_float, I, I, P, P])
         _fns[mixed] = fn
     return _fns[mixed]
+
+
+def _capacity(D: int, mixed: bool) -> Tuple[int, int]:
+    """(resident blocks, threads a block) of the kernel of one branch at
+    domain size ``D`` on the current CUDA device (0 blocks when the device
+    cannot be asked); asked anew at every call."""
+    from pydcop_tpu_torch.ops.cuda_build import load
+
+    fn = load("mgm2").mgm2_capacity
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    threads = ctypes.c_int(0)
+    return int(fn(D, int(mixed), ctypes.byref(threads))), int(threads.value)
+
+
+def mgm2_blocks(Vp: int, capacity: int, threads: int) -> int:
+    """Blocks of one launch: one thread a column, at most ``capacity``
+    (every phase is a grid-stride loop over the columns), at least 1."""
+    return max(1, min(capacity, -(-Vp // threads)))
 
 
 def _layout_args(pm: PackedMgm2):
@@ -322,11 +338,11 @@ def packed_mgm2_cycles(pm: PackedMgm2, x_col: torch.Tensor,
     """``n`` MGM-2 cycles, one per row of the ``[n, Vp]`` column-order
     coins (offer, pick, favor), from ``x_col`` (left unchanged).
 
-    On CUDA tensors this makes one host call that launches the six
-    kernels of each cycle on the current stream; the launches that call
-    reports having made are added to ``packed_mgm2_cycles.launches`` on
-    the binary layout and to ``packed_mgm2_cycles.mixed_launches`` on the
-    mixed one.  On CPU tensors it runs the plain version."""
+    On CUDA tensors this makes one cooperative launch of the kernel on
+    the current stream that runs all ``n`` cycles, and adds one to
+    ``packed_mgm2_cycles.launches`` on the binary layout or to
+    ``packed_mgm2_cycles.mixed_launches`` on the mixed one.  On CPU
+    tensors it runs the plain version."""
     if favor not in FAVORS:
         raise ValueError(f"unknown favor mode {favor!r}")
     if u_off.dim() != 2 or u_off.shape[0] < 1:
@@ -338,33 +354,55 @@ def packed_mgm2_cycles(pm: PackedMgm2, x_col: torch.Tensor,
     if not on_cuda:
         return packed_mgm2_cycles_plain(pm, x_col, u_off, u_pick, u_fav,
                                         threshold, favor)
-    pg = pls.pg
+    return _launch_cycles(pm, x_col, u_off, u_pick, u_fav, threshold, favor)
+
+
+def _launch_cycles(pm: PackedMgm2, x_col: torch.Tensor, u_off: torch.Tensor,
+                   u_pick: torch.Tensor, u_fav: torch.Tensor,
+                   threshold: float, favor: str,
+                   blocks: Optional[int] = None) -> torch.Tensor:
+    """:func:`packed_mgm2_cycles` on checked CUDA operands: the kernel's
+    one launch, or RuntimeError.  ``blocks`` forces the grid (1 up to the
+    capacity; the checks on the card run the grid-stride loops so); by
+    default it is :func:`mgm2_blocks`.  The grid barrier takes one word
+    that this call allocates zeroed and no other call shares."""
+    pg = pm.pls.pg
     mixed = pg.mixed is not None
+    name = "mgm2_cycles_mixed" if mixed else "mgm2_cycles"
+    capacity, threads = _capacity(pg.D, mixed)
+    if capacity <= 0:
+        raise RuntimeError(f"{name}: the device reports no resident block "
+                           f"for the cooperative launch")
+    if blocks is None:
+        blocks = mgm2_blocks(pg.Vp, capacity, threads)
+    elif not 1 <= blocks <= capacity:
+        raise ValueError(f"{name}: {blocks} blocks, the capacity is "
+                         f"{capacity}")
     n = int(u_off.shape[0])
+    dev = x_col.device
     bufs = [torch.empty_like(x_col), torch.empty_like(x_col)]
-    fwork = torch.empty((pg.D + 4) * pg.Vp, dtype=torch.float32,
-                        device=x_col.device)
-    iwork = torch.empty(9 * pg.Vp, dtype=torch.int32, device=x_col.device)
+    fwork = torch.empty((pg.D + 4) * pg.Vp, dtype=torch.float32, device=dev)
+    iwork = torch.empty(9 * pg.Vp, dtype=torch.int32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
     widths = (tuple(int(sl.numel()) for sl in pg.mixed.slots) if mixed
               else ())
-    launched = ctypes.c_int(0)
     err = _kernel(mixed)(
         x_col.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
         u_off.data_ptr(), u_pick.data_ptr(), u_fav.data_ptr(),
         *_layout_args(pm), fwork.data_ptr(), iwork.data_ptr(),
         pg.D, pg.N, pg.Vp, *widths, n, float(threshold), FAVORS[favor],
-        _stream(x_col), ctypes.byref(launched))
+        blocks, bar.data_ptr(), _stream(x_col))
+    _raise_on(err, name)
     if mixed:
-        packed_mgm2_cycles.mixed_launches += launched.value
+        packed_mgm2_cycles.mixed_launches += 1
     else:
-        packed_mgm2_cycles.launches += launched.value
-    _raise_on(err, "mgm2_cycles_mixed" if mixed else "mgm2_cycles")
+        packed_mgm2_cycles.launches += 1
     return bufs[(n - 1) % 2]
 
 
 def reset_launches() -> None:
-    """Zero the launch counters (``launches``: the binary kernels;
-    ``mixed_launches``: the mixed ones)."""
+    """Zero the launch counters (``launches``: the binary branch's;
+    ``mixed_launches``: the mixed one's)."""
     packed_mgm2_cycles.launches = packed_mgm2_cycles.mixed_launches = 0
 
 

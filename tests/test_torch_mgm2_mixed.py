@@ -19,7 +19,9 @@ package's Pallas kernel on its mixed layout, run in interpret mode.
 A Pallas interpret call traces the whole unrolled kernel (4-5 s for two
 cycles of the hub instance on a CPU), so these tests run few cycles.  The
 CUDA kernel cannot run here; ``test_mixed_kernel_matches_plain_on_gpu``
-holds it against the plain version where a GPU is visible.
+holds it against the plain version where a GPU is visible, at the
+wrapper's grid and at forced grids of 1 and 3 blocks; the wrapper's CUDA
+branch runs here with a stand-in C entry, as in ``test_torch_mgm2.py``.
 """
 import functools
 import os
@@ -41,6 +43,10 @@ from pydcop_tpu_torch.dcop import load_dcop_from_file
 from pydcop_tpu_torch.ops import packed_local_search as P
 from pydcop_tpu_torch.ops import packed_mgm2 as M
 from pydcop_tpu_torch.ops.compile import numpy_fields, tensors_from_numpy
+from test_torch_mgm2 import (TIE_WALKS, StandInEntry, check_calls,
+                             check_failed_launch, check_grid,
+                             check_no_resident_block, check_tie_case,
+                             cuda_branch, launch_operands)
 from test_torch_packed_maxsum_mixed import INSTANCES, jax_pack_mixed
 
 torch.set_num_threads(1)
@@ -299,6 +305,73 @@ def test_packed_and_generic_mixed_runs_agree(name):
         assert a.cycle == b.cycle and a.msg_count == b.msg_count
 
 
+# the CUDA branch on CPU tensors, with a stand-in C entry (the checks of
+# test_torch_mgm2.py, on the mixed entry and its counter)
+
+
+@pytest.mark.parametrize("threads,capacity", [(128, 264), (128, 2),
+                                              (256, 1056)])
+@pytest.mark.parametrize("name", ["mixed_hub", "quaternary"])
+def test_mixed_launch_grid(monkeypatch, name, threads, capacity):
+    pm = both(name)[3]
+    blocks = check_grid(monkeypatch, pm, threads, capacity)
+    assert blocks == min(capacity, -(-pm.pls.Vp // threads))
+
+
+def test_mixed_no_resident_block_raises_without_launching(monkeypatch):
+    check_no_resident_block(monkeypatch, both("quaternary")[3],
+                            "mixed_launches")
+
+
+@pytest.mark.parametrize("rc", [1, 720])
+def test_mixed_failed_launch_raises_and_counts_nothing(monkeypatch, rc):
+    check_failed_launch(monkeypatch, both("mixed_hub")[3], rc,
+                        "mgm2_cycles_mixed")
+
+
+@pytest.mark.parametrize("name", ["mixed_hub", "quaternary", "ragged"])
+def test_mixed_each_call_one_launch_own_barrier_word(monkeypatch, name):
+    pm = both(name)[3]
+    check_calls(monkeypatch, pm, "mixed_launches", "launches")
+    # the mixed entry gets the per-arity widths after D, N and Vp
+    entry = StandInEntry(pm.pls.Vp)
+    cuda_branch(monkeypatch, entry)
+    x, u = launch_operands(pm, 3)
+    M._launch_cycles(pm, x, *u, 0.5, "coordinated")
+    widths = tuple(int(sl.numel()) for sl in pm.pls.pg.mixed.slots)
+    assert entry.calls[0][-10:-6] == widths
+    assert entry.calls[0][-13:-10] == (pm.pls.D, pm.pls.N, pm.pls.Vp)
+
+
+@pytest.mark.parametrize("kind", sorted(TIE_WALKS))
+def test_mixed_near_tie_case_plain(kind):
+    """The mixed near-tie instance: a unary-only variable and a column
+    without slots beside c, whose binary slots follow a unary one."""
+    pm = check_tie_case(kind, mixed=True)[0]
+    deg = pm.pls.pg.col_deg
+    assert int(deg.min()) == 0 and 1 in deg.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(TIE_WALKS))
+def test_mixed_near_tie_kernel_matches_plain_on_gpu(kind):
+    """chip_smoke.mgm2_tie_case on the mixed layout, on the card: the
+    kernel equals the plain version and the exact rule's x, at the
+    wrapper's grid and at 1 and 3 blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import chip_smoke as C
+
+    pm, x, u, threshold, want = C.mgm2_tie_case(kind, True, "cuda")
+    for favor in M.FAVORS:
+        p = M.packed_mgm2_cycles_plain(pm, x, *u, threshold, favor)
+        assert P.unpack_x(pm.pls, p).tolist() == want, favor
+        for blocks in (None, 1, 3):
+            k = M._launch_cycles(pm, x, *u, threshold, favor, blocks)
+            assert torch.equal(k, p), (favor, blocks)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["mixed_hub", "quaternary", "ragged"])
 def test_mixed_kernel_matches_plain_on_gpu(name):
@@ -315,8 +388,11 @@ def test_mixed_kernel_matches_plain_on_gpu(name):
         for threshold in (0.0, 0.5, 1.0):
             before = M.packed_mgm2_cycles.mixed_launches
             k = M.packed_mgm2_cycles(pm, x, *u, threshold, favor)
-            assert M.packed_mgm2_cycles.mixed_launches == \
-                before + 20 * M.LAUNCHES_PER_CYCLE
+            assert M.packed_mgm2_cycles.mixed_launches == before + 1
             p = M.packed_mgm2_cycles_plain(pm, x, *u, threshold, favor)
             assert torch.equal(k, p), (favor, threshold)
+            # forced grids of 1 and 3 blocks: the grid-stride loops
+            for blocks in (1, 3):
+                f = M._launch_cycles(pm, x, *u, threshold, favor, blocks)
+                assert torch.equal(f, p), (favor, threshold, blocks)
     torch.cuda.synchronize()
