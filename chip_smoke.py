@@ -26,12 +26,18 @@ printed.
    variable of degree 2,500, and an instance with unequal domain sizes
    (tolerance atol 1e-4·(1+|x|) on q, r and beliefs; values exact except
    columns whose two best beliefs lie within 1e-4, which are counted);
-   ls_kernel_vs_plain: the three local-search kernels (ls_tables,
-   mgm_move, dsa_cycle) against their plain versions on the same three
-   instances and a hard-cost colouring (10,000 on equal colours), from
-   one x and one set of uniforms: tables, cur, best and gain equal (max
-   abs error 0), x equal after 20 MGM cycles and after 20 cycles of DSA
-   A/B/C, mixeddsa and adsa;
+   ls_kernel_vs_plain: the three local-search kernels (ls_tables, the
+   MGM kernel — one cooperative launch a call, each cycle's tables and
+   arbitration phases split by a grid barrier — and dsa_cycle) against
+   their plain versions on the same three instances and a hard-cost
+   colouring (10,000 on equal colours), from one x and one set of
+   uniforms: tables, cur, best and gain equal (max abs error 0), x equal
+   after 20 MGM cycles (at the wrapper's grid and at forced grids of 1
+   and 3 blocks, and after calls of 1, 2 and 3 cycles) and after 20
+   cycles of DSA A/B/C, mixeddsa and adsa; and on the near-tie MGM
+   instances of ``mgm_tie_case`` (binary, mixed and ternary: the
+   arbitration walks a column's slots again, a column has no slot), x
+   equal to the plain version's and to the exact rule's at those grids;
    mgm2_kernel_vs_plain: the MGM-2 kernel (one cooperative launch a
    call, the six rounds of each cycle phases split by grid barriers)
    against its plain version on those four instances and the 100k/300k
@@ -88,19 +94,19 @@ printed.
    soft coloring built with the port's DCOP objects, 200 cycles, for
    maxsum, mgm, dsa and mgm2, and on the 10,000-node tree for dpop; every
    launch counter is zeroed just before each solve, and just after it
-   the kernels of that path must have launched once per cycle (mgm: 200
-   ls_tables + 200 mgm_move; dsa: 200 dsa_cycle; mgm2: one launch a
-   chunk, 2 for the harness's two chunks of 100 cycles, and the cost of
-   the CPU run), or for
+   the kernels of that path must have launched once per cycle (maxsum:
+   200; dsa: 200 dsa_cycle), once a chunk (mgm and mgm2: 2 for the
+   harness's two chunks of 100 cycles, no ls_tables launch, and the cost
+   of the CPU run), or for
    dpop once per tree level and phase (L UTIL + L VALUE launches, engine
    "wholesweep", cost equal to the CPU run's); then each path piece by
    piece (graph, compile, pack, cycles or sweep, coin draw and copy,
    scoring);
    main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm,
    dsa and mgm2 through the mixed kernels (200 launches of the mixed
-   MaxSum kernel; 200 + 200 of ls_tables and mgm_move; 200 of dsa_cycle;
-   2 of the mixed MGM-2 kernel), the cost equal to the CPU run of
-   the same engine (``use_packed=True``);
+   MaxSum kernel; 2 of the mixed MGM kernel; 200 of dsa_cycle; 2 of the
+   mixed MGM-2 kernel), the cost equal to the CPU run of the same engine
+   (``use_packed=True``);
    main_path_breakout: dba and gdba (A/NZ/E), 200 cycles on a
    10,000-variable / 30,000-constraint 3-colouring posed as a CSP (cost 1
    on equal colours), on the generic engine: no kernel launched, cost,
@@ -144,13 +150,16 @@ printed.
    its bytes bound, its plain version's time, and its device time per
    launch from a torch.profiler trace.
 
-``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,mgm2,sharded]`` runs
-no phase above: it times K1's mixed branch on the three SECPs (events
-and device µs a cycle, blocks, equality with the plain version, SECP
-maxsum cycles/s), K6 on 10k/30k, 100k/300k, SECP-3.9k and SECP-39k
+``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,mgm2,mgm,sharded]``
+runs no phase above: it times K1's mixed branch on the three SECPs
+(events and device µs a cycle, blocks, equality with the plain version,
+SECP maxsum cycles/s), K6 on 10k/30k, 100k/300k, SECP-3.9k and SECP-39k
 (events and device µs a cycle, blocks, equality with the plain version
-after 20 cycles, the cycles-only rate of a 200-cycle mgm2 solve, its
-coins' draw and copy a chunk and its rate with them) and
+after 20 cycles, also at 1 and 3 blocks, the cycles-only rate of a
+200-cycle mgm2 solve, its coins' draw and copy a chunk and its rate
+with them), K4 on those sizes and SECP4-3.9k (events and device µs a
+cycle, blocks, equality with the plain version after 20 cycles, the
+cycles-only rate of a 200-cycle mgm solve; K2 and K5 beside it) and
 the sharded kernels with the sharded rates, in turns of the tree at
 PARENT_TREE and this one (parent, change, change, parent), into
 ``ab_sharded.jsonl`` in the output directory.
@@ -443,9 +452,11 @@ DSA_RULES = {
 
 def ls_kernel_vs_plain(pls, cycles=20, seed=0):
     """The three local-search kernels against their plain versions on the
-    card, from one x and one set of uniforms.  Returns (max abs error
-    over the tables/cur/best/gain and every x, stats); raises on any
-    difference."""
+    card, from one x and one set of uniforms; the MGM kernel after
+    ``cycles`` cycles at the wrapper's grid and at the forced ones
+    (COOP_GRIDS), and after calls of 1, 2 and 3 cycles (the result in
+    either buffer).  Returns (max abs error over the tables/cur/best/gain
+    and every x, stats); raises on any difference."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_local_search as P
@@ -472,10 +483,15 @@ def ls_kernel_vs_plain(pls, cycles=20, seed=0):
             same(f"ls_tables {name} prefer_change={prefer}", a, b)
     same("packed_local_tables", P.packed_local_tables(pls, P.unpack_x(pls, x)),
          P.ls_tables_plain(pls, x)[0][:, pls.pg.var_order].T)
-    km = P.packed_mgm_cycles(pls, x, cycles)
-    same(f"mgm x after {cycles} cycles", km,
-         P.packed_mgm_cycles_plain(pls, x, cycles))
-    stats = {"mgm_moved": int((km != x).sum())}
+    pm = P.packed_mgm_cycles_plain(pls, x, cycles)
+    for grid in COOP_GRIDS:
+        km = P.packed_mgm_cycles(pls, x, cycles,
+                                 blocks=None if grid == "wrapper" else grid)
+        same(f"mgm x after {cycles} cycles, grid={grid}", km, pm)
+    for n in (1, 2, 3):
+        same(f"mgm x after {n} cycles", P.packed_mgm_cycles(pls, x, n),
+             P.packed_mgm_cycles_plain(pls, x, n))
+    stats = {"mgm_moved": int((pm != x).sum()), "mgm_blocks": mgm_grid(pls)}
     for rule, kw in DSA_RULES.items():
         kw = dict(kw)
         act = kw.pop("activation", None)
@@ -522,7 +538,9 @@ def ls_bytes_ops(pls):
 
 def time_ls(pls, reps=200):
     """{kernel: (ms per call/cycle, plain ms, bound ms, bound_by, bytes,
-    device us per cycle)} for the three local-search entry points."""
+    device us per cycle)} for the three local-search entry points (MGM:
+    events over one call of ``reps`` cycles, the device time of a launch
+    of 50 cycles over its 50 cycles)."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_local_search as P
@@ -530,38 +548,62 @@ def time_ls(pls, reps=200):
     x = random_x_col(pls, 1)
     u = torch.rand((reps, pls.Vp), device=pls.device)
     scratch = P.ls_tables(pls, x)
+    # (events, plain, profiled run, kernel names, cycles a launch)
     runs = {
         "packed_local_tables": (
             lambda: cuda_ms(lambda: P.ls_tables(pls, x, out=scratch), reps),
             lambda: cuda_ms(lambda: P.ls_tables_plain(pls, x), 20),
-            lambda: P.ls_tables(pls, x, out=scratch), ["ls_tables_kernel"]),
+            lambda: [P.ls_tables(pls, x, out=scratch) for _ in range(20)],
+            ["ls_tables_kernel"], 1),
+        # four calls of 50 cycles a trace: a trace that drops one
+        # launch's record still times the others
         "packed_mgm_cycles": (
             lambda: cuda_ms(lambda: P.packed_mgm_cycles(pls, x, reps),
                             1) / reps,
             lambda: cuda_ms(lambda: P.packed_mgm_cycles_plain(pls, x, 5),
                             1) / 5,
-            lambda: P.packed_mgm_cycles(pls, x, 50),
-            ["ls_tables_kernel", "mgm_move_kernel"]),
+            lambda: [P.packed_mgm_cycles(pls, x, 50) for _ in range(4)],
+            [MGM_KERNEL], 50),
         "packed_dsa_cycles": (
             lambda: cuda_ms(lambda: P.packed_dsa_cycles(pls, x, u, 0.7),
                             1) / reps,
             lambda: cuda_ms(lambda: P.packed_dsa_cycles_plain(
                 pls, x, u[:5], 0.7), 1) / 5,
             lambda: P.packed_dsa_cycles(pls, x, u[:50], 0.7),
-            ["dsa_cycle_kernel"]),
+            ["dsa_cycle_kernel"], 1),
     }
     out = {}
-    for name, (timed, plain, prof, names) in runs.items():
+    for name, (timed, plain, prof, names, per_launch) in runs.items():
         prof()  # warm-up
         ms, plain_ms = timed(), plain()
-        # device time per cycle: each kernel of the entry point launches
-        # once per cycle
         us = profile_us(prof, names)
-        device_us = None if None in us.values() else sum(us.values())
+        device_us = (None if None in us.values()
+                     else sum(us.values()) / per_launch)
         nbytes, nops = ls_bytes_ops(pls)[name]
         bound, by = bound_of(nbytes, nops)
         out[name] = (ms, plain_ms, bound, by, nbytes, device_us)
     return out
+
+
+#: the MGM kernel's name in a profiler trace
+MGM_KERNEL = "mgm_coop_kernel"
+#: the design of K4 (the ``design`` key of its rows in the kernels line)
+MGM_DESIGN = ("one cooperative launch a call: each cycle's tables (best "
+              "and gain of every column) and MGM's arbitration two phases "
+              "of the grid, one thread a column in grid-stride loops, "
+              "split by grid barriers (2n - 1 a call); slot walks 4 "
+              "slots' loads at a time, the next 4 slots' layout entries "
+              "loaded ahead, the neighbourhood max and tie-break in one "
+              "walk")
+
+
+def mgm_grid(pls):
+    """Blocks of one MGM launch on this card, as the wrapper sizes its
+    grid."""
+    from pydcop_tpu_torch.ops import packed_local_search as P
+
+    return P.grid_blocks(pls.Vp, *P._capacity(pls.D,
+                                              pls.pg.mixed is not None))
 
 
 #: the MGM-2 rules held against the plain version on the card: every
@@ -571,9 +613,9 @@ MGM2_RULES = [("unilateral", 0.5), ("no", 0.5), ("coordinated", 0.5),
               ("unilateral", 0.0), ("unilateral", 1.0)]
 #: the MGM-2 kernel's name in a profiler trace
 MGM2_KERNEL = "mgm2_coop_kernel"
-#: the grids of every MGM-2 check: the wrapper's, and 1 and 3 blocks
-#: forced (the grid-stride loops)
-MGM2_GRIDS = ("wrapper", 1, 3)
+#: the grids of every MGM and MGM-2 check: the wrapper's, and 1 and 3
+#: blocks forced (the grid-stride loops)
+COOP_GRIDS = ("wrapper", 1, 3)
 #: the design of K6 (the ``design`` key of its rows in the kernels line)
 MGM2_DESIGN = ("one cooperative launch a call: each cycle's six rounds "
                "(tables, offer, response, commit, winner, go) phases of "
@@ -641,7 +683,7 @@ def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
     err, stats = 0.0, {}
     for favor, threshold in MGM2_RULES:
         runs = {grid: mgm2_run(pm, x, u, threshold, favor, grid)
-                for grid in MGM2_GRIDS}
+                for grid in COOP_GRIDS}
         p = packed_mgm2_cycles_plain(pm, x, *u, threshold, favor)
         torch.cuda.synchronize()
         for grid, k in runs.items():
@@ -655,7 +697,7 @@ def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
         stats[f"{favor}_{threshold}_moved"] = moved
     stats["offers_per_cycle_0.5"] = mgm2_offers(pm, u[0], u[1], 0.5)
     stats["blocks"], stats["threads"] = mgm2_grid(pm)
-    stats["grids"] = list(MGM2_GRIDS)
+    stats["grids"] = list(COOP_GRIDS)
     return err, stats
 
 
@@ -675,7 +717,7 @@ def mgm2_mixed_vs_plain(pm, cycles=20, seed=0):
     err, stats = 0.0, {}
     for favor in ("unilateral", "no", "coordinated"):
         xp = x0
-        xk = dict.fromkeys(MGM2_GRIDS, x0)
+        xk = dict.fromkeys(COOP_GRIDS, x0)
         counts = {}
         for c in range(cycles):
             row = [a[c: c + 1] for a in u]
@@ -694,7 +736,7 @@ def mgm2_mixed_vs_plain(pm, cycles=20, seed=0):
                           float((xg.double() - xp.double()).abs().max()))
         stats[favor] = dict(counts, moved=int((xk["wrapper"] != x0).sum()))
     stats["blocks"], stats["threads"] = mgm2_grid(pm)
-    stats["grids"] = list(MGM2_GRIDS)
+    stats["grids"] = list(COOP_GRIDS)
     return err, stats
 
 
@@ -802,7 +844,7 @@ def mgm2_tie_vs_plain(mixed):
             if got != want:
                 raise AssertionError(f"{kind} favor={favor}: the plain "
                                      f"version gives {got}, not {want}")
-            for grid in MGM2_GRIDS:
+            for grid in COOP_GRIDS:
                 k = mgm2_run(pm, x, u, threshold, favor, grid)
                 torch.cuda.synchronize()
                 if not torch.equal(k, p):
@@ -811,6 +853,92 @@ def mgm2_tie_vs_plain(mixed):
                         f"{unpack_x(pm.pls, k).tolist()}, the plain "
                         f"version's {got}")
                 checked += 1
+    return checked
+
+
+#: the near-tie MGM instances of :func:`mgm_tie_case`
+MGM_TIE_KINDS = ("binary", "mixed", "ternary")
+
+
+def mgm_tie_case(kind, device):
+    """A near-tie MGM instance, D = 2, x all 0, one cycle: at column c
+    (variable 1) the kernel's one-walk arbitration meets a new maximum
+    within 1e-9 of the old one and walks c's slots again.
+
+    * binary, mixed: :func:`mgm2_tie_case`'s "winner" instance (MGM-2
+      without an offer is MGM) on either layout: c's neighbours n1, n2,
+      n3 (variables 0, 2, 3) in slot order, gains n1 1e-8, c 1.12e-8, n2
+      1.06e-8, n3 1.12e-8; only n2 and n3 lie within 1e-9 of the
+      neighbourhood max, so the tie-break index is 2 and c moves to 1 (a
+      rule that kept n1's 0 would stop it);
+    * ternary: the same gains on the mixed layout with c's slots a
+      binary factor with n1 and a ternary one with n2 and n3, so the new
+      maxima land among one slot's siblings.
+
+    Every factor costs 0; the gains are unary factors' costs on value 0.
+    A column has no slot (variable 4; on the mixed layouts variable 5
+    has only a unary factor of 1e-8 and moves to 1).  Returns (layout, x
+    [Vp], the x the exact rule gives in variable order)."""
+    import torch
+
+    from pydcop_tpu_torch.dcop import DCOP, Domain, NAryMatrixRelation, \
+        Variable
+    from pydcop_tpu_torch.ops import packed_local_search as P
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+    from pydcop_tpu_torch.ops.packed_maxsum import pack_for_gpu
+
+    if kind != "ternary":
+        pm, x, _, _, want = mgm2_tie_case("winner", kind == "mixed", device)
+        return pm.pls, x, want
+    g, e = 1e-8, 6e-10
+    dom = Domain("d", "d", [0, 1])
+    vs = [Variable(f"v{i}", dom) for i in range(6)]
+    dcop = DCOP("mgm_tie_ternary")
+    for v in vs:
+        dcop.add_variable(v)
+    dcop.add_constraint(NAryMatrixRelation(
+        [vs[1], vs[0]], np.zeros((2, 2), np.float32), name="b0"))
+    dcop.add_constraint(NAryMatrixRelation(
+        [vs[1], vs[2], vs[3]], np.zeros((2, 2, 2), np.float32), name="t0"))
+    for v, cost in ((0, g), (1, g + 2 * e), (2, g + e), (3, g + 2 * e),
+                    (5, g)):
+        dcop.add_constraint(NAryMatrixRelation(
+            [vs[v]], np.array([cost, 0.0], np.float32), name=f"u{v}"))
+    pls = P.pack_from_pg(pack_for_gpu(compile_factor_graph(dcop,
+                                                           device=device)))
+    if pls.pg.mixed is None:
+        raise AssertionError("ternary: the mixed layout was not taken")
+    x = torch.zeros(pls.Vp, dtype=torch.int32, device=device)
+    return pls, x, [0, 1, 0, 0, 0, 1]
+
+
+def mgm_tie_vs_plain():
+    """The MGM kernel on the near-tie instances (:func:`mgm_tie_case`),
+    one cycle at the wrapper's grid and the forced ones: x must equal the
+    plain version's and the exact rule's.  Raises on any difference;
+    returns the runs checked."""
+    import torch
+
+    from pydcop_tpu_torch.ops import packed_local_search as P
+
+    checked = 0
+    for kind in MGM_TIE_KINDS:
+        pls, x, want = mgm_tie_case(kind, "cuda")
+        p = P.packed_mgm_cycles_plain(pls, x, 1)
+        got = P.unpack_x(pls, p).tolist()
+        if got != want:
+            raise AssertionError(f"{kind}: the plain version gives {got}, "
+                                 f"not {want}")
+        for grid in COOP_GRIDS:
+            k = P.packed_mgm_cycles(pls, x, 1,
+                                    blocks=None if grid == "wrapper"
+                                    else grid)
+            torch.cuda.synchronize()
+            if not torch.equal(k, p):
+                raise AssertionError(
+                    f"{kind} grid={grid}: x {P.unpack_x(pls, k).tolist()}, "
+                    f"the plain version's {got}")
+            checked += 1
     return checked
 
 
@@ -1108,11 +1236,11 @@ def read_counts():
 
     return {"packed_maxsum_cycle": packed_cycles.launches,
             "ls_tables": P.ls_tables.launches,
-            "mgm_move": P.mgm_move.launches,
+            "mgm": P.packed_mgm_cycles.launches,
             "dsa_cycle": P.dsa_cycle.launches,
             "packed_maxsum_mixed": packed_cycles.mixed_launches,
             "ls_tables_mixed": P.ls_tables.mixed_launches,
-            "mgm_move_mixed": P.mgm_move.mixed_launches,
+            "mgm_mixed": P.packed_mgm_cycles.mixed_launches,
             "dsa_cycle_mixed": P.dsa_cycle.mixed_launches,
             "dpop_util_level": whole_sweep.util_launches,
             "dpop_value_level": whole_sweep.value_launches,
@@ -1590,7 +1718,8 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
 
 #: one A/B turn (run in a fresh process from the root of a tree, the
 #: tree's own chip_smoke.py and kernels): K1-mixed on the SECPs; K6 on
-#: the two colourings and two SECPs; K7 (maxsum and amaxsum) and the
+#: the two colourings and two SECPs; K4 (and K2, K5) on the two
+#: colourings and three SECPs; K7 (maxsum and amaxsum) and the
 #: local-search kernels at 8 shards on the four sharded sizes, through the
 #: tree's ``time_sharded``, as per-cycle rows; and MGM's whole
 #: arbitration a cycle (CUDA events around 100 calls of the engine's
@@ -1652,23 +1781,23 @@ from pydcop_tpu_torch.ops import packed_mgm2 as MG
 from pydcop_tpu_torch.ops.packed_local_search import pack_from_pg
 
 
-def k6_colouring(V, E):
+def colouring(V, E):
     ei, ej, mats, un = C.coloring_arrays(V, E)
     return (PM.pack_for_gpu(compile_binary_from_arrays(
         ei, ej, mats, V, unary=un, device=dev)),
         lambda: C.coloring_dcop(V, E))
 
 
-def k6_secp(scale, mms):
+def secp(scale, mms):
     dcop = C.secp_dcop(scale, mms)
     return PM.pack_for_gpu(compile_factor_graph(dcop, device=dev)), \
         lambda: dcop
 
 
-k6_sizes = {"10k_30k": lambda: k6_colouring(10_000, 30_000),
-            "100k_300k": lambda: k6_colouring(100_000, 300_000),
-            "secp_3.9k": lambda: k6_secp(1, 2),
-            "secp4_39k": lambda: k6_secp(C.SECP_BIG_SCALE, 3)}
+k6_sizes = {"10k_30k": lambda: colouring(10_000, 30_000),
+            "100k_300k": lambda: colouring(100_000, 300_000),
+            "secp_3.9k": lambda: secp(1, 2),
+            "secp4_39k": lambda: secp(C.SECP_BIG_SCALE, 3)}
 for name, make in k6_sizes.items():
     if "mgm2" not in sections:
         break
@@ -1684,6 +1813,9 @@ for name, make in k6_sizes.items():
     u = C.mgm2_coins(pm.pls, 20, 0)
     k = MG.packed_mgm2_cycles(pm, x, *u, 0.5, "unilateral")
     p = MG.packed_mgm2_cycles_plain(pm, x, *u, 0.5, "unilateral")
+    # and at forced grids of 1 and 3 blocks
+    grids_equal = all(torch.equal(MG._launch_cycles(
+        pm, x, *u, 0.5, "unilateral", blocks), p) for blocks in (1, 3))
     torch.cuda.synchronize()
     ms, plain, bound, by, nbytes, device_us, us, offers = C.time_mgm2(pm)
     solve = C.breakdown(make_dcop(), "mgm2", 200, dev)
@@ -1694,11 +1826,52 @@ for name, make in k6_sizes.items():
            "device_us_per_cycle": device_us, "bound_us": bound * 1e3,
            "plain_ms": plain, "offers_per_cycle": offers,
            "equal": bool(torch.equal(k, p)),
+           "equal_at_1_and_3_blocks": grids_equal,
            "mgm2_cycles_per_s": solve["cycles_per_s"],
            "mgm2_cycles_per_s_with_coins": solve["cycles_per_s_with_coins"],
            "coin_copy_s_per_chunk": solve["coin_copy_s_per_chunk"],
            "coin_cpu_draw_s_per_chunk": solve["coin_cpu_draw_s_per_chunk"]}
     print(json.dumps(row), flush=True)
+# K4: one call of 200 cycles (events), the profiler's device time a
+# cycle, the grid, equality with the plain version after 20 cycles, and
+# the mgm cycles/s of a 200-cycle solve; K2 and K5 come with time_ls; only
+# what both trees' packed_local_search and chip_smoke have in common is
+# used
+from pydcop_tpu_torch.ops import packed_local_search as P
+
+k4_sizes = {"10k_30k": lambda: colouring(10_000, 30_000),
+            "100k_300k": lambda: colouring(100_000, 300_000),
+            "secp_3.9k": lambda: secp(1, 2),
+            "secp4_3.9k": lambda: secp(1, 3),
+            "secp4_39k": lambda: secp(C.SECP_BIG_SCALE, 3)}
+for name, make in k4_sizes.items():
+    if "mgm" not in sections:
+        break
+    pg, make_dcop = make()
+    pls = pack_from_pg(pg)
+    if hasattr(P, "grid_blocks"):
+        design = "one cooperative launch a call"
+        blocks = C.mgm_grid(pls)
+    else:
+        design = "two launches a cycle"
+        blocks = -(-pg.Vp // 128)
+    x = C.random_x_col(pls, 0)
+    k = P.packed_mgm_cycles(pls, x, 20)
+    p = P.packed_mgm_cycles_plain(pls, x, 20)
+    torch.cuda.synchronize()
+    times = C.time_ls(pls)
+    solve = C.breakdown(make_dcop(), "mgm", 200, dev)
+    mixed = "_mixed" if pg.mixed is not None else ""
+    for kname, (ms, plain, bound, by, nbytes, device_us) in times.items():
+        row = {"size": name, "kernel": kname + mixed,
+               "events_us_per_cycle": ms * 1e3,
+               "device_us_per_cycle": device_us, "bound_us": bound * 1e3,
+               "plain_ms": plain}
+        if kname == "packed_mgm_cycles":
+            row.update(design=design, blocks=blocks,
+                       equal=bool(torch.equal(k, p)),
+                       mgm_cycles_per_s=solve["cycles_per_s"])
+        print(json.dumps(row), flush=True)
 # the sharded kernels at 8 shards, MGM's whole arbitration a cycle and
 # the sharded rates
 graphs = {}
@@ -1739,7 +1912,7 @@ for name, t in graphs.items():
 
 
 #: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
-AB_SECTIONS = ("k1_mixed", "mgm2", "sharded")
+AB_SECTIONS = ("k1_mixed", "mgm2", "mgm", "sharded")
 
 
 def ab_kernels(parent, sections=AB_SECTIONS):
@@ -1747,8 +1920,9 @@ def ab_kernels(parent, sections=AB_SECTIONS):
     card, in turns: parent, change, change, parent; each turn a fresh
     process in its tree (:data:`AB_TURN`) running ``sections``: K1's
     mixed branch on the SECPs with the single-device SECP maxsum rates
-    (``k1_mixed``), K6 with the mgm2 cycles-only rates (``mgm2``), and
-    the sharded kernels with the sharded rates (``sharded``).  Prints
+    (``k1_mixed``), K6 with the mgm2 cycles-only rates (``mgm2``), K4
+    (with K2 and K5) and the mgm rates (``mgm``), and the sharded kernels
+    with the sharded rates (``sharded``).  Prints
     one JSON line a row, tagged with the turn and the tree, and writes
     them to ``ab_sharded.jsonl`` in the output directory."""
     rows = []
@@ -1874,7 +2048,7 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip()
     if sys.argv[1:2] == ["--ab"]:
         # python3 chip_smoke.py --ab PARENT_TREE [SECTIONS]: the A/B of
-        # K1-mixed, of K6 and of the sharded kernels (SECTIONS,
+        # K1-mixed, of K6, of K4 and of the sharded kernels (SECTIONS,
         # comma-separated, default all), no other phase, no result lines
         sections = (sys.argv[3].split(",") if len(sys.argv) > 3
                     else AB_SECTIONS)
@@ -1934,6 +2108,12 @@ def main():
     if cases["hard_coloring_10k_30k"] is not None and not stats["lateral"]:
         fail("ls_kernel_vs_plain", "the hard instance fired no lateral "
              "move: variant B's rule went unchecked")
+    try:
+        runs = mgm_tie_vs_plain()
+    except AssertionError as e:
+        fail("ls_kernel_vs_plain", f"MGM near ties: {e}")
+    say("ls_kernel_vs_plain", case="mgm_near_ties", kinds=list(MGM_TIE_KINDS),
+        runs=runs, equal=True)
 
     big_arrays = coloring_arrays(100_000, 300_000)
     big_t = compile_binary_from_arrays(
@@ -2165,13 +2345,14 @@ def main():
     jax_keys = {"status", "assignment", "cost", "violation", "cycle",
                 "msg_count", "msg_size", "time", "harness", "config"}
     main_launches = {}
-    # MGM-2: one launch a chunk of the harness (two chunks of 100 cycles)
-    mgm2_launches = -(-cycles // default_chunk(cycles, None, cycles))
+    # MGM and MGM-2: one launch a chunk of the harness (two chunks of 100
+    # cycles)
+    chunk_launches = -(-cycles // default_chunk(cycles, None, cycles))
     for algo, expect in (
             ("maxsum", {"packed_maxsum_cycle": cycles}),
-            ("mgm", {"ls_tables": cycles, "mgm_move": cycles}),
+            ("mgm", {"mgm": chunk_launches}),
             ("dsa", {"dsa_cycle": cycles}),
-            ("mgm2", {"mgm2": mgm2_launches})):
+            ("mgm2", {"mgm2": chunk_launches})):
         phase = {"maxsum": "main_path", "mgm2": "main_path_mgm2"}.get(
             algo, "main_path_local_search")
         reset_counts()
@@ -2195,10 +2376,10 @@ def main():
             fail(phase, f"{algo}: status={res.status} cycle={res.cycle} "
                  f"cost={res.cost} n_assigned={len(res.assignment)}")
         extra = {}
-        if algo == "mgm2":
+        if algo in ("mgm", "mgm2"):
             cpu = solve_result(dcop, algo, cycles=cycles, device="cpu")
             if res.cost != cpu.cost or res.assignment != cpu.assignment:
-                fail(phase, f"mgm2: card cost {res.cost} != CPU cost "
+                fail(phase, f"{algo}: card cost {res.cost} != CPU cost "
                      f"{cpu.cost} (same assignment: "
                      f"{res.assignment == cpu.assignment})")
             extra = {"cpu_cost": cpu.cost}
@@ -2254,9 +2435,9 @@ def main():
     secp = mixed_dcops["secp_3.9k"]
     for algo, expect in (
             ("maxsum", {"packed_maxsum_mixed": cycles}),
-            ("mgm", {"ls_tables_mixed": cycles, "mgm_move_mixed": cycles}),
+            ("mgm", {"mgm_mixed": chunk_launches}),
             ("dsa", {"dsa_cycle_mixed": cycles}),
-            ("mgm2", {"mgm2_mixed": mgm2_launches})):
+            ("mgm2", {"mgm2_mixed": chunk_launches})):
         reset_counts()
         t0 = time.perf_counter()
         res = solve_result(secp, algo, cycles=cycles, device="cuda")
@@ -2577,10 +2758,13 @@ def main():
             profiler_kernel_us=device_us,
             kernel_busy_share=device_us / (ms * 1e3) if device_us else None,
             library_ms=None, nvidia_smi=smi)
+        pls = pack_from_pg(pg)
         for kname, (ms, plain, bound, by, nbytes, device_us) in \
-                time_ls(pack_from_pg(pg)).items():
+                time_ls(pls).items():
             timing[name, kname] = (ms, plain, bound, by)
-            say("times", kernel=kname, size=name, N=pg.N, Vp=pg.Vp,
+            grid = ({"blocks": mgm_grid(pls)} if kname == "packed_mgm_cycles"
+                    else {})
+            say("times", kernel=kname, size=name, N=pg.N, Vp=pg.Vp, **grid,
                 kernel_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 bytes_per_cycle=nbytes, profiler_kernel_us=device_us,
                 kernel_busy_share=(device_us / (ms * 1e3) if device_us
@@ -2633,11 +2817,14 @@ def main():
             library_ms=None,
             library_note="no single PyTorch call computes a MaxSum cycle",
             nvidia_smi=smi)
+        pls = pack_from_pg(pg)
         for kname, (ms, plain, bound, by, nbytes, device_us) in \
-                time_ls(pack_from_pg(pg)).items():
+                time_ls(pls).items():
             timing[name, kname + "_mixed"] = (ms, plain, bound, by)
+            grid = ({"blocks": mgm_grid(pls)} if kname == "packed_mgm_cycles"
+                    else {})
             say("times", kernel=kname + "_mixed", size=name, N=pg.N,
-                Vp=pg.Vp, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
+                Vp=pg.Vp, **grid, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, bytes_per_cycle=nbytes,
                 profiler_kernel_us=device_us,
                 kernel_busy_share=(device_us / (ms * 1e3) if device_us
@@ -2723,10 +2910,10 @@ def main():
          main_launches["packed_maxsum_cycle"], main_err),
         ("packed_local_tables", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1603",
-         main_launches["ls_tables"], ls_err),
+         main_launches.get("ls_tables", 0), ls_err),
         ("packed_mgm_cycles", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:529",
-         main_launches["mgm_move"], ls_err),
+         main_launches["mgm"], ls_err),
         ("packed_dsa_cycles", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:644",
          main_launches["dsa_cycle"], ls_err),
@@ -2742,10 +2929,10 @@ def main():
          main_launches["packed_maxsum_mixed"], mixed_err),
         ("packed_local_tables_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1603",
-         main_launches["ls_tables_mixed"], mixed_ls_err),
+         main_launches.get("ls_tables_mixed", 0), mixed_ls_err),
         ("packed_mgm_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:529",
-         main_launches["mgm_move_mixed"], mixed_ls_err),
+         main_launches["mgm_mixed"], mixed_ls_err),
         ("packed_dsa_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:644",
          main_launches["dsa_cycle_mixed"], mixed_ls_err),
@@ -2799,7 +2986,19 @@ def main():
         "grid (a ternary or quaternary slot one thread a value), a grid "
         "barrier, one thread a column"),
         "packed_mgm2_cycles": MGM2_DESIGN,
-        "packed_mgm2_cycles_mixed": MGM2_DESIGN}
+        "packed_mgm2_cycles_mixed": MGM2_DESIGN,
+        "packed_mgm_cycles": MGM_DESIGN,
+        "packed_mgm_cycles_mixed": MGM_DESIGN}
+    # K2 runs on no solve path of the port: the JAX package launches it
+    # only for per-cycle metrics (pydcop_tpu/algorithms/
+    # _local_search.py:295-300, collect_cycles), which the port lacks
+    k2_note = ("0 launches on every solve path: the JAX package runs K2 "
+               "only on its per-cycle-metrics path "
+               "(pydcop_tpu/algorithms/_local_search.py:295-300), which "
+               "the port lacks (collect_cycles); held against its plain "
+               "version and timed here")
+    notes = {"packed_local_tables": k2_note,
+             "packed_local_tables_mixed": k2_note}
     kernels = []
     for name, source, replaces, launches, err in entries:
         row = timing[
@@ -2814,6 +3013,7 @@ def main():
             "bound_ms": bound, "bound_by": by,
             "library_ms": row[4] if len(row) > 4 else None,
             **({"design": designs[name]} if name in designs else {}),
+            **({"note": notes[name]} if name in notes else {}),
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

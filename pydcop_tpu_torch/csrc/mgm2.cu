@@ -56,16 +56,17 @@
 //               of it, winner = strict max or tie with pid <= that pid;
 //   G go:       a pair moves iff both ends win, a lone winner makes
 //               MGM's move; x double-buffered.
-// A grid barrier (mgm2_barrier below) stands between consecutive phases,
-// G of one cycle and T of the next included: 6n - 1 a call.  The scratch
-// between phases is per column (the offer and acceptance records replace
-// the Pallas kernel's per-slot routed rows): one float workspace
-// [(D + 4) * Vp] and one int workspace [9 * Vp], allocated by the
-// wrapper.  Everything one block writes and another reads in the same
-// launch — the workspaces and x_a / x_b — is read through L2 (__ldcg),
-// never through a pointer marked const __restrict__: a block's L1 may
-// hold a line another block has written since.  A column without slots
-// (an isolated variable) forms no slot index: its walks do not start.
+// A grid barrier (grid_sync.cuh's word_barrier) stands between
+// consecutive phases, G of one cycle and T of the next included: 6n - 1
+// a call.  The scratch between phases is per column (the offer and
+// acceptance records replace the Pallas kernel's per-slot routed rows):
+// one float workspace [(D + 4) * Vp] and one int workspace [9 * Vp],
+// allocated by the wrapper.  Everything one block writes and another
+// reads in the same launch — the workspaces and x_a / x_b — is read
+// through L2 (__ldcg), never through a pointer marked const
+// __restrict__: a block's L1 may hold a line another block has written
+// since.  A column without slots (an isolated variable) forms no slot
+// index: its walks do not start.
 //
 // The walks over a column's slots (T, O, R, W) take kBatch slots at a
 // time and issue their loads with no branch between them, so a batch's
@@ -169,31 +170,6 @@ struct Work {
 template <typename T>
 __device__ __forceinline__ T ld(const T* p) {
   return __ldcg(p);
-}
-
-// All blocks of the cooperative launch meet here; the stores made before
-// it are visible to every block after it (read them with ld).  One word,
-// one atomic a block: block 0 adds 2^31 - (gridDim.x - 1), every other
-// block 1, so the word's top bit flips when the last block arrives and
-// its low bits come back to where they were; a block waits until the top
-// bit differs from the one it found.  K6 meets six barriers a cycle, and
-// on an H100 this one took 4 us a cycle off the 10k/30k colouring against
-// grid_sync.cuh's count-and-generation barrier (two atomics and a
-// generation read a block), which K1-mixed and K7 keep.  The word
-// belongs to the call: zero before the launch, shared by no other.
-__device__ __forceinline__ void mgm2_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned add =
-        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();
-    const unsigned old = atomicAdd(bar, add);
-    volatile unsigned* word = bar;
-    while (((old ^ *word) & 0x80000000u) == 0) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 // Slots a thread walks at a time.  A batch's loads are issued together,
@@ -698,21 +674,21 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < n_cycles; ++i) {
     int* out = (i % 2 == 0) ? x_a : x_b;
     const size_t row = static_cast<size_t>(i) * vp;
-    if (i > 0) mgm2_barrier(bar);
+    if (i > 0) word_barrier(bar);
     for (int c = first; c < g.Vp; c += step)
       tables_phase<D, kMixed>(g, w, x, c);
-    mgm2_barrier(bar);
+    word_barrier(bar);
     for (int c = first; c < g.Vp; c += step)
       offer_phase<D, kMixed>(g, w, x, u_off + row, u_pick + row, threshold,
                              c);
-    mgm2_barrier(bar);
+    word_barrier(bar);
     for (int c = first; c < g.Vp; c += step)
       response_phase<kMixed>(g, w, u_fav + row, favor, c);
-    mgm2_barrier(bar);
+    word_barrier(bar);
     for (int c = first; c < g.Vp; c += step) commit_phase(g, w, c);
-    mgm2_barrier(bar);
+    word_barrier(bar);
     for (int c = first; c < g.Vp; c += step) winner_phase<kMixed>(g, w, c);
-    mgm2_barrier(bar);
+    word_barrier(bar);
     for (int c = first; c < g.Vp; c += step) go_phase(w, x, out, c);
     x = out;
   }

@@ -26,14 +26,15 @@ per branch and a plain PyTorch version doing the same arithmetic in the
 same order:
 
 * :func:`ls_tables` — local cost tables, current cost, best value, gain;
-* :func:`mgm_move` — MGM's neighbourhood arbitration and move;
-* :func:`dsa_cycle` — one whole DSA-family cycle.
+* :func:`packed_mgm_cycles` — n MGM cycles: ONE cooperative launch a
+  call, each cycle's tables and neighbourhood arbitration two phases of
+  the grid split by a grid barrier (MGM reads its neighbours' gains of
+  the same cycle);
+* :func:`dsa_cycle` — one whole DSA-family cycle, one launch a cycle.
 
 A wrapper runs its plain version only for CPU tensors; on CUDA tensors it
-launches the kernel or raises — nothing falls back.  One MGM cycle is
-``ls_tables`` + ``mgm_move`` (MGM reads its neighbours' gains of the same
-cycle, which needs a grid-wide barrier); one DSA cycle is one
-``dsa_cycle``.  The assignment is double-buffered across launches.
+launches the kernel or raises — nothing falls back.  The assignment is
+double-buffered across cycles.
 """
 from __future__ import annotations
 
@@ -299,10 +300,11 @@ def _kernel(name: str):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         argtypes = {
             "ls_tables": [P] * 12 + [I] * 4 + [P],
-            "mgm_move": [P] * 10 + [I, P],
+            "mgm_cycles": [P] * 12 + [I] * 3 + [P] * 2 + [I, I, P, P],
             "dsa_cycle": [P] * 11 + [I] * 4 + [F, F, I, F, P],
             "ls_tables_mixed": [P] * 19 + [I] * 8 + [P],
-            "mgm_move_mixed": [P] * 14 + [I, P],
+            "mgm_cycles_mixed": [P] * 19 + [I] * 7 + [P] * 4
+            + [I, I, P, P],
             "dsa_cycle_mixed": [P] * 18 + [I] * 8 + [F, F, I, F, P],
         }[name]
         fn = getattr(load("local_search"), name)
@@ -405,38 +407,6 @@ def ls_tables(pls: PackedLocalSearch, x_col: torch.Tensor,
     return out
 
 
-def mgm_move(pls: PackedLocalSearch, x_col: torch.Tensor,
-             best: torch.Tensor, gain: torch.Tensor,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """MGM's arbitration and move from this cycle's (best, gain): one
-    launch of the ``mgm_move`` kernel on CUDA (``mgm_move.launches`` /
-    ``.mixed_launches``), the plain version on the CPU.  ``out`` must not
-    alias ``x_col``."""
-    on_cuda = _on(pls, "x", x_col, torch.int32, (pls.Vp,))
-    _on(pls, "best", best, torch.int32, (pls.Vp,))
-    _on(pls, "gain", gain, torch.float32, (pls.Vp,))
-    if not on_cuda:
-        return mgm_move_plain(pls, x_col, best, gain)
-    pg = pls.pg
-    out = torch.empty_like(x_col) if out is None else out
-    if pg.mixed is None:
-        name, sibs = "mgm_move", (pls.mate_col.data_ptr(),
-                                  pls.mate_idx.data_ptr())
-    else:
-        name = "mgm_move_mixed"
-        sibs = (pls.mate_col.data_ptr(), pls.mate2_col.data_ptr(),
-                pls.mate3_col.data_ptr(), pls.mate_idx.data_ptr(),
-                pls.mate2_idx.data_ptr(), pls.mate3_idx.data_ptr())
-    err = _kernel(name)(
-        x_col.data_ptr(), out.data_ptr(), best.data_ptr(), gain.data_ptr(),
-        *sibs, pls.col_var.data_ptr(), pg.col_deg.data_ptr(),
-        pg.col_slot0.data_ptr(), pg.col_stride.data_ptr(), pg.Vp,
-        _stream(x_col))
-    _raise_on(err, name)
-    _count(mgm_move, pls)
-    return out
-
-
 def dsa_cycle(pls: PackedLocalSearch, x_col: torch.Tensor, u: torch.Tensor,
               probability: float, variant: str = "B",
               probability_hard: Optional[float] = None,
@@ -471,14 +441,76 @@ def dsa_cycle(pls: PackedLocalSearch, x_col: torch.Tensor, u: torch.Tensor,
     return out
 
 
+def coop_capacity(lib: str, entry: str, D: int,
+                  mixed: bool) -> Tuple[int, int]:
+    """(resident blocks, threads a block) of a cooperative kernel of
+    library ``lib`` at domain size ``D`` on the current CUDA device, as
+    its C entry ``entry`` reports them (0 blocks when the device cannot be
+    asked); asked anew at every call."""
+    from pydcop_tpu_torch.ops.cuda_build import load
+
+    fn = getattr(load(lib), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    threads = ctypes.c_int(0)
+    return int(fn(D, int(mixed), ctypes.byref(threads))), int(threads.value)
+
+
+def grid_blocks(Vp: int, capacity: int, threads: int) -> int:
+    """Blocks of one cooperative launch: one thread a column, at most
+    ``capacity`` (every phase is a grid-stride loop over the columns), at
+    least 1."""
+    return max(1, min(capacity, -(-Vp // threads)))
+
+
+def _capacity(D: int, mixed: bool) -> Tuple[int, int]:
+    """(resident blocks, threads a block) of the MGM kernel of one
+    branch."""
+    return coop_capacity("local_search", "mgm_capacity", D, mixed)
+
+
+def _launch_mgm(pls: PackedLocalSearch, x_col: torch.Tensor,
+                n_cycles: int, blocks: Optional[int] = None
+                ) -> torch.Tensor:
+    """:func:`packed_mgm_cycles` on a checked CUDA ``x_col``: the MGM
+    kernel's one launch, or RuntimeError.  ``blocks`` forces the grid (1
+    up to the capacity); by default it is :func:`grid_blocks`.  The grid
+    barrier's word and the scratch are allocated by this call and shared
+    with no other."""
+    pg = pls.pg
+    mixed = pg.mixed is not None
+    name = "mgm_cycles_mixed" if mixed else "mgm_cycles"
+    capacity, threads = _capacity(pg.D, mixed)
+    if capacity <= 0:
+        raise RuntimeError(f"{name}: the device reports no resident block "
+                           f"for the cooperative launch")
+    if blocks is None:
+        blocks = grid_blocks(pg.Vp, capacity, threads)
+    elif not 1 <= blocks <= capacity:
+        raise ValueError(f"{name}: {blocks} blocks, the capacity is "
+                         f"{capacity}")
+    dev = x_col.device
+    bufs = [torch.empty_like(x_col), torch.empty_like(x_col)]
+    best = torch.empty(pg.Vp, dtype=torch.int32, device=dev)
+    gain = torch.empty(pg.Vp, dtype=torch.float32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    ties = [idx.data_ptr() for _, idx in pls.siblings()]
+    err = _kernel(name)(
+        x_col.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+        best.data_ptr(), gain.data_ptr(), *_tables_layout(pls), *ties,
+        pls.col_var.data_ptr(), n_cycles, blocks, bar.data_ptr(),
+        _stream(x_col))
+    _raise_on(err, name)
+    _count(packed_mgm_cycles, pls)
+    return bufs[(n_cycles - 1) % 2]
+
+
 def reset_launches() -> None:
-    """Zero the launch counters of the three wrappers (``launches``: the
-    binary kernels; ``mixed_launches``: the mixed ones)."""
-    for fn in (ls_tables, mgm_move, dsa_cycle):
+    """Zero the launch counters of the three kernels' wrappers
+    (``launches``: the binary kernels; ``mixed_launches``: the mixed
+    ones)."""
+    for fn in (ls_tables, packed_mgm_cycles, dsa_cycle):
         fn.launches = fn.mixed_launches = 0
-
-
-reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -497,20 +529,26 @@ def packed_local_tables(pls: PackedLocalSearch,
 
 
 def packed_mgm_cycles(pls: PackedLocalSearch, x_col: torch.Tensor,
-                      n_cycles: int) -> torch.Tensor:
+                      n_cycles: int,
+                      blocks: Optional[int] = None) -> torch.Tensor:
     """``n_cycles`` MGM cycles from the column-order assignment ``x_col``
-    (left unchanged); two launches per cycle on CUDA."""
+    (left unchanged).
+
+    On CUDA tensors this makes one cooperative launch of the MGM kernel
+    on the current stream that runs all the cycles, and adds one to
+    ``packed_mgm_cycles.launches`` on the binary layout or to
+    ``packed_mgm_cycles.mixed_launches`` on the mixed one; ``blocks``
+    forces its grid (1 up to the kernel's capacity; the checks on the
+    card run the grid-stride loops so).  On CPU tensors it runs the plain
+    version, and ``blocks`` has no use."""
     if n_cycles < 1:
         raise ValueError(f"n_cycles must be >= 1, got {n_cycles}")
     if not _on(pls, "x", x_col, torch.int32, (pls.Vp,)):
         return packed_mgm_cycles_plain(pls, x_col, n_cycles)
-    scratch = None
-    bufs = [torch.empty_like(x_col), torch.empty_like(x_col)]
-    for i in range(n_cycles):
-        scratch = ls_tables(pls, x_col, out=scratch)
-        x_col = mgm_move(pls, x_col, scratch[2], scratch[3],
-                         out=bufs[i % 2])
-    return x_col
+    return _launch_mgm(pls, x_col, n_cycles, blocks)
+
+
+reset_launches()
 
 
 def packed_dsa_cycles(pls: PackedLocalSearch, x_col: torch.Tensor,

@@ -54,6 +54,8 @@ from pydcop_tpu_torch.ops.packed_local_search import (
     _per_column,
     _raise_on,
     _stream,
+    coop_capacity,
+    grid_blocks,
     ls_tables_plain,
 )
 
@@ -292,22 +294,12 @@ def _kernel(mixed: bool):
 
 
 def _capacity(D: int, mixed: bool) -> Tuple[int, int]:
-    """(resident blocks, threads a block) of the kernel of one branch at
-    domain size ``D`` on the current CUDA device (0 blocks when the device
-    cannot be asked); asked anew at every call."""
-    from pydcop_tpu_torch.ops.cuda_build import load
-
-    fn = load("mgm2").mgm2_capacity
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    threads = ctypes.c_int(0)
-    return int(fn(D, int(mixed), ctypes.byref(threads))), int(threads.value)
+    """(resident blocks, threads a block) of the kernel of one branch."""
+    return coop_capacity("mgm2", "mgm2_capacity", D, mixed)
 
 
-def mgm2_blocks(Vp: int, capacity: int, threads: int) -> int:
-    """Blocks of one launch: one thread a column, at most ``capacity``
-    (every phase is a grid-stride loop over the columns), at least 1."""
-    return max(1, min(capacity, -(-Vp // threads)))
+#: blocks of one launch (one thread a column, at most the capacity)
+mgm2_blocks = grid_blocks
 
 
 def _layout_args(pm: PackedMgm2):

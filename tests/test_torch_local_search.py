@@ -18,6 +18,8 @@ package, on the same numpy-made inputs.
 The CUDA kernels cannot run here; ``test_kernels_match_plain_on_gpu``
 holds them against the plain versions where a GPU is visible.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -312,6 +314,33 @@ def test_packed_mgm_matches_jax(kind):
     assert torch.equal(xg, got)
 
 
+#: the all-binary graphs of tests/instances
+BINARY_INSTANCES = ["coloring_csp", "coloring_intention",
+                    "graph_coloring_tuto", "meeting_scheduling"]
+
+
+@pytest.mark.parametrize("name", BINARY_INSTANCES)
+def test_packed_mgm_two_cycles_match_jax_on_instances(name):
+    """packed_mgm_cycles at n = 2 (one call, the result in the second
+    buffer on the card) against the JAX Pallas kernel, from three
+    starts, bit for bit."""
+    from pydcop_tpu.dcop import load_dcop_from_file as jax_load
+
+    jt = jcompile.compile_constraint_graph(jax_load(os.path.join(
+        os.path.dirname(__file__), "instances", name + ".yaml")))
+    t = carried(jt)
+    pls = pls_mod.pack_local_search(t)
+    jp = jpls.pack_local_search(jt)
+    assert pls.pg.mixed is None
+    for seed in range(3):
+        x = random_x(t, seed)
+        ref = jpls.unpack_x(jp, jpls.packed_mgm_cycles(
+            jp, jpls.pack_x(jp, jnp.asarray(x)), 2))
+        got = pls_mod.unpack_x(pls, pls_mod.packed_mgm_cycles(
+            pls, pls_mod.pack_x(pls, torch.as_tensor(x)), 2))
+        assert np.array_equal(got.numpy(), np.asarray(ref)), seed
+
+
 def test_packed_mgm_float_one_cycle_within_near_ties():
     jt, t, pls = packed_pair("float")
     jp = jpls.pack_local_search(jt)
@@ -497,6 +526,7 @@ def test_wrappers_check_operands_and_leave_inputs_alone():
                           awake_u=torch.rand(pls.Vp))
     # no launch happens on the CPU
     assert pls_mod.ls_tables.launches == 0
+    assert pls_mod.packed_mgm_cycles.launches == 0
     assert pls_mod.dsa_cycle.launches == 0
 
 
@@ -528,9 +558,9 @@ def test_kernels_match_plain_on_gpu(kind):
         p = pls_mod.ls_tables_plain(pls, x, prefer_change=prefer)
         for a, b in zip(k, p):
             assert torch.equal(a, b)
-    before = pls_mod.mgm_move.launches
+    before = pls_mod.packed_mgm_cycles.launches
     k = pls_mod.packed_mgm_cycles(pls, x, 20)
-    assert pls_mod.mgm_move.launches == before + 20
+    assert pls_mod.packed_mgm_cycles.launches == before + 1
     assert torch.equal(k, pls_mod.packed_mgm_cycles_plain(pls, x, 20))
     u = torch.rand((20, pls.Vp), device="cuda")
     w = torch.rand((20, pls.Vp), device="cuda")
