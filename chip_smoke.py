@@ -28,16 +28,21 @@ printed.
    columns whose two best beliefs lie within 1e-4, which are counted);
    ls_kernel_vs_plain: the three local-search kernels (ls_tables, the
    MGM kernel — one cooperative launch a call, each cycle's tables and
-   arbitration phases split by a grid barrier — and dsa_cycle) against
-   their plain versions on the same three instances and a hard-cost
-   colouring (10,000 on equal colours), from one x and one set of
-   uniforms: tables, cur, best and gain equal (max abs error 0), x equal
-   after 20 MGM cycles (at the wrapper's grid and at forced grids of 1
-   and 3 blocks, and after calls of 1, 2 and 3 cycles) and after 20
-   cycles of DSA A/B/C, mixeddsa and adsa; and on the near-tie MGM
+   arbitration phases split by a grid barrier — and the DSA kernel — one
+   cooperative launch a call, its cycles split by a grid barrier)
+   against their plain versions on the same three instances and a
+   hard-cost colouring (10,000 on equal colours), from one x and one set
+   of uniforms: tables, cur, best and gain equal (max abs error 0), x
+   equal after 20 MGM cycles and after 20 cycles of DSA A/B/C, mixeddsa
+   and adsa (each at the wrapper's grid and at forced grids of 1 and 3
+   blocks, and after calls of 1, 2 and 3 cycles); on the near-tie MGM
    instances of ``mgm_tie_case`` (binary, mixed and ternary: the
    arbitration walks a column's slots again, a column has no slot), x
    equal to the plain version's and to the exact rule's at those grids;
+   and on the DSA instances of ``dsa_nudge_case`` (binary and mixed,
+   integer costs: the 1e-6 prefer-change nudge decides best), x equal
+   to the plain version's for every DSA rule at those grids and after 1,
+   2, 3 and 20 cycles;
    mgm2_kernel_vs_plain: the MGM-2 kernel (one cooperative launch a
    call, the six rounds of each cycle phases split by grid barriers)
    against its plain version on those four instances and the 100k/300k
@@ -95,17 +100,18 @@ printed.
    maxsum, mgm, dsa and mgm2, and on the 10,000-node tree for dpop; every
    launch counter is zeroed just before each solve, and just after it
    the kernels of that path must have launched once per cycle (maxsum:
-   200; dsa: 200 dsa_cycle), once a chunk (mgm and mgm2: 2 for the
-   harness's two chunks of 100 cycles, no ls_tables launch, and the cost
-   of the CPU run), or for
+   200), once a chunk (mgm, dsa, dsatuto, mixeddsa, adsa and mgm2: 2 for
+   the harness's two chunks of 100 cycles, no ls_tables launch, and the
+   cost and values of the CPU run), or for
    dpop once per tree level and phase (L UTIL + L VALUE launches, engine
    "wholesweep", cost equal to the CPU run's); then each path piece by
    piece (graph, compile, pack, cycles or sweep, coin draw and copy,
    scoring);
    main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm,
-   dsa and mgm2 through the mixed kernels (200 launches of the mixed
-   MaxSum kernel; 2 of the mixed MGM kernel; 200 of dsa_cycle; 2 of the
-   mixed MGM-2 kernel), the cost equal to the CPU run of the same engine
+   dsa, dsatuto, mixeddsa, adsa and mgm2 through the mixed kernels (200
+   launches of the mixed MaxSum kernel; 2 of the mixed MGM kernel; 2 of
+   the mixed DSA kernel for each of the four DSA rules; 2 of the mixed
+   MGM-2 kernel), the cost equal to the CPU run of the same engine
    (``use_packed=True``);
    main_path_breakout: dba and gdba (A/NZ/E), 200 cycles on a
    10,000-variable / 30,000-constraint 3-colouring posed as a CSP (cost 1
@@ -136,8 +142,8 @@ printed.
    CPU run with ``use_packed=True``, the card's engine; the CPU default,
    the generic engine, is printed beside it);
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
-   of launches, after warm-up; MGM-2: 200 cycles of one call, its
-   device time the one launch's over its cycles, its grid) at 10k/30k
+   of launches, after warm-up; MGM-2, MGM and DSA: 200 cycles of one
+   call, device time a launch's over its cycles, the grid) at 10k/30k
    and 100k/300k (DPOP: the 10k and 100k trees, 200 back-to-back
    sweeps; the mixed branches, MGM-2's included: the 3.9k SECPs of
    arity <= 3 and <= 4 and the 39k SECP; K7, K8 and K9: ms per cycle (one
@@ -150,7 +156,7 @@ printed.
    its bytes bound, its plain version's time, and its device time per
    launch from a torch.profiler trace.
 
-``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,mgm2,mgm,sharded]``
+``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,mgm2,mgm,dsa,sharded]``
 runs no phase above: it times K1's mixed branch on the three SECPs
 (events and device µs a cycle, blocks, equality with the plain version,
 SECP maxsum cycles/s), K6 on 10k/30k, 100k/300k, SECP-3.9k and SECP-39k
@@ -159,7 +165,10 @@ after 20 cycles, also at 1 and 3 blocks, the cycles-only rate of a
 200-cycle mgm2 solve, its coins' draw and copy a chunk and its rate
 with them), K4 on those sizes and SECP4-3.9k (events and device µs a
 cycle, blocks, equality with the plain version after 20 cycles, the
-cycles-only rate of a 200-cycle mgm solve; K2 and K5 beside it) and
+cycles-only rate of a 200-cycle mgm solve; K2 and K5 beside it), K5
+on those five sizes (events and device µs a cycle, blocks, equality
+with the plain version after 20 cycles, the cycles-only and with-coins
+rates of a 200-cycle dsa solve) and
 the sharded kernels with the sharded rates, in turns of the tree at
 PARENT_TREE and this one (parent, change, change, parent), into
 ``ab_sharded.jsonl`` in the output directory.
@@ -440,6 +449,8 @@ def random_x_col(pls, seed):
     return torch.as_tensor(x, device=pls.device)
 
 
+#: the DSA family's algorithms, each driven on the main paths
+DSA_ALGOS = ("dsa", "dsatuto", "mixeddsa", "adsa")
 #: the DSA-family rules held against their plain versions on the card
 DSA_RULES = {
     "dsa_A": dict(variant="A", probability=0.7),
@@ -452,11 +463,12 @@ DSA_RULES = {
 
 def ls_kernel_vs_plain(pls, cycles=20, seed=0):
     """The three local-search kernels against their plain versions on the
-    card, from one x and one set of uniforms; the MGM kernel after
-    ``cycles`` cycles at the wrapper's grid and at the forced ones
-    (COOP_GRIDS), and after calls of 1, 2 and 3 cycles (the result in
-    either buffer).  Returns (max abs error over the tables/cur/best/gain
-    and every x, stats); raises on any difference."""
+    card, from one x and one set of uniforms; the MGM kernel, and the DSA
+    kernel for every rule of DSA_RULES, after ``cycles`` cycles at the
+    wrapper's grid and at the forced ones (COOP_GRIDS), and after calls
+    of 1, 2 and 3 cycles (the result in either buffer).  Returns (max abs
+    error over the tables/cur/best/gain and every x, stats); raises on
+    any difference."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_local_search as P
@@ -491,22 +503,44 @@ def ls_kernel_vs_plain(pls, cycles=20, seed=0):
     for n in (1, 2, 3):
         same(f"mgm x after {n} cycles", P.packed_mgm_cycles(pls, x, n),
              P.packed_mgm_cycles_plain(pls, x, n))
-    stats = {"mgm_moved": int((pm != x).sum()), "mgm_blocks": mgm_grid(pls)}
-    for rule, kw in DSA_RULES.items():
-        kw = dict(kw)
-        act = kw.pop("activation", None)
-        aw = None if act is None else w
-        k = P.packed_dsa_cycles(pls, x, u, awake_uniforms=aw,
-                                activation=act, **kw)
-        same(f"{rule} x after {cycles} cycles", k,
-             P.packed_dsa_cycles_plain(pls, x, u, awake_uniforms=aw,
-                                       activation=act, **kw))
-        stats[f"{rule}_moved"] = int((k != x).sum())
+    stats = {"mgm_moved": int((pm != x).sum()), "mgm_blocks": mgm_grid(pls),
+             "dsa_blocks": dsa_grid(pls)}
+    for rule in DSA_RULES:
+        p = dsa_vs_plain(pls, x, u, w, rule, same)
+        stats[f"{rule}_moved"] = int((p != x).sum())
     _, cur, best, gain = P.ls_tables(pls, x, prefer_change=True)
     stats["conflicted"] = int((cur >= 10000.0).sum())
     stats["lateral"] = int(((gain <= 1e-9) & (best != x)
                             & (cur >= 10000.0)).sum())
     return err, stats
+
+
+def dsa_vs_plain(pls, x, u, w, rule, same):
+    """The DSA kernel against its plain version for ``rule`` of DSA_RULES
+    from ``x`` on the coins ``u`` (and the wake coins ``w`` for adsa),
+    [n, Vp] each: after n cycles at each grid of COOP_GRIDS, and after 1,
+    2 and 3 cycles; ``same(what, kernel, plain)`` checks.  Returns the
+    plain version's x after n cycles."""
+    from pydcop_tpu_torch.ops import packed_local_search as P
+
+    kw = dict(DSA_RULES[rule])
+    act = kw.pop("activation", None)
+
+    def coins(n):
+        return dict(uniforms=u[:n], activation=act,
+                    awake_uniforms=None if act is None else w[:n], **kw)
+
+    n = u.shape[0]
+    p = P.packed_dsa_cycles_plain(pls, x, **coins(n))
+    for grid in COOP_GRIDS:
+        k = P.packed_dsa_cycles(pls, x, **coins(n),
+                                blocks=None if grid == "wrapper" else grid)
+        same(f"{rule} x after {n} cycles, grid={grid}", k, p)
+    for m in (1, 2, 3):
+        same(f"{rule} x after {m} cycles", P.packed_dsa_cycles(
+            pls, x, **coins(m)), P.packed_dsa_cycles_plain(pls, x,
+                                                           **coins(m)))
+    return p
 
 
 def ls_bytes_ops(pls):
@@ -538,9 +572,9 @@ def ls_bytes_ops(pls):
 
 def time_ls(pls, reps=200):
     """{kernel: (ms per call/cycle, plain ms, bound ms, bound_by, bytes,
-    device us per cycle)} for the three local-search entry points (MGM:
-    events over one call of ``reps`` cycles, the device time of a launch
-    of 50 cycles over its 50 cycles)."""
+    device us per cycle)} for the three local-search entry points (MGM
+    and DSA: events over one call of ``reps`` cycles, the device time of
+    a launch of 50 cycles over its 50 cycles)."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_local_search as P
@@ -569,8 +603,9 @@ def time_ls(pls, reps=200):
                             1) / reps,
             lambda: cuda_ms(lambda: P.packed_dsa_cycles_plain(
                 pls, x, u[:5], 0.7), 1) / 5,
-            lambda: P.packed_dsa_cycles(pls, x, u[:50], 0.7),
-            ["dsa_cycle_kernel"], 1),
+            lambda: [P.packed_dsa_cycles(pls, x, u[:50], 0.7)
+                     for _ in range(4)],
+            [DSA_KERNEL], 50),
     }
     out = {}
     for name, (timed, plain, prof, names, per_launch) in runs.items():
@@ -604,6 +639,97 @@ def mgm_grid(pls):
 
     return P.grid_blocks(pls.Vp, *P._capacity(pls.D,
                                               pls.pg.mixed is not None))
+
+
+def coop_grids(pls):
+    """Blocks of one launch of each cooperative local-search kernel on
+    this card, by its entry point."""
+    return {"packed_mgm_cycles": mgm_grid(pls),
+            "packed_dsa_cycles": dsa_grid(pls)}
+
+
+#: the DSA kernel's name in a profiler trace
+DSA_KERNEL = "dsa_coop_kernel"
+#: the design of K5 (the ``design`` key of its rows in the kernels line)
+DSA_DESIGN = ("one cooperative launch a call: each cycle one phase of "
+              "the grid (the column's tables at the previous cycle's x, "
+              "its pick with the nudge for variants B and C, the DSA rule "
+              "on row i of the coins), one thread a column in grid-stride "
+              "loops, grid barriers between cycles (n - 1 a call); the "
+              "slot walk of K4, 4 slots' loads at a time, the next 4 "
+              "slots' layout entries loaded ahead")
+
+
+def dsa_grid(pls):
+    """Blocks of one DSA launch on this card, as the wrapper sizes its
+    grid."""
+    from pydcop_tpu_torch.ops import packed_local_search as P
+
+    return P.grid_blocks(pls.Vp, *P._dsa_capacity(
+        pls.D, pls.pg.mixed is not None))
+
+
+#: the instances of :func:`dsa_nudge_case`
+DSA_NUDGE_KINDS = ("binary", "mixed")
+
+
+def dsa_nudge_case(kind, device):
+    """A DSA instance with integer costs 0-2, so ties are common and the
+    tables stay below 32, where the 1e-6 prefer-change nudge of variants B
+    and C survives the add and decides best: binary, a 3-colouring of 400
+    variables and 800 edges (columns without slots among them); mixed,
+    arity 1-4 on 300 variables at D = 3, every second variable on 2
+    values.  Returns (layout, a random x [Vp], the columns whose best the
+    nudge changes)."""
+    from pydcop_tpu_torch.ops import packed_local_search as P
+    from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays, \
+        compile_constraint_graph
+
+    rng = np.random.default_rng(4)
+    if kind == "binary":
+        V, E = 400, 800
+        ei = rng.integers(0, V, E)
+        ej = (ei + 1 + rng.integers(0, V - 1, E)) % V
+        t = compile_binary_from_arrays(
+            ei, ej, rng.integers(0, 3, (E, 3, 3)).astype(np.float32), V,
+            device=device)
+    else:
+        t = compile_constraint_graph(mixed_dcop(
+            300, 3, {1: 60, 2: 300, 3: 60, 4: 10}, seed=4, ragged=True,
+            integer=True), device=device)
+    pls = P.pack_local_search(t)
+    x = random_x_col(pls, 4)
+    plain = P.ls_tables_plain(pls, x)[2]
+    nudged = P.ls_tables_plain(pls, x, prefer_change=True)[2]
+    return pls, x, (plain != nudged).nonzero().flatten()
+
+
+def dsa_nudge_vs_plain():
+    """The DSA kernel on the instances of :func:`dsa_nudge_case`, for
+    every rule of DSA_RULES (:func:`dsa_vs_plain`: 20 cycles at each
+    grid, and 1, 2 and 3 cycles).  Raises on any difference or when the
+    nudge decides no column's best; returns the runs checked."""
+    import torch
+
+    def same(what, a, b):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: kernel differs from plain in "
+                                 f"{int((a != b).sum())} entries")
+
+    checked = 0
+    for kind in DSA_NUDGE_KINDS:
+        pls, x, nudged = dsa_nudge_case(kind, "cuda")
+        if nudged.numel() == 0:
+            raise AssertionError(f"{kind}: the nudge decides no best")
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        u, w = (torch.rand((20, pls.Vp), generator=gen).cuda()
+                for _ in range(2))
+        for rule in DSA_RULES:
+            dsa_vs_plain(pls, x, u, w, rule, lambda *a: same(
+                f"{kind} {a[0]}", *a[1:]))
+            checked += len(COOP_GRIDS) + 3
+    return checked
 
 
 #: the MGM-2 rules held against the plain version on the card: every
@@ -1237,11 +1363,11 @@ def read_counts():
     return {"packed_maxsum_cycle": packed_cycles.launches,
             "ls_tables": P.ls_tables.launches,
             "mgm": P.packed_mgm_cycles.launches,
-            "dsa_cycle": P.dsa_cycle.launches,
+            "dsa": P.packed_dsa_cycles.launches,
             "packed_maxsum_mixed": packed_cycles.mixed_launches,
             "ls_tables_mixed": P.ls_tables.mixed_launches,
             "mgm_mixed": P.packed_mgm_cycles.mixed_launches,
-            "dsa_cycle_mixed": P.dsa_cycle.mixed_launches,
+            "dsa_mixed": P.packed_dsa_cycles.mixed_launches,
             "dpop_util_level": whole_sweep.util_launches,
             "dpop_value_level": whole_sweep.value_launches,
             "mgm2": packed_mgm2_cycles.launches,
@@ -1255,6 +1381,12 @@ def read_counts():
             "device_mgm_move_mixed": K.device_mgm_move.mixed_launches,
             "device_tables_mixed": K.device_tables.mixed_launches,
             "lane_permute": lane_permute.launches}
+
+
+#: the algorithms :func:`breakdown` takes apart, and their solver classes
+BREAKDOWN_SOLVERS = {"maxsum": "MaxSumSolver", "mgm": "MgmSolver",
+                     "dsa": "DsaSolver", "mgm2": "Mgm2Solver",
+                     "dba": "DbaSolver", "gdba": "GdbaSolver"}
 
 
 def breakdown(dcop, algo, cycles, dev):
@@ -1283,9 +1415,7 @@ def breakdown(dcop, algo, cycles, dev):
     _, graph_s = timed(lambda: load_graph_module(
         mod.GRAPH_TYPE).build_computation_graph(dcop))
     tensors, compile_s = timed(lambda: compile_fn(dcop, device=dev))
-    solver_cls = {"maxsum": "MaxSumSolver", "mgm": "MgmSolver",
-                  "dsa": "DsaSolver", "mgm2": "Mgm2Solver",
-                  "dba": "DbaSolver", "gdba": "GdbaSolver"}[algo]
+    solver_cls = BREAKDOWN_SOLVERS[algo]
     solver, pack_s = timed(lambda: getattr(mod, solver_cls)(
         dcop, tensors, AlgorithmDef.build_with_default_params(algo)))
     state = solver.initial_state()
@@ -1337,12 +1467,13 @@ def secp_dcop(scale=1, max_model_size=2):
                          max_model_size=max_model_size, seed=1)
 
 
-def mixed_dcop(V, D, counts, seed, ragged=False, hub=False):
+def mixed_dcop(V, D, counts, seed, ragged=False, hub=False,
+               integer=False):
     """A random mixed-arity DCOP of the port's objects: ``counts`` maps
     an arity to its number of factors over random distinct variables
     (``hub``: every factor holds variable 0, the others distinct), costs
-    uniform in [0, 5); ``ragged`` puts every second variable on D - 1
-    values."""
+    uniform in [0, 5) (``integer``: integers 0-2); ``ragged`` puts every
+    second variable on D - 1 values."""
     from pydcop_tpu_torch.dcop import (
         DCOP,
         AgentDef,
@@ -1367,7 +1498,9 @@ def mixed_dcop(V, D, counts, seed, ragged=False, hub=False):
             else:
                 idx = rng.choice(V, a, replace=False)
             sc = [vs[i] for i in idx]
-            m = rng.uniform(0, 5, [len(v.domain) for v in sc])
+            shape = [len(v.domain) for v in sc]
+            m = (rng.integers(0, 3, shape) if integer
+                 else rng.uniform(0, 5, shape))
             dcop.add_constraint(NAryMatrixRelation(
                 sc, m.astype(np.float32), name=f"c{k:06d}"))
             k += 1
@@ -1718,8 +1851,9 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
 
 #: one A/B turn (run in a fresh process from the root of a tree, the
 #: tree's own chip_smoke.py and kernels): K1-mixed on the SECPs; K6 on
-#: the two colourings and two SECPs; K4 (and K2, K5) on the two
-#: colourings and three SECPs; K7 (maxsum and amaxsum) and the
+#: the two colourings and two SECPs; K4 (and K2, K5) and K5 with the dsa
+#: rates on the two colourings and three SECPs; K7 (maxsum and amaxsum)
+#: and the
 #: local-search kernels at 8 shards on the four sharded sizes, through the
 #: tree's ``time_sharded``, as per-cycle rows; and MGM's whole
 #: arbitration a cycle (CUDA events around 100 calls of the engine's
@@ -1872,6 +2006,44 @@ for name, make in k4_sizes.items():
                        equal=bool(torch.equal(k, p)),
                        mgm_cycles_per_s=solve["cycles_per_s"])
         print(json.dumps(row), flush=True)
+# K5: one call of 200 cycles (events), the profiler's device time a
+# cycle, the grid, equality with the plain version after 20 cycles (the
+# tree's own wrapper; here also at 1 and 3 blocks), and a 200-cycle dsa
+# solve: its cycles-only rate, its coins' draw and copy a chunk and its
+# rate with them; the design from what the tree's packed_local_search has
+dsa_sizes = k4_sizes if "dsa" in sections else {}
+for name, make in dsa_sizes.items():
+    pg, make_dcop = make()
+    pls = pack_from_pg(pg)
+    x = C.random_x_col(pls, 0)
+    u = torch.rand((20, pg.Vp), device=dev)
+    k = P.packed_dsa_cycles(pls, x, u, 0.7)
+    p = P.packed_dsa_cycles_plain(pls, x, u, 0.7)
+    if hasattr(P, "dsa_cycle"):
+        design = "one launch a cycle"
+        blocks = -(-pg.Vp // 128)
+        grids_equal = None
+    else:
+        design = "one cooperative launch a call"
+        blocks = C.dsa_grid(pls)
+        grids_equal = all(torch.equal(P.packed_dsa_cycles(
+            pls, x, u, 0.7, blocks=b), p) for b in (1, 3))
+    torch.cuda.synchronize()
+    ms, plain, bound, by, nbytes, device_us = C.time_ls(pls)[
+        "packed_dsa_cycles"]
+    solve = C.breakdown(make_dcop(), "dsa", 200, dev)
+    row = {"size": name, "kernel": "packed_dsa_cycles"
+           + ("_mixed" if pg.mixed is not None else ""),
+           "design": design, "blocks": blocks,
+           "events_us_per_cycle": ms * 1e3,
+           "device_us_per_cycle": device_us, "bound_us": bound * 1e3,
+           "plain_ms": plain, "equal": bool(torch.equal(k, p)),
+           "equal_at_1_and_3_blocks": grids_equal,
+           "dsa_cycles_per_s": solve["cycles_per_s"],
+           "dsa_cycles_per_s_with_coins": solve["cycles_per_s_with_coins"],
+           "coin_copy_s_per_chunk": solve["coin_copy_s_per_chunk"],
+           "coin_cpu_draw_s_per_chunk": solve["coin_cpu_draw_s_per_chunk"]}
+    print(json.dumps(row), flush=True)
 # the sharded kernels at 8 shards, MGM's whole arbitration a cycle and
 # the sharded rates
 graphs = {}
@@ -1912,7 +2084,7 @@ for name, t in graphs.items():
 
 
 #: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
-AB_SECTIONS = ("k1_mixed", "mgm2", "mgm", "sharded")
+AB_SECTIONS = ("k1_mixed", "mgm2", "mgm", "dsa", "sharded")
 
 
 def ab_kernels(parent, sections=AB_SECTIONS):
@@ -1921,8 +2093,9 @@ def ab_kernels(parent, sections=AB_SECTIONS):
     process in its tree (:data:`AB_TURN`) running ``sections``: K1's
     mixed branch on the SECPs with the single-device SECP maxsum rates
     (``k1_mixed``), K6 with the mgm2 cycles-only rates (``mgm2``), K4
-    (with K2 and K5) and the mgm rates (``mgm``), and the sharded kernels
-    with the sharded rates (``sharded``).  Prints
+    (with K2 and K5) and the mgm rates (``mgm``), K5 and the dsa rates
+    (``dsa``), and the sharded kernels with the sharded rates
+    (``sharded``).  Prints
     one JSON line a row, tagged with the turn and the tree, and writes
     them to ``ab_sharded.jsonl`` in the output directory."""
     rows = []
@@ -2048,7 +2221,7 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip()
     if sys.argv[1:2] == ["--ab"]:
         # python3 chip_smoke.py --ab PARENT_TREE [SECTIONS]: the A/B of
-        # K1-mixed, of K6, of K4 and of the sharded kernels (SECTIONS,
+        # K1-mixed, of K6, of K4, of K5 and of the sharded kernels (SECTIONS,
         # comma-separated, default all), no other phase, no result lines
         sections = (sys.argv[3].split(",") if len(sys.argv) > 3
                     else AB_SECTIONS)
@@ -2114,6 +2287,12 @@ def main():
         fail("ls_kernel_vs_plain", f"MGM near ties: {e}")
     say("ls_kernel_vs_plain", case="mgm_near_ties", kinds=list(MGM_TIE_KINDS),
         runs=runs, equal=True)
+    try:
+        runs = dsa_nudge_vs_plain()
+    except AssertionError as e:
+        fail("ls_kernel_vs_plain", f"DSA nudge instances: {e}")
+    say("ls_kernel_vs_plain", case="dsa_nudge", kinds=list(DSA_NUDGE_KINDS),
+        rules=list(DSA_RULES), runs=runs, equal=True)
 
     big_arrays = coloring_arrays(100_000, 300_000)
     big_t = compile_binary_from_arrays(
@@ -2345,13 +2524,13 @@ def main():
     jax_keys = {"status", "assignment", "cost", "violation", "cycle",
                 "msg_count", "msg_size", "time", "harness", "config"}
     main_launches = {}
-    # MGM and MGM-2: one launch a chunk of the harness (two chunks of 100
-    # cycles)
+    # MGM, the DSA family and MGM-2: one launch a chunk of the harness
+    # (two chunks of 100 cycles)
     chunk_launches = -(-cycles // default_chunk(cycles, None, cycles))
     for algo, expect in (
             ("maxsum", {"packed_maxsum_cycle": cycles}),
             ("mgm", {"mgm": chunk_launches}),
-            ("dsa", {"dsa_cycle": cycles}),
+            *((a, {"dsa": chunk_launches}) for a in DSA_ALGOS),
             ("mgm2", {"mgm2": chunk_launches})):
         phase = {"maxsum": "main_path", "mgm2": "main_path_mgm2"}.get(
             algo, "main_path_local_search")
@@ -2376,7 +2555,7 @@ def main():
             fail(phase, f"{algo}: status={res.status} cycle={res.cycle} "
                  f"cost={res.cost} n_assigned={len(res.assignment)}")
         extra = {}
-        if algo in ("mgm", "mgm2"):
+        if algo != "maxsum":
             cpu = solve_result(dcop, algo, cycles=cycles, device="cpu")
             if res.cost != cpu.cost or res.assignment != cpu.assignment:
                 fail(phase, f"{algo}: card cost {res.cost} != CPU cost "
@@ -2388,8 +2567,9 @@ def main():
             msg_count=res.msg_count, build_dcop_s=round(build_dcop_s, 3),
             solve_s=round(solve_s, 3), harness=res.metrics()["harness"],
             **extra)
-        say(phase + "_breakdown", algo=algo, nvidia_smi=smi,
-            **breakdown(dcop, algo, cycles, dev))
+        if algo in BREAKDOWN_SOLVERS:
+            say(phase + "_breakdown", algo=algo, nvidia_smi=smi,
+                **breakdown(dcop, algo, cycles, dev))
 
     # dpop on the bench's 10k-node tree: one whole sweep, L + L launches
     from pydcop_tpu_torch.graph import pseudotree
@@ -2436,7 +2616,7 @@ def main():
     for algo, expect in (
             ("maxsum", {"packed_maxsum_mixed": cycles}),
             ("mgm", {"mgm_mixed": chunk_launches}),
-            ("dsa", {"dsa_cycle_mixed": cycles}),
+            *((a, {"dsa_mixed": chunk_launches}) for a in DSA_ALGOS),
             ("mgm2", {"mgm2_mixed": chunk_launches})):
         reset_counts()
         t0 = time.perf_counter()
@@ -2465,8 +2645,9 @@ def main():
             cost=res.cost, cpu_packed_cost=cpu.cost,
             violation=res.violation, msg_count=res.msg_count,
             solve_s=round(solve_s, 3), harness=res.metrics()["harness"])
-        say("main_path_mixed_breakdown", algo=algo, nvidia_smi=smi,
-            **breakdown(secp, algo, cycles, dev))
+        if algo in BREAKDOWN_SOLVERS:
+            say("main_path_mixed_breakdown", algo=algo, nvidia_smi=smi,
+                **breakdown(secp, algo, cycles, dev))
 
     # the breakout algorithms on a 10k-variable / 30k-constraint colouring
     # CSP: the generic engine (plain PyTorch on the card, as the JAX
@@ -2746,6 +2927,8 @@ def main():
 
     # 5. times -------------------------------------------------------------
     timing = {}
+    # blocks of the cooperative local-search launches, by (size, kernel)
+    blocks_of = {}
     sizes = {"10k_30k": primary, "100k_300k": big}
     for name, pg in sizes.items():
         ms, plain, bound, by, nbytes, device_us = time_kernel(pg)
@@ -2759,11 +2942,14 @@ def main():
             kernel_busy_share=device_us / (ms * 1e3) if device_us else None,
             library_ms=None, nvidia_smi=smi)
         pls = pack_from_pg(pg)
+        grids = coop_grids(pls)
         for kname, (ms, plain, bound, by, nbytes, device_us) in \
                 time_ls(pls).items():
             timing[name, kname] = (ms, plain, bound, by)
-            grid = ({"blocks": mgm_grid(pls)} if kname == "packed_mgm_cycles"
-                    else {})
+            grid = {}
+            if kname in grids:
+                grid = {"blocks": grids[kname]}
+                blocks_of[name, kname] = grids[kname]
             say("times", kernel=kname, size=name, N=pg.N, Vp=pg.Vp, **grid,
                 kernel_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 bytes_per_cycle=nbytes, profiler_kernel_us=device_us,
@@ -2818,11 +3004,14 @@ def main():
             library_note="no single PyTorch call computes a MaxSum cycle",
             nvidia_smi=smi)
         pls = pack_from_pg(pg)
+        grids = coop_grids(pls)
         for kname, (ms, plain, bound, by, nbytes, device_us) in \
                 time_ls(pls).items():
             timing[name, kname + "_mixed"] = (ms, plain, bound, by)
-            grid = ({"blocks": mgm_grid(pls)} if kname == "packed_mgm_cycles"
-                    else {})
+            grid = {}
+            if kname in grids:
+                grid = {"blocks": grids[kname]}
+                blocks_of[name, kname + "_mixed"] = grids[kname]
             say("times", kernel=kname + "_mixed", size=name, N=pg.N,
                 Vp=pg.Vp, **grid, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=by, bytes_per_cycle=nbytes,
@@ -2916,7 +3105,7 @@ def main():
          main_launches["mgm"], ls_err),
         ("packed_dsa_cycles", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:644",
-         main_launches["dsa_cycle"], ls_err),
+         main_launches["dsa"], ls_err),
         ("dpop_whole_sweep", "pydcop_tpu_torch/csrc/dpop_sweep.cu",
          "pydcop_tpu/ops/pallas_dpop.py:306",
          main_launches["dpop_whole_sweep"], dpop_err),
@@ -2935,7 +3124,7 @@ def main():
          main_launches["mgm_mixed"], mixed_ls_err),
         ("packed_dsa_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:644",
-         main_launches["dsa_cycle_mixed"], mixed_ls_err),
+         main_launches["dsa_mixed"], mixed_ls_err),
         ("packed_mgm2_cycles_mixed", "pydcop_tpu_torch/csrc/mgm2.cu",
          "pydcop_tpu/ops/pallas_mgm2.py:448", main_launches["mgm2_mixed"],
          mixed_mgm2_err),
@@ -2988,7 +3177,9 @@ def main():
         "packed_mgm2_cycles": MGM2_DESIGN,
         "packed_mgm2_cycles_mixed": MGM2_DESIGN,
         "packed_mgm_cycles": MGM_DESIGN,
-        "packed_mgm_cycles_mixed": MGM_DESIGN}
+        "packed_mgm_cycles_mixed": MGM_DESIGN,
+        "packed_dsa_cycles": DSA_DESIGN,
+        "packed_dsa_cycles_mixed": DSA_DESIGN}
     # K2 runs on no solve path of the port: the JAX package launches it
     # only for per-cycle metrics (pydcop_tpu/algorithms/
     # _local_search.py:295-300, collect_cycles), which the port lacks
@@ -3001,10 +3192,9 @@ def main():
              "packed_local_tables_mixed": k2_note}
     kernels = []
     for name, source, replaces, launches, err in entries:
-        row = timing[
-            sizes_of.get(name, "secp_3.9k" if "mixed" in name
-                         else "10k_30k"),
-            name]
+        size = sizes_of.get(name, "secp_3.9k" if "mixed" in name
+                            else "10k_30k")
+        row = timing[size, name]
         ms, plain, bound, by = row[:4]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3013,6 +3203,8 @@ def main():
             "bound_ms": bound, "bound_by": by,
             "library_ms": row[4] if len(row) > 4 else None,
             **({"design": designs[name]} if name in designs else {}),
+            **({"blocks": blocks_of[size, name]}
+               if (size, name) in blocks_of else {}),
             **({"note": notes[name]} if name in notes else {}),
         })
     print(smi, flush=True)

@@ -12,7 +12,7 @@
 //                   (the tables and _cur_best_gain, then _routed_gains,
 //                   _neigh_max_partial, _tiebreak_idx_partial and
 //                   _mgm_decision);
-//   * dsa_cycle  <- pydcop_tpu/ops/pallas_local_search.py::packed_dsa_cycles
+//   * dsa_cycles <- pydcop_tpu/ops/pallas_local_search.py::packed_dsa_cycles
 //                   (variants A/B/C, probability_hard, awake/activation).
 //
 // Layout (pack_for_gpu's var-grouped slots): column c is one variable; its
@@ -44,16 +44,15 @@
 // Python scalars are weakly typed f32.  MGM's neighbourhood max and
 // tie-break run over every sibling of every slot of the column.
 //
-// ls_tables and dsa_cycle are one thread a column, one launch a call
-// (DSA reads only the previous cycle's x across columns: one dsa_cycle
-// launch a cycle, x double-buffered).  MGM reads its neighbours' gains
-// of the SAME cycle, which needs a grid-wide barrier: one
-// packed_mgm_cycles call is ONE cooperative launch
+// ls_tables is one thread a column, one launch a call.  MGM and DSA run
+// all n cycles of a call in ONE cooperative launch
 // (cudaLaunchCooperativeKernel: every block resident, or the launch is
-// refused) of mgm_coop_kernel that runs all its n cycles, each cycle two
-// phases of the grid, one thread a column in grid-stride loops (so any
-// grid of at least one block gives the same x; the wrapper launches
-// min(ceil(Vp / kThreads), capacity) blocks):
+// refused), one thread a column in grid-stride loops (so any grid of at
+// least one block gives the same x; the wrappers launch
+// min(ceil(Vp / kThreads), capacity) blocks).  Cycle i reads x_in (i = 0)
+// or the previous cycle's buffer and writes x_a (even i) or x_b (odd i).
+// MGM (mgm_coop_kernel) reads its neighbours' gains of the SAME cycle, so
+// each cycle is two phases of the grid:
 //   T tables:      best and gain of every column at the current x, into
 //                  a [Vp] workspace each (the tables stay in registers);
 //   M arbitration: the neighbourhood max of the siblings' gains from 0,
@@ -61,33 +60,38 @@
 //                  of it (INT_MAX when none), and MGM's decision: move
 //                  to best iff the gain is positive and the strict max,
 //                  or ties the max within 1e-9 and the column's variable
-//                  is smaller than that index; into x_a (even cycle) or
-//                  x_b (odd cycle).
-// grid_sync.cuh's word_barrier stands between T and M and between M and
-// the next cycle's T: 2n - 1 a call.  What one block writes and another
-// reads in the launch (the workspaces, x_a, x_b) is read through L2
-// (__ldcg).  The walks take kBatch slots at a time, their loads issued
-// with no branch between them, the next batch's layout entries loaded
-// while a batch waits for its gathers; a column without slots starts no
-// walk.  M keeps the running max and the smallest index within 1e-9 of
-// it in one walk; a new max within 1e-9 of the old one (where the kept
-// candidates may or may not stay within 1e-9 of the final max) walks the
-// slots again with the final max, so M gives the two-pass rule's result
-// exactly.
+//                  is smaller than that index; into x_a or x_b.
+// DSA (dsa_coop_kernel) reads other columns only through the previous
+// cycle's x, so each cycle is ONE phase: T's walk and pick (with the
+// nudge for variants B and C), then the DSA rule on row i of the coins,
+// into x_a or x_b.
+// grid_sync.cuh's word_barrier stands between consecutive phases: 2n - 1
+// a call for MGM (between T and M, and between M and the next cycle's
+// T), n - 1 for DSA (between cycles only: cycle i + 1 overwrites the
+// buffer cycle i read only after every block has passed it).  What one
+// block writes and another reads in the launch (the workspaces, x_a,
+// x_b) is read through L2 (__ldcg).  The walks take kBatch slots at a
+// time, their loads issued with no branch between them, the next batch's
+// layout entries loaded while a batch waits for its gathers; a column
+// without slots starts no walk.  M keeps the running max and the smallest
+// index within 1e-9 of it in one walk; a new max within 1e-9 of the old
+// one (where the kept candidates may or may not stay within 1e-9 of the
+// final max) walks the slots again with the final max, so M gives the
+// two-pass rule's result exactly.
 //
 // Bound: memory.  Per cycle the function must read x (4 B a column),
 // the D selected cost floats, the sibling columns (and for MGM their
 // gains and variable indices) per slot, the unary and mask columns and
-// the three column arrays, and write its outputs: at the 10k-variable /
-// 30k-constraint coloring (N = 60k slots, D = 3) about 1.6 MB for
-// ls_tables, 1.7 MB for an MGM cycle and 1.4 MB for dsa_cycle, i.e.
-// 0.4-0.5 us at 3.35 TB/s — far below a launch, so the launches and the
-// dependent x[mate_col[s]] loads set the pace.  The one-thread-a-column
-// kernels answer the bound only by reading each operand once, coalesced
-// except for the sibling gathers.  The MGM kernel takes the launches and
-// the host's per-cycle work out (one launch a call), and shortens each
-// phase's chain of dependent gathers (slot -> sibling column -> its
-// value -> cost row) by batching the walks; its two barriers a cycle and
+// the three column arrays (DSA also its coins), and write its outputs:
+// at the 10k-variable / 30k-constraint coloring (N = 60k slots, D = 3)
+// about 1.6 MB for ls_tables, 1.7 MB for an MGM cycle and 1.4 MB for a
+// DSA cycle, i.e. 0.4-0.5 us at 3.35 TB/s — far below a launch, so
+// launches, barriers and the dependent x[mate_col[s]] loads set the
+// pace.  The kernels answer the bound only by reading each operand once,
+// coalesced except for the sibling gathers.  The MGM and DSA kernels take
+// the launches and the host's per-cycle work out (one launch a call), and
+// shorten each phase's chain of dependent gathers (slot -> sibling column
+// -> its value -> cost row) by batching the walks; their barriers and
 // those chains are what is left.
 #include <cuda_runtime.h>
 
@@ -125,6 +129,38 @@ struct Mixed {
   const int* mate3_col;  // [N] third sibling's column, -1 below arity 4
 };
 
+// (cur, best, gain) of a column's tables t at its value xc: cur = t[xc];
+// best = the first strict minimum of t, + 1e-6f at d == xc when
+// prefer_change (an add); gain = max(cur - t[best], 0)
+template <int D>
+__device__ __forceinline__ void pick_best(const float (&t)[D], int xc,
+                                          bool prefer_change, float* cur,
+                                          int* best, float* gain) {
+  float cv = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    if (d == xc) cv = t[d];
+  float bc = t[0];
+  if (prefer_change) bc = t[0] + (xc == 0 ? kNudge : 0.0f);
+  int bi = 0;
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    float p = t[d];
+    if (prefer_change) p = t[d] + (xc == d ? kNudge : 0.0f);
+    if (p < bc) {
+      bc = p;
+      bi = d;
+    }
+  }
+  float tb = t[0];
+#pragma unroll
+  for (int d = 1; d < D; ++d)
+    if (d == bi) tb = t[d];
+  *cur = cv;
+  *best = bi;
+  *gain = fmaxf(cv - tb, 0.0f);
+}
+
 // tables of column c at assignment x, then (cur, best, gain); kMixed
 // reads each slot's cost row through its arity (M), else the binary
 // cost_rows
@@ -132,7 +168,7 @@ template <int D, bool kMixed>
 __device__ __forceinline__ void column_tables(const Layout& L,
                                               const Mixed& M, const int* x,
                                               int c, int prefer_change,
-                                              float t[D], float* cur,
+                                              float (&t)[D], float* cur,
                                               int* best, float* gain) {
   const int deg = L.col_deg[c];
   const size_t s0 = static_cast<size_t>(L.col_slot0[c]);
@@ -170,33 +206,12 @@ __device__ __forceinline__ void column_tables(const Layout& L,
       for (int d = 0; d < D; ++d) acc[d] += L.cost[(row + d) * n + s];
     }
   }
-  const int xc = x[c];
-  float cv = 0.0f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const size_t o = static_cast<size_t>(d) * vp + c;
     t[d] = L.mask[o] > 0.0f ? L.unary[o] + acc[d] : kPadCost;
-    if (d == xc) cv = t[d];
   }
-  float bc = t[0];
-  if (prefer_change) bc = t[0] + (xc == 0 ? kNudge : 0.0f);
-  int bi = 0;
-#pragma unroll
-  for (int d = 1; d < D; ++d) {
-    float p = t[d];
-    if (prefer_change) p = t[d] + (xc == d ? kNudge : 0.0f);
-    if (p < bc) {
-      bc = p;
-      bi = d;
-    }
-  }
-  float tb = t[0];
-#pragma unroll
-  for (int d = 1; d < D; ++d)
-    if (d == bi) tb = t[d];
-  *cur = cv;
-  *best = bi;
-  *gain = fmaxf(cv - tb, 0.0f);
+  pick_best<D>(t, x[c], prefer_change != 0, cur, best, gain);
 }
 
 template <int D, bool kMixed>
@@ -221,37 +236,9 @@ __global__ void ls_tables_kernel(Layout L, Mixed M,
   gain[c] = g;
 }
 
-// One DSA-family cycle.  variant 0/1/2 = A/B/C.
-template <int D, bool kMixed>
-__global__ void dsa_cycle_kernel(Layout L, Mixed M,
-                                 const int* __restrict__ x_in,
-                                 int* __restrict__ x_out,
-                                 const float* __restrict__ u,
-                                 const float* __restrict__ awake_u,
-                                 int variant, float probability,
-                                 float probability_hard, int use_hard,
-                                 float activation) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= L.Vp) return;
-  float t[D];
-  float cv, g;
-  int b;
-  column_tables<D, kMixed>(L, M, x_in, c, variant != 0, t, &cv, &b, &g);
-  const int xc = x_in[c];
-  const bool conflict = cv >= kHard;
-  const bool improving = g > kEps;
-  const bool lateral = (g <= kEps) && (b != xc);
-  bool want = improving;
-  if (variant == 1) want = improving || (lateral && conflict);
-  if (variant == 2) want = improving || lateral;
-  const float p = (use_hard && conflict) ? probability_hard : probability;
-  bool move = want && (u[c] < p);
-  if (awake_u != nullptr) move = move && (awake_u[c] < activation);
-  x_out[c] = move ? b : xc;
-}
-
 // ---------------------------------------------------------------------------
-// MGM: mgm_coop_kernel, one cooperative launch a packed_mgm_cycles call
+// MGM and DSA: mgm_coop_kernel and dsa_coop_kernel, one cooperative launch
+// a packed_mgm_cycles or packed_dsa_cycles call
 // ---------------------------------------------------------------------------
 
 // MGM's static tie-break: each sibling column's original variable, per
@@ -324,12 +311,12 @@ struct TableSlots<true> {
   }
 };
 
-// T: best and gain of column c at x (column_tables' arithmetic without
-// the nudge: the slot costs from 0 in slot order, then + unary).
+// T's walk: the tables t of column c at x (column_tables' arithmetic:
+// the slot costs from 0 in slot order, then + unary); returns x_c.
 template <int D, bool kMixed>
-__device__ __forceinline__ void tables_phase(const Layout& L, const Mixed& M,
-                                             const int* x, int* best,
-                                             float* gain, int c) {
+__device__ __forceinline__ int walk_tables(const Layout& L, const Mixed& M,
+                                           const int* x, int c,
+                                           float (&t)[D]) {
   float acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) acc[d] = 0.0f;
@@ -394,27 +381,28 @@ __device__ __forceinline__ void tables_phase(const Layout& L, const Mixed& M,
       }
     }
   }
-  const int xc = ld(x + c);
   const size_t vp = static_cast<size_t>(L.Vp);
-  float t[D];
-  float cv = 0.0f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const size_t o = static_cast<size_t>(d) * vp + c;
     t[d] = L.mask[o] > 0.0f ? L.unary[o] + acc[d] : kPadCost;
-    if (d == xc) cv = t[d];
   }
-  float bc = t[0];
-  int bi = 0;
-#pragma unroll
-  for (int d = 1; d < D; ++d) {
-    if (t[d] < bc) {
-      bc = t[d];
-      bi = d;
-    }
-  }
-  best[c] = bi;
-  gain[c] = fmaxf(cv - bc, 0.0f);
+  return ld(x + c);
+}
+
+// MGM's T: best and gain of column c at x (no nudge), into the
+// workspaces.
+template <int D, bool kMixed>
+__device__ __forceinline__ void tables_phase(const Layout& L, const Mixed& M,
+                                             const int* x, int* best,
+                                             float* gain, int c) {
+  float t[D];
+  const int xc = walk_tables<D, kMixed>(L, M, x, c, t);
+  float cv, g;
+  int b;
+  pick_best<D>(t, xc, false, &cv, &b, &g);
+  best[c] = b;
+  gain[c] = g;
 }
 
 // A batch of a column's slots for M: each sibling's column (-1: none),
@@ -543,23 +531,99 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// the MGM kernel of one branch at domain size D (nullptr outside [1, 8])
-const void* mgm_kernel(int D, bool mixed) {
+// DSA's rule: variant 0/1/2 = A/B/C, probability_hard on conflicted
+// columns when use_hard, and the wake coin against activation when the
+// call has wake coins.
+struct Rule {
+  int variant;
+  float probability;
+  float probability_hard;
+  int use_hard;
+  float activation;
+};
+
+// One DSA-family cycle of column c: T's walk at x and its pick (the nudge
+// for variants B and C), then the rule on this cycle's coins u (and
+// awake_u, or nullptr), into out.
+template <int D, bool kMixed>
+__device__ __forceinline__ void dsa_phase(const Layout& L, const Mixed& M,
+                                          const Rule& R, const int* x,
+                                          const float* u,
+                                          const float* awake_u, int* out,
+                                          int c) {
+  float t[D];
+  const int xc = walk_tables<D, kMixed>(L, M, x, c, t);
+  float cv, g;
+  int b;
+  pick_best<D>(t, xc, R.variant != 0, &cv, &b, &g);
+  const bool conflict = cv >= kHard;
+  const bool improving = g > kEps;
+  const bool lateral = (g <= kEps) && (b != xc);
+  bool want = improving;
+  if (R.variant == 1) want = improving || (lateral && conflict);
+  if (R.variant == 2) want = improving || lateral;
+  const float p =
+      (R.use_hard && conflict) ? R.probability_hard : R.probability;
+  bool move = want && (u[c] < p);
+  if (awake_u != nullptr) move = move && (awake_u[c] < R.activation);
+  out[c] = move ? b : xc;
+}
+
+// All n cycles of one call, each one grid-stride loop over the columns, a
+// grid barrier between consecutive cycles (n - 1 a call).  Cycle i reads
+// row i of the [n, Vp] coins u (and of awake_u, or nullptr), x_in (i = 0)
+// or the previous cycle's buffer, and writes x_a (even i) or x_b (odd i).
+template <int D, bool kMixed>
+__global__ void __launch_bounds__(kThreads)
+    dsa_coop_kernel(Layout L, Mixed M, Rule R, const int* __restrict__ x_in,
+                    int* x_a, int* x_b, const float* __restrict__ u,
+                    const float* __restrict__ awake_u, int n_cycles,
+                    unsigned* bar) {
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int step = gridDim.x * blockDim.x;
+  const size_t vp = static_cast<size_t>(L.Vp);
+  const int* x = x_in;
+  for (int i = 0; i < n_cycles; ++i) {
+    int* out = (i % 2 == 0) ? x_a : x_b;
+    if (i > 0) word_barrier(bar);
+    const size_t row = static_cast<size_t>(i) * vp;
+    const float* wake = awake_u == nullptr ? nullptr : awake_u + row;
+    for (int c = first; c < L.Vp; c += step)
+      dsa_phase<D, kMixed>(L, M, R, x, u + row, wake, out, c);
+    x = out;
+  }
+}
+
+struct MgmKernel {
+  template <int D, bool kMixed>
+  static const void* get() {
+    return reinterpret_cast<const void*>(mgm_coop_kernel<D, kMixed>);
+  }
+};
+
+struct DsaKernel {
+  template <int D, bool kMixed>
+  static const void* get() {
+    return reinterpret_cast<const void*>(dsa_coop_kernel<D, kMixed>);
+  }
+};
+
+// K's kernel of one branch at domain size D (nullptr outside [1, 8])
+template <class K>
+const void* coop_kernel(int D, bool mixed) {
   switch (D) {
-#define MGM_CASE(DD)                                                   \
-  case DD:                                                             \
-    return mixed                                                       \
-               ? reinterpret_cast<const void*>(mgm_coop_kernel<DD, true>) \
-               : reinterpret_cast<const void*>(mgm_coop_kernel<DD, false>);
-    MGM_CASE(1)
-    MGM_CASE(2)
-    MGM_CASE(3)
-    MGM_CASE(4)
-    MGM_CASE(5)
-    MGM_CASE(6)
-    MGM_CASE(7)
-    MGM_CASE(8)
-#undef MGM_CASE
+#define COOP_CASE(DD) \
+  case DD:            \
+    return mixed ? K::template get<DD, true>() : K::template get<DD, false>();
+    COOP_CASE(1)
+    COOP_CASE(2)
+    COOP_CASE(3)
+    COOP_CASE(4)
+    COOP_CASE(5)
+    COOP_CASE(6)
+    COOP_CASE(7)
+    COOP_CASE(8)
+#undef COOP_CASE
     default:
       return nullptr;
   }
@@ -604,20 +668,41 @@ Mixed make_mixed(const float* cost1, const float* cost2, const float* cost3,
   return M;
 }
 
-// The one cooperative launch of a packed_mgm_cycles call.
-int launch_mgm(bool mixed, Layout L, Mixed M, Ties T, const int* x_in,
-               int* x_a, int* x_b, int* best, float* gain, int D,
-               int n_cycles, int blocks, unsigned* bar, void* stream) {
-  const void* kernel = mgm_kernel(D, mixed);
-  if (kernel == nullptr || n_cycles < 1 || L.Vp <= 0 || blocks < 1 ||
+// One cooperative launch of `kernel` on `args`, or
+// cudaErrorInvalidValue without launching when there is no kernel (D
+// outside [1, 8]), n_cycles < 1, Vp < 1, blocks < 1 or no `bar`.
+int launch_coop(const void* kernel, void** args, int n_cycles, int Vp,
+                int blocks, const unsigned* bar, void* stream) {
+  if (kernel == nullptr || n_cycles < 1 || Vp <= 0 || blocks < 1 ||
       bar == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&L, &M, &T, &x_in, &x_a, &x_b, &best, &gain, &n_cycles,
-                  &bar};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       const_cast<void*>(kernel), dim3(static_cast<unsigned>(blocks)),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The one cooperative launch of a packed_mgm_cycles call.
+int launch_mgm(bool mixed, Layout L, Mixed M, Ties T, const int* x_in,
+               int* x_a, int* x_b, int* best, float* gain, int D,
+               int n_cycles, int blocks, unsigned* bar, void* stream) {
+  void* args[] = {&L, &M, &T, &x_in, &x_a, &x_b, &best, &gain, &n_cycles,
+                  &bar};
+  return launch_coop(coop_kernel<MgmKernel>(D, mixed), args, n_cycles, L.Vp,
+                     blocks, bar, stream);
+}
+
+// The one cooperative launch of a packed_dsa_cycles call.
+int launch_dsa(bool mixed, Layout L, Mixed M, Rule R, const int* x_in,
+               int* x_a, int* x_b, const float* u, const float* awake_u,
+               int D, int n_cycles, int blocks, unsigned* bar,
+               void* stream) {
+  if (R.variant < 0 || R.variant > 2 || u == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&L, &M, &R, &x_in, &x_a, &x_b, &u, &awake_u, &n_cycles,
+                  &bar};
+  return launch_coop(coop_kernel<DsaKernel>(D, mixed), args, n_cycles, L.Vp,
+                     blocks, bar, stream);
 }
 
 }  // namespace
@@ -636,7 +721,7 @@ int launch_mgm(bool mixed, Layout L, Mixed M, Ties T, const int* x_in,
       return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-// Each entry launches one kernel on `stream` and returns
+// The ls_tables entries launch one kernel on `stream` and return
 // cudaGetLastError() (0 on success); D outside [1, 8] returns
 // cudaErrorInvalidValue without launching.
 
@@ -657,31 +742,6 @@ extern "C" int ls_tables(const int* x, float* tables, float* cur, int* best,
     break;
   LS_D_SWITCH(D, LS_TABLES_CASE)
 #undef LS_TABLES_CASE
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int dsa_cycle(const int* x_in, int* x_out, const float* u,
-                         const float* awake_u, const float* cost,
-                         const float* unary, const float* mask,
-                         const int* mate_col, const int* col_deg,
-                         const int* col_slot0, const int* col_stride, int D,
-                         int N, int Vp, int variant, float probability,
-                         float probability_hard, int use_hard,
-                         float activation, void* stream) {
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  if (variant < 0 || variant > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout L = make_layout(cost, unary, mask, mate_col, col_deg,
-                               col_slot0, col_stride, N, Vp);
-#define DSA_CYCLE_CASE(DD)                                                  \
-  case DD:                                                                  \
-    dsa_cycle_kernel<DD, false><<<blocks_for(Vp), kThreads, 0, st>>>(       \
-        L, Mixed{}, x_in, x_out, u, awake_u, variant, probability,          \
-        probability_hard, use_hard, activation);                            \
-    break;
-  LS_D_SWITCH(D, DSA_CYCLE_CASE)
-#undef DSA_CYCLE_CASE
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -713,41 +773,13 @@ extern "C" int ls_tables_mixed(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dsa_cycle_mixed(
-    const int* x_in, int* x_out, const float* u, const float* awake_u,
-    const float* cost1, const float* cost2, const float* cost3,
-    const float* cost4, const int* arity, const int* cost_idx,
-    const int* mate_col, const int* mate2_col, const int* mate3_col,
-    const float* unary, const float* mask, const int* col_deg,
-    const int* col_slot0, const int* col_stride, int D, int N, int Vp, int n1,
-    int n2, int n3, int n4, int variant, float probability,
-    float probability_hard, int use_hard, float activation, void* stream) {
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  if (variant < 0 || variant > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout L = make_layout(nullptr, unary, mask, mate_col, col_deg,
-                               col_slot0, col_stride, N, Vp);
-  const Mixed M = make_mixed(cost1, cost2, cost3, cost4, n1, n2, n3, n4,
-                             arity, cost_idx, mate2_col, mate3_col);
-#define DSA_CYCLE_MIXED_CASE(DD)                                            \
-  case DD:                                                                  \
-    dsa_cycle_kernel<DD, true><<<blocks_for(Vp), kThreads, 0, st>>>(        \
-        L, M, x_in, x_out, u, awake_u, variant, probability,                \
-        probability_hard, use_hard, activation);                            \
-    break;
-  LS_D_SWITCH(D, DSA_CYCLE_MIXED_CASE)
-#undef DSA_CYCLE_MIXED_CASE
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The resident-block capacity of the MGM kernel of one branch (mixed 0 or
 // 1) at domain size D on the current device (0 when D is outside [1, 8]
 // or the device cannot be asked), and its threads a block in *threads: a
 // call launches at most that many blocks.
 extern "C" int mgm_capacity(int D, int mixed, int* threads) {
   if (threads) *threads = kThreads;
-  const void* kernel = mgm_kernel(D, mixed != 0);
+  const void* kernel = coop_kernel<MgmKernel>(D, mixed != 0);
   return kernel ? coop_capacity(kernel, kThreads) : 0;
 }
 
@@ -795,5 +827,63 @@ extern "C" int mgm_cycles_mixed(
                              arity, cost_idx, mate2_col, mate3_col);
   const Ties T = {{mate_idx, mate2_idx, mate3_idx}, col_var};
   return launch_mgm(true, L, M, T, x_in, x_a, x_b, best, gain, D, n_cycles,
+                    blocks, bar, stream);
+}
+
+// The resident-block capacity of the DSA kernel of one branch, as
+// mgm_capacity gives the MGM kernel's.
+extern "C" int dsa_capacity(int D, int mixed, int* threads) {
+  if (threads) *threads = kThreads;
+  const void* kernel = coop_kernel<DsaKernel>(D, mixed != 0);
+  return kernel ? coop_capacity(kernel, kThreads) : 0;
+}
+
+// Both entries run n_cycles DSA-family cycles on `stream` from x_in (left
+// unchanged) in ONE cooperative launch of `blocks` blocks (at most
+// dsa_capacity(D, ...)): cycle i reads row i of the [n_cycles, Vp] coins u
+// (and of awake_u, the wake coins, or nullptr) and writes x_a for even i
+// and x_b for odd i, so the result is in x_a when n_cycles is odd and in
+// x_b when it is even.  `bar` is one unsigned int, zero before the
+// launch, which no other launch in flight may share.  After the coins
+// come the layout operands (those of ls_tables, or of ls_tables_mixed),
+// then the rule (variant 0/1/2 = A/B/C, probability, probability_hard,
+// use_hard, activation).  Returns the launch's error (0 on success); D
+// outside [1, 8], a variant outside [0, 2], no u, n_cycles < 1, Vp < 1,
+// blocks < 1 or no `bar` return cudaErrorInvalidValue without launching.
+
+extern "C" int dsa_cycles(const int* x_in, int* x_a, int* x_b, const float* u,
+                          const float* awake_u, const float* cost,
+                          const float* unary, const float* mask,
+                          const int* mate_col, const int* col_deg,
+                          const int* col_slot0, const int* col_stride, int D,
+                          int N, int Vp, int variant, float probability,
+                          float probability_hard, int use_hard,
+                          float activation, int n_cycles, int blocks,
+                          unsigned* bar, void* stream) {
+  const Layout L = make_layout(cost, unary, mask, mate_col, col_deg,
+                               col_slot0, col_stride, N, Vp);
+  const Rule R = {variant, probability, probability_hard, use_hard,
+                  activation};
+  return launch_dsa(false, L, Mixed{}, R, x_in, x_a, x_b, u, awake_u, D,
+                    n_cycles, blocks, bar, stream);
+}
+
+extern "C" int dsa_cycles_mixed(
+    const int* x_in, int* x_a, int* x_b, const float* u, const float* awake_u,
+    const float* cost1, const float* cost2, const float* cost3,
+    const float* cost4, const int* arity, const int* cost_idx,
+    const int* mate_col, const int* mate2_col, const int* mate3_col,
+    const float* unary, const float* mask, const int* col_deg,
+    const int* col_slot0, const int* col_stride, int D, int N, int Vp, int n1,
+    int n2, int n3, int n4, int variant, float probability,
+    float probability_hard, int use_hard, float activation, int n_cycles,
+    int blocks, unsigned* bar, void* stream) {
+  const Layout L = make_layout(nullptr, unary, mask, mate_col, col_deg,
+                               col_slot0, col_stride, N, Vp);
+  const Mixed M = make_mixed(cost1, cost2, cost3, cost4, n1, n2, n3, n4,
+                             arity, cost_idx, mate2_col, mate3_col);
+  const Rule R = {variant, probability, probability_hard, use_hard,
+                  activation};
+  return launch_dsa(true, L, M, R, x_in, x_a, x_b, u, awake_u, D, n_cycles,
                     blocks, bar, stream);
 }

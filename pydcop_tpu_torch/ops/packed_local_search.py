@@ -30,7 +30,10 @@ same order:
   call, each cycle's tables and neighbourhood arbitration two phases of
   the grid split by a grid barrier (MGM reads its neighbours' gains of
   the same cycle);
-* :func:`dsa_cycle` — one whole DSA-family cycle, one launch a cycle.
+* :func:`packed_dsa_cycles` — n DSA-family cycles: ONE cooperative
+  launch a call, each cycle one phase of the grid (DSA reads other
+  columns only through the previous cycle's x), a grid barrier between
+  consecutive cycles.
 
 A wrapper runs its plain version only for CPU tensors; on CUDA tensors it
 launches the kernel or raises — nothing falls back.  The assignment is
@@ -301,11 +304,13 @@ def _kernel(name: str):
         argtypes = {
             "ls_tables": [P] * 12 + [I] * 4 + [P],
             "mgm_cycles": [P] * 12 + [I] * 3 + [P] * 2 + [I, I, P, P],
-            "dsa_cycle": [P] * 11 + [I] * 4 + [F, F, I, F, P],
+            "dsa_cycles": [P] * 12 + [I] * 4 + [F, F, I, F]
+            + [I, I, P, P],
             "ls_tables_mixed": [P] * 19 + [I] * 8 + [P],
             "mgm_cycles_mixed": [P] * 19 + [I] * 7 + [P] * 4
             + [I, I, P, P],
-            "dsa_cycle_mixed": [P] * 18 + [I] * 8 + [F, F, I, F, P],
+            "dsa_cycles_mixed": [P] * 19 + [I] * 8 + [F, F, I, F]
+            + [I, I, P, P],
         }[name]
         fn = getattr(load("local_search"), name)
         fn.restype = ctypes.c_int
@@ -355,8 +360,9 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _tables_layout(pls: PackedLocalSearch):
-    """The layout operands of ``ls_tables``/``dsa_cycle`` (binary) or of
-    their ``_mixed`` entries, after the state operands."""
+    """The layout operands of ``ls_tables``, ``mgm_cycles`` and
+    ``dsa_cycles`` (binary) or of their ``_mixed`` entries, after the
+    state operands."""
     pg = pls.pg
     cols = (pg.col_deg.data_ptr(), pg.col_slot0.data_ptr(),
             pg.col_stride.data_ptr())
@@ -407,40 +413,6 @@ def ls_tables(pls: PackedLocalSearch, x_col: torch.Tensor,
     return out
 
 
-def dsa_cycle(pls: PackedLocalSearch, x_col: torch.Tensor, u: torch.Tensor,
-              probability: float, variant: str = "B",
-              probability_hard: Optional[float] = None,
-              awake_u: Optional[torch.Tensor] = None,
-              activation: Optional[float] = None,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One DSA-family cycle: one launch of the ``dsa_cycle`` kernel on
-    CUDA (``dsa_cycle.launches`` / ``.mixed_launches``), the plain
-    version on the CPU.  ``u``
-    (and ``awake_u``) are this cycle's [Vp] coins in column order."""
-    _check_rule(variant, awake_u, activation)
-    on_cuda = _on(pls, "x", x_col, torch.int32, (pls.Vp,))
-    _on(pls, "u", u, torch.float32, (pls.Vp,))
-    if awake_u is not None:
-        _on(pls, "awake_u", awake_u, torch.float32, (pls.Vp,))
-    if not on_cuda:
-        return dsa_cycle_plain(pls, x_col, u, probability, variant,
-                               probability_hard, awake_u, activation)
-    out = torch.empty_like(x_col) if out is None else out
-    name = "dsa_cycle" if pls.pg.mixed is None else "dsa_cycle_mixed"
-    err = _kernel(name)(
-        x_col.data_ptr(), out.data_ptr(), u.data_ptr(),
-        None if awake_u is None else awake_u.data_ptr(),
-        *_tables_layout(pls), VARIANTS[variant],
-        float(probability),
-        float(probability if probability_hard is None
-              else probability_hard),
-        int(probability_hard is not None),
-        float(0.0 if activation is None else activation), _stream(x_col))
-    _raise_on(err, name)
-    _count(dsa_cycle, pls)
-    return out
-
-
 def coop_capacity(lib: str, entry: str, D: int,
                   mixed: bool) -> Tuple[int, int]:
     """(resident blocks, threads a block) of a cooperative kernel of
@@ -469,6 +441,28 @@ def _capacity(D: int, mixed: bool) -> Tuple[int, int]:
     return coop_capacity("local_search", "mgm_capacity", D, mixed)
 
 
+def _dsa_capacity(D: int, mixed: bool) -> Tuple[int, int]:
+    """(resident blocks, threads a block) of the DSA kernel of one
+    branch."""
+    return coop_capacity("local_search", "dsa_capacity", D, mixed)
+
+
+def _grid(name: str, Vp: int, capacity: int, threads: int,
+          blocks: Optional[int]) -> int:
+    """The grid of entry ``name``'s cooperative launch: ``blocks`` when
+    given (1 up to the capacity), else :func:`grid_blocks`; a capacity of
+    0 raises RuntimeError, a forced grid out of range ValueError."""
+    if capacity <= 0:
+        raise RuntimeError(f"{name}: the device reports no resident block "
+                           f"for the cooperative launch")
+    if blocks is None:
+        return grid_blocks(Vp, capacity, threads)
+    if not 1 <= blocks <= capacity:
+        raise ValueError(f"{name}: {blocks} blocks, the capacity is "
+                         f"{capacity}")
+    return blocks
+
+
 def _launch_mgm(pls: PackedLocalSearch, x_col: torch.Tensor,
                 n_cycles: int, blocks: Optional[int] = None
                 ) -> torch.Tensor:
@@ -480,15 +474,7 @@ def _launch_mgm(pls: PackedLocalSearch, x_col: torch.Tensor,
     pg = pls.pg
     mixed = pg.mixed is not None
     name = "mgm_cycles_mixed" if mixed else "mgm_cycles"
-    capacity, threads = _capacity(pg.D, mixed)
-    if capacity <= 0:
-        raise RuntimeError(f"{name}: the device reports no resident block "
-                           f"for the cooperative launch")
-    if blocks is None:
-        blocks = grid_blocks(pg.Vp, capacity, threads)
-    elif not 1 <= blocks <= capacity:
-        raise ValueError(f"{name}: {blocks} blocks, the capacity is "
-                         f"{capacity}")
+    blocks = _grid(name, pg.Vp, *_capacity(pg.D, mixed), blocks)
     dev = x_col.device
     bufs = [torch.empty_like(x_col), torch.empty_like(x_col)]
     best = torch.empty(pg.Vp, dtype=torch.int32, device=dev)
@@ -505,11 +491,43 @@ def _launch_mgm(pls: PackedLocalSearch, x_col: torch.Tensor,
     return bufs[(n_cycles - 1) % 2]
 
 
+def _launch_dsa(pls: PackedLocalSearch, x_col: torch.Tensor,
+                uniforms: torch.Tensor, probability: float, variant: str,
+                probability_hard: Optional[float],
+                awake_uniforms: Optional[torch.Tensor],
+                activation: Optional[float],
+                blocks: Optional[int] = None) -> torch.Tensor:
+    """:func:`packed_dsa_cycles` on checked CUDA operands: the DSA
+    kernel's one launch, or RuntimeError.  ``blocks`` forces the grid (1
+    up to the capacity); by default it is :func:`grid_blocks`.  The grid
+    barrier's word is allocated by this call and shared with no other."""
+    pg = pls.pg
+    mixed = pg.mixed is not None
+    name = "dsa_cycles_mixed" if mixed else "dsa_cycles"
+    blocks = _grid(name, pg.Vp, *_dsa_capacity(pg.D, mixed), blocks)
+    n_cycles = uniforms.shape[0]
+    bufs = [torch.empty_like(x_col), torch.empty_like(x_col)]
+    bar = torch.zeros(1, dtype=torch.int32, device=x_col.device)
+    err = _kernel(name)(
+        x_col.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+        uniforms.data_ptr(),
+        None if awake_uniforms is None else awake_uniforms.data_ptr(),
+        *_tables_layout(pls), VARIANTS[variant], float(probability),
+        float(probability if probability_hard is None
+              else probability_hard),
+        int(probability_hard is not None),
+        float(0.0 if activation is None else activation), n_cycles, blocks,
+        bar.data_ptr(), _stream(x_col))
+    _raise_on(err, name)
+    _count(packed_dsa_cycles, pls)
+    return bufs[(n_cycles - 1) % 2]
+
+
 def reset_launches() -> None:
     """Zero the launch counters of the three kernels' wrappers
     (``launches``: the binary kernels; ``mixed_launches``: the mixed
     ones)."""
-    for fn in (ls_tables, packed_mgm_cycles, dsa_cycle):
+    for fn in (ls_tables, packed_mgm_cycles, packed_dsa_cycles):
         fn.launches = fn.mixed_launches = 0
 
 
@@ -548,33 +566,39 @@ def packed_mgm_cycles(pls: PackedLocalSearch, x_col: torch.Tensor,
     return _launch_mgm(pls, x_col, n_cycles, blocks)
 
 
-reset_launches()
-
-
 def packed_dsa_cycles(pls: PackedLocalSearch, x_col: torch.Tensor,
                       uniforms: torch.Tensor, probability: float,
                       variant: str = "B",
                       probability_hard: Optional[float] = None,
                       awake_uniforms: Optional[torch.Tensor] = None,
-                      activation: Optional[float] = None) -> torch.Tensor:
+                      activation: Optional[float] = None,
+                      blocks: Optional[int] = None) -> torch.Tensor:
     """``n`` DSA-family cycles, one per row of ``uniforms`` ([n, Vp]
     column-order coins; ``awake_uniforms`` likewise for adsa), from
-    ``x_col`` (left unchanged); one launch per cycle on CUDA."""
+    ``x_col`` (left unchanged).
+
+    The coins must be contiguous float32 on ``x_col``'s device.  On CUDA
+    tensors this makes one cooperative launch of the DSA kernel on the
+    current stream that runs all the cycles, and adds one to
+    ``packed_dsa_cycles.launches`` on the binary layout or to
+    ``packed_dsa_cycles.mixed_launches`` on the mixed one; ``blocks``
+    forces its grid (1 up to the kernel's capacity).  On CPU tensors it
+    runs the plain version, and ``blocks`` has no use."""
     _check_rule(variant, awake_uniforms, activation)
     if uniforms.dim() != 2 or uniforms.shape[0] < 1:
         raise ValueError("uniforms must be [n >= 1, Vp]")
-    if awake_uniforms is not None \
-            and awake_uniforms.shape != uniforms.shape:
-        raise ValueError("awake_uniforms must have the shape of uniforms")
-    if not _on(pls, "x", x_col, torch.int32, (pls.Vp,)):
+    on_cuda = _on(pls, "x", x_col, torch.int32, (pls.Vp,))
+    _on(pls, "uniforms", uniforms, torch.float32,
+        (uniforms.shape[0], pls.Vp))
+    if awake_uniforms is not None:
+        _on(pls, "awake_uniforms", awake_uniforms, torch.float32,
+            tuple(uniforms.shape))
+    if not on_cuda:
         return packed_dsa_cycles_plain(
             pls, x_col, uniforms, probability, variant, probability_hard,
             awake_uniforms, activation)
-    bufs = [torch.empty_like(x_col), torch.empty_like(x_col)]
-    for i in range(uniforms.shape[0]):
-        x_col = dsa_cycle(
-            pls, x_col, uniforms[i], probability, variant,
-            probability_hard,
-            None if awake_uniforms is None else awake_uniforms[i],
-            activation, out=bufs[i % 2])
-    return x_col
+    return _launch_dsa(pls, x_col, uniforms, probability, variant,
+                       probability_hard, awake_uniforms, activation, blocks)
+
+
+reset_launches()

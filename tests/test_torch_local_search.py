@@ -522,12 +522,12 @@ def test_wrappers_check_operands_and_leave_inputs_alone():
         pls_mod.packed_dsa_cycles(pls, x, torch.rand(2, pls.Vp), 0.7,
                                   variant="D")
     with pytest.raises(ValueError):
-        pls_mod.dsa_cycle(pls, x, torch.rand(pls.Vp), 0.7,
-                          awake_u=torch.rand(pls.Vp))
+        pls_mod.packed_dsa_cycles(pls, x, torch.rand(2, pls.Vp), 0.7,
+                                  awake_uniforms=torch.rand(2, pls.Vp))
     # no launch happens on the CPU
     assert pls_mod.ls_tables.launches == 0
     assert pls_mod.packed_mgm_cycles.launches == 0
-    assert pls_mod.dsa_cycle.launches == 0
+    assert pls_mod.packed_dsa_cycles.launches == 0
 
 
 def test_pack_roundtrip_and_layout():
