@@ -20,12 +20,15 @@ printed.
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, kernel build time and the ptxas report;
-2. kernel_vs_plain: the MaxSum kernel against its plain PyTorch
-   version, both on the card, for 20 cycles at damping 0.5 and 0, on the
-   bench's 10k-variable / 30k-edge 3-colour coloring, a star with one
-   variable of degree 2,500, and an instance with unequal domain sizes
-   (tolerance atol 1e-4·(1+|x|) on q, r and beliefs; values exact except
-   columns whose two best beliefs lie within 1e-4, which are counted);
+2. kernel_vs_plain: the MaxSum kernel's binary branch (one cooperative
+   launch a call, its cycles split by a grid barrier) against its plain
+   PyTorch version, both on the card, on the bench's 10k-variable /
+   30k-edge 3-colour coloring, a star with one variable of degree 2,500,
+   an instance with unequal domain sizes, a hard-cost colouring (10,000
+   on equal colours) and the 100k/300k colouring: q, r, beliefs and
+   values equal (``torch.equal``) at damping 0.5 and 0, at the wrapper's
+   grid and at forced grids of 1 and 3 blocks, after 1, 2, 3 and 20
+   cycles in one call and in two consecutive calls;
    ls_kernel_vs_plain: the three local-search kernels (ls_tables, the
    MGM kernel — one cooperative launch a call, each cycle's tables and
    arbitration phases split by a grid barrier — and the DSA kernel — one
@@ -53,11 +56,13 @@ printed.
    layouts: the response and winner rounds walk a column's slots again,
    a column has no slot): x equal to the plain version's and to the
    exact rule's for each favor at those grids;
-   dpop_kernel_vs_plain: the whole-sweep DPOP kernel against its plain
+   dpop_kernel_vs_plain: the whole-sweep DPOP kernel (one cooperative
+   launch a sweep, a grid barrier between levels) against its plain
    version on the JAX bench's 10,000-node random tree (D=10), the same
    generator at 100,000 nodes, and 3,000-node forest, ragged-domain and
-   max-mode trees: assign equal, msg and cs with max abs error 0, and
-   assign equal to the level scan's;
+   max-mode trees, at the wrapper's grid and at forced grids of 1 and 3
+   blocks: assign equal, msg and cs with max abs error 0, and assign
+   equal to the level scan's;
    mixed_kernel_vs_plain: the mixed branches of the MaxSum kernel (one
    cooperative launch a cycle, two phases) and of the three local-search
    kernels against their plain versions (the same rules as above; the
@@ -99,12 +104,11 @@ printed.
    soft coloring built with the port's DCOP objects, 200 cycles, for
    maxsum, mgm, dsa and mgm2, and on the 10,000-node tree for dpop; every
    launch counter is zeroed just before each solve, and just after it
-   the kernels of that path must have launched once per cycle (maxsum:
-   200), once a chunk (mgm, dsa, dsatuto, mixeddsa, adsa and mgm2: 2 for
-   the harness's two chunks of 100 cycles, no ls_tables launch, and the
-   cost and values of the CPU run), or for
-   dpop once per tree level and phase (L UTIL + L VALUE launches, engine
-   "wholesweep", cost equal to the CPU run's); then each path piece by
+   the kernels of that path must have launched once a chunk (maxsum,
+   mgm, dsa, dsatuto, mixeddsa, adsa and mgm2: 2 for the harness's two
+   chunks of 100 cycles, no ls_tables launch, and for all but maxsum the
+   cost and values of the CPU run), or for dpop once a sweep (1 launch,
+   engine "wholesweep", cost equal to the CPU run's); then each path piece by
    piece (graph, compile, pack, cycles or sweep, coin draw and copy,
    scoring);
    main_path_mixed: the same on the 3,900-variable SECP for maxsum, mgm,
@@ -156,8 +160,13 @@ printed.
    its bytes bound, its plain version's time, and its device time per
    launch from a torch.profiler trace.
 
-``python3 chip_smoke.py --ab PARENT_TREE [k1_mixed,mgm2,mgm,dsa,sharded]``
-runs no phase above: it times K1's mixed branch on the three SECPs
+``python3 chip_smoke.py --ab PARENT_TREE
+[k1,k1_mixed,mgm2,mgm,dsa,dpop,sharded]`` runs no phase above: it times
+K1's binary branch on 10k/30k, 100k/300k and the degree-2,500 star
+(events and device µs a cycle, blocks, equality with the plain version,
+also at 1 and 3 blocks, the maxsum cycles-only rate of a 200-cycle
+solve, and in this tree a sweep of its launch shape), K1's mixed branch
+on the three SECPs
 (events and device µs a cycle, blocks, equality with the plain version,
 SECP maxsum cycles/s), K6 on 10k/30k, 100k/300k, SECP-3.9k and SECP-39k
 (events and device µs a cycle, blocks, equality with the plain version
@@ -168,8 +177,10 @@ cycle, blocks, equality with the plain version after 20 cycles, the
 cycles-only rate of a 200-cycle mgm solve; K2 and K5 beside it), K5
 on those five sizes (events and device µs a cycle, blocks, equality
 with the plain version after 20 cycles, the cycles-only and with-coins
-rates of a 200-cycle dsa solve) and
-the sharded kernels with the sharded rates, in turns of the tree at
+rates of a 200-cycle dsa solve), K10 on the 10k and 100k bench trees
+and the deep max and ragged 3k trees (events and device µs a sweep, L,
+blocks, equality, tables/s, and in this tree a sweep of its grid cap)
+and the sharded kernels with the sharded rates, in turns of the tree at
 PARENT_TREE and this one (parent, change, change, parent), into
 ``ab_sharded.jsonl`` in the output directory.
 
@@ -253,12 +264,13 @@ def unequal_domains_tensors(V, F, D, device, seed=5):
     return tensors_from_numpy(f, device=device)
 
 
-def kernel_vs_plain(pg, damping, cycles=20, exact=False):
+def kernel_vs_plain(pg, damping, cycles=20, exact=False, blocks=None):
     """Run the kernel and the plain version from the same state; return
     (max abs error, near-tie value mismatches).  Raises on a mismatch.
     ``exact``: q, r and beliefs must also be equal (``torch.equal``), in
-    one call of ``cycles`` cycles and in two consecutive calls of half as
-    many each."""
+    one call of ``cycles`` cycles and, from 2 cycles, in two consecutive
+    calls of half as many each.  ``blocks`` forces the binary kernel's
+    grid."""
     import torch
 
     from pydcop_tpu_torch.ops.packed_maxsum import (
@@ -267,8 +279,10 @@ def kernel_vs_plain(pg, damping, cycles=20, exact=False):
         packed_init_state,
     )
 
+    grid = {} if blocks is None else {"blocks": blocks}
     q, r = packed_init_state(pg)
-    kq, kr, kb, kv = packed_cycles(pg, q, r, cycles, damping=damping)
+    kq, kr, kb, kv = packed_cycles(pg, q, r, cycles, damping=damping,
+                                   **grid)
     pq, pr, pb, pv = packed_cycles_plain(pg, q, r, cycles, damping=damping)
     torch.cuda.synchronize()
     err = 0.0
@@ -283,11 +297,14 @@ def kernel_vs_plain(pg, damping, cycles=20, exact=False):
                 f"entries beyond atol {TOL}*(1+|x|), max {float(d.max())}")
         err = max(err, float(d.max()))
     if exact:
-        hq, hr, _, _ = packed_cycles(pg, q, r, cycles // 2, damping=damping)
-        two = packed_cycles(pg, hq, hr, cycles - cycles // 2,
-                            damping=damping)
+        runs = [("one call", (kq, kr, kb, kv))]
+        if cycles >= 2:
+            hq, hr, _, _ = packed_cycles(pg, q, r, cycles // 2,
+                                         damping=damping, **grid)
+            runs.append(("two calls", packed_cycles(
+                pg, hq, hr, cycles - cycles // 2, damping=damping, **grid)))
         torch.cuda.synchronize()
-        for how, out in (("one call", (kq, kr, kb, kv)), ("two calls", two)):
+        for how, out in runs:
             for name, a, b in zip(("q", "r", "beliefs", "values"), out,
                                   (pq, pr, pb, pv)):
                 if not torch.equal(a, b):
@@ -306,6 +323,27 @@ def kernel_vs_plain(pg, damping, cycles=20, exact=False):
                 f"outside near-ties")
         ties = int(differ.sum())
     return err, ties
+
+
+#: the cycle counts of the binary MaxSum kernel's exact checks
+K1_CHECK_CYCLES = (1, 2, 3, 20)
+
+
+def k1_binary_vs_plain(pg):
+    """The binary MaxSum kernel against its plain version, ``torch.equal``
+    on q, r, beliefs and values (:func:`kernel_vs_plain` with ``exact``)
+    at damping 0.5 and 0, at the wrapper's grid and at forced grids of 1
+    and 3 blocks, after 1, 2, 3 and 20 cycles in one call and, from 2
+    cycles, in two.  Raises on any difference; returns the runs
+    checked."""
+    runs = 0
+    for damping in (0.5, 0.0):
+        for blocks in (None, 1, 3):
+            for cycles in K1_CHECK_CYCLES:
+                kernel_vs_plain(pg, damping, cycles, exact=True,
+                                blocks=blocks)
+                runs += 1
+    return runs
 
 
 def cuda_ms(fn, reps):
@@ -408,12 +446,34 @@ def time_kernel(pg, reps=200):
     nbytes = packed_bytes(pg)
     bound, by = bound_of(nbytes, packed_ops(pg))
     # "packed_maxsum_mixed" is a part of the mixed kernel's name in this
-    # tree and in its parents (the A/B times both)
-    name = ("packed_maxsum_cycle_kernel" if pg.mixed is None
-            else "packed_maxsum_mixed")
-    device_us = profile_us(
+    # tree and in its parents (the A/B times both); the binary kernel runs
+    # a call's 50 cycles in one launch, the mixed one a launch a cycle
+    name, per_launch = (("packed_maxsum_coop_kernel", 50) if pg.mixed is None
+                        else ("packed_maxsum_mixed", 1))
+    us = profile_us(
         lambda: packed_cycles(pg, q, r, 50, damping=0.5), [name])[name]
+    device_us = None if us is None else us / per_launch
     return ms, plain, bound, by, nbytes, device_us
+
+
+#: the design of K1's binary branch (the ``design`` key of its row in the
+#: kernels line)
+K1_DESIGN = ("one cooperative launch a call: each degree class cut into "
+             "tiles of neighbouring columns, blocks take tiles "
+             "grid-stride; a tile's r' one thread a (rank, column), a "
+             "block barrier, the beliefs one thread a column in rank "
+             "order, a block barrier, q' one thread a (rank, column); a "
+             "grid barrier between cycles (n - 1 a call)")
+
+
+def k1_grid(pg):
+    """Blocks of one binary MaxSum launch on this card, as the wrapper
+    sizes its grid."""
+    from pydcop_tpu_torch.ops import packed_maxsum as PM
+
+    return PM.binary_blocks(
+        PM._tiles(pg, PM.TILE_COLS).shape[0],
+        PM._binary_capacity(pg.D, PM.BINARY_THREADS, PM.TILE_COLS))
 
 
 def mixed_launch_blocks(pg):
@@ -1240,9 +1300,10 @@ def dpop_pack(dcop, dev):
 
 
 def dpop_kernel_vs_plain(plan, ps):
-    """The whole-sweep kernel against its plain version on the card, and
-    its assignment against the level scan's.  Returns the max abs error
-    over assign, msg and cs; raises on any difference."""
+    """The whole-sweep kernel against its plain version on the card, at
+    the wrapper's grid and at forced grids of 1 and 3 blocks, and its
+    assignment against the level scan's.  Returns the max abs error over
+    assign, msg and cs; raises on any difference."""
     import torch
 
     from pydcop_tpu_torch.ops.dpop_sweep import run_sweep
@@ -1251,19 +1312,25 @@ def dpop_kernel_vs_plain(plan, ps):
         whole_sweep_plain,
     )
 
-    k = whole_sweep(ps)
     p = whole_sweep_plain(ps)
-    torch.cuda.synchronize()
+    scan = run_sweep(plan)[0]
     err = 0.0
-    for name, a, b in zip(("assign", "msg", "cs"), k, p):
-        if a.is_floating_point() and not torch.isfinite(a).all():
-            raise AssertionError(f"kernel {name} has non-finite values")
-        if not torch.equal(a, b):
-            raise AssertionError(f"kernel {name} differs from plain in "
-                                 f"{int((a != b).sum())} entries")
-        err = max(err, float((a.double() - b.double()).abs().max()))
-    if not np.array_equal(k[0].cpu().numpy(), run_sweep(plan)[0]):
-        raise AssertionError("kernel assign differs from the level scan's")
+    for blocks in COOP_GRIDS:
+        k = whole_sweep(ps, **({} if blocks == "wrapper"
+                               else {"blocks": blocks}))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("assign", "msg", "cs"), k, p):
+            if a.is_floating_point() and not torch.isfinite(a).all():
+                raise AssertionError(f"kernel {name} has non-finite values "
+                                     f"(grid {blocks})")
+            if not torch.equal(a, b):
+                raise AssertionError(f"kernel {name} differs from plain in "
+                                     f"{int((a != b).sum())} entries (grid "
+                                     f"{blocks})")
+            err = max(err, float((a.double() - b.double()).abs().max()))
+        if not np.array_equal(k[0].cpu().numpy(), scan):
+            raise AssertionError(f"kernel assign differs from the level "
+                                 f"scan's (grid {blocks})")
     return err
 
 
@@ -1284,7 +1351,7 @@ def dpop_bytes_ops(ps):
 def time_dpop(ps, reps=200):
     """(ms per sweep by CUDA events over ``reps`` back-to-back sweeps,
     plain ms, bound ms, bound_by, bytes, device us per sweep from the
-    profiler)."""
+    profiler: the one launch's)."""
     from pydcop_tpu_torch.ops.packed_dpop import (
         whole_sweep,
         whole_sweep_plain,
@@ -1296,11 +1363,28 @@ def time_dpop(ps, reps=200):
     plain = cuda_ms(lambda: whole_sweep_plain(ps), 3)
     nbytes, nops = dpop_bytes_ops(ps)
     bound, by = bound_of(nbytes, nops)
-    names = ["dpop_util_level_kernel", "dpop_value_level_kernel"]
-    us = profile_us(lambda: [whole_sweep(ps) for _ in range(20)], names)
-    device_us = (None if None in us.values()
-                 else ps.L * (us[names[0]] + us[names[1]]))
+    device_us = profile_us(lambda: [whole_sweep(ps) for _ in range(20)],
+                           [DPOP_KERNEL])[DPOP_KERNEL]
     return ms, plain, bound, by, nbytes, device_us
+
+
+#: the sweep kernel's name in a profiler trace (one launch a sweep)
+DPOP_KERNEL = "dpop_sweep_coop_kernel"
+#: the design of K10 (the ``design`` key of its row in the kernels line)
+DPOP_DESIGN = ("one cooperative launch a sweep: UTIL from the deepest "
+               "level up, then VALUE from the roots down, each level a "
+               "grid-stride loop over tiles of nodes (UTIL one thread a "
+               "(node, value), VALUE one thread a node), grid barriers "
+               "between levels (2L - 1 a sweep) over a few blocks")
+
+
+def dpop_grid(ps):
+    """Blocks of one sweep launch on this card, as the wrapper sizes its
+    grid."""
+    from pydcop_tpu_torch.ops import packed_dpop
+
+    return packed_dpop.sweep_blocks(ps, *packed_dpop._capacity(ps.D,
+                                                               ps.mode))
 
 
 def dpop_breakdown(dcop, dev):
@@ -1368,8 +1452,7 @@ def read_counts():
             "ls_tables_mixed": P.ls_tables.mixed_launches,
             "mgm_mixed": P.packed_mgm_cycles.mixed_launches,
             "dsa_mixed": P.packed_dsa_cycles.mixed_launches,
-            "dpop_util_level": whole_sweep.util_launches,
-            "dpop_value_level": whole_sweep.value_launches,
+            "dpop_whole_sweep": whole_sweep.launches,
             "mgm2": packed_mgm2_cycles.launches,
             "mgm2_mixed": packed_mgm2_cycles.mixed_launches,
             "device_fused_ba": K.device_fused_ba.launches,
@@ -1928,6 +2011,66 @@ def secp(scale, mms):
         lambda: dcop
 
 
+# K1 binary: one call of 200 cycles (events), the profiler's device time
+# a cycle, the grid, equality with the plain version after 20 cycles (here
+# also at 1 and 3 blocks), and the maxsum cycles-only rate of a 200-cycle
+# solve; where the tree's packed_maxsum has the launch shape as module
+# constants, each shape of a sweep (threads, tile width, grid cap) timed
+# by events over one 200-cycle call, and its equality
+k1_sizes = {"10k_30k": lambda: colouring(10_000, 30_000),
+            "100k_300k": lambda: colouring(100_000, 300_000),
+            "star_2500": lambda: (PM.pack_for_gpu(C.star_tensors(2500, dev)),
+                                  None)}
+for name, make in k1_sizes.items():
+    if "k1" not in sections:
+        break
+    pg, make_dcop = make()
+    q, r = PM.packed_init_state(pg)
+    k = PM.packed_cycles(pg, q, r, 20, damping=0.5)
+    p = PM.packed_cycles_plain(pg, q, r, 20, damping=0.5)
+    coop = hasattr(PM, "binary_blocks")
+    if coop:
+        design = "one cooperative launch a call"
+        blocks = C.k1_grid(pg)
+        grids_equal = all(
+            all(torch.equal(a, b) for a, b in zip(PM.packed_cycles(
+                pg, q, r, 20, damping=0.5, blocks=g), p)) for g in (1, 3))
+    else:
+        design = "one launch a cycle"
+        blocks = -(-pg.Vp // 128)
+        grids_equal = None
+    torch.cuda.synchronize()
+    ms, plain, bound, by, nbytes, device_us = C.time_kernel(pg)
+    row = {"size": name, "kernel": "packed_maxsum_cycle", "design": design,
+           "blocks": blocks, "events_us_per_cycle": ms * 1e3,
+           "device_us_per_cycle": device_us, "bound_us": bound * 1e3,
+           "plain_ms": plain, "equal": all(torch.equal(a, b)
+                                           for a, b in zip(k, p)),
+           "equal_at_1_and_3_blocks": grids_equal}
+    if make_dcop is not None:
+        row["maxsum_cycles_per_s"] = C.breakdown(
+            make_dcop(), "maxsum", 200, dev)["cycles_per_s"]
+    print(json.dumps(row), flush=True)
+    if not coop:
+        continue
+    shape = (PM.BINARY_THREADS, PM.TILE_COLS, PM.BINARY_GRID_CAP)
+    for threads in (128, 256, 512):
+        for cols in (32, 64, 128, 256):
+            for cap in (132, 264, 528, 1056):
+                if cols > threads:
+                    continue
+                PM.BINARY_THREADS, PM.TILE_COLS, PM.BINARY_GRID_CAP = \
+                    threads, cols, cap
+                out = PM.packed_cycles(pg, q, r, 20, damping=0.5)
+                same = all(torch.equal(a, b) for a, b in zip(out, p))
+                us = C.cuda_ms(lambda: PM.packed_cycles(
+                    pg, q, r, 200, damping=0.5), 1) * 1e3 / 200
+                print(json.dumps({
+                    "size": name, "kernel": "packed_maxsum_cycle",
+                    "sweep": True, "threads": threads, "tile_cols": cols,
+                    "grid_cap": cap, "blocks": C.k1_grid(pg),
+                    "events_us_per_cycle": us, "equal": same}), flush=True)
+    PM.BINARY_THREADS, PM.TILE_COLS, PM.BINARY_GRID_CAP = shape
 k6_sizes = {"10k_30k": lambda: colouring(10_000, 30_000),
             "100k_300k": lambda: colouring(100_000, 300_000),
             "secp_3.9k": lambda: secp(1, 2),
@@ -2044,6 +2187,58 @@ for name, make in dsa_sizes.items():
            "coin_copy_s_per_chunk": solve["coin_copy_s_per_chunk"],
            "coin_cpu_draw_s_per_chunk": solve["coin_cpu_draw_s_per_chunk"]}
     print(json.dumps(row), flush=True)
+# K10: the bench's 10k- and 100k-node trees and the deep 3,000-node
+# checking trees (max: L = 384, ragged: L = 401): events a sweep over 200
+# back-to-back sweeps, the profiler's device time a sweep, L, the grid,
+# equality with the plain version (here also at 1 and 3 blocks) and the
+# tables/s; where the tree's packed_dpop has the grid cap as a module
+# constant, each cap of a sweep timed by events over 50 sweeps
+from pydcop_tpu_torch.ops import packed_dpop as PD
+
+dpop_trees = {"bench_tree_10k": lambda: C.bench_tree_dcop(10_000),
+              "bench_tree_100k": lambda: C.bench_tree_dcop(100_000),
+              "max_3k": lambda: C.tree_dcop(3000, seed=5, objective="max"),
+              "ragged_3k": lambda: C.tree_dcop(3000, D=5, seed=4,
+                                               ragged=True)}
+for name, make in dpop_trees.items():
+    if "dpop" not in sections:
+        break
+    _, plan, ps = C.dpop_pack(make(), dev)
+    k = PD.whole_sweep(ps)
+    p = PD.whole_sweep_plain(ps)
+    coop = hasattr(PD, "sweep_blocks")
+    if coop:
+        design = "one cooperative launch a sweep"
+        blocks = C.dpop_grid(ps)
+        grids_equal = all(all(torch.equal(a, b) for a, b in zip(
+            PD.whole_sweep(ps, blocks=g), p)) for g in (1, 3))
+    else:
+        design = "2L launches a sweep"
+        blocks = None
+        grids_equal = None
+    torch.cuda.synchronize()
+    ms, plain, bound, by, nbytes, device_us = C.time_dpop(ps)
+    print(json.dumps({
+        "size": name, "kernel": "dpop_whole_sweep", "design": design,
+        "n_nodes": ps.n_nodes, "D": ps.D, "L": ps.L, "blocks": blocks,
+        "events_us_per_sweep": ms * 1e3, "device_us_per_sweep": device_us,
+        "bound_us": bound * 1e3, "plain_ms": plain,
+        "tables_per_s": ps.n_nodes / (ms * 1e-3),
+        "equal": all(torch.equal(a, b) for a, b in zip(k, p)),
+        "equal_at_1_and_3_blocks": grids_equal}), flush=True)
+    if not coop:
+        continue
+    cap0 = PD.SWEEP_GRID_CAP
+    for cap in (1, 4, 16, 32, 64, 132, 264, 528, 1056):
+        PD.SWEEP_GRID_CAP = cap
+        same = all(torch.equal(a, b) for a, b in zip(PD.whole_sweep(ps), p))
+        us = C.cuda_ms(lambda: PD.whole_sweep(ps), 50) * 1e3
+        print(json.dumps({"size": name, "kernel": "dpop_whole_sweep",
+                          "sweep": True, "grid_cap": cap, "L": ps.L,
+                          "blocks": C.dpop_grid(ps),
+                          "events_us_per_sweep": us, "equal": same}),
+              flush=True)
+    PD.SWEEP_GRID_CAP = cap0
 # the sharded kernels at 8 shards, MGM's whole arbitration a cycle and
 # the sharded rates
 graphs = {}
@@ -2084,7 +2279,7 @@ for name, t in graphs.items():
 
 
 #: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
-AB_SECTIONS = ("k1_mixed", "mgm2", "mgm", "dsa", "sharded")
+AB_SECTIONS = ("k1", "k1_mixed", "mgm2", "mgm", "dsa", "dpop", "sharded")
 
 
 def ab_kernels(parent, sections=AB_SECTIONS):
@@ -2095,7 +2290,9 @@ def ab_kernels(parent, sections=AB_SECTIONS):
     (``k1_mixed``), K6 with the mgm2 cycles-only rates (``mgm2``), K4
     (with K2 and K5) and the mgm rates (``mgm``), K5 and the dsa rates
     (``dsa``), and the sharded kernels with the sharded rates
-    (``sharded``).  Prints
+    (``sharded``); K1's binary branch with the maxsum rates (``k1``) and
+    K10 with the tables/s (``dpop``), each with a sweep of its launch
+    shape in this tree.  Prints
     one JSON line a row, tagged with the turn and the tree, and writes
     them to ``ab_sharded.jsonl`` in the output directory."""
     rows = []
@@ -2221,8 +2418,9 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip()
     if sys.argv[1:2] == ["--ab"]:
         # python3 chip_smoke.py --ab PARENT_TREE [SECTIONS]: the A/B of
-        # K1-mixed, of K6, of K4, of K5 and of the sharded kernels (SECTIONS,
-        # comma-separated, default all), no other phase, no result lines
+        # K1 binary, of K1-mixed, of K6, of K4, of K5, of K10 and of the
+        # sharded kernels (SECTIONS, comma-separated, default all), no
+        # other phase, no result lines
         sections = (sys.argv[3].split(",") if len(sys.argv) > 3
                     else AB_SECTIONS)
         if not set(sections) <= set(AB_SECTIONS):
@@ -2252,19 +2450,35 @@ def main():
             unequal_domains_tensors(5000, 15_000, 4, dev)),
     }
     main_err = 0.0
-    for name, pg in cases.items():
+
+    def k1_checks(name, pg):
+        """K1 binary on ``pg``: 20 cycles at damping 0.5 and 0 (the error
+        and tie counts), then every grid and cycle count of
+        k1_binary_vs_plain, all equal to the plain version."""
+        nonlocal main_err
         if pg is None:
             fail("kernel_vs_plain", f"{name} did not pack")
         for damping in (0.5, 0.0):
             try:
-                err, ties = kernel_vs_plain(pg, damping)
+                err, ties = kernel_vs_plain(pg, damping, exact=True)
             except AssertionError as e:
                 fail("kernel_vs_plain", f"{name} damping={damping}: {e}")
             if name == "coloring_10k_30k":
                 main_err = max(main_err, err)
             say("kernel_vs_plain", case=name, damping=damping, D=pg.D,
                 N=pg.N, Vp=pg.Vp, max_deg=int(pg.col_deg.max()),
-                max_abs_err=err, near_tie_value_diffs=ties)
+                blocks=k1_grid(pg), max_abs_err=err,
+                near_tie_value_diffs=ties)
+        try:
+            runs = k1_binary_vs_plain(pg)
+        except AssertionError as e:
+            fail("kernel_vs_plain", f"{name} grids/cycles: {e}")
+        say("kernel_vs_plain", case=name, grids=list(COOP_GRIDS),
+            cycles=list(K1_CHECK_CYCLES), dampings=[0.5, 0.0], runs=runs,
+            equal=True)
+
+    for name, pg in cases.items():
+        k1_checks(name, pg)
 
     cases["hard_coloring_10k_30k"] = pack_for_gpu(
         hard_coloring_tensors(10_000, 30_000, dev))
@@ -2298,6 +2512,8 @@ def main():
     big_t = compile_binary_from_arrays(
         *big_arrays[:3], 100_000, unary=big_arrays[3], device=dev)
     big = pack_for_gpu(big_t)
+    k1_checks("hard_coloring_10k_30k", cases["hard_coloring_10k_30k"])
+    k1_checks("coloring_100k_300k", big)
     mgm2_err = 0.0
     for name, pg in list(cases.items()) + [("coloring_100k_300k", big)]:
         pm = pack_mgm2_from_pls(pack_from_pg(pg))
@@ -2344,7 +2560,8 @@ def main():
             dpop_packed[name] = (dcop, ps)
         say("dpop_kernel_vs_plain", case=name, n_nodes=ps.n_nodes, D=ps.D,
             L=ps.L, Bmax=plan.Bmax, max_children=ps.max_children,
-            roots=len(tree.roots), mode=ps.mode, max_abs_err=err,
+            roots=len(tree.roots), mode=ps.mode, blocks=dpop_grid(ps),
+            grids=list(COOP_GRIDS), max_abs_err=err,
             build_dcop_s=round(build_s, 3),
             tree_compile_pack_s=round(prep_s, 3))
         del tree, plan, ps
@@ -2524,11 +2741,11 @@ def main():
     jax_keys = {"status", "assignment", "cost", "violation", "cycle",
                 "msg_count", "msg_size", "time", "harness", "config"}
     main_launches = {}
-    # MGM, the DSA family and MGM-2: one launch a chunk of the harness
-    # (two chunks of 100 cycles)
+    # MaxSum, MGM, the DSA family and MGM-2: one launch a chunk of the
+    # harness (two chunks of 100 cycles)
     chunk_launches = -(-cycles // default_chunk(cycles, None, cycles))
     for algo, expect in (
-            ("maxsum", {"packed_maxsum_cycle": cycles}),
+            ("maxsum", {"packed_maxsum_cycle": chunk_launches}),
             ("mgm", {"mgm": chunk_launches}),
             *((a, {"dsa": chunk_launches}) for a in DSA_ALGOS),
             ("mgm2", {"mgm2": chunk_launches})):
@@ -2571,7 +2788,7 @@ def main():
             say(phase + "_breakdown", algo=algo, nvidia_smi=smi,
                 **breakdown(dcop, algo, cycles, dev))
 
-    # dpop on the bench's 10k-node tree: one whole sweep, L + L launches
+    # dpop on the bench's 10k-node tree: one whole sweep, one launch
     from pydcop_tpu_torch.graph import pseudotree
 
     tree_dcop_10k = dpop_packed["bench_tree_10k"][0]
@@ -2583,12 +2800,11 @@ def main():
     solve_s = time.perf_counter() - t0
     counts = read_counts()
     want = {k: 0 for k in counts}
-    want.update(dpop_util_level=L, dpop_value_level=L)
+    want.update(dpop_whole_sweep=1)
     if counts != want:
         fail("main_path_dpop", f"launches {counts} in one dpop solve, "
              f"expected {want}")
-    main_launches.update(dpop_whole_sweep=counts["dpop_util_level"]
-                         + counts["dpop_value_level"])
+    main_launches.update(dpop_whole_sweep=counts["dpop_whole_sweep"])
     cpu = solve_result(tree_dcop_10k, "dpop", device="cpu")
     dpop_keys = jax_keys - {"harness"}
     keys = set(res.metrics())
@@ -2933,10 +3149,13 @@ def main():
     for name, pg in sizes.items():
         ms, plain, bound, by, nbytes, device_us = time_kernel(pg)
         timing[name, "packed_maxsum_cycle"] = (ms, plain, bound, by)
+        blocks_of[name, "packed_maxsum_cycle"] = k1_grid(pg)
         # share of a cycle's wall time (CUDA events) the kernel runs on
-        # the device; the rest is launch overhead and the argmin epilogue
+        # the device; the rest is the argmin epilogue and the host
         say("times", kernel="packed_maxsum_cycle", size=name, N=pg.N,
-            Vp=pg.Vp, kernel_ms=ms, plain_ms=plain, bound_ms=bound,
+            Vp=pg.Vp, launches_per_call=1,
+            blocks=blocks_of[name, "packed_maxsum_cycle"],
+            kernel_ms=ms, plain_ms=plain, bound_ms=bound,
             bound_by=by, bytes_per_cycle=nbytes,
             profiler_kernel_us=device_us,
             kernel_busy_share=device_us / (ms * 1e3) if device_us else None,
@@ -2978,8 +3197,11 @@ def main():
     for name, (_, ps) in dpop_packed.items():
         ms, plain, bound, by, nbytes, device_us = time_dpop(ps)
         timing[name, "dpop_whole_sweep"] = (ms, plain, bound, by)
+        blocks_of[name, "dpop_whole_sweep"] = dpop_grid(ps)
         say("times", kernel="dpop_whole_sweep", size=name,
-            n_nodes=ps.n_nodes, D=ps.D, L=ps.L, launches_per_sweep=2 * ps.L,
+            n_nodes=ps.n_nodes, D=ps.D, L=ps.L, launches_per_sweep=1,
+            barriers_per_sweep=2 * ps.L - 1,
+            blocks=blocks_of[name, "dpop_whole_sweep"],
             kernel_ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
             bytes_per_sweep=nbytes, profiler_kernel_us=device_us,
             kernel_busy_share=(device_us / (ms * 1e3) if device_us
@@ -3170,10 +3392,13 @@ def main():
     sizes_of = {"dpop_whole_sweep": "bench_tree_10k",
                 "packed_shard_fused_ba_act": "10k_30k",
                 "lane_permute": "N30000"}
-    designs = {"packed_maxsum_mixed_cycle": (
-        "one cooperative launch a cycle, two phases: the slots' r' over the "
-        "grid (a ternary or quaternary slot one thread a value), a grid "
-        "barrier, one thread a column"),
+    designs = {
+        "packed_maxsum_cycle": K1_DESIGN,
+        "dpop_whole_sweep": DPOP_DESIGN,
+        "packed_maxsum_mixed_cycle": (
+            "one cooperative launch a cycle, two phases: the slots' r' over "
+            "the grid (a ternary or quaternary slot one thread a value), a "
+            "grid barrier, one thread a column"),
         "packed_mgm2_cycles": MGM2_DESIGN,
         "packed_mgm2_cycles_mixed": MGM2_DESIGN,
         "packed_mgm_cycles": MGM_DESIGN,

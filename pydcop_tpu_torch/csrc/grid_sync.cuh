@@ -1,7 +1,8 @@
 // The grid barriers of the port's cooperative launches and the capacity
 // query that sizes them: grid_barrier for packed_maxsum.cu (K1's mixed
-// branch) and sharded.cu (K7), word_barrier for mgm2.cu (K6) and
-// local_search.cu (K4).  A cooperative launch
+// branch) and sharded.cu (K7), word_barrier for packed_maxsum.cu (K1's
+// binary branch), mgm2.cu (K6), local_search.cu (K4, K5) and
+// dpop_sweep.cu (K10).  A cooperative launch
 // (cudaLaunchCooperativeKernel) keeps every block of its grid resident,
 // or is refused, so the blocks may wait for one another here.
 #pragma once
@@ -60,16 +61,16 @@ __device__ __forceinline__ void word_barrier(unsigned* bar) {
 }
 
 // The resident-block capacity of a cooperative kernel launched with
-// `threads` threads a block on the current device (0 when it cannot be
-// asked).
-inline int coop_capacity(const void* kernel, int threads) {
+// `threads` threads a block and `shared` bytes of dynamic shared memory
+// on the current device (0 when it cannot be asked).
+inline int coop_capacity(const void* kernel, int threads, size_t shared = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
       cudaSuccess)
     return 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess)
+                                                    shared) != cudaSuccess)
     return 0;
   return sms * per_sm;
 }

@@ -22,16 +22,17 @@ TPU machinery and are gone: :func:`pack_sweep` refuses only what the math
 needs (W != 1, or a separator that is not the parent).
 
 :func:`whole_sweep` launches the hand-written CUDA kernel
-(``csrc/dpop_sweep.cu``: L UTIL launches then L VALUE launches, all from
-one host call) on CUDA tensors, and runs :func:`whole_sweep_plain`, the
-same arithmetic in the same order in torch ops, only on CPU tensors.  A
-build or launch failure on CUDA raises; nothing falls back.
+(``csrc/dpop_sweep.cu``: ONE cooperative launch a sweep that walks the L
+UTIL levels, then the L VALUE levels, a grid barrier between consecutive
+levels) on CUDA tensors, and runs :func:`whole_sweep_plain`, the same
+arithmetic in the same order in torch ops, only on CPU tensors.  A build
+or launch failure on CUDA raises; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +43,11 @@ from pydcop_tpu_torch.ops.segments import SegmentPlan
 #: the kernel keeps a node's D values in one block (and D <= 1024 always
 #: holds for a plan compile_sweep accepts at W = 1: D*D <= 2**20)
 MAX_D = 1024
+#: the sweep kernel's most blocks, chosen from a sweep on an H100
+#: (PERF.md, K10): a sweep meets 2L - 1 grid barriers, and a barrier over
+#: few blocks is short, but a block takes its share of a level's tiles one
+#: after the other (the capacity also caps the grid)
+SWEEP_GRID_CAP = 264
 
 
 @dataclass(eq=False)
@@ -59,6 +65,8 @@ class PackedDpopSweep:
     #: [L + 1] i32, host: level l holds gids [level_start[l],
     #: level_start[l + 1])
     level_start: np.ndarray
+    #: the same on the device, for the kernel
+    level_start_dev: torch.Tensor
     max_children: int
     #: plain version's per-level child-sum plans, built at its first call
     _plans: Optional[list] = field(default=None, repr=False)
@@ -118,6 +126,7 @@ def pack_sweep(plan: DpopSweepPlan) -> Optional[PackedDpopSweep]:
         table=table.reshape(N, D, D).contiguous(),
         child_ptr=put(child_ptr), child_idx=put(child_idx),
         parent=put(parent), level_start=level_start,
+        level_start_dev=put(level_start),
         max_children=int(counts.max(initial=0)),
     )
 
@@ -189,15 +198,40 @@ def _kernel():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn = load("dpop_sweep").dpop_whole_sweep
         fn.restype = ctypes.c_int
-        fn.argtypes = [P] * 5 + [I] * 3 + [P] * 5
+        fn.argtypes = [P] * 6 + [I] * 3 + [P] * 3 + [I, P, P]
         _fn.append(fn)
     return _fn[0]
+
+
+def _capacity(D: int, mode: str) -> Tuple[int, int]:
+    """(resident blocks, threads a block) of the sweep kernel at domain
+    size ``D`` on the current CUDA device (0 blocks when the device cannot
+    be asked); a block's threads are a UTIL tile's (node, value) pairs."""
+    from pydcop_tpu_torch.ops.cuda_build import load
+
+    fn = load("dpop_sweep").dpop_sweep_capacity
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    threads = ctypes.c_int(0)
+    blocks = fn(D, int(mode == "max"), ctypes.byref(threads))
+    return int(blocks), int(threads.value)
+
+
+def sweep_blocks(ps: PackedDpopSweep, capacity: int, threads: int) -> int:
+    """Blocks of one sweep launch: the UTIL tiles (``threads // D`` nodes
+    each) of the widest level, at most ``capacity`` and
+    :data:`SWEEP_GRID_CAP`, at least 1 (every level is a grid-stride
+    loop)."""
+    widest = int(np.diff(ps.level_start).max())
+    tiles = -(-widest // max(1, threads // ps.D))
+    return max(1, min(capacity, tiles, SWEEP_GRID_CAP))
 
 
 def _on_cuda(ps: PackedDpopSweep) -> bool:
     """True when the packed sweep lies on CUDA (launch the kernel), False
     on the CPU (run the plain version)."""
-    for name in ("table", "child_ptr", "child_idx", "parent"):
+    for name in ("table", "child_ptr", "child_idx", "parent",
+                 "level_start_dev"):
         t = getattr(ps, name)
         if t.device != ps.device:
             raise ValueError(f"{name} is on {t.device}, the table on "
@@ -219,42 +253,64 @@ def _on_cuda(ps: PackedDpopSweep) -> bool:
             or not ps.level_start.flags.c_contiguous:
         raise ValueError("level_start must be a contiguous int32 [L + 1] "
                          "host array")
+    if ps.level_start_dev.dtype != torch.int32 \
+            or tuple(ps.level_start_dev.shape) != (ps.L + 1,):
+        raise ValueError("level_start_dev must be int32 [L + 1]")
     return True
 
 
-def whole_sweep(ps: PackedDpopSweep):
+def whole_sweep(ps: PackedDpopSweep, blocks: Optional[int] = None):
     """(assign [n_nodes] int32, msg [n_nodes, D], cs [n_nodes, D]) of one
-    whole sweep.  On CUDA: one host call that launches the kernel's L
-    UTIL and L VALUE levels (``whole_sweep.util_launches`` and
-    ``.value_launches`` add the launches the kernel's host code reports
-    having made); on the CPU: the plain version."""
+    whole sweep.  On CUDA: one cooperative launch of the kernel that walks
+    every UTIL and VALUE level (``whole_sweep.launches`` adds one a
+    sweep), at ``blocks`` blocks when given (1 up to the kernel's
+    capacity), else at those of :func:`sweep_blocks`; its barrier word is
+    allocated zeroed by this call and shared with no other.  On the CPU: the plain
+    version, and ``blocks`` has no use."""
     if not _on_cuda(ps):
         return whole_sweep_plain(ps)
+    return _launch_sweep(ps, blocks)
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_sweep(ps: PackedDpopSweep, blocks: Optional[int]):
+    """:func:`whole_sweep` on a checked CUDA sweep: the kernel's one
+    launch, or RuntimeError."""
+    capacity, threads = _capacity(ps.D, ps.mode)
+    if capacity <= 0:
+        raise RuntimeError("dpop_whole_sweep: the device reports no "
+                           "resident block for the cooperative launch")
+    if blocks is None:
+        blocks = sweep_blocks(ps, capacity, threads)
+    elif not 1 <= blocks <= capacity:
+        raise ValueError(f"dpop_whole_sweep: {blocks} blocks, the capacity "
+                         f"is {capacity}")
     f = dict(dtype=torch.float32, device=ps.device)
     msg = torch.empty((ps.n_nodes, ps.D), **f)
     cs = torch.empty((ps.n_nodes, ps.D), **f)
     assign = torch.empty(ps.n_nodes, dtype=torch.int32, device=ps.device)
-    launched = (ctypes.c_int * 2)(0, 0)
+    bar = torch.zeros(1, dtype=torch.int32, device=ps.device)
     err = _kernel()(
         ps.table.data_ptr(), ps.child_ptr.data_ptr(),
         ps.child_idx.data_ptr(), ps.parent.data_ptr(),
-        ps.level_start.ctypes.data, ps.L, ps.D, int(ps.mode == "max"),
-        msg.data_ptr(), cs.data_ptr(), assign.data_ptr(), launched,
-        torch.cuda.current_stream(ps.device).cuda_stream)
-    whole_sweep.util_launches += launched[0]
-    whole_sweep.value_launches += launched[1]
+        ps.level_start_dev.data_ptr(), ps.level_start.ctypes.data, ps.L,
+        ps.D, int(ps.mode == "max"), msg.data_ptr(), cs.data_ptr(),
+        assign.data_ptr(), blocks, bar.data_ptr(), _stream(ps.device))
     if err != 0:
         raise RuntimeError(f"dpop_whole_sweep launch failed: CUDA error "
                            f"{err}")
+    whole_sweep.launches += 1
     return assign, msg, cs
 
 
-whole_sweep.util_launches = 0
-whole_sweep.value_launches = 0
+whole_sweep.launches = 0
 
 
 def reset_launches() -> None:
-    whole_sweep.util_launches = whole_sweep.value_launches = 0
+    whole_sweep.launches = 0
 
 
 def whole_sweep_values(ps: PackedDpopSweep) -> torch.Tensor:

@@ -31,13 +31,16 @@ re-laid for a GPU:
   the Pallas kernel's contract.
 
 :func:`packed_cycles` launches the hand-written CUDA kernel
-(``csrc/packed_maxsum.cu``, one launch per cycle: one thread a column on
-the binary layout; on the mixed layout one cooperative launch of two
-phases, the slots' r' spread over the grid — a ternary or quaternary slot
-one thread a value — then a grid barrier and one thread a column) on CUDA
-tensors and runs :func:`packed_cycles_plain`, the same arithmetic in torch
-ops, only on CPU tensors.  A build or launch failure on CUDA raises;
-nothing falls back.
+(``csrc/packed_maxsum.cu``) on CUDA tensors: on the binary layout ONE
+cooperative launch a call that runs all its cycles, each degree class cut
+into tiles of neighbouring columns (:func:`tile_table`), a block's tile
+r' of every (rank, column) unit, then the columns' beliefs, then q' of the
+units, and a grid barrier between cycles; on the mixed layout one
+cooperative launch a cycle of two phases, the slots' r' spread over the
+grid — a ternary or quaternary slot one thread a value — then a grid
+barrier and one thread a column.  It runs :func:`packed_cycles_plain`, the
+same arithmetic in torch ops, only on CPU tensors.  A build or launch
+failure on CUDA raises; nothing falls back.
 
 Engine choice (:func:`solver_layout`, the solvers' ``use_packed``): an
 all-binary graph packs on every device; a mixed-arity graph packs by
@@ -50,7 +53,7 @@ a mixed graph on the CPU too, through the plain versions.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -66,6 +69,13 @@ MAX_D = 8
 MAX_D_NARY = 5
 #: factor arities the mixed layout takes
 ARITIES = (1, 2, 3, 4)
+#: the binary kernel's launch shape, chosen from a sweep on an H100 (PERF.md,
+#: K1): threads a block, columns a tile at most (no more than the threads),
+#: and blocks at most (fewer blocks meet at a grid barrier sooner; the
+#: capacity also caps the grid)
+BINARY_THREADS = 256
+TILE_COLS = 64
+BINARY_GRID_CAP = 264
 
 
 @dataclass
@@ -118,6 +128,10 @@ class PackedMaxSumGraph:
     slot_of_edge: np.ndarray = None
     #: the mixed-arity slot arrays; None on the all-binary layout
     mixed: Optional[MixedSlots] = None
+    #: the binary kernel's tile tables on the layout's device, by tile
+    #: width, built at the first launch (:func:`tile_table`)
+    tile_tables: Dict[int, torch.Tensor] = field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -488,7 +502,7 @@ _kernel_fns = {}
 def _kernel(mixed: bool):
     """The C entry of ``csrc/packed_maxsum.cu`` for the binary or the
     mixed layout, built and bound once."""
-    name = "packed_maxsum_mixed_cycle" if mixed else "packed_maxsum_cycle"
+    name = "packed_maxsum_mixed_cycle" if mixed else "packed_maxsum_coop"
     if name not in _kernel_fns:
         from pydcop_tpu_torch.ops.cuda_build import load
 
@@ -496,7 +510,7 @@ def _kernel(mixed: bool):
         fn = getattr(load("packed_maxsum"), name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([P] * 22 + [I] * 9 + [F, F, I, P, P] if mixed
-                       else [P] * 13 + [I] * 3 + [F, F, I, P])
+                       else [P] * 12 + [I] * 8 + [F, F, I, P, P])
         _kernel_fns[name] = fn
     return _kernel_fns[name]
 
@@ -514,6 +528,18 @@ def _capacity(D: int) -> Tuple[int, int]:
     return int(fn(D, ctypes.byref(threads))), int(threads.value)
 
 
+def _binary_capacity(D: int, threads: int, cols: int) -> int:
+    """Resident blocks of the binary kernel at domain size ``D``, with
+    ``threads`` threads a block and tiles of up to ``cols`` columns, on the
+    current CUDA device (0 when the device cannot be asked)."""
+    from pydcop_tpu_torch.ops.cuda_build import load
+
+    fn = load("packed_maxsum").packed_maxsum_binary_capacity
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return int(fn(D, threads, cols))
+
+
 def mixed_work(pg: PackedMaxSumGraph) -> int:
     """Phase 1's work units of the mixed kernel: one a unary or binary
     slot, D a ternary or quaternary slot (one a value)."""
@@ -529,14 +555,57 @@ def mixed_blocks(pg: PackedMaxSumGraph, capacity: int, threads: int) -> int:
     return max(1, min(capacity, need))
 
 
-def _layout_args(pg: PackedMaxSumGraph):
-    """The layout operands of one launch, after its state operands."""
-    if pg.mixed is None:
-        return (pg.cost_rows.data_ptr(), pg.unary_p.data_ptr(),
-                pg.vmask.data_ptr(), pg.inv_dcount.data_ptr(),
-                pg.mate.data_ptr(), pg.col_deg.data_ptr(),
-                pg.col_slot0.data_ptr(), pg.col_stride.data_ptr(),
-                pg.D, pg.N, pg.Vp)
+def tile_table(pg: PackedMaxSumGraph, cols: int) -> np.ndarray:
+    """The binary kernel's tiles, ``[n_tiles, 5]`` int32 rows (first
+    column, width, degree, slot of the first column's rank 0, slot stride
+    between ranks): each degree class of ``pg.buckets`` cut into runs of
+    up to ``cols`` neighbouring columns, whose slots at one rank are
+    contiguous, and each run of degree-0 columns (in no class) likewise,
+    with degree 0 (their beliefs are their unary costs).  Every column
+    lies in one tile, and every slot in one (rank, column) unit of one.
+    Built from the host-side classes alone."""
+    runs = np.array([(voff, nv, deg, soff, nv)
+                     for deg, nv, voff, soff in pg.buckets],
+                    dtype=np.int64).reshape(-1, 5)
+    free = np.ones(pg.Vp, dtype=bool)
+    for voff, nv in runs[:, :2]:
+        free[voff:voff + nv] = False
+    free = np.flatnonzero(free)
+    if free.size:
+        cut = np.flatnonzero(np.diff(free) != 1) + 1
+        runs = np.concatenate([runs, [(r[0], len(r), 0, 0, 0)
+                                      for r in np.split(free, cut)]])
+    runs = runs[np.argsort(runs[:, 0])]
+    # tile x of a run starts x * cols columns into it
+    per_run = -(-runs[:, 1] // cols)
+    rows = np.repeat(runs, per_run, axis=0)
+    skip = (np.arange(len(rows))
+            - np.repeat(np.cumsum(per_run) - per_run, per_run)) * cols
+    rows[:, 0] += skip
+    rows[:, 1] = np.minimum(cols, rows[:, 1] - skip)
+    rows[:, 3] = np.where(rows[:, 2] > 0, rows[:, 3] + skip, 0)
+    return rows.astype(np.int32)
+
+
+def _tiles(pg: PackedMaxSumGraph, cols: int) -> torch.Tensor:
+    """:func:`tile_table` at ``cols`` on the layout's device, built once
+    per layout and width."""
+    if cols not in pg.tile_tables:
+        pg.tile_tables[cols] = torch.as_tensor(tile_table(pg, cols),
+                                               device=pg.device)
+    return pg.tile_tables[cols]
+
+
+def binary_blocks(n_tiles: int, capacity: int) -> int:
+    """Blocks of one binary launch: one a tile, at most ``capacity`` and
+    :data:`BINARY_GRID_CAP`, at least 1 (blocks take tiles
+    grid-stride)."""
+    return max(1, min(capacity, n_tiles, BINARY_GRID_CAP))
+
+
+def _mixed_layout_args(pg: PackedMaxSumGraph):
+    """The mixed layout's operands of one launch, after its state
+    operands."""
     m = pg.mixed
     return (*(c.data_ptr() for c in m.costs),
             *(sl.data_ptr() for sl in m.slots), pg.mate.data_ptr(),
@@ -553,18 +622,21 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
 
 def packed_cycles(
     pg: PackedMaxSumGraph, q: torch.Tensor, r: torch.Tensor,
-    n_cycles: int, damping: float = 0.0,
+    n_cycles: int, damping: float = 0.0, blocks: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """``n_cycles`` MaxSum cycles on the packed layout; returns (q', r',
     beliefs [D, Vp], values [Vp] in variable order) after the last cycle.
 
-    On CUDA tensors this launches the hand-written kernel once per cycle
-    on the current stream (``packed_cycles.launches`` counts the binary
-    kernel's launches, ``packed_cycles.mixed_launches`` the mixed
-    kernel's); on CPU tensors it runs :func:`packed_cycles_plain`.  The
-    inputs are not modified: q is double-buffered in fresh tensors, and r
-    goes to a fresh tensor at the first launch that the later launches
-    update in place (only its owner thread reads an element of r)."""
+    On CUDA tensors this launches the hand-written kernel on the current
+    stream: on the binary layout one cooperative launch that runs every
+    cycle (``packed_cycles.launches`` adds one a call; ``blocks`` forces
+    its grid, 1 up to the kernel's capacity), on the mixed layout one
+    launch a cycle (``packed_cycles.mixed_launches``; ``blocks`` is
+    refused there).  On CPU tensors it runs :func:`packed_cycles_plain`,
+    and ``blocks`` has no use.  The inputs are not modified: q' goes to
+    fresh tensors, double-buffered by cycle, and r' to a fresh tensor at
+    the first cycle that the later cycles update in place (each element
+    of r is read and written by its one owner)."""
     if n_cycles < 1:
         raise ValueError(f"n_cycles must be >= 1, got {n_cycles}")
     _check(pg, "q", q)
@@ -575,27 +647,74 @@ def packed_cycles(
         raise ValueError(f"packed_cycles runs on cuda or cpu, not {q.device}")
     if not 1 <= pg.D <= MAX_D:
         raise ValueError(f"the packed kernel takes D in [1, {MAX_D}]")
-    return _launch_cycles(pg, q, r, n_cycles, damping)
+    return _launch_cycles(pg, q, r, n_cycles, damping, blocks)
 
 
 def _launch_cycles(pg: PackedMaxSumGraph, q: torch.Tensor, r: torch.Tensor,
-                   n_cycles: int, damping: float):
+                   n_cycles: int, damping: float,
+                   blocks: Optional[int] = None):
     """:func:`packed_cycles` on CUDA tensors: the kernel's launches, or
-    RuntimeError.  The mixed kernel's grid barrier takes two words that
-    this call allocates zeroed and no other call shares."""
-    mixed = pg.mixed is not None
-    fn = _kernel(mixed)
-    layout = _layout_args(pg)
-    tail = ()
-    if mixed:
-        capacity, threads = _capacity(pg.D)
-        if capacity <= 0:
-            raise RuntimeError(
-                "packed_maxsum mixed cycle: the device reports no resident "
-                "block for the cooperative launch")
-        layout += (mixed_work(pg), mixed_blocks(pg, capacity, threads))
-        bar = torch.zeros(2, dtype=torch.int32, device=q.device)
-        tail = (bar.data_ptr(),)
+    RuntimeError."""
+    if pg.mixed is None:
+        return _launch_binary(pg, q, r, n_cycles, damping, blocks)
+    if blocks is not None:
+        raise ValueError("blocks= forces the binary kernel's grid; the "
+                         "mixed kernel sizes its own")
+    return _launch_mixed(pg, q, r, n_cycles, damping)
+
+
+def _launch_binary(pg: PackedMaxSumGraph, q: torch.Tensor, r: torch.Tensor,
+                   n_cycles: int, damping: float, blocks: Optional[int]):
+    """The binary kernel's one cooperative launch for all ``n_cycles``
+    cycles, at ``blocks`` blocks (1 up to the capacity) or at those of
+    :func:`binary_blocks`.  Its barrier word is allocated zeroed by this
+    call and shared with no other; the result's q' is the buffer of cycle
+    n - 1."""
+    threads, cols = BINARY_THREADS, TILE_COLS
+    tiles = _tiles(pg, cols)
+    capacity = _binary_capacity(pg.D, threads, cols)
+    if capacity <= 0:
+        raise RuntimeError("packed_maxsum_coop: the device reports no "
+                           "resident block for the cooperative launch")
+    if blocks is None:
+        blocks = binary_blocks(tiles.shape[0], capacity)
+    elif not 1 <= blocks <= capacity:
+        raise ValueError(f"packed_maxsum_coop: {blocks} blocks, the "
+                         f"capacity is {capacity}")
+    bufs = [torch.empty_like(q), torch.empty_like(q)]
+    r_out = torch.empty_like(r)
+    beliefs = torch.empty((pg.D, pg.Vp), dtype=torch.float32,
+                          device=q.device)
+    bar = torch.zeros(1, dtype=torch.int32, device=q.device)
+    err = _kernel(False)(
+        q.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), r.data_ptr(),
+        r_out.data_ptr(), beliefs.data_ptr(), pg.cost_rows.data_ptr(),
+        pg.unary_p.data_ptr(), pg.vmask.data_ptr(),
+        pg.inv_dcount.data_ptr(), pg.mate.data_ptr(), tiles.data_ptr(),
+        tiles.shape[0], cols, pg.D, pg.N, pg.Vp, n_cycles, blocks, threads,
+        float(damping), float(1.0 - damping), 1 if damping else 0,
+        bar.data_ptr(), _stream(q))
+    if err != 0:
+        raise RuntimeError(f"packed_maxsum_coop launch failed: CUDA error "
+                           f"{err}")
+    packed_cycles.launches += 1
+    out = bufs[(n_cycles - 1) % 2]
+    return out, r_out, beliefs, packed_values(pg, beliefs)
+
+
+def _launch_mixed(pg: PackedMaxSumGraph, q: torch.Tensor, r: torch.Tensor,
+                  n_cycles: int, damping: float):
+    """The mixed kernel's launches, one a cycle.  Its grid barrier takes
+    two words that this call allocates zeroed and no other call shares."""
+    fn = _kernel(True)
+    capacity, threads = _capacity(pg.D)
+    if capacity <= 0:
+        raise RuntimeError(
+            "packed_maxsum mixed cycle: the device reports no resident "
+            "block for the cooperative launch")
+    layout = _mixed_layout_args(pg) + (
+        mixed_work(pg), mixed_blocks(pg, capacity, threads))
+    bar = torch.zeros(2, dtype=torch.int32, device=q.device)
     bufs = [torch.empty_like(q), torch.empty_like(q)]
     r_out = torch.empty_like(r)
     beliefs = torch.empty((pg.D, pg.Vp), dtype=torch.float32,
@@ -608,16 +727,13 @@ def _launch_cycles(pg: PackedMaxSumGraph, q: torch.Tensor, r: torch.Tensor,
         err = fn(
             q_in.data_ptr(), q_out.data_ptr(), r_in.data_ptr(),
             r_out.data_ptr(), beliefs.data_ptr(), *layout,
-            float(damping), float(1.0 - damping), use_damping, *tail, stream,
+            float(damping), float(1.0 - damping), use_damping,
+            bar.data_ptr(), stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"packed_maxsum {'mixed ' if mixed else ''}cycle launch "
-                f"failed: CUDA error {err}")
-        if mixed:
-            packed_cycles.mixed_launches += 1
-        else:
-            packed_cycles.launches += 1
+                f"packed_maxsum mixed cycle launch failed: CUDA error {err}")
+        packed_cycles.mixed_launches += 1
         q_in, r_in = q_out, r_out
     return q_in, r_out, beliefs, packed_values(pg, beliefs)
 

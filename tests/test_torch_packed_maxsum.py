@@ -216,9 +216,8 @@ def test_kernel_matches_plain_on_gpu(name):
     q, r = packed_init_state(pg)
     before = packed_cycles.launches
     kq, kr, kb, kv = packed_cycles(pg, q, r, 20, damping=0.5)
-    assert packed_cycles.launches == before + 20
+    assert packed_cycles.launches == before + 1
     pq, pr, pb, pv = packed_cycles_plain(pg, q, r, 20, damping=0.5)
     torch.cuda.synchronize()
-    for a, b in ((kq, pq), (kr, pr), (kb, pb)):
-        assert torch.all((a - b).abs() <= 1e-4 * (1 + b.abs()))
-    assert torch.equal(kv, pv)
+    for a, b in ((kq, pq), (kr, pr), (kb, pb), (kv, pv)):
+        assert torch.equal(a, b)
