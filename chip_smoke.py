@@ -141,10 +141,34 @@ printed.
    colouring (200 K7-activation launches) and on SECP-3.9k (200 of the
    mixed kernel's activation branch), each equal to the CPU run;
    instances: every test instance solved on the card and on the CPU by
-   every algorithm of the port: assignment, cost and stop cycle must be
-   equal (a mixed-arity instance, except by dba and gdba: against the
-   CPU run with ``use_packed=True``, the card's engine; the CPU default,
-   the generic engine, is printed beside it);
+   every algorithm of the port (all 14): assignment, cost and stop cycle
+   must be equal (a mixed-arity instance, except by dpop, dba, gdba,
+   syncbb and ncbb: against the CPU run with ``use_packed=True``, the
+   card's engine; the CPU default, the generic engine, is printed beside
+   it);
+   search_host: syncbb's and ncbb's host loops for ``device="cuda"``
+   against ``device="cpu"`` on the six test instances and the seeded
+   integer chain/hub/dense instances, min and max: cost and assignment
+   equal;
+   search_frontier: the frontier engine (``pydcop_tpu_torch/search``,
+   PyTorch tensor code on the card, no kernel of its own) on the JAX
+   bench's two anytime-search instances (k10x4: a 10-clique at D=4,
+   i_bound 0; k11x3_ib2: two 11-cliques at D=3, i_bound 2), width 256, 8
+   steps a chunk: optimal, cost equal to the port's NCBB, cost,
+   assignment and per-chunk history equal to the CPU frontier's, the
+   bound sandwich and a monotone incumbent; its first chunks run with
+   ``torch.cuda.set_sync_debug_mode("error")`` around the chunk call
+   (one host read a chunk, after it); nodes/s, chunks and time to the
+   proof beside the CPU run's;
+   search_dpop_frontier: ``solve -a dpop -p engine:frontier`` and
+   ``solve --anytime-exact`` through the CLI on k10x4: cost equal to the
+   sweep's;
+   maxsum_dynamic: 100 cycles, 100 seeded factor swaps, 100 cycles on
+   the 10k/30k colouring (swapped in place: 2 K1 launches, the layout's
+   ``cost_rows`` equal to a fresh pack, K1 on it ``torch.equal`` to its
+   plain version) and on SECP-3.9k (re-packed: 200 K1-mixed launches);
+   values and cost equal to the CPU run of the same sequence, the swap's
+   host ms beside the re-pack's;
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
    of launches, after warm-up; MGM-2, MGM and DSA: 200 cycles of one
    call, device time a launch's over its cycles, the grid) at 10k/30k
@@ -2386,6 +2410,430 @@ def lane_permute_vs_plain_and_times(N, S=3, reps=200):
                      profiler_kernel_us=device_us)
 
 
+#: the JAX bench's two anytime-search instances (bench.py
+#: build_search_dcop): name -> (K, R, D, seed, i_bound)
+SEARCH_CASES = {"k10x4": (10, 1, 4, 3, 0), "k11x3_ib2": (11, 2, 3, 7, 2)}
+#: the frontier's shape on them, as the JAX bench runs them
+SEARCH_WIDTH, SEARCH_STEPS = 256, 8
+#: chunks run with torch.cuda.set_sync_debug_mode("error") around the
+#: chunk call, the one read after it
+SEARCH_SYNC_CHUNKS = 20
+
+
+def search_dcop(K, R, D, seed):
+    """``R`` cliques of ``K`` variables at domain ``D`` with integer
+    costs in [0, 10) (bench.py build_search_dcop), built with the port's
+    DCOP objects: induced width K - 1."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        AgentDef,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    rng = np.random.default_rng(seed)
+    dcop = DCOP("search_bench", objective="min")
+    dom = Domain("d", "vals", list(range(D)))
+    k = 0
+    for r in range(R):
+        vs = [Variable(f"b{r}v{i:02d}", dom) for i in range(K)]
+        for v in vs:
+            dcop.add_variable(v)
+        for i in range(K):
+            for j in range(i + 1, K):
+                m = rng.integers(0, 10, (D, D)).astype(float)
+                dcop.add_constraint(
+                    NAryMatrixRelation([vs[i], vs[j]], m, name=f"c{k}"))
+                k += 1
+    dcop.add_agents([AgentDef("a0")])
+    return dcop
+
+
+def seeded_search_dcop(shape, seed, n, D=3, objective="min"):
+    """The seeded integer chain/hub/dense instances of
+    ``tests/unit/test_search.py::make_dcop``, with the port's classes."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        AgentDef,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    edges = {"chain": [(i, i + 1) for i in range(n - 1)],
+             "hub": [(0, i) for i in range(1, n)],
+             "dense": [(i, j) for i in range(n) for j in range(i + 1, n)]}
+    rng = np.random.default_rng(seed)
+    dcop = DCOP(f"{shape}-{seed}", objective=objective)
+    dom = Domain("d", "v", list(range(D)))
+    vs = [Variable(f"v{i:02d}", dom) for i in range(n)]
+    for v in vs:
+        dcop.add_variable(v)
+    for k, (i, j) in enumerate(edges[shape]):
+        m = rng.integers(0, 97, (D, D)).astype(float)
+        dcop.add_constraint(NAryMatrixRelation([vs[i], vs[j]], m,
+                                               name=f"c{k}"))
+    dcop.add_agents([AgentDef("a0")])
+    return dcop
+
+
+def search_host_phase(device="cuda"):
+    """syncbb and ncbb's host loops for ``device`` against the same runs
+    for device="cpu": the six test instances and the seeded
+    chain/hub/dense instances, min and max; cost and assignment equal."""
+    from pydcop_tpu_torch.algorithms import ncbb, syncbb
+    from pydcop_tpu_torch.dcop import load_dcop_from_file
+
+    inst = os.path.join(ROOT, "tests", "instances")
+    cases = {fn[:-5]: (lambda fn=fn: load_dcop_from_file(
+        [os.path.join(inst, fn)])) for fn in sorted(os.listdir(inst))}
+    for shape in ("chain", "hub", "dense"):
+        for seed in (1, 2, 3):
+            for objective in ("min", "max"):
+                cases[f"{shape}-{seed}-{objective}"] = (
+                    lambda s=shape, e=seed, o=objective: seeded_search_dcop(
+                        s, e, 7 if s == "dense" else 9, objective=o))
+    runs = 0
+    for name, build in cases.items():
+        for mod in (syncbb, ncbb):
+            algo = mod.__name__.rsplit(".", 1)[1]
+            card = mod.build_solver(build(), device=device).run()
+            cpu = mod.build_solver(build(), device="cpu").run()
+            if (card.cost, card.assignment, card.msg_count) != (
+                    cpu.cost, cpu.assignment, cpu.msg_count):
+                fail("search_host", f"{algo} on {name}: card cost "
+                     f"{card.cost} != CPU {cpu.cost} (same assignment: "
+                     f"{card.assignment == cpu.assignment})")
+            runs += 1
+    say("search_host", instances=len(cases), algos=["syncbb", "ncbb"],
+        runs=runs, equal_to_cpu=True)
+
+
+def frontier_profile(eng, state, chunks=5):
+    """Where a frontier chunk's time goes on the card: the host clock over
+    ``chunks`` chunks (each ending in its one read), and from a
+    torch.profiler trace of the same the device kernels a step launches
+    and their device time, so the card's busy share is device time over
+    wall time.  The annex count is cleared between chunks (the drain's
+    bookkeeping, not its rows, which are not needed here)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(st):
+        for _ in range(chunks):
+            st, stats = eng.run_chunk(st)
+            stats.cpu()
+            st = {**st, "x_count": torch.zeros_like(st["x_count"])}
+        return st
+
+    state = run(state)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run(state)
+    wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(state)
+        torch.cuda.synchronize()
+    kernels = device_us = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us and getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            kernels += e.count
+            device_us += us
+    steps = chunks * eng.shape.steps
+    return {"wall_ms_per_chunk": 1e3 * wall_s / chunks,
+            "device_kernels_per_step": kernels / steps if kernels else None,
+            "device_us_per_chunk": device_us / chunks if device_us
+            else None,
+            "device_busy_share": (device_us * 1e-6 / wall_s if device_us
+                                  else None)}
+
+
+def search_frontier_phase(smi, device="cuda"):
+    """The frontier on the JAX bench's two anytime-search instances, on
+    the card: it proves optimality, its cost equals the port's NCBB host
+    loop, its cost, assignment and per-chunk history equal the CPU
+    frontier's, the lower bound never exceeds the upper bound and the
+    incumbent never rises; a chunk reads the device once (its first
+    SEARCH_SYNC_CHUNKS chunks run with the sync debug mode at "error"
+    around the chunk call).  Returns the card/CPU rows."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms.ncbb import NcbbSolver
+    from pydcop_tpu_torch.search.solver import FrontierSearchSolver
+
+    out = {}
+    for name, (K, R, D, seed, ib) in SEARCH_CASES.items():
+        dcop = search_dcop(K, R, D, seed)
+        kw = dict(frontier_width=SEARCH_WIDTH, steps=SEARCH_STEPS,
+                  i_bound=ib)
+        t0 = time.perf_counter()
+        ncbb = NcbbSolver(dcop, device=device).run()
+        ncbb_s = time.perf_counter() - t0
+        cpu = FrontierSearchSolver(dcop, device="cpu", **kw).run(
+            collect_cycles=True)
+        solver = FrontierSearchSolver(dcop, device=device, **kw)
+        torch.cuda.synchronize()
+        res = solver.run(collect_cycles=True)
+        s, c = res.search, cpu.search
+        if not s["optimal"] or res.cost != ncbb.cost:
+            fail("search_frontier", f"{name}: optimal={s['optimal']} cost "
+                 f"{res.cost} against NCBB's {ncbb.cost}")
+        if (res.cost, res.assignment, res.cycle, s["nodes"]) != (
+                cpu.cost, cpu.assignment, cpu.cycle, c["nodes"]):
+            fail("search_frontier", f"{name}: card cost {res.cost} in "
+                 f"{res.cycle} chunks, {s['nodes']} nodes != CPU cost "
+                 f"{cpu.cost} in {cpu.cycle} chunks, {c['nodes']} nodes "
+                 f"(same assignment: {res.assignment == cpu.assignment})")
+        keys = ("cycle", "cost", "lower_bound", "upper_bound", "gap")
+        if [[h[k] for k in keys] for h in res.history] != \
+                [[h[k] for k in keys] for h in cpu.history]:
+            fail("search_frontier", f"{name}: the card's per-chunk "
+                 f"history differs from the CPU's")
+        inc = [h["cost"] for h in res.history if h["cost"] is not None]
+        if any(b > a for a, b in zip(inc, inc[1:])):
+            fail("search_frontier", f"{name}: the incumbent rose")
+        if any(h["lower_bound"] > h["upper_bound"] for h in res.history
+               if h["lower_bound"] is not None):
+            fail("search_frontier", f"{name}: lower bound above the upper")
+        if s["scalar_reads"] != 2 * s["chunks"]:
+            fail("search_frontier", f"{name}: {s['scalar_reads']} scalars "
+                 f"read in {s['chunks']} chunks (one [2] read a chunk)")
+        # one host read a chunk: the chunk itself never syncs
+        eng = solver.engine
+        state = eng.initial_state()
+        torch.cuda.synchronize()
+        n_sync = min(SEARCH_SYNC_CHUNKS, res.cycle)
+        reads = 0
+        for _ in range(n_sync):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, stats = eng.run_chunk(state)
+            except RuntimeError as e:
+                torch.cuda.set_sync_debug_mode(0)
+                fail("search_frontier", f"{name}: a chunk synchronized "
+                     f"with the host: {e}")
+            torch.cuda.set_sync_debug_mode(0)
+            stats.cpu()
+            reads += 1
+            state = {**state, "x_count": torch.zeros_like(
+                state["x_count"])}
+        prof = (frontier_profile(eng, state) if device == "cuda"
+                and res.cycle > 1 else {})
+        out[name] = {"card": res, "cpu": cpu}
+        say("search_frontier", case=name, K=K, R=R, D=D, seed=seed,
+            n_vars=s["n_vars"], i_bound=s["i_bound"],
+            bound_source=s["bound_source"], frontier_width=s[
+                "frontier_width"], steps_per_chunk=s["steps_per_chunk"],
+            optimal=True, cost=res.cost, ncbb_cost=ncbb.cost,
+            cpu_cost=cpu.cost, chunks=s["chunks"], nodes=s["nodes"],
+            nodes_per_s=s["nodes_per_s"], cpu_nodes_per_s=c["nodes_per_s"],
+            time_to_proof_s=res.time, cpu_time_to_proof_s=cpu.time,
+            ms_per_chunk=1e3 * res.time / max(1, s["chunks"]),
+            scalar_reads_per_chunk=s["scalar_reads"] / max(1, s["chunks"]),
+            host_reads_per_chunk=1, sync_checked_chunks=n_sync,
+            spill_drains=s["spill_drains"], ncbb_s=ncbb_s,
+            torch_threads=torch.get_num_threads(), **prof, nvidia_smi=smi)
+    return out
+
+
+def search_dpop_frontier_phase(device="cuda"):
+    """``solve -a dpop -p engine:frontier`` and ``solve --anytime-exact``
+    through the CLI on the card, on k10x4 (written as YAML under
+    chiprun_out/): both prove the sweep's optimum."""
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+
+    K, R, D, seed, _ = SEARCH_CASES["k10x4"]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "search_k10x4.yaml")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(dcop_yaml(search_dcop(K, R, D, seed)))
+    got = {}
+    for tag, argv in (("sweep", ["-a", "dpop"]),
+                      ("dpop_frontier", ["-a", "dpop", "-p",
+                                         "engine:frontier"]),
+                      ("anytime_exact", ["--anytime-exact"])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "pydcop_tpu_torch", "solve", *argv,
+             "--device", device, path], capture_output=True, text=True,
+            timeout=600, cwd=ROOT)
+        try:
+            got[tag] = json.loads(proc.stdout)
+        except ValueError:
+            fail("search_dpop_frontier", f"{tag}: rc={proc.returncode} no "
+                 f"JSON; stderr: {proc.stderr[-2000:]}")
+        if proc.returncode != 0 or got[tag].get("status") != "FINISHED":
+            fail("search_dpop_frontier", f"{tag}: rc={proc.returncode} "
+                 f"{got[tag]}")
+    sweep = got["sweep"]["cost"]
+    for tag in ("dpop_frontier", "anytime_exact"):
+        r = got[tag]
+        if r["cost"] != sweep or not r["search"]["optimal"] \
+                or r["config"]["engine"] != "frontier":
+            fail("search_dpop_frontier", f"{tag}: cost {r['cost']} against "
+                 f"the sweep's {sweep}, search={r.get('search')}")
+        say("search_dpop_frontier", case="k10x4", run=tag,
+            algo=r["config"]["algo"], cost=r["cost"], sweep_cost=sweep,
+            sweep_engine=got["sweep"]["config"]["engine"],
+            optimal=True, chunks=r["search"]["chunks"],
+            nodes=r["search"]["nodes"], time_s=r["time"])
+
+
+def _swap_tables(dcop, n, seed):
+    """``n`` seeded factors of ``dcop`` with new tables over the same
+    scope, in its order: the bench colouring's style on a binary factor
+    (uniform [0, 1) plus 10 on the diagonal), uniform [0, 1) on the
+    others."""
+    from pydcop_tpu_torch.dcop import NAryMatrixRelation
+
+    rng = np.random.default_rng(seed)
+    names = sorted(dcop.constraints)
+    out = []
+    for name in rng.choice(names, n, replace=False):
+        dims = list(dcop.constraints[name].dimensions)
+        shape = tuple(len(v.domain) for v in dims)
+        m = rng.uniform(0, 1, shape).astype(np.float32).astype(float)
+        if len(shape) == 2 and shape[0] == shape[1]:
+            m += np.eye(shape[0]) * 10
+        out.append(NAryMatrixRelation(dims, m, name=str(name)))
+    return out
+
+
+def maxsum_dynamic_run(build, device, swaps, cycles, use_packed=None,
+                       check=None):
+    """maxsum_dynamic on ``build()``: ``cycles`` cycles, the swaps, then
+    ``cycles`` more from the same messages.  Returns (the solver, the
+    second result, seconds of the swaps, launch counts of the two runs)."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import maxsum_dynamic
+
+    dcop = build()
+    solver = maxsum_dynamic.build_solver(dcop, device=device,
+                                         use_packed=use_packed)
+    reset_counts()
+    solver.run(cycles=cycles)
+    counts = read_counts()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in swaps:
+        solver.change_factor_function(c)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    if check is not None:
+        check(solver)
+    reset_counts()
+    res = solver.run(cycles=cycles, resume=True)
+    counts = {k: v + counts[k] for k, v in read_counts().items()}
+    return solver, res, swap_s, counts
+
+
+def maxsum_dynamic_phase(smi, device="cuda"):
+    """maxsum_dynamic on the 10k/30k colouring (K1 binary, swaps in
+    place) and on SECP-3.9k (K1-mixed, re-packs): 100 cycles, 100 seeded
+    swaps, 100 cycles; the swapped layout equal to a fresh pack, K1 on it
+    equal to its plain version, 2 K1 launches (binary) or 200 (mixed) in
+    the 200 cycles, values and cost equal to the CPU run of the same
+    sequence.  Returns the binary run's K1 launches."""
+    import torch
+
+    from pydcop_tpu_torch.ops.compile import compile_factor_graph
+    from pydcop_tpu_torch.ops.packed_maxsum import pack_for_gpu
+
+    half, n_swaps = 100, 100
+    k1_launches = None
+    for name, build, key, want, use_packed in (
+            ("coloring_10k_30k", lambda: coloring_dcop(10_000, 30_000),
+             "packed_maxsum_cycle", 2, None),
+            ("secp_3.9k", lambda: secp_dcop(1, 2), "packed_maxsum_mixed",
+             2 * half, True)):
+        swaps = _swap_tables(build(), n_swaps, seed=17)
+        checked = {}
+
+        def check(solver):
+            pg = solver.packed
+            if pg is None or (pg.mixed is None) != (key ==
+                                                    "packed_maxsum_cycle"):
+                fail("maxsum_dynamic", f"{name}: the solver's layout is "
+                     f"not the expected one")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh = pack_for_gpu(compile_factor_graph(solver.dcop,
+                                                      device=device))
+            torch.cuda.synchronize()
+            checked["compile_pack_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pack_for_gpu(solver.tensors)
+            torch.cuda.synchronize()
+            checked["repack_s"] = time.perf_counter() - t0
+            if pg.mixed is None:
+                equal = torch.equal(pg.cost_rows, fresh.cost_rows)
+            else:
+                equal = all(torch.equal(a, b) for a, b in
+                            zip(pg.mixed.costs, fresh.mixed.costs))
+            if not equal:
+                fail("maxsum_dynamic", f"{name}: the swapped layout's "
+                     f"tables differ from a fresh pack of the changed DCOP")
+            if pg.mixed is None and device == "cuda":
+                # the first run built K1's tile table; the swaps kept it,
+                # and it is still the changed graph's (degrees only)
+                from pydcop_tpu_torch.ops.packed_maxsum import (
+                    TILE_COLS,
+                    tile_table,
+                )
+
+                kept = pg.tile_tables.get(TILE_COLS)
+                if kept is None or not np.array_equal(
+                        kept.cpu().numpy(), tile_table(fresh, TILE_COLS)):
+                    fail("maxsum_dynamic", f"{name}: the swap dropped or "
+                         f"broke K1's cached tile table")
+                checked["tile_tables_kept"] = True
+            try:
+                err, _ = kernel_vs_plain(pg, 0.5, exact=True)
+            except AssertionError as e:
+                fail("maxsum_dynamic", f"{name}: K1 on the swapped layout "
+                     f"against its plain version: {e}")
+            checked["max_abs_err"] = err
+
+        solver, res, swap_s, counts = maxsum_dynamic_run(
+            build, device, swaps, half, use_packed=use_packed if
+            device == "cpu" else None, check=check)
+        expect = {k: 0 for k in counts}
+        expect[key] = want if device == "cuda" else 0  # the CPU: plain
+        if counts != expect:
+            fail("maxsum_dynamic", f"{name}: launches {counts} in "
+                 f"{2 * half} cycles, expected {expect}")
+        _, cpu, cpu_swap_s, _ = maxsum_dynamic_run(
+            build, "cpu", _swap_tables(build(), n_swaps, seed=17), half,
+            use_packed=use_packed)
+        if (res.cost, res.assignment) != (cpu.cost, cpu.assignment):
+            fail("maxsum_dynamic", f"{name}: card cost {res.cost} != CPU "
+                 f"cost {cpu.cost} (same assignment: "
+                 f"{res.assignment == cpu.assignment})")
+        if key == "packed_maxsum_cycle":
+            k1_launches = counts[key]
+        say("maxsum_dynamic", case=name, cycles=2 * half, swaps=n_swaps,
+            launches=counts, layout="mixed" if use_packed else "binary",
+            swap_how="re-pack" if use_packed else "in place (swap_factor)",
+            cost=res.cost, cpu_cost=cpu.cost, equal_to_cpu=True,
+            swap_ms_each=1e3 * swap_s / n_swaps,
+            swap_ms_total=1e3 * swap_s,
+            repack_ms=1e3 * checked["repack_s"],
+            compile_pack_ms=1e3 * checked["compile_pack_s"],
+            equal_to_fresh_pack=True,
+            k1_max_abs_err_vs_plain=checked["max_abs_err"],
+            **({"tile_tables_kept": checked["tile_tables_kept"]}
+               if "tile_tables_kept" in checked else {}),
+            nvidia_smi=smi)
+    return k1_launches
+
+
 def main():
     try:
         import torch
@@ -3119,13 +3567,16 @@ def main():
     for fn in sorted(os.listdir(inst)):
         d = load_dcop_from_file([os.path.join(inst, fn)])
         mixed = is_mixed(d)
-        for algo in ("maxsum", "mgm", "dsa", "dsatuto", "mixeddsa", "adsa",
-                     "mgm2", "dpop", "dba", "gdba"):
-            params = {"noise": 0} if algo == "maxsum" else None
+        for algo in ("maxsum", "maxsum_dynamic", "mgm", "dsa", "dsatuto",
+                     "mixeddsa", "adsa", "mgm2", "dpop", "dba", "gdba",
+                     "syncbb", "ncbb"):
+            params = ({"noise": 0} if algo in ("maxsum", "maxsum_dynamic")
+                      else None)
             g = solve_result(d, algo, algo_params=params, device="cuda")
             c = solve_result(d, algo, algo_params=params, device="cpu")
             extra = {}
-            if mixed and algo not in ("dpop", "dba", "gdba"):
+            if mixed and algo not in ("dpop", "dba", "gdba", "syncbb",
+                                      "ncbb"):
                 extra = dict(cpu_default_cost=c.cost,
                              cpu_default_cycle=c.cycle)
                 c = solve_cpu_packed(d, algo, params)
@@ -3133,13 +3584,24 @@ def main():
                     and g.cycle == c.cycle and g.status == c.status)
             say("instances", instance=fn, algo=algo, cuda_cost=g.cost,
                 cpu_cost=c.cost, cuda_cycle=g.cycle, cpu_cycle=c.cycle,
-                cpu_use_packed=bool(extra), cuda_engine=g.config["engine"],
+                cpu_use_packed=bool(extra),
+                cuda_engine=(g.config or {}).get("engine", "host"),
                 same_assignment=g.assignment == c.assignment, **extra)
             if not same or g.status != "FINISHED" \
                     or not math.isfinite(g.cost):
                 fail("instances", f"{fn} {algo}: card status={g.status} "
                      f"cost={g.cost} cycle={g.cycle} against CPU "
                      f"status={c.status} cost={c.cost} cycle={c.cycle}")
+
+    # the exact-search family: syncbb/ncbb's host loops, the frontier
+    # engine on the JAX bench's anytime instances, DPOP's frontier engine
+    # and --anytime-exact through the CLI
+    search_host_phase()
+    search_frontier_phase(smi)
+    search_dpop_frontier_phase()
+    # maxsum_dynamic: K1 binary on a layout swapped in place, K1-mixed
+    # through the re-pack
+    dynamic_k1 = maxsum_dynamic_phase(smi)
 
     # 5. times -------------------------------------------------------------
     timing = {}
@@ -3415,6 +3877,10 @@ def main():
                "version and timed here")
     notes = {"packed_local_tables": k2_note,
              "packed_local_tables_mixed": k2_note}
+    # the K1 binary launches of the other path that runs it
+    by_path = {"packed_maxsum_cycle": {
+        "maxsum": main_launches["packed_maxsum_cycle"],
+        "maxsum_dynamic": dynamic_k1}}
     kernels = []
     for name, source, replaces, launches, err in entries:
         size = sizes_of.get(name, "secp_3.9k" if "mixed" in name
@@ -3431,6 +3897,8 @@ def main():
             **({"blocks": blocks_of[size, name]}
                if (size, name) in blocks_of else {}),
             **({"note": notes[name]} if name in notes else {}),
+            **({"launches_by_path": by_path[name]}
+               if name in by_path else {}),
         })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from time import perf_counter
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -50,6 +50,14 @@ class SolveResult:
     #: sharded-collective scorecard (runtime/stats.ShardCommCounters, the
     #: engines' ``comm_stats()``) of a sharded solve; None elsewhere
     shard: Optional[Dict[str, Any]] = None
+    #: per-chunk history of an anytime search run with
+    #: ``collect_cycles=True`` (cost, lower/upper bound, gap, time);
+    #: None elsewhere
+    history: Optional[List[Dict[str, Any]]] = None
+    #: anytime exact-search scorecard (search/solver and the
+    #: runtime/stats.SearchCounters host-traffic counts); None unless
+    #: the solve ran the frontier engine
+    search: Optional[Dict[str, Any]] = None
 
     def metrics(self) -> Dict[str, Any]:
         out = {
@@ -68,6 +76,8 @@ class SolveResult:
             out["shard"] = dict(self.shard)
         if self.dpop is not None:
             out["dpop"] = dict(self.dpop)
+        if self.search is not None:
+            out["search"] = dict(self.search)
         if self.config is not None:
             out["config"] = dict(self.config)
         return out
@@ -215,13 +225,17 @@ class SynchronousTensorSolver:
         return state, done, status
 
     def run(self, cycles: Optional[int] = None,
-            timeout: Optional[float] = None) -> SolveResult:
+            timeout: Optional[float] = None,
+            resume: bool = False) -> SolveResult:
         """Run the solver.
 
         * ``cycles`` set → run exactly that many cycles (the reference's
           ``stop_cycle``);
         * otherwise → run until the solver is stable for
-          ``STABLE_CHUNKS`` consecutive chunks, or ``MAX_CYCLES``/timeout.
+          ``STABLE_CHUNKS`` consecutive chunks, or ``MAX_CYCLES``/timeout;
+        * ``resume=True`` continues from the previous run's state (a
+          warm restart, as in the JAX harness) instead of
+          :meth:`initial_state`.
         """
         # imported here: runtime/__init__ imports the solve API, which
         # imports this module
@@ -235,10 +249,12 @@ class SynchronousTensorSolver:
         target = cycles if cycles else None
         limit = target if target is not None else MAX_CYCLES
         chunk = default_chunk(target, timeout, limit)
+        warm = resume and getattr(self, "_last_state", None) is not None
         state, done, status = self._drive_chunks(
-            self.initial_state(), t0, target, limit, chunk, timeout,
-            counters,
+            self._last_state if warm else self.initial_state(), t0,
+            target, limit, chunk, timeout, counters,
         )
+        self._last_state = state
         final_vals = self.values_of(state).cpu().numpy()
         assignment = self.tensors.assignment_from_indices(final_vals)
         violation, cost = self.dcop.solution_cost(assignment, self.infinity)

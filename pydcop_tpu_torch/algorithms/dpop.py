@@ -20,10 +20,12 @@ schedule.  The engines, in the order the ``auto`` ladder tries them:
 
 Message counts and sizes are tracked per UTIL table for metric parity
 (DpopMessage.size, dpop.py:98-104).  Routing goes by plan shape only:
-a kernel that fails to build or launch raises, and the engines that need
-what this package has not ported (``sharded``, ``frontier``) raise
+a kernel that fails to build or launch raises.  ``engine=frontier`` runs
+the anytime exact search (:mod:`pydcop_tpu_torch.search`) over the same
+pseudo-tree.  The engine this package has not ported (``sharded``) raises
 :class:`~pydcop_tpu_torch.errors.NotPortedError` wherever the JAX ladder
-would take them.
+would take it — and so the auto ladder never reaches its frontier tier,
+which the JAX ladder tries only after the sharded one.
 """
 from __future__ import annotations
 
@@ -67,8 +69,8 @@ GRAPH_TYPE = "pseudotree"
 # JAX package's, with its names, values and defaults: "auto" walks the
 # ladder above; "sweep" forces the level scan; "wholesweep" the
 # whole-sweep kernel (its plain version on the CPU); "minibucket" the
-# bounded approximation; "sharded" and "frontier" are not ported and
-# raise.  `budget_mb` is the per-device table budget the auto tier
+# bounded approximation; "frontier" the anytime exact search;
+# "sharded" is not ported and raises.  `budget_mb` is the per-device table budget the auto tier
 # routes on (0 = engine caps), `i_bound` the mini-bucket width bound
 # (0 = off); `prune` and `shards` configure the sharded sweep, so any
 # value but their defaults raises.
@@ -101,7 +103,7 @@ class DpopSolver:
     max_table_entries: int = 100_000_000
 
     #: engine used by the last run(): "wholesweep", "sweep",
-    #: "sweep_perlevel", "pernode" or "minibucket"
+    #: "sweep_perlevel", "pernode", "minibucket" or "frontier"
     last_engine: str = ""
 
     def __init__(self, dcop: DCOP, tree: Optional[ComputationPseudoTree] =
@@ -172,16 +174,16 @@ class DpopSolver:
         # per-node loop; and, when the tables exceed one device (planner
         # byte estimate vs budget_mb or the engine caps), (4) the
         # separator-sharded mesh sweep, (5) the frontier search and (6)
-        # the mini-bucket fallback.  (4) and (5) are not ported: where
-        # the JAX ladder would take them this one raises — it never
-        # skips ahead to (6)
+        # the mini-bucket fallback.  (4) is not ported: where the JAX
+        # ladder would take it this one raises — it never skips ahead
+        # to (5) or (6).  A forced engine="frontier" runs (5)
         from pydcop_tpu_torch.ops.dpop_sweep import (
             compile_sweep,
             compile_sweep_perlevel,
         )
 
         if self.engine == "frontier":
-            raise _not_ported("frontier", "the anytime exact search")
+            return self._run_frontier()
         if self.engine == "minibucket":
             return self._run_minibucket()
         if self.engine == "sharded":
@@ -211,6 +213,31 @@ class DpopSolver:
                     "both batched sweeps refused the plan and the "
                     "per-node path would exceed its table cap")
         return self._run_pernode()
+
+    def _run_frontier(self) -> SolveResult:
+        """``engine="frontier"``: exact anytime search over the same
+        pseudo-tree, bound tables sized to the per-device budget, run
+        open-ended to its optimality proof (the JAX solver's
+        ``_run_frontier(forced=True)``)."""
+        from pydcop_tpu_torch.search.solver import (
+            DEFAULT_MAX_CHUNKS,
+            FrontierSearchSolver,
+        )
+
+        solver = FrontierSearchSolver(
+            self.dcop, tree=self.tree, seed=0, algo="dpop",
+            i_bound=self.i_bound,
+            bound_budget_bytes=self.budget_bytes,
+            max_chunks=DEFAULT_MAX_CHUNKS,
+            device=self.device,
+        )
+        res = solver.run()
+        self.last_engine = "frontier"
+        res.config = self._resolved_config(
+            i_bound=res.search.get("i_bound", self.i_bound)
+        )
+        res.config["engine"] = "frontier"
+        return res
 
     def _run_sweep(self, plan, perlevel: bool = False) -> SolveResult:
         from pydcop_tpu_torch.ops.dpop_sweep import (

@@ -8,8 +8,9 @@ shorthands ``--dpop-budget-mb``, ``--i-bound`` and ``--dpop-no-prune``,
 and ``-d`` with a distribution YAML file, which drives a sharded maxsum
 or amaxsum solve (one shard per visible device), with
 ``--shard-overlap`` and ``--shard-boundary-threshold`` (plus the global
-``--timeout`` and ``--output``).  ``-d`` with a strategy name is not
-ported and fails.
+``--timeout`` and ``--output``), and the exact-search options
+``--anytime-exact`` and ``--frontier-width``.  ``-d`` with a strategy
+name is not ported and fails.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ def set_parser(subparsers):
     parser = subparsers.add_parser("solve", help="solve a static DCOP")
     parser.set_defaults(func=run_cmd)
     parser.add_argument("dcop_files", nargs="+", help="DCOP YAML file(s)")
-    parser.add_argument("-a", "--algo", required=True,
-                        help="algorithm name")
+    parser.add_argument("-a", "--algo", default=None,
+                        help="algorithm name (required unless "
+                        "--anytime-exact, which defaults to syncbb)")
     parser.add_argument(
         "-p", "--algo_params", action="append",
         help="algorithm parameter as name:value, repeatable",
@@ -55,13 +57,29 @@ def set_parser(subparsers):
                         help="per-device byte budget for DPOP util "
                         "tables (-p budget_mb)")
     parser.add_argument("--i-bound", type=int, default=None,
-                        help="mini-bucket width bound for DPOP "
-                        "(-p i_bound); metrics['dpop'] reports the "
-                        "lower/upper bound sandwich of engine:minibucket")
+                        help="mini-bucket width bound for DPOP and the "
+                        "exact-search family (-p i_bound); "
+                        "metrics['dpop'] reports the lower/upper bound "
+                        "sandwich of engine:minibucket, and the frontier "
+                        "engine sizes its bound tables with it")
     parser.add_argument("--dpop-no-prune", action="store_true",
                         help="disable the wire pruning of the sharded "
                         "DPOP sweep (-p prune:false); the sharded sweep "
                         "is not ported, so this is refused")
+    # anytime exact search: the frontier-batched branch-and-bound engine
+    parser.add_argument("--anytime-exact", action="store_true",
+                        help="run the frontier-batched anytime "
+                        "branch-and-bound engine (a [B, depth] slab of "
+                        "partial assignments expanded on the device with "
+                        "mini-bucket lower bounds, incumbent + bound "
+                        "read as 2 scalars per chunk) to its optimality "
+                        "proof; metrics land in metrics['search'].  "
+                        "Default algorithm syncbb; also valid with -a "
+                        "ncbb or -a dpop; --i-bound/--dpop-budget-mb "
+                        "size the bound tables")
+    parser.add_argument("--frontier-width", type=int, default=0,
+                        help="with --anytime-exact (or engine:frontier): "
+                        "frontier slab rows B (0 = auto)")
     return parser
 
 
@@ -69,18 +87,50 @@ def run_cmd(args):
     from pydcop_tpu_torch.dcop import load_dcop_from_file
     from pydcop_tpu_torch.runtime import solve_result
 
-    if args.algo != "dpop" and (args.dpop_budget_mb is not None
-                                or args.i_bound is not None
-                                or args.dpop_no_prune):
-        output_metrics(
-            {"status": "ERROR",
-             "error": "--dpop-budget-mb/--i-bound/--dpop-no-prune only "
-             "apply to -a dpop (or the exact-search family)"},
-            args.output,
-        )
+    def refuse(error):
+        output_metrics({"status": "ERROR", "error": error}, args.output)
         return 1
+
+    search_family = ("syncbb", "ncbb")
+    if args.anytime_exact:
+        if args.algo is None:
+            args.algo = "syncbb"
+        if args.algo not in ("syncbb", "ncbb", "dpop"):
+            return refuse(
+                f"--anytime-exact runs the exact-search family "
+                f"(syncbb/ncbb/dpop), not {args.algo!r}")
+    elif args.frontier_width and args.algo not in search_family:
+        return refuse("--frontier-width only applies with "
+                      "--anytime-exact or the syncbb/ncbb frontier engine")
+    if args.algo is None:
+        return refuse("one of -a/--algo or --anytime-exact is required")
+    if (not args.anytime_exact and args.algo != "dpop"
+            and args.algo not in search_family
+            and (args.dpop_budget_mb is not None
+                 or args.i_bound is not None or args.dpop_no_prune)):
+        return refuse("--dpop-budget-mb/--i-bound/--dpop-no-prune only "
+                      "apply to -a dpop (or the exact-search family)")
     try:
         algo_params = parse_algo_params(args.algo_params)
+        if args.anytime_exact:
+            # flag shorthands for the frontier engine params
+            algo_params["engine"] = "frontier"
+            if args.frontier_width and args.algo in search_family:
+                algo_params.setdefault("frontier_width",
+                                       args.frontier_width)
+            if args.i_bound is not None:
+                algo_params.setdefault("i_bound", args.i_bound)
+            if args.dpop_budget_mb is not None:
+                algo_params.setdefault("budget_mb", args.dpop_budget_mb)
+        if args.algo in search_family:
+            # the same shorthands work for the search family directly
+            if args.frontier_width:
+                algo_params.setdefault("frontier_width",
+                                       args.frontier_width)
+            if args.i_bound is not None:
+                algo_params.setdefault("i_bound", args.i_bound)
+            if args.dpop_budget_mb is not None:
+                algo_params.setdefault("budget_mb", args.dpop_budget_mb)
         if args.algo == "dpop":
             if args.dpop_budget_mb is not None:
                 algo_params.setdefault("budget_mb", args.dpop_budget_mb)

@@ -10,11 +10,12 @@ model knows how to emit padded index arrays for the kernels
 """
 from pydcop_tpu_torch.graph.objects import ComputationGraph, ComputationNode, Link
 
-#: graph models ported so far (the JAX package also has ordered_graph)
+#: graph models, as in the JAX package
 GRAPH_MODULES = [
     "factor_graph",
     "constraints_hypergraph",
     "pseudotree",
+    "ordered_graph",
 ]
 
 

@@ -384,6 +384,47 @@ def solver_layout(t: FactorGraphTensors,
     return pack_for_gpu(t)
 
 
+def swap_factor(pg: PackedMaxSumGraph, k: int,
+                table) -> PackedMaxSumGraph:
+    """Swap ONE binary factor's cost table into the binary layout, in
+    place: writes the two ``cost_rows`` columns of factor ``k`` (bucket
+    row order) — no re-ranking, no re-packing, O(D²) host work instead of
+    O(F·D²).  Returns ``pg``, whose every other field (the degree
+    classes, mates, masks and the cached tile tables, which depend on the
+    degrees only) is unchanged.  The JAX package's ``packed_swap_factor``
+    (``ops/pallas_maxsum.py``) on this package's layout.
+
+    ``table`` is the factor's full padded sign-adjusted ``[D, D]`` tensor
+    in the bucket slot's axis order (axis 0 is the endpoint p = 0).
+    ``cost_rows`` is ``[D·D, N]``, other-value-major (row ``j*D+i`` =
+    cost(other=j, target=i)): the p = 0 endpoint, at
+    ``slot_of_edge[k]``, sees the table as [target, other], so its column
+    is ``table.T`` flattened; the p = 1 endpoint, at
+    ``slot_of_edge[F + k]``, sees [other, target], so its column is
+    ``table`` flattened — the orientation :func:`pack_binary_for_gpu`
+    writes.  The write is stream-ordered: a launch made before it reads
+    the old table, one made after it the new."""
+    if pg.mixed is not None or pg.slot_of_edge is None:
+        raise NotImplementedError(
+            "swap_factor takes the all-binary layout; a mixed-arity "
+            "layout is re-packed by solver_layout")
+    D = pg.D
+    t = np.asarray(table, dtype=np.float32)
+    if t.shape != (D, D):
+        raise ValueError(
+            f"swap table shape {t.shape} != ({D}, {D}) — the factor's "
+            f"scope must be unchanged")
+    F = pg.slot_of_edge.shape[0] // 2
+    if not 0 <= k < F:
+        raise ValueError(f"factor index {k} out of range [0, {F})")
+    s0 = int(pg.slot_of_edge[k])
+    s1 = int(pg.slot_of_edge[F + k])
+    cols = np.stack([np.ascontiguousarray(t.T).reshape(-1),
+                     t.reshape(-1)], axis=1)
+    pg.cost_rows[:, [s0, s1]] = torch.as_tensor(cols, device=pg.device)
+    return pg
+
+
 def packed_init_state(pg: PackedMaxSumGraph
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     z = torch.zeros((pg.D, pg.N), dtype=torch.float32, device=pg.device)

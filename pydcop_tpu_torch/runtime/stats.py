@@ -1,7 +1,7 @@
 """Counters and the executed-config record of a solve.
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
-harness and the sharded engines use, with the same names and schemas,
+harness, the sharded engines and the frontier search use, with the same names and schemas,
 so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
@@ -49,6 +49,39 @@ class HarnessCounters:
         out = dict(self.counts)
         out["dispatch_wait_s"] = round(out["dispatch_wait_s"], 6)
         return out
+
+
+#: counter names surfaced under ``SolveResult.metrics()["search"]`` by
+#: the frontier search's chunk loop (search/solver)
+SEARCH_COUNTERS = (
+    "chunks",            # device chunk dispatches
+    "scalar_reads",      # host-read scalars (2 per chunk steady-state)
+    "spill_drains",      # annex drains (the counted host fallback)
+    "spill_rows",        # rows pulled host-side across all drains
+    "reinjected_rows",   # stashed rows returned to the device
+)
+
+
+class SearchCounters:
+    """Host-traffic counters of the frontier search chunk loop,
+    merged into ``SolveResult.metrics()['search']``."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in SEARCH_COUNTERS}
+
+    def __getitem__(self, name: str) -> int:
+        return self.counts[name]
+
+    def __setitem__(self, name: str, value: int) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown search counter {name!r}; add it to "
+                f"SEARCH_COUNTERS"
+            )
+        self.counts[name] = value
+
+    def as_dict(self) -> dict:
+        return dict(self.counts)
 
 
 def resolved_config(

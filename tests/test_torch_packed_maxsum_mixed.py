@@ -356,10 +356,16 @@ class _Entry:
 
 def _cuda_branch(monkeypatch, entry, capacity=(264, 128)):
     """Patch the CUDA branch of ``packed_cycles`` to run on CPU tensors
-    with ``entry`` as its kernel; the plain version must not run."""
+    with ``entry`` as its kernel; the plain version must not run.  The
+    stand-in's launches are counted as real ones would be, and the
+    counters go back to their values at teardown, so that no later test
+    of the same process finds them moved."""
     def never(*args, **kwargs):
         raise AssertionError("the CUDA branch ran the plain version")
 
+    for counter in ("launches", "mixed_launches"):
+        monkeypatch.setattr(pm.packed_cycles, counter,
+                            getattr(pm.packed_cycles, counter))
     monkeypatch.setattr(pm, "_kernel", lambda mixed: entry)
     monkeypatch.setattr(pm, "_capacity", lambda D: capacity)
     monkeypatch.setattr(pm, "_stream", lambda x: ctypes.c_void_p(0))

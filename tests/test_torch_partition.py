@@ -4,7 +4,14 @@ a numpy/Python copy of ``native/partition.cc``) against the JAX package's
 assignments on both paths (``use_native=True`` and ``False``), the same
 ``partition_stats`` and ``assigns_from_distribution``, and the same
 refusal of a placement that misses a computation.  All comparisons are
-exact (integer arrays, and floats computed from the same counts)."""
+exact (integer arrays, and floats computed from the same counts).
+
+The JAX package compiles its C++ library on first use into one shared
+build directory, with no lock between processes: test workers that
+start together can load a half-written library, after which that
+worker's ``native`` module gives up for good and returns ``None``.  The
+module fixture below gives each worker a build directory of its own and
+a fresh loader state, so every worker reaches the C++ path."""
 import os
 
 import numpy as np
@@ -70,6 +77,20 @@ GRAPHS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _own_native_build(tmp_path_factory):
+    """This process's own build of the JAX package's C++ partitioner:
+    ``native._BUILD_DIR`` points at a fresh temporary directory and the
+    loader's cached state is reset, for this module only."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(native, "_BUILD_DIR",
+               str(tmp_path_factory.mktemp("native_build")))
+    mp.setattr(native, "_LIB", None)
+    mp.setattr(native, "_LOAD_FAILED", False)
+    yield
+    mp.undo()
+
+
 def test_the_jax_native_library_loads():
     # the use_native=True comparisons below are against the C++ path
     assert native.native_available()
@@ -99,6 +120,9 @@ def test_bfs_growing_equals_the_cpp_partitioner(seed):
     u = rng.integers(0, V, E)
     v = rng.integers(0, V, E)  # self-loops and repeats included
     want = native.partition_vertices(u, v, V, parts)
+    assert want is not None, (
+        f"the JAX package's C++ partitioner did not load from "
+        f"{native._BUILD_DIR}")
     assert np.array_equal(partition.bfs_growing(u, v, V, parts), want)
 
 

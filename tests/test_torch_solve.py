@@ -102,10 +102,15 @@ def test_unported_options_refuse():
     with pytest.raises(NotPortedError):
         solve_result(dcop, "maxsum", device="cpu",
                      algo_params={"precision": "bf16"})
+    # every algorithm of the JAX package is ported: an unknown name
+    # still fails, listing the 14
     with pytest.raises(ImportError, match="available: \\['adsa', 'amaxsum', "
                        "'dba', 'dpop', 'dsa', 'dsatuto', 'gdba', 'maxsum', "
-                       "'mgm', 'mgm2', 'mixeddsa'\\]"):
-        solve_result(dcop, "syncbb", device="cpu")
+                       "'maxsum_dynamic', 'mgm', 'mgm2', 'mixeddsa', 'ncbb', "
+                       "'syncbb'\\]"):
+        solve_result(dcop, "nosuchalgo", device="cpu")
+    res = solve_result(dcop, "syncbb", device="cpu")
+    assert res.status == "FINISHED" and res.cost == 12
 
 
 def test_cli_solve_on_cpu():

@@ -233,10 +233,14 @@ def test_minibucket_bounds_sandwich_the_optimum(name):
 
 def test_unported_engines_raise():
     dcop = load_dcop_from_file([_path("graph_coloring_tuto")])
-    for engine in ("sharded", "frontier"):
-        with pytest.raises(NotPortedError, match=engine):
-            solve_result(dcop, "dpop", algo_params={"engine": engine},
-                         device="cpu")
+    with pytest.raises(NotPortedError, match="sharded"):
+        solve_result(dcop, "dpop", algo_params={"engine": "sharded"},
+                     device="cpu")
+    # the frontier engine is ported: it proves the sweep's optimum
+    res = solve_result(dcop, "dpop", algo_params={"engine": "frontier"},
+                       device="cpu")
+    assert res.search["optimal"] and res.cost == 12
+    assert res.config["engine"] == "frontier"
     # auto with a budget the sweep exceeds: the JAX ladder tiles it over
     # the mesh, this one refuses instead of skipping to mini-bucket
     with pytest.raises(NotPortedError, match="sharded"):
