@@ -169,6 +169,23 @@ printed.
    plain version) and on SECP-3.9k (re-packed: 200 K1-mixed launches);
    values and cost equal to the CPU run of the same sequence, the swap's
    host ms beside the re-pack's;
+   harness: mgm and dsa, 200 cycles with ``collect_cycles`` at chunk 8
+   on the 10k/30k colouring and SECP-3.9k: K2 (``ls_tables``, binary or
+   mixed) launched once a cycle inside the chunk's CUDA graph and no
+   other kernel, cost, values and every history cost equal to this
+   machine's CPU run, K2 equal to its plain version on the runs' first
+   and last assignments, the run without ``collect`` (K4/K5) at the
+   same assignment, rates with and without ``collect`` and K2's device
+   µs inside the graph; mgm at the default collect chunk (7: 203 K2
+   launches, 3 of them in the masked tail); dba and gdba on the 10k/30k
+   colouring CSP and amaxsum on the 10k/30k colouring, 200 cycles
+   through the captured chunk with every replay under
+   ``torch.cuda.set_sync_debug_mode("error")``: no kernel of the port,
+   equal to the CPU runs of main_path_breakout and main_path_amaxsum,
+   one capture (``trace_count``), the replay and eager cycles/s; the
+   generic maxsum open-ended on the 10k/30k colouring and SECP-3.9k with
+   ``pipeline=True``: the same assignment as without it, at most one
+   chunk later (``overshoot_cycles``);
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
    of launches, after warm-up; MGM-2, MGM and DSA: 200 cycles of one
    call, device time a launch's over its cycles, the grid) at 10k/30k
@@ -185,7 +202,9 @@ printed.
    launch from a torch.profiler trace.
 
 ``python3 chip_smoke.py --ab PARENT_TREE
-[k1,k1_mixed,mgm2,mgm,dsa,dpop,sharded]`` runs no phase above: it times
+[k1,k1_mixed,mgm2,mgm,dsa,dpop,sharded,harness]`` runs no phase above: it
+times dba, gdba and amaxsum 200-cycle solves (the second solve of a
+solver, and the eager ``run_cycles`` rate; section ``harness``),
 K1's binary branch on 10k/30k, 100k/300k and the degree-2,500 star
 (events and device µs a cycle, blocks, equality with the plain version,
 also at 1 and 3 blocks, the maxsum cycles-only rate of a 200-cycle
@@ -1445,49 +1464,16 @@ def dpop_breakdown(dcop, dev):
 
 def reset_counts():
     """Zero the launch counter of every kernel wrapper."""
-    from pydcop_tpu_torch.ops import packed_dpop, packed_mgm2, \
-        packed_sharded
-    from pydcop_tpu_torch.ops import packed_local_search as P
-    from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
+    from pydcop_tpu_torch.ops import reset_launch_counters
 
-    from pydcop_tpu_torch.ops.permute import lane_permute
-
-    packed_cycles.launches = packed_cycles.mixed_launches = 0
-    P.reset_launches()
-    packed_dpop.reset_launches()
-    packed_mgm2.reset_launches()
-    packed_sharded.reset_launches()
-    lane_permute.launches = 0
+    reset_launch_counters()
 
 
 def read_counts():
-    from pydcop_tpu_torch.ops import packed_local_search as P
-    from pydcop_tpu_torch.ops import packed_sharded as K
-    from pydcop_tpu_torch.ops.packed_dpop import whole_sweep
-    from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
-    from pydcop_tpu_torch.ops.packed_mgm2 import packed_mgm2_cycles
-    from pydcop_tpu_torch.ops.permute import lane_permute
+    """Every kernel wrapper's launch counter, by name."""
+    from pydcop_tpu_torch.ops import read_launch_counters
 
-    return {"packed_maxsum_cycle": packed_cycles.launches,
-            "ls_tables": P.ls_tables.launches,
-            "mgm": P.packed_mgm_cycles.launches,
-            "dsa": P.packed_dsa_cycles.launches,
-            "packed_maxsum_mixed": packed_cycles.mixed_launches,
-            "ls_tables_mixed": P.ls_tables.mixed_launches,
-            "mgm_mixed": P.packed_mgm_cycles.mixed_launches,
-            "dsa_mixed": P.packed_dsa_cycles.mixed_launches,
-            "dpop_whole_sweep": whole_sweep.launches,
-            "mgm2": packed_mgm2_cycles.launches,
-            "mgm2_mixed": packed_mgm2_cycles.mixed_launches,
-            "device_fused_ba": K.device_fused_ba.launches,
-            "device_mgm_move": K.device_mgm_move.launches,
-            "device_tables": K.device_tables.launches,
-            "device_fused_ba_mixed": K.device_fused_ba.mixed_launches,
-            "device_fused_ba_act": K.device_fused_ba.act_launches,
-            "device_fused_ba_mixed_act": K.device_fused_ba.mixed_act_launches,
-            "device_mgm_move_mixed": K.device_mgm_move.mixed_launches,
-            "device_tables_mixed": K.device_tables.mixed_launches,
-            "lane_permute": lane_permute.launches}
+    return read_launch_counters()
 
 
 #: the algorithms :func:`breakdown` takes apart, and their solver classes
@@ -1501,7 +1487,8 @@ def breakdown(dcop, algo, cycles, dev):
     that ends in a synchronize): the computation graph, compile, pack,
     the cycles, the coin copy (DSA and MGM-2: per chunk of 100 cycles,
     the fixed-cycle chunk; MGM-2 draws three [100, V] tables a chunk) and
-    scoring."""
+    scoring.  dba and gdba run their cycles through the fixed-shape
+    runner as the solve does, and add the captured chunk's rate."""
     import torch
 
     from pydcop_tpu_torch.algorithms import AlgorithmDef, \
@@ -1549,6 +1536,29 @@ def breakdown(dcop, algo, cycles, dev):
             return (unpack_x(solver.packed, x),)
 
         state, cycles_s = timed(run)
+    elif algo in ("dba", "gdba"):
+        # the solve's own path: the fixed-shape runner at its chunk of
+        # 100, whose first two calls run eagerly (a one-shot 200-cycle
+        # solve captures nothing); then the capture (with its first
+        # replay) and two replays, the path of a longer or repeated run
+        chunk = cycles // 2
+        runner = solver._fixed_runner(("masked", chunk, False))
+        solver._restart_streams(False)
+
+        def chunks(state, k):
+            for _ in range(k):
+                state = runner(state, solver.draw_chunk_coins(chunk),
+                               chunk)[0]
+            return state
+
+        state, cycles_s = timed(lambda: chunks(state, 2))
+        state, capture_s = timed(lambda: chunks(state, 1))
+        state, replay_s = timed(lambda: chunks(state, 2))
+        if runner.captures != 1 or runner.replays != 3:
+            raise AssertionError(f"{algo}: {runner.captures} captures and "
+                                 f"{runner.replays} replays")
+        out.update(eager_chunks=2, capture_and_replay_s=capture_s,
+                   replayed_cycles_per_s=cycles / replay_s)
     else:
         state, cycles_s = timed(lambda: solver.run_cycles(state, cycles))
     t0 = time.perf_counter()
@@ -2299,11 +2309,50 @@ for name, t in graphs.items():
                 "plain_ms_per_cycle": row["plain_ms"] * n}), flush=True)
         print(json.dumps({"size": name, "amaxsum": amaxsum,
                           "cycles_per_s": rates}), flush=True)
+# the generic engines, dba and gdba on the 10k/30k colouring CSP and
+# amaxsum on the 10k/30k colouring (PERF.md §5): three 200-cycle solves of
+# one solver (in a tree with the captured chunk, the first eager, the
+# second with the capture, the third all replays), each one's wall time,
+# and the eager run_cycles rate; only what both trees' solvers and
+# chip_smoke have in common is used
+import time
+from pydcop_tpu_torch.algorithms import load_algorithm_module
+
+generic = {"dba": C.coloring_csp_dcop, "gdba": C.coloring_csp_dcop,
+           "amaxsum": C.coloring_dcop}
+for algo, build in generic.items():
+    if "harness" not in sections:
+        break
+    dcop = build(10_000, 30_000)
+    solver = load_algorithm_module(algo).build_solver(dcop, device="cuda")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.run(cycles=200)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    state = solver.initial_state()
+    solver.run_cycles(state, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run_cycles(state, 200)
+    torch.cuda.synchronize()
+    eager = 200 / (time.perf_counter() - t0)
+    print(json.dumps({
+        "size": "10k_30k", "algo": algo, "cost": res.cost,
+        "first_run_s": walls[0], "second_run_s": walls[1],
+        "third_run_s": walls[2], "one_shot_run_cycles_per_s": 200 / walls[0],
+        "run_cycles_per_s": 200 / walls[2], "eager_cycles_per_s": eager,
+        "trace_count": (solver.trace_count()
+                        if hasattr(solver, "trace_count") else None)}),
+        flush=True)
 """
 
 
 #: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
-AB_SECTIONS = ("k1", "k1_mixed", "mgm2", "mgm", "dsa", "dpop", "sharded")
+AB_SECTIONS = ("k1", "k1_mixed", "mgm2", "mgm", "dsa", "dpop", "sharded",
+               "harness")
 
 
 def ab_kernels(parent, sections=AB_SECTIONS):
@@ -2316,7 +2365,8 @@ def ab_kernels(parent, sections=AB_SECTIONS):
     (``dsa``), and the sharded kernels with the sharded rates
     (``sharded``); K1's binary branch with the maxsum rates (``k1``) and
     K10 with the tables/s (``dpop``), each with a sweep of its launch
-    shape in this tree.  Prints
+    shape in this tree; the dba, gdba and amaxsum solve rates
+    (``harness``).  Prints
     one JSON line a row, tagged with the turn and the tree, and writes
     them to ``ab_sharded.jsonl`` in the output directory."""
     rows = []
@@ -2834,6 +2884,439 @@ def maxsum_dynamic_phase(smi, device="cuda"):
     return k1_launches
 
 
+#: the harness phase's collect runs: 200 cycles, through solve_result at
+#: the collect default chunk, 7 (28 chunks and a tail of 4 live and 3
+#: frozen cycles: 203 K2 launches, the frozen cycles' included), and
+#: through solver.run at chunk 8 (25 chunks, so every K2 launch is a live
+#: cycle's)
+HARNESS_CYCLES = 200
+HARNESS_CHUNK = 8
+#: the captured engines of the harness phase: algorithm -> (instance
+#: built in main, PERF.md §5's)
+CAPTURED_ENGINES = {"dba": "coloring_csp_10k_30k",
+                    "gdba": "coloring_csp_10k_30k",
+                    "amaxsum": "coloring_10k_30k"}
+
+
+def harness_solver(dcop, algo, device, use_packed=None, params=None):
+    from pydcop_tpu_torch.algorithms import AlgorithmDef, \
+        load_algorithm_module
+
+    algo_def = AlgorithmDef.build_with_default_params(
+        algo, params or {}, mode=dcop.objective)
+    kw = {} if use_packed is None else {"use_packed": use_packed}
+    return load_algorithm_module(algo).build_solver(
+        dcop, None, algo_def, seed=0, device=device, **kw)
+
+
+def k2_on(pls, xs):
+    """K2 against its plain version on the card at each [V] assignment
+    of ``xs`` (both nudge modes, and the variable-order tables), exactly;
+    returns the max abs error."""
+    import torch
+
+    from pydcop_tpu_torch.ops import packed_local_search as P
+
+    err = 0.0
+    for x in xs:
+        x_col = P.pack_x(pls, x)
+        for prefer in (False, True):
+            k = P.ls_tables(pls, x_col, prefer_change=prefer)
+            p = P.ls_tables_plain(pls, x_col, prefer_change=prefer)
+            torch.cuda.synchronize()
+            for a, b in zip(k, p):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"ls_tables prefer_change={prefer}: kernel differs "
+                        f"from plain in {int((a != b).sum())} entries")
+                err = max(err, float((a.double() - b.double()).abs().max()))
+        t = P.packed_local_tables(pls, x)
+        if not torch.equal(t, P.ls_tables_plain(pls, x_col)[0][
+                :, pls.pg.var_order].T):
+            raise AssertionError("packed_local_tables differs from plain")
+    return err
+
+
+def traced_launches(run, name, tries=3):
+    """(launches of the kernels whose name contains ``name`` in
+    torch.profiler's CUDA trace of ``run()``, the launch counters'
+    increase over the same call, device µs a launch).  A trace whose
+    count is not the counters' is taken again (the chip machine's traces
+    have dropped a kernel's records now and then: 199 of 200 in three
+    traces in a row once), up to ``tries`` traces; the last trace's
+    numbers are returned either way."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        before = sum(read_counts().values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        counted = sum(read_counts().values()) - before
+        traced, total_us = 0, 0.0
+        for e in prof.key_averages():
+            if name in e.key and getattr(
+                    e, "device_time_total",
+                    getattr(e, "cuda_time_total", 0.0)):
+                traced += e.count
+                total_us += getattr(e, "device_time_total",
+                                    getattr(e, "cuda_time_total", 0.0))
+        if traced == counted:
+            break
+    return traced, counted, (total_us / traced if traced else None)
+
+
+def graph_kernel_nodes(runner, name):
+    """Kernel nodes of ``runner``'s captured CUDA graph whose function
+    name contains ``name``, from the graph's DOT dump (one line a kernel
+    node holds its function's name); the runner must have been captured
+    with ``ChunkRunner.keep_graph``."""
+    import warnings
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "harness_graph.dot")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # torch warns on every dump
+        runner.graph.debug_dump(path)
+    with open(path, encoding="utf-8") as f:
+        n = sum(1 for line in f if name in line)
+    os.remove(path)
+    return n
+
+
+def harness_collect_phase(dcops):
+    """The slice's path, ``solve -a mgm --run_metrics``, on the 10k/30k
+    colouring (K2 binary) and SECP-3.9k (K2 mixed):
+
+    * through ``solve_result(..., collect_cycles=True)`` at the collect
+      default chunk (7: 28 chunks and a tail of 4 live and 3 frozen
+      cycles), the counters zeroed just before: 203 K2 launches (the
+      tail's frozen cycles launch too inside the replayed graph) and no
+      other kernel's; the history equals the CPU run's, cycle by cycle;
+    * on SECP-3.9k also through the CLI, ``python -m pydcop_tpu_torch
+      solve -a mgm --cycles 200 --run_metrics --end_metrics`` in a
+      subprocess on the card: JAX's header, 200 RUNNING lines whose
+      costs are the entry point's history, the end line;
+    * mgm and dsa through ``solver.run`` at chunk 8 with collect: 200 K2
+      launches, == the CPU run (cost, values, every history cost), K2 ==
+      its plain version on the runs' first and last assignments; the
+      captured graph (kept) holds 8 ``ls_tables_kernel`` nodes, the
+      launches its capture recorded for each replay to count; a run of
+      replays only, traced by torch.profiler: its count of
+      ``ls_tables_kernel`` launches equals the counters' increase, 200,
+      or falls short by fewer records than the run has replays (a trace
+      drops a record now and then; a node missing from the graph would
+      miss one launch in every replay); its wall time and K2's device µs
+      a launch.
+
+    Returns ({path: K2 launches}, max abs error, rows)."""
+    import csv
+
+    import torch
+
+    from pydcop_tpu_torch.algorithms.capture import ChunkRunner
+    from pydcop_tpu_torch.commands._utils import CSV_COLUMNS
+    from pydcop_tpu_torch.dcop.yamldcop import dcop_yaml
+    from pydcop_tpu_torch.runtime.run import solve_result
+
+    launches, err, rows = {}, 0.0, []
+    for inst, cpu_packed in (("coloring_10k_30k", None),
+                             ("secp_3.9k", True)):
+        dcop = dcops[inst]
+        mixed = inst.startswith("secp")
+        key = "ls_tables_mixed" if mixed else "ls_tables"
+        # the entry point, at the collect default chunk
+        reset_counts()
+        t0 = time.perf_counter()
+        res = solve_result(dcop, "mgm", cycles=HARNESS_CYCLES,
+                           collect_cycles=True, device="cuda")
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        h = res.harness
+        want = {k: 0 for k in counts}
+        want[key] = HARNESS_CYCLES + h["masked_tail_cycles"]
+        if counts != want or res.config["chunk"] != 7 \
+                or h["masked_tail_cycles"] != 3 \
+                or counts[key] != 7 * h["chunks_dispatched"]:
+            fail("harness", f"solve_result mgm on {inst} with collect: "
+                 f"launches {counts}, expected {want}; harness {h}, chunk "
+                 f"{res.config['chunk']}")
+        cpu = harness_solver(dcop, "mgm", "cpu", use_packed=cpu_packed).run(
+            cycles=HARNESS_CYCLES, collect_cycles=True)
+        hist = [(e["cycle"], e["cost"]) for e in res.history]
+        if hist != [(e["cycle"], e["cost"]) for e in cpu.history] \
+                or len(hist) != HARNESS_CYCLES \
+                or (res.assignment, res.cost) != (cpu.assignment, cpu.cost):
+            fail("harness", f"solve_result mgm on {inst}: card cost "
+                 f"{res.cost} != CPU {cpu.cost} or the histories differ")
+        launches[f"mgm_solve_{inst}"] = counts[key]
+        say("harness", entry="solve_result", algo="mgm", instance=inst,
+            chunk=res.config["chunk"], engine=res.config.get("engine"),
+            k2_launches=counts[key], harness=h, cost=res.cost,
+            cpu_cost=cpu.cost, history_len=len(hist),
+            solve_s=round(solve_s, 4))
+        if mixed:
+            # the CLI on the card, in a subprocess (8 s of YAML here)
+            out_dir = os.path.join(ROOT, "chiprun_out")
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(out_dir, "harness_secp.yaml")
+            run_csv = os.path.join(out_dir, "harness_run_metrics.csv")
+            end_csv = os.path.join(out_dir, "harness_end_metrics.csv")
+            for f in (run_csv, end_csv):
+                if os.path.exists(f):
+                    os.remove(f)
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(dcop_yaml(dcop))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a",
+                 "mgm", "--cycles", str(HARNESS_CYCLES), "--run_metrics",
+                 run_csv, "--end_metrics", end_csv, path],
+                capture_output=True, text=True, timeout=600, cwd=ROOT)
+            cli_s = time.perf_counter() - t0
+            try:
+                out = json.loads(proc.stdout)
+                with open(run_csv, encoding="utf-8") as f:
+                    run_rows = list(csv.reader(f))
+                with open(end_csv, encoding="utf-8") as f:
+                    end_rows = list(csv.reader(f))
+            except (ValueError, OSError) as e:
+                fail("harness", f"CLI solve --run_metrics: rc="
+                     f"{proc.returncode} ({e}); stderr: "
+                     f"{proc.stderr[-2000:]}")
+            body = [dict(zip(CSV_COLUMNS, r)) for r in run_rows[1:]]
+            end = dict(zip(CSV_COLUMNS, end_rows[-1]))
+            if proc.returncode != 0 or out.get("status") != "FINISHED" \
+                    or run_rows[0] != CSV_COLUMNS \
+                    or end_rows[0] != CSV_COLUMNS or len(end_rows) != 2 \
+                    or [(int(r["cycle"]), float(r["cost"]), r["status"])
+                        for r in body] != [(c, v, "RUNNING")
+                                           for c, v in hist] \
+                    or out["assignment"] != res.assignment \
+                    or (int(end["cycle"]), float(end["cost"]),
+                        end["status"]) != (HARNESS_CYCLES, out["cost"],
+                                           "FINISHED"):
+                fail("harness", f"CLI solve -a mgm --run_metrics on {inst}: "
+                     f"rc={proc.returncode}, {len(body)} RUNNING lines, end "
+                     f"{end}, status {out.get('status')}, same assignment "
+                     f"as solve_result: "
+                     f"{out.get('assignment') == res.assignment}")
+            say("harness", entry="cli solve --run_metrics --end_metrics",
+                algo="mgm", instance=inst, running_lines=len(body),
+                header=run_rows[0], end_line=end,
+                history_equal_to_solve_result=True, cli_s=round(cli_s, 3))
+        for algo in ("mgm", "dsa"):
+            solver = harness_solver(dcop, algo, "cuda")
+            assert (solver.packed.pg.mixed is not None) == mixed
+            reset_counts()
+            ChunkRunner.keep_graph = True
+            try:
+                t0 = time.perf_counter()
+                res = solver.run(cycles=HARNESS_CYCLES, chunk=HARNESS_CHUNK,
+                                 collect_cycles=True)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            finally:
+                ChunkRunner.keep_graph = False
+            counts = read_counts()
+            runner = solver._runners[("masked", HARNESS_CHUNK, True)]
+            nodes = graph_kernel_nodes(runner, "ls_tables_kernel")
+            if not nodes == HARNESS_CHUNK or runner.recorded != {
+                    key: HARNESS_CHUNK}:
+                fail("harness", f"{algo} on {inst}: the captured chunk of "
+                     f"{HARNESS_CHUNK} cycles holds {nodes} ls_tables_kernel "
+                     f"nodes, its capture recorded {runner.recorded}")
+            want = {k: 0 for k in counts}
+            want[key] = HARNESS_CYCLES
+            if counts != want:
+                fail("harness", f"{algo} on {inst} with collect: launches "
+                     f"{counts}, expected {want}")
+            launches[f"{algo}_collect_{inst}"] = counts[key]
+            cpu = harness_solver(dcop, algo, "cpu", use_packed=cpu_packed)
+            ref = cpu.run(cycles=HARNESS_CYCLES, chunk=HARNESS_CHUNK,
+                          collect_cycles=True)
+            same = (res.assignment == ref.assignment and res.cost == ref.cost
+                    and [h["cost"] for h in res.history]
+                    == [h["cost"] for h in ref.history])
+            if not same or len(res.history) != HARNESS_CYCLES:
+                fail("harness", f"{algo} on {inst}: card cost {res.cost} "
+                     f"!= CPU {ref.cost} or the histories differ "
+                     f"(same assignment: {res.assignment == ref.assignment})")
+            try:
+                err = max(err, k2_on(solver.packed, [
+                    solver.initial_state()[0],
+                    solver.values_of(solver._last_state)]))
+            except AssertionError as e:
+                fail("harness", f"K2 on {inst} ({algo}'s assignments): {e}")
+            no_collect = solver.run(cycles=HARNESS_CYCLES,
+                                    chunk=HARNESS_CHUNK)
+            if no_collect.assignment != res.assignment:
+                fail("harness", f"{algo} on {inst}: the run without collect "
+                     f"(K4/K5) differs from the collect run (K2)")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = solver.run(cycles=HARNESS_CYCLES, chunk=HARNESS_CHUNK,
+                               collect_cycles=True)
+            torch.cuda.synchronize()
+            replay_s = time.perf_counter() - t0
+            if again.assignment != res.assignment \
+                    or again.harness["donated_chunks"] \
+                    != HARNESS_CYCLES // HARNESS_CHUNK:
+                fail("harness", f"{algo} on {inst}: a second collect run "
+                     f"differs from the first, or not every chunk was a "
+                     f"replay: {again.harness}")
+            # the replays' K2 launches, counted by the trace
+            traced, counted, k2_us = traced_launches(
+                lambda: solver.run(cycles=HARNESS_CYCLES,
+                                   chunk=HARNESS_CHUNK, collect_cycles=True),
+                "ls_tables_kernel")
+            replays = HARNESS_CYCLES // HARNESS_CHUNK
+            if counted != HARNESS_CYCLES \
+                    or not counted - replays < traced <= counted:
+                fail("harness", f"{algo} on {inst}: {traced} ls_tables_kernel "
+                     f"launches in the trace of an all-replay collect run "
+                     f"({replays} replays), {counted} counted, "
+                     f"{HARNESS_CYCLES} expected")
+            t0 = time.perf_counter()
+            solver.run(cycles=HARNESS_CYCLES, chunk=HARNESS_CHUNK)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            state = solver.initial_state()
+            coins = solver.draw_chunk_coins(HARNESS_CHUNK)
+            runner(state, coins, HARNESS_CHUNK)  # warm
+            step_ms = cuda_ms(lambda: runner(state, coins, HARNESS_CHUNK),
+                              20) / HARNESS_CHUNK
+            row = dict(algo=algo, instance=inst, cycles=HARNESS_CYCLES,
+                       chunk=HARNESS_CHUNK, launches=counts, cost=res.cost,
+                       cpu_cost=ref.cost, harness=res.harness,
+                       trace_count=solver.trace_count(),
+                       k2_nodes_of_captured_chunk=nodes,
+                       traced_k2_launches_of_replayed_run=traced,
+                       counted_k2_launches_of_replayed_run=counted,
+                       first_run_s=round(first_s, 4),
+                       collect_run_s=round(replay_s, 4),
+                       no_collect_run_s=round(plain_s, 4),
+                       collect_cycles_per_s=HARNESS_CYCLES / replay_s,
+                       no_collect_cycles_per_s=HARNESS_CYCLES / plain_s,
+                       captured_ms_per_cycle=step_ms,
+                       k2_device_us_per_launch=k2_us)
+            rows.append(row)
+            say("harness", **row)
+    return launches, err, rows
+
+
+def harness_captured_phase(instances, cpu_results, smi):
+    """dba, gdba and amaxsum, 200 cycles on PERF.md §5's instances through
+    the fixed-shape runner, three runs of one solver: the first two eager
+    chunks of 100 (a one-shot solve captures nothing), the second run
+    captures at its first chunk and replays, the third is all replays;
+    every chunk but the runner's first (its warm-up) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no kernel of the port
+    launched, results == the CPU run's; each run's wall time, the
+    cycles/s of the replays (host clock around two chunk calls ending in
+    a synchronize) beside the eager ``run_cycles`` of the same solver,
+    and trace_count.  Then an open-ended generic maxsum with
+    ``pipeline=True`` against the same run without it.  Returns the
+    rows."""
+    import torch
+
+    rows = []
+    for algo, inst in CAPTURED_ENGINES.items():
+        solver = harness_solver(instances[inst], algo, "cuda")
+        solver.check_chunk_syncs = True
+        reset_counts()
+        runs, walls = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs.append(solver.run(cycles=HARNESS_CYCLES))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if len(runs) == 1 and solver.trace_count() != 0:
+                fail("harness", f"{algo}: a one-shot 200-cycle solve "
+                     f"captured {solver.trace_count()} graphs")
+        counts = read_counts()
+        if any(counts.values()):
+            fail("harness", f"{algo}: launches {counts}: the generic engine "
+                 f"launches no kernel of the port")
+        cpu = cpu_results[algo]
+        for r in runs:
+            if (r.assignment, r.cost, r.cycle) != (cpu.assignment, cpu.cost,
+                                                   cpu.cycle):
+                fail("harness", f"{algo} on {inst}: card cost {r.cost} at "
+                     f"cycle {r.cycle} != CPU {cpu.cost} at {cpu.cycle}")
+        donated = [r.harness["donated_chunks"] for r in runs]
+        if solver.trace_count() != 1 or donated != [0, 2, 2]:
+            fail("harness", f"{algo}: trace_count {solver.trace_count()}, "
+                 f"replays a run {donated} (expected [0, 2, 2])")
+        res = runs[0]
+        chunk = res.config["chunk"]
+        runner = solver._runners[("masked", chunk, False)]
+        solver._restart_streams(False)
+        state = solver.initial_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HARNESS_CYCLES // chunk):
+            state, _, _ = runner(state, solver.draw_chunk_coins(chunk),
+                                 chunk)
+        torch.cuda.synchronize()
+        captured = HARNESS_CYCLES / (time.perf_counter() - t0)
+        solver._restart_streams(False)
+        state = solver.initial_state()
+        solver.run_cycles(state, 5)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.run_cycles(state, HARNESS_CYCLES)
+        torch.cuda.synchronize()
+        eager = HARNESS_CYCLES / (time.perf_counter() - t0)
+        row = dict(algo=algo, instance=inst, cycles=HARNESS_CYCLES,
+                   cost=res.cost, cpu_cost=cpu.cost,
+                   trace_count=solver.trace_count(),
+                   replays_a_run=donated,
+                   sync_checked_chunks=1 + sum(donated),
+                   first_run_s=round(walls[0], 4),
+                   second_run_s=round(walls[1], 4),
+                   third_run_s=round(walls[2], 4),
+                   one_shot_run_cycles_per_s=HARNESS_CYCLES / walls[0],
+                   run_cycles_per_s=HARNESS_CYCLES / walls[2],
+                   captured_cycles_per_s=captured,
+                   eager_cycles_per_s=eager, nvidia_smi=smi)
+        rows.append(row)
+        say("harness", **row)
+    for inst in ("coloring_10k_30k", "secp_3.9k"):
+        runs, wall = {}, {}
+        for pipeline in (False, True):
+            solver = harness_solver(instances[inst], "maxsum", "cuda",
+                                    use_packed=False)
+            solver.check_chunk_syncs = True
+            t0 = time.perf_counter()
+            runs[pipeline] = solver.run(pipeline=pipeline)
+            torch.cuda.synchronize()
+            wall[pipeline] = time.perf_counter() - t0
+        ref, res = runs[False], runs[True]
+        over = res.harness["overshoot_cycles"]
+        if res.assignment != ref.assignment \
+                or not ref.cycle <= res.cycle <= ref.cycle + 7 \
+                or over != res.cycle - ref.cycle:
+            fail("harness", f"pipelined maxsum on {inst}: cycle {res.cycle} "
+                 f"(without {ref.cycle}), overshoot {over}, same "
+                 f"assignment {res.assignment == ref.assignment}")
+        row = dict(algo="maxsum", engine="generic", instance=inst,
+                   pipeline=True, cycle=res.cycle, cycle_without=ref.cycle,
+                   overshoot_cycles=over, cost=res.cost,
+                   run_s=round(wall[True], 4),
+                   run_s_without=round(wall[False], 4),
+                   host_sync_count=res.harness["host_sync_count"],
+                   chunks=res.harness["chunks_dispatched"])
+        rows.append(row)
+        say("harness", **row)
+    return rows
+
+
 def main():
     try:
         import torch
@@ -3191,7 +3674,8 @@ def main():
     main_launches = {}
     # MaxSum, MGM, the DSA family and MGM-2: one launch a chunk of the
     # harness (two chunks of 100 cycles)
-    chunk_launches = -(-cycles // default_chunk(cycles, None, cycles))
+    chunk_launches = -(-cycles // default_chunk(
+        cycles, False, False, None, cycles))
     for algo, expect in (
             ("maxsum", {"packed_maxsum_cycle": chunk_launches}),
             ("mgm", {"mgm": chunk_launches}),
@@ -3319,6 +3803,8 @@ def main():
     t0 = time.perf_counter()
     csp = coloring_csp_dcop(10_000, 30_000)
     build_csp_s = time.perf_counter() - t0
+    #: CPU runs the harness phase holds the captured card runs to
+    cpu_results = {}
     for algo in ("dba", "gdba"):
         reset_counts()
         t0 = time.perf_counter()
@@ -3330,6 +3816,7 @@ def main():
             fail("main_path_breakout", f"{algo}: launches {counts}: the "
                  f"generic engine launches no kernel of the port")
         cpu = solve_result(csp, algo, cycles=cycles, device="cpu")
+        cpu_results[algo] = cpu
         if set(res.metrics()) != jax_keys or res.status != "FINISHED" \
                 or res.cycle != cycles or not math.isfinite(res.cost) \
                 or len(res.assignment) != 10_000:
@@ -3530,6 +4017,7 @@ def main():
         fail("main_path_amaxsum", f"launches {counts}: the generic engine "
              f"launches no kernel of the port")
     cpu = solve_result(dcop, "amaxsum", cycles=cycles, device="cpu")
+    cpu_results["amaxsum"] = cpu
     if set(res.metrics()) != jax_keys or res.status != "FINISHED" \
             or res.cycle != cycles or not math.isfinite(res.cost) \
             or len(res.assignment) != 10_000:
@@ -3602,6 +4090,12 @@ def main():
     # maxsum_dynamic: K1 binary on a layout swapped in place, K1-mixed
     # through the re-pack
     dynamic_k1 = maxsum_dynamic_phase(smi)
+    # the harness: per-cycle metrics (K2 once a cycle), the captured
+    # chunks of the generic engines, the pipelined dispatch
+    harness_dcops = {"coloring_10k_30k": dcop, "coloring_csp_10k_30k": csp,
+                     "secp_3.9k": secp}
+    k2_by_path, k2_err, _ = harness_collect_phase(harness_dcops)
+    harness_captured_phase(harness_dcops, cpu_results, smi)
 
     # 5. times -------------------------------------------------------------
     timing = {}
@@ -3783,7 +4277,7 @@ def main():
          main_launches["packed_maxsum_cycle"], main_err),
         ("packed_local_tables", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1603",
-         main_launches.get("ls_tables", 0), ls_err),
+         k2_by_path["mgm_solve_coloring_10k_30k"], max(ls_err, k2_err)),
         ("packed_mgm_cycles", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:529",
          main_launches["mgm"], ls_err),
@@ -3802,7 +4296,7 @@ def main():
          main_launches["packed_maxsum_mixed"], mixed_err),
         ("packed_local_tables_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_maxsum.py:1603",
-         main_launches.get("ls_tables_mixed", 0), mixed_ls_err),
+         k2_by_path["mgm_solve_secp_3.9k"], max(mixed_ls_err, k2_err)),
         ("packed_mgm_cycles_mixed", "pydcop_tpu_torch/csrc/local_search.cu",
          "pydcop_tpu/ops/pallas_local_search.py:529",
          main_launches["mgm_mixed"], mixed_ls_err),
@@ -3867,20 +4361,27 @@ def main():
         "packed_mgm_cycles_mixed": MGM_DESIGN,
         "packed_dsa_cycles": DSA_DESIGN,
         "packed_dsa_cycles_mixed": DSA_DESIGN}
-    # K2 runs on no solve path of the port: the JAX package launches it
-    # only for per-cycle metrics (pydcop_tpu/algorithms/
-    # _local_search.py:295-300, collect_cycles), which the port lacks
-    k2_note = ("0 launches on every solve path: the JAX package runs K2 "
-               "only on its per-cycle-metrics path "
-               "(pydcop_tpu/algorithms/_local_search.py:295-300), which "
-               "the port lacks (collect_cycles); held against its plain "
-               "version and timed here")
+    # K2's path: per-cycle metrics (collect_cycles), once a cycle, as in
+    # the JAX package (pydcop_tpu/algorithms/_local_search.py:294-299)
+    k2_note = ("launched once a cycle by the collect_cycles path of mgm, "
+               "mgm2 and the DSA family (solve --run_metrics), inside the "
+               "chunk's CUDA graph; launches: a 200-cycle solve_result mgm "
+               "run with collect_cycles at the default chunk of 7 (the "
+               "tail chunk's 3 frozen cycles launch too); the captured "
+               "chunk's K2 nodes are counted in its graph, and a replayed "
+               "run's launches in a profiler trace")
     notes = {"packed_local_tables": k2_note,
              "packed_local_tables_mixed": k2_note}
-    # the K1 binary launches of the other path that runs it
+    # the launches of each path that runs K1 binary or K2
     by_path = {"packed_maxsum_cycle": {
         "maxsum": main_launches["packed_maxsum_cycle"],
         "maxsum_dynamic": dynamic_k1}}
+    for name, inst in (("packed_local_tables", "coloring_10k_30k"),
+                       ("packed_local_tables_mixed", "secp_3.9k")):
+        by_path[name] = {
+            "mgm_solve_result_chunk7": k2_by_path[f"mgm_solve_{inst}"],
+            **{f"{algo}_collect_chunk8": k2_by_path[f"{algo}_collect_{inst}"]
+               for algo in ("mgm", "dsa")}}
     kernels = []
     for name, source, replaces, launches, err in entries:
         size = sizes_of.get(name, "secp_3.9k" if "mixed" in name

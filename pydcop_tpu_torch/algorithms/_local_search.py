@@ -29,6 +29,14 @@ the DSA-family coins from one seeded with ``seed``, drawn per chunk as
 ``[n, V]`` uniforms on the CPU and copied to the device.  A CPU run and a
 GPU run of this package thus take the same random choices, but not the
 numbers of the JAX package's ``jax.random`` stream.
+
+The harness (:mod:`pydcop_tpu_torch.algorithms.base`) runs a chunk of
+the packed engine as one cooperative kernel launch, except with
+``collect_cycles``: then, as in the JAX package, each cycle is the
+generic cycle on the tables of :meth:`LocalSearchSolver.local_tables` —
+one launch of the ``ls_tables`` kernel (K2) a cycle on the packed layout
+— and the chunk runs through the fixed-shape runner, captured as a CUDA
+graph on the card.  The generic engine always takes that runner.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ from pydcop_tpu_torch.ops.packed_local_search import (
     pack_from_pg,
     pack_uniforms,
     pack_x,
+    packed_local_tables,
     unpack_x,
 )
 from pydcop_tpu_torch.ops.packed_maxsum import solver_layout
@@ -98,8 +107,9 @@ def gains_and_best(
     cur = tables[rows, xl]
     pick_from = tables
     if prefer_change:
-        eps = torch.zeros_like(tables)
-        eps[rows, xl] = 1e-6
+        # a scatter of the scalar, not an indexed assignment, which would
+        # copy it from the host (no copy may run inside a CUDA graph)
+        eps = torch.zeros_like(tables).scatter_(1, xl[:, None], 1e-6)
         pick_from = tables + eps
     best_val = masked_argmin(pick_from, tensors.domain_mask)
     gain = cur - tables[rows, best_val]
@@ -115,7 +125,7 @@ def neighborhood_winner(tensors: ConstraintGraphTensors,
     src, dst = tensors.neighbor_src, tensors.neighbor_dst
     if src.shape[0] == 0:
         return gain > 0
-    eps = gain.new_tensor(1e-9)
+    eps = 1e-9
     neigh_max = segment_max(gain[src], dst, V)
     neigh_max = torch.clamp_min(neigh_max, 0.0)  # isolated vars: -inf
     # lowest index among neighbours achieving the max (lexic tie-break)
@@ -140,8 +150,8 @@ def conflicted(tensors: ConstraintGraphTensors, x: torch.Tensor,
 def dsa_move(x, best_val, gain, in_conflict, activate, variant):
     """The DSA variants' move rule (A: improve; B: also lateral in
     conflict; C: also lateral) under the ``activate`` coins."""
-    improving = gain > gain.new_tensor(1e-9)
-    lateral = (gain <= gain.new_tensor(1e-9)) & (best_val != x)
+    improving = gain > 1e-9
+    lateral = (gain <= 1e-9) & (best_val != x)
     if variant == "A":
         want = improving
     elif variant == "B":
@@ -158,8 +168,9 @@ class LocalSearchSolver(SynchronousTensorSolver):
     :func:`~pydcop_tpu_torch.ops.packed_maxsum.solver_layout` packs
     (``self.packed`` is not None), the generic one otherwise.
     Subclasses implement :meth:`cycle` (one generic cycle from x and this
-    cycle's coins) and :meth:`packed_run` (n packed cycles on the
-    column-order x), and :meth:`chunk_coins` when they draw coins."""
+    cycle's coins, on the tables of :meth:`local_tables`) and
+    :meth:`packed_run` (n packed cycles on the column-order x), and
+    :meth:`draw_chunk_coins` when they draw coins."""
 
     def __init__(self, dcop, tensors: ConstraintGraphTensors,
                  algo_def: AlgorithmDef, seed: int = 0,
@@ -179,11 +190,25 @@ class LocalSearchSolver(SynchronousTensorSolver):
         self.packed = pack_from_pg(solver_layout(tensors, use_packed))
         self.coins = torch.Generator(device="cpu")
 
-    def run(self, cycles=None, timeout=None):
-        # every run replays the same coins, as the JAX package restarts
-        # its key at PRNGKey(seed)
-        self.coins.manual_seed(self.seed)
-        return super().run(cycles=cycles, timeout=timeout)
+    def _restart_streams(self, warm):
+        # every fresh run replays the same coins, as the JAX package
+        # restarts its key at PRNGKey(seed); a warm restart continues
+        if not warm:
+            self.coins.manual_seed(self.seed)
+
+    def _supports_fixed_chunk(self, collect):
+        # the packed engine's chunk is one cooperative launch, which the
+        # fixed-shape runner does not capture; with per-cycle metrics
+        # the generic cycle runs on K2's tables, as in the JAX package
+        return collect or self.packed is None
+
+    def local_tables(self, x: torch.Tensor) -> torch.Tensor:
+        """[V, D] local cost tables at the assignment x: one ``ls_tables``
+        launch (K2) on the packed layout, ``local_cost_tables`` on the
+        generic engine (the JAX solver's ``local_tables``)."""
+        if self.packed is not None:
+            return packed_local_tables(self.packed, x)
+        return local_cost_tables(self.tensors, x)
 
     def initial_state(self):
         return (random_valid_values(self.tensors, self.seed + 17),)
@@ -196,8 +221,16 @@ class LocalSearchSolver(SynchronousTensorSolver):
         return torch.rand((n, self.tensors.n_vars), generator=self.coins)
 
     def chunk_coins(self, n: int):
-        """The coins of the next n cycles on the device, or None."""
-        return None
+        """The coins of the next n cycles on the device, in the packed
+        engine's column order where it runs, or None when the solver
+        draws none."""
+        draws = self.draw_chunk_coins(n)
+        if not draws:
+            return None
+        coins = tuple(d.to(self.device) for d in draws)
+        if self.packed is not None:
+            coins = tuple(pack_uniforms(self.packed, c) for c in coins)
+        return coins
 
     def cycle(self, x: torch.Tensor, coins) -> torch.Tensor:
         raise NotImplementedError
@@ -205,16 +238,16 @@ class LocalSearchSolver(SynchronousTensorSolver):
     def packed_run(self, x_col: torch.Tensor, n: int, coins):
         raise NotImplementedError
 
+    def step(self, state, coins):
+        return (self.cycle(state[0], coins),)
+
     def run_cycles(self, state, n: int):
+        if self.packed is None:
+            return super().run_cycles(state, n)
         (x,) = state
-        coins = self.chunk_coins(n)
-        if self.packed is not None:
-            x_col = self.packed_run(pack_x(self.packed, x), n, coins)
-            return (unpack_x(self.packed, x_col),)
-        for i in range(n):
-            x = self.cycle(x, None if coins is None
-                           else tuple(c[i] for c in coins))
-        return (x,)
+        x_col = self.packed_run(pack_x(self.packed, x), n,
+                                self.chunk_coins(n))
+        return (unpack_x(self.packed, x_col),)
 
 
 class StochasticSolver(LocalSearchSolver):
@@ -224,13 +257,9 @@ class StochasticSolver(LocalSearchSolver):
 
     wake_coins = False
 
-    def chunk_coins(self, n: int):
-        draws = [self.draw_uniforms(n)
-                 for _ in range(2 if self.wake_coins else 1)]
-        coins = tuple(d.to(self.device) for d in draws)
-        if self.packed is not None:
-            coins = tuple(pack_uniforms(self.packed, c) for c in coins)
-        return coins
+    def draw_chunk_coins(self, n: int):
+        return tuple(self.draw_uniforms(n)
+                     for _ in range(2 if self.wake_coins else 1))
 
 
 def quiet_neighborhood(tensors: ConstraintGraphTensors,
@@ -244,14 +273,16 @@ def quiet_neighborhood(tensors: ConstraintGraphTensors,
             segment_max(gain[src], dst, tensors.n_vars), 0.0)
     else:
         neigh_max = torch.zeros_like(gain)
-    return torch.maximum(gain, neigh_max) <= gain.new_tensor(1e-9)
+    return torch.maximum(gain, neigh_max) <= 1e-9
 
 
 class BreakoutSolver(LocalSearchSolver):
     """Base of dba and gdba: state = (x [V] int32, breakout weights), the
     generic engine only (``use_packed=False``, as the JAX solvers), no
-    coins.  Subclasses implement :meth:`initial_weights` and
-    :meth:`cycle` (one cycle from the whole state)."""
+    coins, so every chunk runs through the fixed-shape runner (a CUDA
+    graph on the card).  Subclasses implement :meth:`initial_weights`
+    and :meth:`cycle` (one cycle from the whole state, without a host
+    read)."""
 
     def __init__(self, dcop, tensors: ConstraintGraphTensors,
                  algo_def: AlgorithmDef, seed: int = 0):
@@ -266,7 +297,8 @@ class BreakoutSolver(LocalSearchSolver):
         return (random_valid_values(self.tensors, self.seed + 17),
                 self.initial_weights())
 
-    def run_cycles(self, state, n: int):
-        for _ in range(n):
-            state = self.cycle(state)
-        return state
+    def cycle(self, state):
+        raise NotImplementedError
+
+    def step(self, state, coins):
+        return self.cycle(state)

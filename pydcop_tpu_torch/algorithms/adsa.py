@@ -35,14 +35,14 @@ algo_params = [
 
 
 def adsa_cycle(tensors, x, wake_u, move_u, probability, variant,
-               activation):
+               activation, tables=None):
     """One generic A-DSA cycle from this cycle's [V] wake and move
-    uniforms."""
-    awake = wake_u < wake_u.new_tensor(activation)
+    uniforms; the local cost tables are computed here when None."""
+    awake = wake_u < activation
     _, best_val, gain, tables = gains_and_best(
-        tensors, x, prefer_change=variant in ("B", "C"))
+        tensors, x, tables=tables, prefer_change=variant in ("B", "C"))
     in_conflict = conflicted(tensors, x, tables)
-    activate = (move_u < move_u.new_tensor(probability)) & awake
+    activate = (move_u < probability) & awake
     return dsa_move(x, best_val, gain, in_conflict, activate, variant)
 
 
@@ -58,7 +58,8 @@ class ADsaSolver(StochasticSolver):
     def cycle(self, x, coins):
         wake_u, move_u = coins
         return adsa_cycle(self.tensors, x, wake_u, move_u, self.probability,
-                          self.variant, self.activation)
+                          self.variant, self.activation,
+                          tables=self.local_tables(x))
 
     def packed_run(self, x_col, n, coins):
         wake_u, move_u = coins

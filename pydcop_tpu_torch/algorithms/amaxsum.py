@@ -11,8 +11,11 @@ only a random subset of edges commits its new messages (a per-edge
 activation mask, ``uniform < activation``), the rest keep the previous
 cycle's.  The packed layouts carry no such mask, so this solver always
 runs the generic engine (``use_packed=False``, as the JAX solver), in
-plain PyTorch: no kernel of the port.  Under a placement (``solve -d``)
-amaxsum runs the sharded engine's activation branch instead
+plain PyTorch: no kernel of the port.  Its chunks run through the
+harness's fixed-shape runner, captured as a CUDA graph on the card, the
+chunk's masks copied into the graph's buffer before each replay.  Under
+a placement (``solve -d``) amaxsum runs the sharded engine's activation
+branch instead
 (``ShardedMaxSum(activation=...)``, K7's activation kernel).
 
 Stated deviation from the JAX package: the per-cycle ``[E]`` uniforms
@@ -65,27 +68,26 @@ class AMaxSumSolver(MaxSumSolver):
         self.seed = seed
         self.coins = torch.Generator(device="cpu")
 
-    def run(self, cycles=None, timeout=None):
-        # every run replays the same masks, as the JAX package restarts
-        # its key at PRNGKey(seed)
-        self.coins.manual_seed(self.seed)
-        return super().run(cycles=cycles, timeout=timeout)
+    def _restart_streams(self, warm):
+        # every fresh run replays the same masks, as the JAX package
+        # restarts its key at PRNGKey(seed); a warm restart continues
+        if not warm:
+            self.coins.manual_seed(self.seed)
 
     def draw_uniforms(self, n: int) -> torch.Tensor:
         """[n, E] float32 activation uniforms for the next n cycles, on
         the CPU."""
         return torch.rand((n, self.tensors.n_edges), generator=self.coins)
 
-    def run_cycles(self, state, n: int):
-        q, r, values = state
-        active = (self.draw_uniforms(n).to(self.device)
-                  < self.activation)[:, :, None]
-        for i in range(n):
-            q2, r2, _, values = maxsum_cycle(
-                self.tensors, q, r, damping=self.damping)
-            q = torch.where(active[i], q2, q)
-            r = torch.where(active[i], r2, r)
-        return q, r, values
+    def draw_chunk_coins(self, n: int):
+        return (self.draw_uniforms(n),)
+
+    def step(self, state, coins):
+        q, r, _ = state
+        active = (coins[0] < self.activation)[:, None]
+        q2, r2, _, values = maxsum_cycle(self.tensors, q, r,
+                                         damping=self.damping)
+        return torch.where(active, q2, q), torch.where(active, r2, r), values
 
 
 def build_solver(

@@ -55,8 +55,8 @@ algo_params = [
 def violation_indicator(t: torch.Tensor) -> torch.Tensor:
     """0/1 violation indicator per constraint entry of one stacked cost
     tensor (padding stays PAD_COST)."""
-    return torch.where(t >= t.new_tensor(PAD_COST / 2), t.new_tensor(
-        PAD_COST), (t > 0).to(torch.float32))
+    return torch.where(t >= PAD_COST / 2, PAD_COST,
+                       (t > 0).to(torch.float32))
 
 
 class DbaSolver(BreakoutSolver):
@@ -84,7 +84,7 @@ class DbaSolver(BreakoutSolver):
 
         # quasi-local minimum: nobody in the neighbourhood can improve
         # but violations remain -> breakout (weight increase)
-        qlm = quiet_neighborhood(t, gain) & (cur > gain.new_tensor(1e-9))
+        qlm = quiet_neighborhood(t, gain) & (cur > 1e-9)
         w2 = w
         xl = x.long()
         for bi, b in enumerate(t.buckets):

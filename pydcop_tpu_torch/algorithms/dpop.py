@@ -168,7 +168,8 @@ class DpopSolver:
             i_bound=self.i_bound if i_bound is None else int(i_bound),
         )
 
-    def run(self, cycles=None, timeout=None, **_kwargs) -> SolveResult:
+    def run(self, cycles=None, timeout=None, collect_cycles=False,
+            **_kwargs) -> SolveResult:
         # the JAX ladder: (1) global batched sweep (the whole-sweep
         # kernel for width-1 plans on CUDA), (2) per-level sweep, (3)
         # per-node loop; and, when the tables exceed one device (planner
@@ -355,6 +356,14 @@ class DpopSolver:
             upper_bound=upper,
             gap=max(0.0, upper - lower),
         )
+        from pydcop_tpu_torch.runtime.events import send_dpop
+
+        send_dpop("minibucket.bounds", {
+            "i_bound": i_bound,
+            "lower_bound": lower,
+            "upper_bound": upper,
+            "gap": dpop_info["gap"],
+        })
         self.msg_count = info["msg_count"]
         self.msg_size = float(info["msg_entries"])
         return SolveResult(

@@ -36,12 +36,13 @@ algo_params = [
 ]
 
 
-def dsa_cycle(tensors, x, u, probability, variant):
-    """One generic DSA cycle: ``u`` is the [V] activation uniform."""
+def dsa_cycle(tensors, x, u, probability, variant, tables=None):
+    """One generic DSA cycle: ``u`` is the [V] activation uniform; the
+    local cost tables are computed here when None."""
     _, best_val, gain, tables = gains_and_best(
-        tensors, x, prefer_change=variant in ("B", "C"))
+        tensors, x, tables=tables, prefer_change=variant in ("B", "C"))
     in_conflict = conflicted(tensors, x, tables)
-    activate = u < u.new_tensor(probability)
+    activate = u < probability
     return dsa_move(x, best_val, gain, in_conflict, activate, variant)
 
 
@@ -55,7 +56,7 @@ class DsaSolver(StochasticSolver):
 
     def cycle(self, x, coins):
         return dsa_cycle(self.tensors, x, coins[0], self.probability,
-                         self.variant)
+                         self.variant, tables=self.local_tables(x))
 
     def packed_run(self, x_col, n, coins):
         return packed_dsa_cycles(self.packed, x_col, coins[0],

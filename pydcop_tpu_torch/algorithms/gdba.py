@@ -61,12 +61,10 @@ algo_params = [
 def factor_min_max(t: torch.Tensor, arity: int):
     """(fmin, fmax) per factor of one stacked cost tensor, ignoring
     padding (for the NM / MX violation modes)."""
-    valid = t < t.new_tensor(PAD_COST / 2)
+    valid = t < PAD_COST / 2
     dims = tuple(range(1, arity + 1))
-    fmin = torch.amin(torch.where(valid, t, t.new_tensor(PAD_COST)),
-                      dim=dims)
-    fmax = torch.amax(torch.where(valid, t, t.new_tensor(-PAD_COST)),
-                      dim=dims)
+    fmin = torch.amin(torch.where(valid, t, PAD_COST), dim=dims)
+    fmax = torch.amax(torch.where(valid, t, -PAD_COST), dim=dims)
     return fmin, fmax
 
 
@@ -74,22 +72,21 @@ def effective_tensor(t: torch.Tensor, w: torch.Tensor,
                      modifier: str) -> torch.Tensor:
     """base ∘ weight with the A/M modifier; padding stays PAD_COST."""
     e = t + w if modifier == "A" else t * w
-    return torch.where(t >= t.new_tensor(PAD_COST / 2),
-                       t.new_tensor(PAD_COST), e)
+    return torch.where(t >= PAD_COST / 2, PAD_COST, e)
 
 
 def violation_mask(base_cur: torch.Tensor, fmin: torch.Tensor,
                    fmax: torch.Tensor, violation: str) -> torch.Tensor:
     """Per-factor violation test under the current assignment
     (NZ: non-zero, NM: non-minimal, MX: maximal)."""
-    eps = base_cur.new_tensor(1e-9)
+    eps = 1e-9
     if violation == "NZ":
         viol = base_cur > eps
     elif violation == "NM":
         viol = base_cur > fmin + eps
     else:  # MX
         viol = base_cur >= fmax - eps
-    return viol & (base_cur < base_cur.new_tensor(PAD_COST / 2))
+    return viol & (base_cur < PAD_COST / 2)
 
 
 def increase_mask(t: torch.Tensor, vals: torch.Tensor,

@@ -25,6 +25,13 @@ at cycle 42 with 4.223333, in both packages) meet only with
 ``use_packed=True``.  ``True`` packs whatever packs, on any device;
 ``False`` forces the generic engine.
 
+Under the harness (:mod:`pydcop_tpu_torch.algorithms.base`) a chunk of
+the packed engine is one ``packed_cycles`` call (one cooperative launch
+on the binary layout, one a cycle on the mixed one); with
+``collect_cycles`` it is one call a cycle, each followed by the cycle's
+cost, outside a CUDA graph.  The generic engine's chunks run through the
+fixed-shape runner, captured as a CUDA graph on the card.
+
 Stated deviation from the JAX package: the symmetry-breaking noise added
 to the unary costs is drawn from a ``torch.Generator`` seeded with
 ``seed + 1`` ON THE CPU and then moved to the device — so a CPU run and a
@@ -125,15 +132,22 @@ class MaxSumSolver(SynchronousTensorSolver):
                                self.tensors.domain_mask)
         return q, r, values
 
+    def _supports_fixed_chunk(self, collect):
+        # the packed engine's cooperative launches are not captured
+        return self.packed is None
+
+    def step(self, state, coins):
+        q, r, _ = state
+        q, r, _, values = maxsum_cycle(self.tensors, q, r,
+                                       damping=self.damping)
+        return q, r, values
+
     def run_cycles(self, state, n: int):
-        q, r, values = state
-        if self.packed is not None:
-            q, r, _, values = packed_cycles(
-                self.packed, q, r, n, damping=self.damping)
-            return q, r, values
-        for _ in range(n):
-            q, r, _, values = maxsum_cycle(
-                self.tensors, q, r, damping=self.damping)
+        if self.packed is None:
+            return super().run_cycles(state, n)
+        q, r, _ = state
+        q, r, _, values = packed_cycles(self.packed, q, r, n,
+                                        damping=self.damping)
         return q, r, values
 
     def values_of(self, state):

@@ -31,9 +31,10 @@ algo_params = [
 ]
 
 
-def mgm_cycle(tensors, x):
-    """One generic MGM cycle as a function of (tensors, x)."""
-    _, best_val, gain, _ = gains_and_best(tensors, x)
+def mgm_cycle(tensors, x, tables=None):
+    """One generic MGM cycle as a function of (tensors, x), on the given
+    local cost tables (computed here when None)."""
+    _, best_val, gain, _ = gains_and_best(tensors, x, tables=tables)
     move = neighborhood_winner(tensors, gain)
     return torch.where(move, best_val, x).to(torch.int32)
 
@@ -47,7 +48,7 @@ class MgmSolver(LocalSearchSolver):
         self.msgs_per_cycle = 2 * tensors.n_pairs
 
     def cycle(self, x, coins):
-        return mgm_cycle(self.tensors, x)
+        return mgm_cycle(self.tensors, x, tables=self.local_tables(x))
 
     def packed_run(self, x_col, n, coins):
         return packed_mgm_cycles(self.packed, x_col, n)

@@ -62,7 +62,6 @@ from pydcop_tpu_torch.algorithms._local_search import (
 from pydcop_tpu_torch.dcop.dcop import DCOP
 from pydcop_tpu_torch.device import DeviceLike
 from pydcop_tpu_torch.ops.compile import PAD_COST, compile_constraint_graph
-from pydcop_tpu_torch.ops.packed_local_search import pack_uniforms
 from pydcop_tpu_torch.ops.packed_mgm2 import (
     FAVORS,
     pack_mgm2_from_pls,
@@ -135,12 +134,8 @@ class Mgm2Solver(LocalSearchSolver):
         self.inc_e = torch.as_tensor(inc_e, device=dev)
         self.inc_s = torch.as_tensor(inc_s, device=dev)
 
-    def chunk_coins(self, n: int):
-        coins = tuple(self.draw_uniforms(n).to(self.device)
-                      for _ in range(3))
-        if self.packed is not None:
-            coins = tuple(pack_uniforms(self.packed, c) for c in coins)
-        return coins
+    def draw_chunk_coins(self, n: int):
+        return tuple(self.draw_uniforms(n) for _ in range(3))
 
     def packed_run(self, x_col, n, coins):
         return packed_mgm2_cycles(self.packed_mgm2, x_col, *coins,
@@ -153,9 +148,9 @@ class Mgm2Solver(LocalSearchSolver):
         V, D = t.n_vars, t.max_domain_size
         dev = x.device
         me = torch.arange(V, device=dev)
-        cur, best_val, own_gain, tables = gains_and_best(t, x)
-        f32 = own_gain.new_tensor
-        eps = f32(1e-9)
+        cur, best_val, own_gain, tables = gains_and_best(
+            t, x, tables=self.local_tables(x))
+        eps = 1e-9
 
         if self.n_pairs == 0:
             move = neighborhood_winner(t, own_gain)
@@ -163,7 +158,7 @@ class Mgm2Solver(LocalSearchSolver):
 
         P = self.n_pairs
         u_off, u_pick, u_fav = coins
-        offerer = u_off < f32(self.threshold)
+        offerer = u_off < self.threshold
 
         # --- offer round: each offerer picks one random incident pair edge
         pick = torch.floor(
@@ -172,12 +167,16 @@ class Mgm2Solver(LocalSearchSolver):
         chosen_e = self.inc_e[me, k]
         chosen_s = self.inc_s[me, k]
         valid_offer = offerer & (self.pair_deg > 0)
-        # scatter into [P + 1]: the last slot is the dropped sentinel
+        # scatter into [P + 1]: the last slot is the dropped sentinel (an
+        # index_fill_ of the scalar: an indexed assignment would copy it
+        # from the host, which no CUDA graph may hold)
         drop = torch.full_like(chosen_e, P)
-        sel0 = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-        sel0[torch.where(valid_offer & (chosen_s == 0), chosen_e, drop)] = True
-        sel1 = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-        sel1[torch.where(valid_offer & (chosen_s == 1), chosen_e, drop)] = True
+        sel0 = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill_(
+            0, torch.where(valid_offer & (chosen_s == 0), chosen_e, drop),
+            True)
+        sel1 = torch.zeros(P + 1, dtype=torch.bool, device=dev).index_fill_(
+            0, torch.where(valid_offer & (chosen_s == 1), chosen_e, drop),
+            True)
         offered0 = sel0[:P] & ~offerer[self.pe_j]  # i offers, j receives
         offered1 = sel1[:P] & ~offerer[self.pe_i]  # j offers, i receives
         offered = offered0 | offered1
@@ -195,7 +194,7 @@ class Mgm2Solver(LocalSearchSolver):
         joint = (ti_excl[:, :, None] + tj_excl[:, None, :]) + M
         pair_mask = (t.domain_mask[self.pe_i][:, :, None]
                      * t.domain_mask[self.pe_j][:, None, :])
-        joint = torch.where(pair_mask > 0, joint, f32(PAD_COST))
+        joint = torch.where(pair_mask > 0, joint, PAD_COST)
         cur_joint = (cur[self.pe_i] + cur[self.pe_j]) - M[ep, xi, xj]
         flat = joint.reshape(P, D * D)
         best_flat = torch.argmin(flat, dim=1)  # first index of the minimum
@@ -209,7 +208,7 @@ class Mgm2Solver(LocalSearchSolver):
         # arbitrated by favor — reference mgm2.py:812-821)
         pos = offered & (jg > eps)
         seg_rec = torch.where(pos, receiver, torch.full_like(receiver, V))
-        rec_max = segment_max(torch.where(offered, jg, f32(-1.0)), seg_rec,
+        rec_max = segment_max(torch.where(offered, jg, -1.0), seg_rec,
                               V + 1)[:V]
         at_best = pos & (jg >= rec_max[receiver] - eps)
         first_e = segment_min(torch.where(at_best, ep, torch.full_like(
@@ -219,7 +218,7 @@ class Mgm2Solver(LocalSearchSolver):
         if self.favor == "coordinated":
             commits = beats | ties
         elif self.favor == "no":
-            commits = beats | (ties & (u_fav > f32(0.5)))
+            commits = beats | (ties & (u_fav > 0.5))
         else:  # unilateral
             commits = beats
         accepted = at_best & (ep == first_e[receiver]) & commits[receiver]
@@ -235,8 +234,9 @@ class Mgm2Solver(LocalSearchSolver):
             out[gj] = vj
             return out[:V]
 
-        committed = scatter(torch.zeros(V, dtype=torch.bool, device=dev),
-                            True, True)
+        committed = torch.zeros(V + 1, dtype=torch.bool, device=dev)
+        committed = committed.index_fill_(0, gi, True).index_fill_(
+            0, gj, True)[:V]
         pair_target = scatter(x.to(torch.int32), di_star, dj_star)
         pair_gain = scatter(torch.zeros(V, device=dev), jg, jg)
         partner = scatter(me, self.pe_j, self.pe_i)

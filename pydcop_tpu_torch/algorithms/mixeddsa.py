@@ -42,10 +42,11 @@ class MixedDsaSolver(StochasticSolver):
     def cycle(self, x, coins):
         (u,) = coins
         _, best_val, gain, tables = gains_and_best(
-            self.tensors, x, prefer_change=self.variant in ("B", "C"))
+            self.tensors, x, tables=self.local_tables(x),
+            prefer_change=self.variant in ("B", "C"))
         in_hard_conflict = conflicted(self.tensors, x, tables)
-        proba = torch.where(in_hard_conflict, u.new_tensor(self.proba_hard),
-                            u.new_tensor(self.proba_soft))
+        proba = torch.where(in_hard_conflict, self.proba_hard,
+                            self.proba_soft)
         return dsa_move(x, best_val, gain, in_hard_conflict, u < proba,
                         self.variant)
 

@@ -7,6 +7,7 @@ options (-v verbosity, --timeout with a forced-exit slack timer,
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -78,8 +79,14 @@ def main(argv=None) -> int:
         watchdog.daemon = True
         watchdog.start()
 
+    from pydcop_tpu_torch.errors import NotPortedError
+
     try:
         return args.func(args) or 0
+    except NotPortedError as e:
+        # an option the port refuses before it solves: a clean error
+        print(json.dumps({"status": "ERROR", "error": str(e)}))
+        return 1
     except KeyboardInterrupt:
         print('{"status": "STOPPED"}', file=sys.stderr)
         return 130

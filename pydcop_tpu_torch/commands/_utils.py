@@ -1,4 +1,4 @@
-"""Shared CLI helpers: algo-param parsing, JSON output.
+"""Shared CLI helpers: algo-param parsing, JSON and CSV output.
 
 Equivalent capability to the reference's pydcop/commands/_utils.py +
 the NumpyEncoder/_results plumbing in pydcop/commands/solve.py:580-627.
@@ -6,6 +6,8 @@ the NumpyEncoder/_results plumbing in pydcop/commands/solve.py:580-627.
 from __future__ import annotations
 
 import json
+import os
+import sys
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -43,3 +45,34 @@ def output_metrics(metrics: Dict, output_file: Optional[str] = None) -> None:
         with open(output_file, "w", encoding="utf-8") as f:
             f.write(txt)
     print(txt)
+
+
+CSV_COLUMNS = ["time", "cycle", "cost", "violation", "msg_count", "msg_size",
+               "status"]
+
+
+def add_csvline(csv_file: str, collect_on: str, metrics: Dict) -> None:
+    """Append one metrics line to a CSV (creating the header on first
+    write) — the JAX package's, itself the reference's
+    pydcop/commands/_utils.py add_csvline."""
+    new = not os.path.exists(csv_file)
+    with open(csv_file, "a", encoding="utf-8") as f:
+        if new:
+            f.write(",".join(CSV_COLUMNS) + "\n")
+        f.write(
+            ",".join(str(metrics.get(c, "")) for c in CSV_COLUMNS) + "\n"
+        )
+
+
+def warn_process_mode(mode: str) -> None:
+    """One-line stderr notice when --mode process is requested: both
+    modes run the single-process tensor engine, and a silent no-op would
+    read as identical thread-vs-process numbers with no explanation."""
+    if mode == "process":
+        print(
+            "note: --mode process runs the same single-process tensor "
+            "engine as thread mode (one process IS the whole agent "
+            "population); multi-process execution is not ported to "
+            "pydcop_tpu_torch yet",
+            file=sys.stderr,
+        )

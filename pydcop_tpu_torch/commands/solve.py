@@ -8,14 +8,23 @@ shorthands ``--dpop-budget-mb``, ``--i-bound`` and ``--dpop-no-prune``,
 and ``-d`` with a distribution YAML file, which drives a sharded maxsum
 or amaxsum solve (one shard per visible device), with
 ``--shard-overlap`` and ``--shard-boundary-threshold`` (plus the global
-``--timeout`` and ``--output``), and the exact-search options
-``--anytime-exact`` and ``--frontier-width``.  ``-d`` with a strategy
-name is not ported and fails.
+``--timeout`` and ``--output``), the exact-search options
+``--anytime-exact`` and ``--frontier-width``, and the metrics options
+``-c/--collect_on``, ``--run_metrics`` and ``--end_metrics`` (the JAX
+package's CSV files: one ``RUNNING`` line a cycle of the history, then
+the end line), with ``-m/--mode``, ``--period`` and ``--delay`` accepted
+for compatibility.  ``-d`` with a strategy name is not ported and fails;
+``--uiport`` raises :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
 
-from pydcop_tpu_torch.commands._utils import output_metrics, \
-    parse_algo_params
+from pydcop_tpu_torch.commands._utils import (
+    add_csvline,
+    output_metrics,
+    parse_algo_params,
+    warn_process_mode,
+)
+from pydcop_tpu_torch.errors import NotPortedError
 
 
 def set_parser(subparsers):
@@ -29,6 +38,24 @@ def set_parser(subparsers):
         "-p", "--algo_params", action="append",
         help="algorithm parameter as name:value, repeatable",
     )
+    parser.add_argument("-m", "--mode", choices=["thread", "process"],
+                        default="thread", help="accepted for compatibility")
+    parser.add_argument("-c", "--collect_on",
+                        choices=["value_change", "cycle_change", "period"],
+                        default="value_change",
+                        help="cycle_change collects each cycle's cost "
+                        "(as --run_metrics does)")
+    parser.add_argument("--period", type=float, default=None,
+                        help="accepted for compatibility")
+    parser.add_argument("--run_metrics", default=None,
+                        help="CSV file for run metrics: one RUNNING line a "
+                        "cycle (a chunk for the exact search)")
+    parser.add_argument("--end_metrics", default=None,
+                        help="CSV file for end metrics")
+    parser.add_argument("--delay", type=float, default=None,
+                        help="accepted for compatibility")
+    parser.add_argument("--uiport", type=int, default=None,
+                        help="the GUI websocket server: not ported")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cycles", type=int, default=None,
                         help="run exactly this many cycles")
@@ -91,6 +118,11 @@ def run_cmd(args):
         output_metrics({"status": "ERROR", "error": error}, args.output)
         return 1
 
+    if args.uiport:
+        raise NotPortedError(
+            "--uiport (the UI server, runtime/ui.py and ws.py) is not "
+            "ported to the PyTorch package yet")
+
     search_family = ("syncbb", "ncbb")
     if args.anytime_exact:
         if args.algo is None:
@@ -139,6 +171,8 @@ def run_cmd(args):
             if args.dpop_no_prune:
                 algo_params["prune"] = False
         dcop = load_dcop_from_file(args.dcop_files)
+        # no silent no-op: thread and process modes run the same engine
+        warn_process_mode(args.mode)
         distribution = args.distribution
         if distribution is not None \
                 and distribution.endswith((".yaml", ".yml")):
@@ -159,9 +193,18 @@ def run_cmd(args):
             device=args.device,
             shard_overlap=args.shard_overlap,
             shard_boundary_threshold=args.shard_boundary_threshold,
+            collect_cycles=args.run_metrics is not None
+            or args.collect_on == "cycle_change",
         )
     except Exception as e:
         output_metrics({"status": "ERROR", "error": str(e)}, args.output)
         return 1
-    output_metrics(res.metrics(), args.output)
+    metrics = res.metrics()
+    if args.run_metrics and res.history:
+        for h in res.history:
+            add_csvline(args.run_metrics, args.collect_on,
+                        {**metrics, **h, "status": "RUNNING"})
+    if args.end_metrics:
+        add_csvline(args.end_metrics, args.collect_on, metrics)
+    output_metrics(metrics, args.output)
     return 0 if res.status in ("FINISHED", "TIMEOUT") else 1

@@ -450,13 +450,18 @@ def bucket_factor_values(bucket: FactorBucket,
 
 def total_cost(tensors: FactorGraphTensors, x: torch.Tensor) -> torch.Tensor:
     """Total (sign-adjusted) cost of assignment x on device: all factor
-    costs + unary costs."""
-    cost = torch.zeros((), dtype=torch.float32, device=x.device)
+    costs + unary costs, a float32 scalar.  The float32 terms are added
+    in float64 and the total rounded once: the card's and the CPU's
+    reductions add in different orders, and float64 keeps every partial
+    sum of these terms exact unless a total needs more than 53 bits, so
+    both devices give the same float32 (the JAX package sums in float32;
+    the two agree to its rounding)."""
+    cost = torch.zeros((), dtype=torch.float64, device=x.device)
     for b in tensors.buckets:
-        cost = cost + torch.sum(bucket_factor_values(b, x))
+        cost = cost + torch.sum(bucket_factor_values(b, x).double())
     vidx = torch.arange(tensors.n_vars, device=x.device)
     unary = tensors.unary_costs[vidx, x] * tensors.domain_mask[vidx, x]
-    return cost + torch.sum(unary)
+    return (cost + torch.sum(unary.double())).float()
 
 
 def bucket_factor_ids(bucket: FactorBucket,

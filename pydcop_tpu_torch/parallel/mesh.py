@@ -111,6 +111,17 @@ def _plan_comm(requested, threshold, exchange, info: BoundaryInfo,
                     extra_dense=int(extra_dense))
 
 
+def _announce_comm(plan: CommPlan, n_shards: int, engine: str) -> None:
+    """Publish the chosen collective path on the event bus
+    (``shard.comm.selected``, the JAX package's payload; a no-op unless
+    observability is on).  Every shard here takes a packed layout."""
+    from pydcop_tpu_torch.runtime.events import send_shard
+
+    payload = plan.counters(n_shards).as_dict()
+    payload.update(engine=engine, packed=True)
+    send_shard("comm.selected", payload)
+
+
 def build_mesh(n_shards: Optional[int] = None,
                device: DeviceLike = None) -> List[torch.device]:
     """The devices of ``n_shards`` shards, shard s on device s mod the
@@ -294,6 +305,7 @@ class ShardedMaxSum(_ShardedEngine):
         super().__init__(tensors, mesh, assigns, overlap,
                          boundary_threshold, exchange, use_packed,
                          sentinel, precision, extra_dense=0)
+        _announce_comm(self.comm, self.n_shards, engine="maxsum")
         self.damping = float(damping)
         self.activation = (None if activation is None or activation >= 1.0
                            else float(activation))
@@ -468,6 +480,8 @@ class ShardedLocalSearch(_ShardedEngine):
         super().__init__(tensors, mesh, None, overlap, boundary_threshold,
                          exchange, use_packed, sentinel, precision,
                          extra_dense=2 if rule == "mgm" else 0)
+        _announce_comm(self.comm, self.n_shards,
+                       engine=f"local_search:{rule}")
         self.rule = rule
         self.probability = float(probability)
         self.params = params

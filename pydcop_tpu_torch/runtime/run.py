@@ -5,7 +5,9 @@ Equivalent capability to the reference's pydcop/infrastructure/run.py
 to tensors on the device → run synchronous rounds.  A ``Distribution``
 object (e.g. loaded from a distribution YAML) drives a sharded solve: the
 factors go to the shards of their host agents
-(:func:`_solve_under_placement`, maxsum and amaxsum).  A distribution
+(:func:`_solve_under_placement`, maxsum and amaxsum; with
+``collect_cycles`` one cycle a dispatch and its cost, as in the JAX
+package).  A distribution
 strategy given by name, checkpointing, warm-repair headroom and the
 elastic driver each refuse with :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
@@ -45,8 +47,11 @@ def solve_result(
     algo_params: Optional[Dict[str, Any]] = None,
     seed: int = 0,
     device: DeviceLike = None,
+    collect_cycles: bool = False,
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
+    pipeline: bool = False,
+    chunk: Optional[int] = None,
     headroom: Optional[float] = None,
     fault_plan=None,
     elastic: Optional[Dict[str, Any]] = None,
@@ -60,6 +65,13 @@ def solve_result(
     ``cycles`` runs exactly that many cycles; otherwise the run stops when
     the solver is stable, at the algorithm's ``stop_cycle`` parameter, or
     at ``timeout``.
+
+    ``collect_cycles=True`` keeps each cycle's cost in the result's
+    ``history`` (the anytime cost curve of ``solve --run_metrics``; for
+    the exact search, each chunk's bound sandwich).  ``chunk`` overrides
+    the harness's chunk policy and ``pipeline=True`` turns on its
+    pipelined dispatch (``algorithms/base.py``); solvers without a chunk
+    loop (dpop, syncbb, ncbb) ignore both, as in the JAX package.
 
     ``distribution`` as a ``Distribution`` object drives a sharded maxsum
     or amaxsum solve (:func:`_solve_under_placement`) over ``n_shards``
@@ -88,7 +100,8 @@ def solve_result(
     if isinstance(distribution, Distribution):
         return _solve_under_placement(
             dcop, algo, algo_params, distribution, cycles, timeout, dev,
-            shard_overlap, shard_boundary_threshold, n_shards)
+            shard_overlap, shard_boundary_threshold, n_shards,
+            collect_cycles)
     if n_shards is not None or shard_overlap is not None:
         raise ValueError(
             "n_shards and shard_overlap apply to a sharded solve only: "
@@ -104,7 +117,11 @@ def solve_result(
         if cycles is not None
         else (algo_def.params.get("stop_cycle") or None)
     )
-    return solver.run(cycles=stop_cycle, timeout=timeout)
+    return solver.run(
+        cycles=stop_cycle, timeout=timeout, collect_cycles=collect_cycles,
+        pipeline=pipeline,
+        **({"chunk": chunk} if chunk is not None else {}),
+    )
 
 
 def _solve_under_placement(
@@ -118,6 +135,7 @@ def _solve_under_placement(
     shard_overlap: Optional[str] = None,
     shard_boundary_threshold: float = 0.5,
     n_shards: Optional[int] = None,
+    collect_cycles: bool = False,
 ) -> SolveResult:
     """A sharded maxsum or amaxsum solve whose factor→shard assignment
     follows an explicit placement: agents fold (sorted, round-robin) onto
@@ -127,6 +145,7 @@ def _solve_under_placement(
     device placement to drive, so asking for one fails loudly instead of
     being ignored."""
     import numpy as np
+    import torch
 
     from pydcop_tpu_torch.algorithms import DEFAULT_INFINITY
     from pydcop_tpu_torch.ops.compile import compile_factor_graph
@@ -167,11 +186,15 @@ def _solve_under_placement(
                             precision=algo_def.params.get("precision"))
     n_cycles = cycles or 30
     status = "FINISHED"
-    if timeout is None:
+    history = []
+    if timeout is None and not collect_cycles:
         values, _q, _r = sharded.run(cycles=n_cycles)
     else:
-        # chunked so the timeout is honoured between chunks
-        chunk = max(1, min(10, n_cycles))
+        # chunked so the timeout is honoured (and per-cycle costs are
+        # collected) between device dispatches
+        from pydcop_tpu_torch.ops.compile import total_cost
+
+        chunk = 1 if collect_cycles else max(1, min(10, n_cycles))
         done = 0
         q = r = None
         values = None
@@ -179,7 +202,15 @@ def _solve_under_placement(
             n = min(chunk, n_cycles - done)
             values, q, r = sharded.run(cycles=n, q=q, r=r)
             done += n
-            if perf_counter() - t0 > timeout:
+            if collect_cycles:
+                history.append({
+                    "cycle": done,
+                    "cost": float(total_cost(
+                        tensors, torch.as_tensor(values, device=dev)))
+                    * tensors.sign,
+                    "time": perf_counter() - t0,
+                })
+            if timeout is not None and perf_counter() - t0 > timeout:
                 status = "TIMEOUT"
                 break
         n_cycles = done
@@ -195,6 +226,7 @@ def _solve_under_placement(
         msg_count=2 * edges * n_cycles,
         msg_size=float(2 * edges * n_cycles * tensors.max_domain_size),
         time=perf_counter() - t0,
+        history=history or None,
         shard=sharded.comm_stats(),
         config=resolved_config(
             algo_def.algo, "sharded_mesh",

@@ -10,15 +10,15 @@ import dataclasses
 
 #: counter names surfaced under ``SolveResult.metrics()["harness"]`` by
 #: the chunked solve harness — how often the host blocked on the device
-#: and what it paid per chunk.  This package runs no fixed-shape,
-#: donating or pipelined runner yet, so ``donated_chunks``,
-#: ``masked_tail_cycles``, ``overshoot_cycles`` and
-#: ``compile_cache_evictions`` stay 0; the keys are kept for the schema.
+#: and what it paid per chunk.  ``donated_chunks`` counts the replays of
+#: a captured chunk, which write the state into the CUDA graph's buffers
+#: in place (the JAX package counts a chunk whose state buffers were
+#: donated to XLA); 0 on the CPU.
 HARNESS_COUNTERS = (
     "chunks_dispatched",        # chunk launches
     "host_sync_count",          # device→host reads in the loop
     "dispatch_wait_s",          # wall seconds blocked on device results
-    "donated_chunks",           # chunks run through a donating runner
+    "donated_chunks",           # chunks that updated the state in place
     "masked_tail_cycles",       # frozen cycles in fixed-shape tail chunks
     "overshoot_cycles",         # cycles run past the stop (pipelined mode)
     "compile_cache_evictions",  # chunk-runner cache evictions

@@ -8,13 +8,13 @@ optimum <= upper`` sandwich in ``history`` (``collect_cycles=True``),
 and terminates with an optimality PROOF when the bound meets the
 incumbent.  It speaks the same surface as every other solver —
 ``run(cycles=, timeout=, collect_cycles=, resume=)`` returning a
-:class:`SolveResult` — and a *cycle* is one device chunk.
+:class:`SolveResult` — and a *cycle* is one device chunk.  It publishes
+``search.bounds`` (each chunk), ``search.spill.drain`` and
+``search.done`` on the event bus (``runtime/events.py``).
 
 The JAX package's ``search/solver.py`` on this package's engine.  Not
-ported with it: the ``search.*`` event stream (this package has no event
-bus yet; the same payloads stay in ``history``), the checkpoint surface
-(``solve_result`` refuses ``checkpoint_dir``) and the program auditor's
-budget and trace count.  ``resume=True`` continues in-process from the
+ported with it: the checkpoint surface (``solve_result`` refuses
+``checkpoint_dir``) and the program auditor's budget and trace count.  ``resume=True`` continues in-process from the
 previous run's device state.
 """
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch
 from pydcop_tpu_torch.algorithms import DEFAULT_INFINITY, AlgorithmDef
 from pydcop_tpu_torch.algorithms.base import SolveResult
 from pydcop_tpu_torch.device import DeviceLike, resolve_device
+from pydcop_tpu_torch.runtime.events import send_search
 from pydcop_tpu_torch.search.frontier import FrontierEngine
 from pydcop_tpu_torch.search.plan import (
     BIG,
@@ -227,6 +228,10 @@ class FrontierSearchSolver:
             spilled = bool(np.isnan(enc))
             if spilled:
                 state = self._drain_annex(state, counters)
+                send_search("spill.drain", {
+                    "chunk": chunks,
+                    "stash_rows": self._stash_rows(),
+                })
             else:
                 lb = min(enc, self._stash_min_f(), U)
                 self._lb_best = max(self._lb_best, lb)
@@ -252,6 +257,14 @@ class FrontierSearchSolver:
                     "gap": gap,
                     "time": perf_counter() - t0,
                 })
+            send_search("bounds", {
+                "chunk": chunks,
+                "incumbent": incumbent_true,
+                "lower_bound": lo,
+                "upper_bound": hi,
+                "gap": gap,
+                "proved": bool(self._lb_best >= U),
+            })
             if self._lb_best >= U:
                 proved = True
                 break
@@ -300,6 +313,10 @@ class FrontierSearchSolver:
             stash_rows=self._stash_rows(),
             **counters.as_dict(),
         )
+        send_search("done", {
+            "status": status, "optimal": proved, "chunks": chunks,
+            "nodes": nodes, "cost": cost,
+        })
         return SolveResult(
             status=status,
             assignment=assignment,
