@@ -29,13 +29,16 @@ printed.
    values equal (``torch.equal``) at damping 0.5 and 0, at the wrapper's
    grid and at forced grids of 1 and 3 blocks, after 1, 2, 3 and 20
    cycles in one call and in two consecutive calls;
-   ls_kernel_vs_plain: the three local-search kernels (ls_tables, the
+   ls_kernel_vs_plain: the three local-search kernels (K2 — one launch
+   of tiles of (rank, column) units, ``packed_local_tables``, x and the
+   tables in variable order — at the wrapper's grid and at forced grids
+   of 1 and 3 blocks; the
    MGM kernel — one cooperative launch a call, each cycle's tables and
    arbitration phases split by a grid barrier — and the DSA kernel — one
    cooperative launch a call, its cycles split by a grid barrier)
    against their plain versions on the same three instances and a
    hard-cost colouring (10,000 on equal colours), from one x and one set
-   of uniforms: tables, cur, best and gain equal (max abs error 0), x
+   of uniforms: the tables equal (max abs error 0), x
    equal after 20 MGM cycles and after 20 cycles of DSA A/B/C, mixeddsa
    and adsa (each at the wrapper's grid and at forced grids of 1 and 3
    blocks, and after calls of 1, 2 and 3 cycles); on the near-tie MGM
@@ -170,14 +173,17 @@ printed.
    values and cost equal to the CPU run of the same sequence, the swap's
    host ms beside the re-pack's;
    harness: mgm and dsa, 200 cycles with ``collect_cycles`` at chunk 8
-   on the 10k/30k colouring and SECP-3.9k: K2 (``ls_tables``, binary or
-   mixed) launched once a cycle inside the chunk's CUDA graph and no
+   on the 10k/30k colouring and SECP-3.9k: K2 (``packed_local_tables``,
+   binary or mixed) launched once a cycle inside the chunk's CUDA graph and no
    other kernel, cost, values and every history cost equal to this
    machine's CPU run, K2 equal to its plain version on the runs' first
    and last assignments, the run without ``collect`` (K4/K5) at the
    same assignment, rates with and without ``collect`` and K2's device
-   µs inside the graph; mgm at the default collect chunk (7: 203 K2
-   launches, 3 of them in the masked tail); dba and gdba on the 10k/30k
+   µs inside the graph, and the K2 step of a collect cycle captured
+   alone in a CUDA graph (one kernel node, ``ls_tables_kernel``: no
+   gather into column order, no gather or transpose back); mgm at the
+   default collect chunk (7: 203 K2 launches, 3 of them in the masked
+   tail); dba and gdba on the 10k/30k
    colouring CSP and amaxsum on the 10k/30k colouring, 200 cycles
    through the captured chunk with every replay under
    ``torch.cuda.set_sync_debug_mode("error")``: no kernel of the port,
@@ -202,7 +208,7 @@ printed.
    launch from a torch.profiler trace.
 
 ``python3 chip_smoke.py --ab PARENT_TREE
-[k1,k1_mixed,mgm2,mgm,dsa,dpop,sharded,harness]`` runs no phase above: it
+[k1,k1_mixed,mgm2,mgm,dsa,k2,dpop,sharded,harness]`` runs no phase above: it
 times dba, gdba and amaxsum 200-cycle solves (the second solve of a
 solver, and the eager ``run_cycles`` rate; section ``harness``),
 K1's binary branch on 10k/30k, 100k/300k and the degree-2,500 star
@@ -220,7 +226,14 @@ cycle, blocks, equality with the plain version after 20 cycles, the
 cycles-only rate of a 200-cycle mgm solve; K2 and K5 beside it), K5
 on those five sizes (events and device µs a cycle, blocks, equality
 with the plain version after 20 cycles, the cycles-only and with-coins
-rates of a 200-cycle dsa solve), K10 on the 10k and 100k bench trees
+rates of a 200-cycle dsa solve), K2 on 10k/30k, 100k/300k, SECP-3.9k,
+SECP-39k, the star and the 5k/15k unequal-domain graph (events a
+call, the kernels of a call and their device µs, device µs a K2
+launch, the parent's column-order launch alone too, equality with the
+plain versions, in this tree also at 1 and 3 blocks, the card's wave
+and a sweep of tile width × threads a block) with
+mgm's K2 step of a collect cycle and its captured collect cycle on
+10k/30k and SECP-3.9k (section ``k2``), K10 on the 10k and 100k bench trees
 and the deep max and ragged 3k trees (events and device µs a sweep, L,
 blocks, equality, tables/s, and in this tree a sweep of its grid cap)
 and the sharded kernels with the sharded rates, in turns of the tree at
@@ -232,6 +245,7 @@ The last three lines are the card (``nvidia-smi`` name and power limit),
 max error against the plain version, times and bound) and
 ``{"ok": true, "device": {...}}``.
 """
+import gc
 import json
 import math
 import os
@@ -566,11 +580,12 @@ DSA_RULES = {
 
 def ls_kernel_vs_plain(pls, cycles=20, seed=0):
     """The three local-search kernels against their plain versions on the
-    card, from one x and one set of uniforms; the MGM kernel, and the DSA
-    kernel for every rule of DSA_RULES, after ``cycles`` cycles at the
-    wrapper's grid and at the forced ones (COOP_GRIDS), and after calls
-    of 1, 2 and 3 cycles (the result in either buffer).  Returns (max abs
-    error over the tables/cur/best/gain and every x, stats); raises on
+    card, from one x and one set of uniforms: K2 at the wrapper's grid
+    and the forced ones (:func:`k2_on`); the MGM kernel,
+    and the DSA kernel for every rule of DSA_RULES, after ``cycles``
+    cycles at the wrapper's grid and at the forced ones (COOP_GRIDS), and
+    after calls of 1, 2 and 3 cycles (the result in either buffer).
+    Returns (max abs error over the tables and every x, stats); raises on
     any difference."""
     import torch
 
@@ -591,13 +606,7 @@ def ls_kernel_vs_plain(pls, cycles=20, seed=0):
                                  f"{bad} entries")
         err = max(err, float((a.double() - b.double()).abs().max()))
 
-    for prefer in (False, True):
-        k = P.ls_tables(pls, x, prefer_change=prefer)
-        p = P.ls_tables_plain(pls, x, prefer_change=prefer)
-        for name, a, b in zip(("tables", "cur", "best", "gain"), k, p):
-            same(f"ls_tables {name} prefer_change={prefer}", a, b)
-    same("packed_local_tables", P.packed_local_tables(pls, P.unpack_x(pls, x)),
-         P.ls_tables_plain(pls, x)[0][:, pls.pg.var_order].T)
+    err = max(err, k2_on(pls, [P.unpack_x(pls, x)]))
     pm = P.packed_mgm_cycles_plain(pls, x, cycles)
     for grid in COOP_GRIDS:
         km = P.packed_mgm_cycles(pls, x, cycles,
@@ -611,7 +620,7 @@ def ls_kernel_vs_plain(pls, cycles=20, seed=0):
     for rule in DSA_RULES:
         p = dsa_vs_plain(pls, x, u, w, rule, same)
         stats[f"{rule}_moved"] = int((p != x).sum())
-    _, cur, best, gain = P.ls_tables(pls, x, prefer_change=True)
+    _, cur, best, gain = P.ls_tables_plain(pls, x, prefer_change=True)
     stats["conflicted"] = int((cur >= 10000.0).sum())
     stats["lateral"] = int(((gain <= 1e-9) & (best != x)
                             & (cur >= 10000.0)).sum())
@@ -650,23 +659,27 @@ def ls_bytes_ops(pls):
     """Bytes and float operations one call must move and do, per kernel
     entry point, each input read once and each output written once:
 
-    * packed_local_tables (ls_tables): x, the D selected cost floats and
-      mate_col of each slot, unary and mask columns, the three column
-      arrays; out the tables, cur, best and gain;
-    * packed_mgm_cycles, per cycle: the same inputs plus mate_idx and
-      col_var; out x';
-    * packed_dsa_cycles, per cycle: the same inputs plus the move coins;
-      out x'.
+    * packed_local_tables (K2): x [V], the D selected cost floats and
+      mate_idx of each slot, the unary and mask columns and col_var; out
+      the tables [V, D]; the slot sums, the unary add and the mask;
+    * packed_mgm_cycles, per cycle: x, the cost floats and mate_col of
+      each slot, unary and mask, the three column arrays, plus mate_idx
+      and col_var; out x';
+    * packed_dsa_cycles, per cycle: the same inputs as MGM's but the
+      move coins for mate_idx and col_var; out x'.
 
     On the mixed layout a slot also reads its arity and cost_idx and up
-    to three sibling columns (MGM: three sibling indices)."""
+    to three siblings (columns or variables; MGM also three sibling
+    indices)."""
     D, N, Vp = pls.D, pls.N, pls.Vp
     sibs = 1 if pls.pg.mixed is None else 3
     slot_ints = N if pls.pg.mixed is None else 5 * N
-    common = D * N + 2 * D * Vp + Vp + slot_ints + 3 * Vp
+    walk = D * N + 2 * D * Vp + Vp + slot_ints
+    common = walk + 3 * Vp
     ops = N * D + Vp * 4 * D
     return {
-        "packed_local_tables": (4 * (common + D * Vp + 3 * Vp), ops),
+        "packed_local_tables": (4 * (walk + Vp + D * Vp),
+                                N * D + Vp * 2 * D),
         "packed_mgm_cycles": (4 * (common + sibs * N + Vp + Vp),
                               ops + 2 * sibs * N + 6 * Vp),
         "packed_dsa_cycles": (4 * (common + Vp + Vp), ops + 8 * Vp),
@@ -675,22 +688,25 @@ def ls_bytes_ops(pls):
 
 def time_ls(pls, reps=200):
     """{kernel: (ms per call/cycle, plain ms, bound ms, bound_by, bytes,
-    device us per cycle)} for the three local-search entry points (MGM
-    and DSA: events over one call of ``reps`` cycles, the device time of
-    a launch of 50 cycles over its 50 cycles)."""
+    device us per cycle)} for the local-search entry points: K2
+    (``packed_local_tables``, x in variable order), events over ``reps``
+    calls; MGM and
+    DSA, events over one call of ``reps`` cycles, the device time of a
+    launch of 50 cycles over its 50 cycles."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_local_search as P
 
     x = random_x_col(pls, 1)
+    x_var = P.unpack_x(pls, x)
     u = torch.rand((reps, pls.Vp), device=pls.device)
-    scratch = P.ls_tables(pls, x)
     # (events, plain, profiled run, kernel names, cycles a launch)
     runs = {
         "packed_local_tables": (
-            lambda: cuda_ms(lambda: P.ls_tables(pls, x, out=scratch), reps),
-            lambda: cuda_ms(lambda: P.ls_tables_plain(pls, x), 20),
-            lambda: [P.ls_tables(pls, x, out=scratch) for _ in range(20)],
+            lambda: cuda_ms(lambda: P.packed_local_tables(pls, x_var), reps),
+            lambda: cuda_ms(lambda: P.packed_local_tables_plain(pls, x_var),
+                            20),
+            lambda: [P.packed_local_tables(pls, x_var) for _ in range(20)],
             ["ls_tables_kernel"], 1),
         # four calls of 50 cycles a trace: a trace that drops one
         # launch's record still times the others
@@ -723,6 +739,17 @@ def time_ls(pls, reps=200):
     return out
 
 
+#: the design of K2 (the ``design`` key of its rows in the kernels line)
+K2_DESIGN = ("one launch a call, not cooperative: each degree class cut "
+             "into tiles of neighbouring columns, blocks take tiles "
+             "grid-stride; a tile's (rank, column) units one thread each "
+             "(the slot's siblings' values and D cost floats into shared "
+             "memory, 4 units' loads in flight a thread), a block "
+             "barrier, one thread a column adds its ranks in order (a "
+             "hub's in slabs of 1024 units); x read and the tables [V, D] "
+             "written in variable order; the tile width the narrowest of "
+             "32/64/128 whose tiles fit one wave of the kernel's resident "
+             "blocks")
 #: the MGM kernel's name in a profiler trace
 MGM_KERNEL = "mgm_coop_kernel"
 #: the design of K4 (the ``design`` key of its rows in the kernels line)
@@ -744,10 +771,19 @@ def mgm_grid(pls):
                                               pls.pg.mixed is not None))
 
 
+def k2_grid(pls):
+    """Blocks of one K2 launch on this card, as the wrapper sizes its
+    grid: one a tile of its tile table."""
+    from pydcop_tpu_torch.ops import packed_local_search as P
+
+    return P.tables_shape(pls, pls.device)[2].shape[0]
+
+
 def coop_grids(pls):
-    """Blocks of one launch of each cooperative local-search kernel on
-    this card, by its entry point."""
-    return {"packed_mgm_cycles": mgm_grid(pls),
+    """Blocks of one launch of each local-search kernel on this card, by
+    its entry point."""
+    return {"packed_local_tables": k2_grid(pls),
+            "packed_mgm_cycles": mgm_grid(pls),
             "packed_dsa_cycles": dsa_grid(pls)}
 
 
@@ -2221,6 +2257,161 @@ for name, make in dsa_sizes.items():
            "coin_copy_s_per_chunk": solve["coin_copy_s_per_chunk"],
            "coin_cpu_draw_s_per_chunk": solve["coin_cpu_draw_s_per_chunk"]}
     print(json.dumps(row), flush=True)
+# K2 from one x on six graphs, in each tree: the solve path's
+# packed_local_tables from x in variable order (events a call; every
+# kernel the profiler puts on the device in 20 calls, and their device µs
+# a call: the parent's pack_x gather, its column-order K2 launch, the
+# gather back and the transpose's copy; the change's one launch), equal
+# to its plain version; where the tree still has the column-order
+# ls_tables (the parent), that launch alone too (events a call, device µs
+# a launch); where the tree's packed_local_search has K2's launch shape
+# as module constants, equality also at 1 and 3 blocks, the wave the card
+# reports, and a sweep of tile width (forced) x threads a block, each
+# shape's equality, events and device µs a launch.  A trace that holds
+# no ls_tables_kernel is taken again, up to three traces, then fails the
+# turn.  Then mgm's K2 step of a collect cycle (local_tables at x: events
+# a step, its kernels in 20 steps) and its captured collect cycle (events
+# over 20 replays of the chunk-8 graph) on 10k/30k and SECP-3.9k
+import time
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+
+def device_kernels(run, name="ls_tables_kernel", tries=3):
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = out.get(e.name, [0, 0.0])
+                out[e.name] = [n + 1, us + e.time_range.elapsed_us()]
+        if any(name in k for k in out):
+            return out
+    raise RuntimeError(f"{tries} profiler traces held no {name}: {out}")
+
+
+def per_launch_us(kernels, name="ls_tables_kernel"):
+    n = sum(v[0] for k, v in kernels.items() if name in k)
+    return sum(v[1] for k, v in kernels.items() if name in k) / n
+
+
+def per_call_us(kernels, calls=20):
+    # a kernel runs a whole number of times a call (the parent's two
+    # index gathers share a name): a trace that drops a launch's record
+    # still gives the others' time
+    return sum(us / n * max(1, round(n / calls))
+               for n, us in kernels.values())
+
+
+def k2_forms(pls, x_col, x, reps=200):
+    var_run = lambda: P.packed_local_tables(pls, x)
+    var_run()
+    row = {}
+    if hasattr(P, "ls_tables"):
+        scratch = P.ls_tables(pls, x_col)
+        col_run = lambda: P.ls_tables(pls, x_col, out=scratch)
+        col_run()
+        row.update(column_events_us=C.cuda_ms(col_run, reps) * 1e3,
+                   column_device_us_per_launch=per_launch_us(
+                       device_kernels(lambda: [col_run()
+                                               for _ in range(20)])))
+    var_kernels = device_kernels(lambda: [var_run() for _ in range(20)])
+    row.update(variable_events_us=C.cuda_ms(var_run, reps) * 1e3,
+               variable_kernels_of_20_calls=var_kernels,
+               variable_device_us_per_call=per_call_us(var_kernels),
+               variable_k2_device_us_per_launch=per_launch_us(var_kernels))
+    return row
+
+
+def k2_equal(pls, x_col, x, want, blocks=None):
+    kw = {} if blocks is None else {"blocks": blocks}
+    same = torch.equal(P.packed_local_tables(pls, x, **kw), want[0])
+    if hasattr(P, "ls_tables"):
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            P.ls_tables(pls, x_col, **kw), want[1]))
+    return same
+
+
+k2_graphs = {"10k_30k": lambda: colouring(10_000, 30_000)[0],
+             "100k_300k": lambda: colouring(100_000, 300_000)[0],
+             "secp_3.9k": lambda: secp(1, 2)[0],
+             "secp4_39k": lambda: secp(C.SECP_BIG_SCALE, 3)[0],
+             "star_2500": lambda: PM.pack_for_gpu(C.star_tensors(2500, dev)),
+             "unequal_5k_15k": lambda: PM.pack_for_gpu(
+                 C.unequal_domains_tensors(5000, 15_000, 4, dev))}
+for name, make in k2_graphs.items():
+    if "k2" not in sections:
+        break
+    pls = pack_from_pg(make())
+    x_col = C.random_x_col(pls, 0)
+    x = P.unpack_x(pls, x_col)
+    plain = P.ls_tables_plain(pls, x_col)
+    want = (plain[0][:, pls.pg.var_order].T.contiguous(), plain)
+    tuned = hasattr(P, "TABLES_TILE_WIDTHS")
+    mixed = pls.pg.mixed is not None
+    kname = "ls_tables" + ("_mixed" if mixed else "")
+    row = {"size": name, "kernel": kname, "N": pls.N,
+           "Vp": pls.Vp, "max_deg": int(pls.pg.col_deg.max()),
+           "design": "tiles, one launch" if tuned
+           else "one thread a column",
+           "equal": k2_equal(pls, x_col, x, want),
+           "equal_at_1_and_3_blocks": all(
+               k2_equal(pls, x_col, x, want, b) for b in (1, 3))
+           if tuned else None, **k2_forms(pls, x_col, x)}
+    if tuned:
+        threads, cols, tiles = P.tables_shape(pls, pls.device)
+        row.update(threads=threads, tile_cols=cols, blocks=tiles.shape[0],
+                   wave=P.tables_wave(pls.device, pls.D, mixed, threads))
+    print(json.dumps(row), flush=True)
+    if not tuned:
+        continue
+    shape = (P.TABLES_THREADS, P.TABLES_TILE_WIDTHS)
+    for threads in (128, 256):
+        for cols in (32, 64, 128):
+            P.TABLES_THREADS, P.TABLES_TILE_WIDTHS = threads, (cols,)
+            print(json.dumps({
+                "size": name, "kernel": kname, "sweep": True,
+                "threads": threads, "tile_cols": cols,
+                "blocks": C.k2_grid(pls),
+                "wave": P.tables_wave(pls.device, pls.D, mixed, threads),
+                "equal": k2_equal(pls, x_col, x, want),
+                **k2_forms(pls, x_col, x)}), flush=True)
+    P.TABLES_THREADS, P.TABLES_TILE_WIDTHS = shape
+from pydcop_tpu_torch.algorithms import load_algorithm_module
+
+collect = {"10k_30k": lambda: C.coloring_dcop(10_000, 30_000),
+           "secp_3.9k": lambda: C.secp_dcop(1, 2)}
+for name, make in collect.items():
+    if "k2" not in sections:
+        break
+    solver = load_algorithm_module("mgm").build_solver(make(), device="cuda")
+    solver.run(cycles=200, chunk=8, collect_cycles=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.run(cycles=200, chunk=8, collect_cycles=True)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    runner = solver._runners[("masked", 8, True)]
+    state = solver.initial_state()
+    coins = solver.draw_chunk_coins(8)
+    runner(state, coins, 8)
+    x0 = state[0]
+    step = device_kernels(lambda: [solver.local_tables(x0)
+                                   for _ in range(20)])
+    print(json.dumps({
+        "size": name, "kernel": "collect_cycle_mgm", "cost": res.cost,
+        "collect_cycles_per_s": 200 / replay_s,
+        "captured_us_per_cycle": C.cuda_ms(
+            lambda: runner(state, coins, 8), 20) * 1e3 / 8,
+        "k2_step_events_us": C.cuda_ms(
+            lambda: solver.local_tables(x0), 200) * 1e3,
+        "k2_step_kernels_of_20_steps": step,
+        "k2_step_device_us": per_call_us(step)}),
+        flush=True)
 # K10: the bench's 10k- and 100k-node trees and the deep 3,000-node
 # checking trees (max: L = 384, ragged: L = 401): events a sweep over 200
 # back-to-back sweeps, the profiler's device time a sweep, L, the grid,
@@ -2351,8 +2542,8 @@ for algo, build in generic.items():
 
 
 #: the sections of an A/B turn (``--ab PARENT [SECTIONS]``)
-AB_SECTIONS = ("k1", "k1_mixed", "mgm2", "mgm", "dsa", "dpop", "sharded",
-               "harness")
+AB_SECTIONS = ("k1", "k1_mixed", "mgm2", "mgm", "dsa", "k2", "dpop",
+               "sharded", "harness")
 
 
 def ab_kernels(parent, sections=AB_SECTIONS):
@@ -2363,10 +2554,10 @@ def ab_kernels(parent, sections=AB_SECTIONS):
     (``k1_mixed``), K6 with the mgm2 cycles-only rates (``mgm2``), K4
     (with K2 and K5) and the mgm rates (``mgm``), K5 and the dsa rates
     (``dsa``), and the sharded kernels with the sharded rates
-    (``sharded``); K1's binary branch with the maxsum rates (``k1``) and
-    K10 with the tables/s (``dpop``), each with a sweep of its launch
-    shape in this tree; the dba, gdba and amaxsum solve rates
-    (``harness``).  Prints
+    (``sharded``); K1's binary branch with the maxsum rates (``k1``),
+    K2 with mgm's collect cycle (``k2``) and K10 with the
+    tables/s (``dpop``), each with a sweep of its launch shape in this
+    tree; the dba, gdba and amaxsum solve rates (``harness``).  Prints
     one JSON line a row, tagged with the turn and the tree, and writes
     them to ``ab_sharded.jsonl`` in the output directory."""
     rows = []
@@ -2910,30 +3101,29 @@ def harness_solver(dcop, algo, device, use_packed=None, params=None):
 
 
 def k2_on(pls, xs):
-    """K2 against its plain version on the card at each [V] assignment
-    of ``xs`` (both nudge modes, and the variable-order tables), exactly;
-    returns the max abs error."""
+    """K2 (``packed_local_tables``) against its plain version on the card
+    at each [V] assignment of ``xs``, exactly, at the wrapper's grid and
+    at the forced ones (COOP_GRIDS); returns the max abs error."""
     import torch
 
     from pydcop_tpu_torch.ops import packed_local_search as P
 
     err = 0.0
+
+    def same(what, a, b):
+        nonlocal err
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: kernel differs from plain in "
+                                 f"{int((a != b).sum())} entries")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+
     for x in xs:
-        x_col = P.pack_x(pls, x)
-        for prefer in (False, True):
-            k = P.ls_tables(pls, x_col, prefer_change=prefer)
-            p = P.ls_tables_plain(pls, x_col, prefer_change=prefer)
-            torch.cuda.synchronize()
-            for a, b in zip(k, p):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"ls_tables prefer_change={prefer}: kernel differs "
-                        f"from plain in {int((a != b).sum())} entries")
-                err = max(err, float((a.double() - b.double()).abs().max()))
-        t = P.packed_local_tables(pls, x)
-        if not torch.equal(t, P.ls_tables_plain(pls, x_col)[0][
-                :, pls.pg.var_order].T):
-            raise AssertionError("packed_local_tables differs from plain")
+        want = P.packed_local_tables_plain(pls, x)
+        for grid in COOP_GRIDS:
+            blocks = None if grid == "wrapper" else grid
+            same(f"packed_local_tables, grid={grid}",
+                 P.packed_local_tables(pls, x, blocks=blocks), want)
     return err
 
 
@@ -2969,23 +3159,58 @@ def traced_launches(run, name, tries=3):
     return traced, counted, (total_us / traced if traced else None)
 
 
-def graph_kernel_nodes(runner, name):
-    """Kernel nodes of ``runner``'s captured CUDA graph whose function
-    name contains ``name``, from the graph's DOT dump (one line a kernel
-    node holds its function's name); the runner must have been captured
-    with ``ChunkRunner.keep_graph``."""
+def dot_kernels(graph):
+    """The function names of the kernel nodes of a kept CUDA graph, from
+    its DOT dump: a kernel node's label opens with ``{KERNEL`` and the
+    next line names its function."""
     import warnings
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "harness_graph.dot")
+    path = os.path.join(out_dir, "graph_kernels.dot")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # torch warns on every dump
-        runner.graph.debug_dump(path)
+        graph.debug_dump(path)
     with open(path, encoding="utf-8") as f:
-        n = sum(1 for line in f if name in line)
+        lines = f.read().splitlines()
     os.remove(path)
-    return n
+    return [lines[i + 1] for i, line in enumerate(lines[:-1])
+            if 'label="{KERNEL' in line]
+
+
+def captured_kernels(fn):
+    """The kernel nodes of ``fn()`` captured alone in a CUDA graph (after
+    one eager call), by :func:`dot_kernels`; the launch counters are left
+    as they were."""
+    import torch
+
+    from pydcop_tpu_torch.ops import launch_counters
+
+    fn()
+    torch.cuda.synchronize()
+    saved = {name: getattr(w, attr)
+             for name, (w, attr) in launch_counters().items()}
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    # as ChunkRunner captures: no collection inside the capture
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            fn()
+    finally:
+        if gc_was:
+            gc.enable()
+        for name, (w, attr) in launch_counters().items():
+            setattr(w, attr, saved[name])
+    graph.instantiate()
+    return dot_kernels(graph)
+
+
+def graph_kernel_nodes(runner, name):
+    """Kernel nodes of ``runner``'s captured CUDA graph whose function
+    name contains ``name`` (:func:`dot_kernels`); the runner must have
+    been captured with ``ChunkRunner.keep_graph``."""
+    return sum(name in k for k in dot_kernels(runner.graph))
 
 
 def harness_collect_phase(dcops):
@@ -3011,7 +3236,12 @@ def harness_collect_phase(dcops):
       or falls short by fewer records than the run has replays (a trace
       drops a record now and then; a node missing from the graph would
       miss one launch in every replay); its wall time and K2's device µs
-      a launch.
+      a launch; and the K2 step of a collect cycle (the solver's
+      ``local_tables`` at x, as the captured chunk runs it) captured
+      alone in a CUDA graph: ONE kernel node, ``ls_tables_kernel`` (no
+      gather into column order, no gather or transpose back); its events
+      ms a step; and the kernel nodes a cycle of the captured chunk (its
+      DOT dump).
 
     Returns ({path: K2 launches}, max abs error, rows)."""
     import csv
@@ -3186,6 +3416,15 @@ def harness_collect_phase(dcops):
             solver.run(cycles=HARNESS_CYCLES, chunk=HARNESS_CHUNK)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
+            x0 = solver.initial_state()[0]
+            step_nodes = captured_kernels(lambda: solver.local_tables(x0))
+            if len(step_nodes) != 1 or \
+                    "ls_tables_kernel" not in step_nodes[0]:
+                fail("harness", f"{algo} on {inst}: the K2 step of a "
+                     f"collect cycle, captured alone, holds "
+                     f"{len(step_nodes)} kernel nodes ({step_nodes}), "
+                     f"expected one ls_tables_kernel")
+            step_k2_ms = cuda_ms(lambda: solver.local_tables(x0), 200)
             state = solver.initial_state()
             coins = solver.draw_chunk_coins(HARNESS_CHUNK)
             runner(state, coins, HARNESS_CHUNK)  # warm
@@ -3204,7 +3443,11 @@ def harness_collect_phase(dcops):
                        collect_cycles_per_s=HARNESS_CYCLES / replay_s,
                        no_collect_cycles_per_s=HARNESS_CYCLES / plain_s,
                        captured_ms_per_cycle=step_ms,
-                       k2_device_us_per_launch=k2_us)
+                       k2_device_us_per_launch=k2_us,
+                       k2_step_graph_kernel_nodes=len(step_nodes),
+                       k2_step_ms=step_k2_ms,
+                       captured_chunk_kernel_nodes_per_cycle=len(
+                           dot_kernels(runner.graph)) / HARNESS_CHUNK)
             rows.append(row)
             say("harness", **row)
     return launches, err, rows
@@ -4350,6 +4593,8 @@ def main():
                 "lane_permute": "N30000"}
     designs = {
         "packed_maxsum_cycle": K1_DESIGN,
+        "packed_local_tables": K2_DESIGN,
+        "packed_local_tables_mixed": K2_DESIGN,
         "dpop_whole_sweep": DPOP_DESIGN,
         "packed_maxsum_mixed_cycle": (
             "one cooperative launch a cycle, two phases: the slots' r' over "
@@ -4369,7 +4614,9 @@ def main():
                "run with collect_cycles at the default chunk of 7 (the "
                "tail chunk's 3 frozen cycles launch too); the captured "
                "chunk's K2 nodes are counted in its graph, and a replayed "
-               "run's launches in a profiler trace")
+               "run's launches in a profiler trace; times: the solve "
+               "path's form, x and the tables [V, D] in variable order, "
+               "one launch a call with no gather or transpose around it")
     notes = {"packed_local_tables": k2_note,
              "packed_local_tables_mixed": k2_note}
     # the launches of each path that runs K1 binary or K2

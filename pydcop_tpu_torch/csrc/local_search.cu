@@ -7,7 +7,9 @@
 //
 // Replaces (both branches of each):
 //   * ls_tables  <- pydcop_tpu/ops/pallas_maxsum.py::packed_local_tables
-//                   (mixed: _mixed_contrib via _contrib_for_values);
+//                   (mixed: _mixed_contrib via _contrib_for_values), in
+//                   that function's form (x [V] and tables [V, D] in
+//                   variable order);
 //   * mgm_cycles <- pydcop_tpu/ops/pallas_local_search.py::packed_mgm_cycles
 //                   (the tables and _cur_best_gain, then _routed_gains,
 //                   _neigh_max_partial, _tiebreak_idx_partial and
@@ -24,10 +26,11 @@
 // hold x1 and x2), and the slot's siblings' columns mate_col, mate2_col,
 // mate3_col (-1 where the factor has no such sibling; a unary slot has
 // none).  mate_idx[s] (mate2_idx, mate3_idx) is a sibling column's
-// original variable index (the static MGM tie-break).  x is int32 [Vp] in
-// column order.  The Pallas kernels' Clos routing becomes the indexed
-// load x[mate_col[s]], and their 128-lane padding, hub split and VMEM
-// budget are gone.
+// original variable index (the static MGM tie-break, and where K2 reads
+// x).  x is int32 [Vp] in column order (K2's: [V] in variable order, V =
+// Vp).  The Pallas kernels' Clos routing becomes the indexed load
+// x[mate_col[s]] (K2: x[mate_idx[s]]), and their 128-lane padding, hub
+// split and VMEM budget are gone.
 //
 // Arithmetic, in the plain PyTorch versions' order and with -fmad=false
 // so both round alike:
@@ -44,7 +47,18 @@
 // Python scalars are weakly typed f32.  MGM's neighbourhood max and
 // tie-break run over every sibling of every slot of the column.
 //
-// ls_tables is one thread a column, one launch a call.  MGM and DSA run
+// ls_tables (K2) is one launch a call, not cooperative.  Blocks take
+// tiles of the wrapper's tile table (packed_maxsum.py::tile_table: up to
+// T neighbouring columns of one degree class, whose slots at one rank
+// are contiguous) grid-stride; in a tile one thread a (rank, column)
+// unit loads its slot's siblings' values and D cost floats into shared
+// memory (kTableUnits units' loads in flight a thread, lanes on
+// neighbouring slots), then one thread a column adds its ranks in order;
+// a tile of more ranks than the slab holds (the degree-2,500 star's hub)
+// runs in slabs, the running sum kept in the column's thread.  It reads
+// x in variable order and writes each column's D floats at its
+// variable's row, so the solve path's tables take one launch and no
+// gather or transpose around it.  MGM and DSA run
 // all n cycles of a call in ONE cooperative launch
 // (cudaLaunchCooperativeKernel: every block resident, or the launch is
 // refused), one thread a column in grid-stride loops (so any grid of at
@@ -82,17 +96,21 @@
 // Bound: memory.  Per cycle the function must read x (4 B a column),
 // the D selected cost floats, the sibling columns (and for MGM their
 // gains and variable indices) per slot, the unary and mask columns and
-// the three column arrays (DSA also its coins), and write its outputs:
-// at the 10k-variable / 30k-constraint coloring (N = 60k slots, D = 3)
-// about 1.6 MB for ls_tables, 1.7 MB for an MGM cycle and 1.4 MB for a
-// DSA cycle, i.e. 0.4-0.5 us at 3.35 TB/s — far below a launch, so
-// launches, barriers and the dependent x[mate_col[s]] loads set the
-// pace.  The kernels answer the bound only by reading each operand once,
-// coalesced except for the sibling gathers.  The MGM and DSA kernels take
-// the launches and the host's per-cycle work out (one launch a call), and
-// shorten each phase's chain of dependent gathers (slot -> sibling column
-// -> its value -> cost row) by batching the walks; their barriers and
-// those chains are what is left.
+// the three column arrays (DSA also its coins; K2 col_var in their
+// stead), and write its outputs: at the 10k-variable / 30k-constraint
+// coloring (N = 60k slots, D = 3) about 1.4 MB for ls_tables, 1.7 MB for
+// an MGM cycle and 1.4 MB for a DSA cycle, i.e. 0.4-0.5 us at 3.35 TB/s
+// — far below a launch, so launches, barriers and the dependent
+// x[mate_col[s]] loads set the pace.  K2's one-thread-a-column kernel that the tiles replaced ran 79
+// blocks of 4 warps at 10k/30k, each thread walking its slots' chains
+// of dependent loads one slot after another (7.2 us against a 0.48 us
+// bound, PERF.md); the tiles put a thread on each slot and keep every
+// chain one slot long.  The kernels answer the bound only by reading
+// each operand once, coalesced except for the sibling gathers.  The
+// MGM and DSA kernels take the launches and the host's per-cycle work
+// out (one launch a call), and shorten each phase's chain of dependent
+// gathers (slot -> sibling column -> its value -> cost row) by batching
+// the walks; their barriers and those chains are what is left.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -161,80 +179,194 @@ __device__ __forceinline__ void pick_best(const float (&t)[D], int xc,
   *gain = fmaxf(cv - tb, 0.0f);
 }
 
-// tables of column c at assignment x, then (cur, best, gain); kMixed
-// reads each slot's cost row through its arity (M), else the binary
-// cost_rows
+// ---------------------------------------------------------------------------
+// K2: ls_tables_kernel, one launch a packed_local_tables call
+// ---------------------------------------------------------------------------
+
+// the tables kernel's most threads a block (the wrapper picks its threads
+// and its tile width, at most the threads: a tile's column is one
+// thread's in the rank-order sum)
+constexpr int kTablesMaxThreads = 256;
+// (rank, column) units of a tile staged in shared memory at a time: a
+// tile of more ranks (the degree-2,500 star's hub) runs in slabs of
+// kSlabUnits / width ranks
+constexpr int kSlabUnits = 1024;
+// units a thread loads at a time, their loads issued together
+constexpr int kTableUnits = 4;
+// a tile table row: first column, width, degree, slot of the first
+// column's rank 0, slot stride between ranks
+constexpr int kTileFields = 5;
+
+// Where a slot's siblings' values are read in x ([V], variable order):
+// the siblings' variables (mate_idx, mate2_idx, mate3_idx).  The binary
+// layout has the first only.  Where a mixed slot's arity has no such
+// sibling the entry is NO_INDEX and is never read.
+struct Sibs {
+  const int* at[3];
+};
+
+// The D cost floats of `units` (rank, column) units of a tile into the
+// slab sh ([D][kSlabUnits]): unit u = k * width + w is the slot slot0 + k
+// * stride + w; binary, row x[sibling] * D + d of cost_rows; mixed, the
+// row of the siblings' values (0, x1, x1*D + x2, (x1*D + x2)*D + x3) of
+// the slot's arity's array.  Each thread takes kTableUnits units at a
+// time, lanes on neighbouring units (coalesced layout and, on the binary
+// layout, cost loads); a unit past the slab loads the thread's first
+// unit again and stores nothing.
 template <int D, bool kMixed>
-__device__ __forceinline__ void column_tables(const Layout& L,
-                                              const Mixed& M, const int* x,
-                                              int c, int prefer_change,
-                                              float (&t)[D], float* cur,
-                                              int* best, float* gain) {
-  const int deg = L.col_deg[c];
-  const size_t s0 = static_cast<size_t>(L.col_slot0[c]);
-  const size_t stride = static_cast<size_t>(L.col_stride[c]);
+__device__ __forceinline__ void stage_slab(const Layout& L, const Mixed& M,
+                                           const Sibs& S,
+                                           const int* __restrict__ x,
+                                           int width, int units,
+                                           size_t slot0, size_t stride,
+                                           float* sh) {
+  const int step = static_cast<int>(blockDim.x);
   const size_t n = static_cast<size_t>(L.N);
-  const size_t vp = static_cast<size_t>(L.Vp);
-  float acc[D];
+  for (int u0 = threadIdx.x; u0 < units; u0 += kTableUnits * step) {
+    size_t s[kTableUnits];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
-  for (int k = 0; k < deg; ++k) {
-    const size_t s = s0 + static_cast<size_t>(k) * stride;
+    for (int b = 0; b < kTableUnits; ++b) {
+      const int u = u0 + b * step < units ? u0 + b * step : u0;
+      const int k = u / width;
+      s[b] = slot0 + static_cast<size_t>(k) * stride +
+             static_cast<size_t>(u - k * width);
+    }
+    float v[kTableUnits][D];
     if constexpr (kMixed) {
-      // row of the siblings' values: 0, x1, x1*D + x2, (x1*D + x2)*D + x3
-      const int a = M.arity[s];
-      size_t row = 0;
-      if (a >= 2) row = static_cast<size_t>(x[L.mate_col[s]]);
-      if (a >= 3) row = row * D + static_cast<size_t>(x[M.mate2_col[s]]);
-      if (a >= 4) row = row * D + static_cast<size_t>(x[M.mate3_col[s]]);
-      // a switch, not M.cost[a - 1]: a runtime index into the struct's
-      // arrays would put them in local memory
-      const float* cost = M.cost[0];
-      size_t na = M.n[0];
-      switch (a) {
-        case 2: cost = M.cost[1]; na = M.n[1]; break;
-        case 3: cost = M.cost[2]; na = M.n[2]; break;
-        case 4: cost = M.cost[3]; na = M.n[3]; break;
-        default: break;
+      int a[kTableUnits], ci[kTableUnits], m[kTableUnits][3];
+#pragma unroll
+      for (int b = 0; b < kTableUnits; ++b) {
+        a[b] = __ldg(M.arity + s[b]);
+        ci[b] = __ldg(M.cost_idx + s[b]);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) m[b][r] = __ldg(S.at[r] + s[b]);
       }
-      const size_t ci = static_cast<size_t>(M.cost_idx[s]);
+      int xv[kTableUnits][3];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += cost[(row * D + d) * na + ci];
+      for (int b = 0; b < kTableUnits; ++b)
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+          xv[b][r] = a[b] >= r + 2 ? __ldg(x + m[b][r]) : 0;
+#pragma unroll
+      for (int b = 0; b < kTableUnits; ++b) {
+        const int ar = a[b];
+        size_t row = ar >= 2 ? static_cast<size_t>(xv[b][0]) : 0;
+        if (ar >= 3) row = row * D + static_cast<size_t>(xv[b][1]);
+        if (ar >= 4) row = row * D + static_cast<size_t>(xv[b][2]);
+        // selects, not M.cost[ar - 1]: a runtime index into the struct's
+        // arrays would put them in local memory
+        const float* cost = ar == 1   ? M.cost[0]
+                            : ar == 2 ? M.cost[1]
+                            : ar == 3 ? M.cost[2]
+                                      : M.cost[3];
+        const size_t na = ar == 1   ? M.n[0]
+                          : ar == 2 ? M.n[1]
+                          : ar == 3 ? M.n[2]
+                                    : M.n[3];
+        const size_t c = static_cast<size_t>(ci[b]);
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          v[b][d] = __ldg(cost + (row * D + d) * na + c);
+      }
     } else {
-      const size_t row = static_cast<size_t>(x[L.mate_col[s]]) * D;
+      int m[kTableUnits];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] += L.cost[(row + d) * n + s];
+      for (int b = 0; b < kTableUnits; ++b) m[b] = __ldg(S.at[0] + s[b]);
+      size_t row[kTableUnits];
+#pragma unroll
+      for (int b = 0; b < kTableUnits; ++b)
+        row[b] = static_cast<size_t>(__ldg(x + m[b])) * D;
+#pragma unroll
+      for (int b = 0; b < kTableUnits; ++b)
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          v[b][d] = __ldg(L.cost + (row[b] + d) * n + s[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kTableUnits; ++b) {
+      const int u = u0 + b * step;
+      if (u < units) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) sh[d * kSlabUnits + u] = v[b][d];
+      }
     }
   }
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const size_t o = static_cast<size_t>(d) * vp + c;
-    t[d] = L.mask[o] > 0.0f ? L.unary[o] + acc[d] : kPadCost;
-  }
-  pick_best<D>(t, x[c], prefer_change != 0, cur, best, gain);
 }
 
+// K2 in both branches (kMixed).  Blocks take the tiles of the wrapper's
+// tile table grid-stride (any grid of at least one block gives the same
+// tables; there is no barrier between blocks).  For each tile: the column
+// threads (threadIdx.x < width) load their columns' mask, unary costs and
+// variable first; then, a slab of ranks at a time, the block stages the
+// slab's units' cost floats in shared memory (stage_slab), a block
+// barrier, each column's thread adds its ranks in order onto its running
+// sum from 0, a block barrier; then t[d] = mask > 0 ? unary + sum :
+// PAD_COST, in the plain version's order, written at tables[var * D + d]:
+// [V, D] in variable order, x [V] in variable order read at the siblings'
+// variables.
 template <int D, bool kMixed>
-__global__ void ls_tables_kernel(Layout L, Mixed M,
-                                 const int* __restrict__ x,
-                                 float* __restrict__ tables,
-                                 float* __restrict__ cur,
-                                 int* __restrict__ best,
-                                 float* __restrict__ gain,
-                                 int prefer_change) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= L.Vp) return;
-  float t[D];
-  float cv, g;
-  int b;
-  column_tables<D, kMixed>(L, M, x, c, prefer_change, t, &cv, &b, &g);
+__global__ void __launch_bounds__(kTablesMaxThreads)
+    ls_tables_kernel(Layout L, Mixed M, Sibs S, const int* __restrict__ x,
+                     const int* __restrict__ col_var,
+                     const int* __restrict__ tiles, int n_tiles,
+                     float* __restrict__ tables) {
+  __shared__ float sh[D * kSlabUnits];
+  const size_t vp = static_cast<size_t>(L.Vp);
+  const int w = threadIdx.x;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int* row = tiles + static_cast<size_t>(t) * kTileFields;
+    const int c0 = __ldg(row);
+    const int width = __ldg(row + 1);
+    const int deg = __ldg(row + 2);
+    const size_t slot0 = static_cast<size_t>(__ldg(row + 3));
+    const size_t stride = static_cast<size_t>(__ldg(row + 4));
+    const bool mine = w < width;
+    const size_t c = static_cast<size_t>(c0 + (mine ? w : 0));
+    float mk[D], un[D], acc[D];
+    int var = 0;
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    tables[static_cast<size_t>(d) * L.Vp + c] = t[d];
-  cur[c] = cv;
-  best[c] = b;
-  gain[c] = g;
+    for (int d = 0; d < D; ++d) mk[d] = un[d] = acc[d] = 0.0f;
+    if (mine) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        mk[d] = __ldg(L.mask + static_cast<size_t>(d) * vp + c);
+        un[d] = __ldg(L.unary + static_cast<size_t>(d) * vp + c);
+      }
+      var = __ldg(col_var + c);
+    }
+    const int ranks = kSlabUnits / width;
+    for (int k0 = 0; k0 < deg; k0 += ranks) {
+      const int nk = min(ranks, deg - k0);
+      stage_slab<D, kMixed>(L, M, S, x, width, nk * width,
+                            slot0 + static_cast<size_t>(k0) * stride, stride,
+                            sh);
+      __syncthreads();
+      if (mine) {
+        for (int k = 0; k < nk; ++k) {
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            acc[d] += sh[d * kSlabUnits + k * width + w];
+        }
+      }
+      __syncthreads();  // the slab is the next one's
+    }
+    if (mine) {
+      float* o = tables + static_cast<size_t>(var) * D;
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        o[d] = mk[d] > 0.0f ? un[d] + acc[d] : kPadCost;
+    }
+  }
 }
+
+// K2's kernel of one branch, for coop_kernel's switch over D (its
+// occupancy sets the tile width's wave: tables_capacity)
+struct TablesKernel {
+  template <int D, bool kMixed>
+  static const void* get() {
+    return reinterpret_cast<const void*>(ls_tables_kernel<D, kMixed>);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // MGM and DSA: mgm_coop_kernel and dsa_coop_kernel, one cooperative launch
@@ -311,7 +443,7 @@ struct TableSlots<true> {
   }
 };
 
-// T's walk: the tables t of column c at x (column_tables' arithmetic:
+// T's walk: the tables t of column c at x (ls_tables_kernel's arithmetic:
 // the slot costs from 0 in slot order, then + unary); returns x_c.
 template <int D, bool kMixed>
 __device__ __forceinline__ int walk_tables(const Layout& L, const Mixed& M,
@@ -629,8 +761,6 @@ const void* coop_kernel(int D, bool mixed) {
   }
 }
 
-inline int blocks_for(int Vp) { return (Vp + kThreads - 1) / kThreads; }
-
 Layout make_layout(const float* cost, const float* unary, const float* mask,
                    const int* mate_col, const int* col_deg,
                    const int* col_slot0, const int* col_stride, int N,
@@ -705,73 +835,103 @@ int launch_dsa(bool mixed, Layout L, Mixed M, Rule R, const int* x_in,
                      blocks, bar, stream);
 }
 
+// The one launch of a K2 call on `stream`, or cudaErrorInvalidValue
+// without launching: D outside [1, 8], threads not a multiple of 32 in
+// [32, 256], tile_cols outside [1, threads], n_tiles, Vp or blocks below
+// 1, or a null x, tables, col_var or tiles.
+template <bool kMixed>
+int launch_tables(const Layout& L, const Mixed& M, const Sibs& S,
+                  const int* x, const int* col_var, const int* tiles,
+                  int n_tiles, int tile_cols, float* tables, int D,
+                  int blocks, int threads, void* stream) {
+  if (threads < 32 || threads > kTablesMaxThreads || threads % 32 != 0 ||
+      tile_cols < 1 || tile_cols > threads || n_tiles < 1 || L.Vp < 1 ||
+      blocks < 1 || x == nullptr || tables == nullptr || tiles == nullptr ||
+      col_var == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const dim3 block(static_cast<unsigned>(threads));
+  switch (D) {
+#define LS_TABLES_CASE(DD)                                         \
+  case DD:                                                         \
+    ls_tables_kernel<DD, kMixed><<<grid, block, 0, st>>>(          \
+        L, M, S, x, col_var, tiles, n_tiles, tables);              \
+    break;
+    LS_TABLES_CASE(1)
+    LS_TABLES_CASE(2)
+    LS_TABLES_CASE(3)
+    LS_TABLES_CASE(4)
+    LS_TABLES_CASE(5)
+    LS_TABLES_CASE(6)
+    LS_TABLES_CASE(7)
+    LS_TABLES_CASE(8)
+#undef LS_TABLES_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-#define LS_D_SWITCH(D, CASE) \
-  switch (D) {               \
-    CASE(1)                  \
-    CASE(2)                  \
-    CASE(3)                  \
-    CASE(4)                  \
-    CASE(5)                  \
-    CASE(6)                  \
-    CASE(7)                  \
-    CASE(8)                  \
-    default:                 \
-      return static_cast<int>(cudaErrorInvalidValue); \
-  }
+// The ls_tables entries make ONE launch of K2 on `stream` and return
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue without
+// launching (see launch_tables).  x is [V] in variable order, `mate`
+// (mixed: `mate`, `mate2`, `mate3`) holds each slot's siblings'
+// variables (mate_idx, ...), and `tables` is [V, D] in variable order,
+// written at col_var[c] * D + d.  `tiles` is the [n_tiles, 5] tile table
+// of width at most tile_cols (first column, width, degree, slot0,
+// stride; every column in one tile, every slot in one (rank, column)
+// unit), taken by `blocks` blocks of `threads` threads grid-stride.
 
-// The ls_tables entries launch one kernel on `stream` and return
-// cudaGetLastError() (0 on success); D outside [1, 8] returns
-// cudaErrorInvalidValue without launching.
-
-extern "C" int ls_tables(const int* x, float* tables, float* cur, int* best,
-                         float* gain, const float* cost, const float* unary,
-                         const float* mask, const int* mate_col,
-                         const int* col_deg, const int* col_slot0,
-                         const int* col_stride, int D, int N, int Vp,
-                         int prefer_change, void* stream) {
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout L = make_layout(cost, unary, mask, mate_col, col_deg,
-                               col_slot0, col_stride, N, Vp);
-#define LS_TABLES_CASE(DD)                                                  \
-  case DD:                                                                  \
-    ls_tables_kernel<DD, false><<<blocks_for(Vp), kThreads, 0, st>>>(       \
-        L, Mixed{}, x, tables, cur, best, gain, prefer_change);             \
-    break;
-  LS_D_SWITCH(D, LS_TABLES_CASE)
-#undef LS_TABLES_CASE
-  return static_cast<int>(cudaGetLastError());
+extern "C" int ls_tables(const int* x, float* tables, const float* cost,
+                         const float* unary, const float* mask,
+                         const int* mate, const int* col_var,
+                         const int* tiles, int n_tiles, int tile_cols, int D,
+                         int N, int Vp, int blocks, int threads,
+                         void* stream) {
+  const Layout L = make_layout(cost, unary, mask, nullptr, nullptr, nullptr,
+                               nullptr, N, Vp);
+  const Sibs S = {{mate, nullptr, nullptr}};
+  return launch_tables<false>(L, Mixed{}, S, x, col_var, tiles, n_tiles,
+                              tile_cols, tables, D, blocks, threads, stream);
 }
 
-// The mixed branches.  cost1..cost4 are the per-arity cost arrays of
-// widths n1..n4, arity and cost_idx the per-slot arrays, mate_col,
-// mate2_col and mate3_col the sibling columns (-1 where absent).
+// The mixed branch.  cost1..cost4 are the per-arity cost arrays of widths
+// n1..n4, arity and cost_idx the per-slot arrays.
 
 extern "C" int ls_tables_mixed(
-    const int* x, float* tables, float* cur, int* best, float* gain,
-    const float* cost1, const float* cost2, const float* cost3,
-    const float* cost4, const int* arity, const int* cost_idx,
-    const int* mate_col, const int* mate2_col, const int* mate3_col,
-    const float* unary, const float* mask, const int* col_deg,
-    const int* col_slot0, const int* col_stride, int D, int N, int Vp, int n1,
-    int n2, int n3, int n4, int prefer_change, void* stream) {
-  if (Vp <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Layout L = make_layout(nullptr, unary, mask, mate_col, col_deg,
-                               col_slot0, col_stride, N, Vp);
+    const int* x, float* tables, const float* cost1, const float* cost2,
+    const float* cost3, const float* cost4, const int* arity,
+    const int* cost_idx, const int* mate, const int* mate2, const int* mate3,
+    const float* unary, const float* mask, const int* col_var,
+    const int* tiles, int n_tiles, int tile_cols, int D, int N, int Vp,
+    int n1, int n2, int n3, int n4, int blocks, int threads, void* stream) {
+  const Layout L = make_layout(nullptr, unary, mask, nullptr, nullptr,
+                               nullptr, nullptr, N, Vp);
   const Mixed M = make_mixed(cost1, cost2, cost3, cost4, n1, n2, n3, n4,
-                             arity, cost_idx, mate2_col, mate3_col);
-#define LS_TABLES_MIXED_CASE(DD)                                            \
-  case DD:                                                                  \
-    ls_tables_kernel<DD, true><<<blocks_for(Vp), kThreads, 0, st>>>(        \
-        L, M, x, tables, cur, best, gain, prefer_change);                   \
-    break;
-  LS_D_SWITCH(D, LS_TABLES_MIXED_CASE)
-#undef LS_TABLES_MIXED_CASE
-  return static_cast<int>(cudaGetLastError());
+                             arity, cost_idx, nullptr, nullptr);
+  const Sibs S = {{mate, mate2, mate3}};
+  return launch_tables<true>(L, M, S, x, col_var, tiles, n_tiles, tile_cols,
+                             tables, D, blocks, threads, stream);
 }
+
+// The blocks of K2's kernel of one branch (mixed 0 or 1) at domain size D
+// that the current device holds resident at once with `threads` threads
+// a block (0 when D is outside [1, 8] or the device cannot be asked): one
+// wave of its tiles.
+
+extern "C" int tables_capacity(int D, int mixed, int threads) {
+  const void* kernel = coop_kernel<TablesKernel>(D, mixed != 0);
+  return kernel ? coop_capacity(kernel, threads) : 0;
+}
+
+// LAYOUT_OPERANDS of the MGM and DSA entries: binary, cost_rows, unary,
+// mask, mate_col, col_deg, col_slot0, col_stride, D, N, Vp; mixed, the
+// per-arity cost arrays cost1..cost4, arity, cost_idx, the sibling
+// columns mate_col, mate2_col and mate3_col (-1 where absent), unary,
+// mask, col_deg, col_slot0, col_stride, D, N, Vp and the widths n1..n4.
 
 // The resident-block capacity of the MGM kernel of one branch (mixed 0 or
 // 1) at domain size D on the current device (0 when D is outside [1, 8]
@@ -789,8 +949,8 @@ extern "C" int mgm_capacity(int D, int mixed, int* threads) {
 // so the result is in x_a when n_cycles is odd and in x_b when it is
 // even.  best (int) and gain (float) are [Vp] scratch; `bar` is one
 // unsigned int, zero before the launch, which no other launch in flight
-// may share.  After the layout operands (those of ls_tables, or of
-// ls_tables_mixed) come the tie-break ones: the siblings' variables
+// may share.  After the layout operands (LAYOUT_OPERANDS above) come
+// the tie-break ones: the siblings' variables
 // (mate_idx; mixed also mate2_idx and mate3_idx) and col_var.  Returns
 // the launch's error (0 on success); D outside [1, 8], n_cycles < 1,
 // Vp < 1, blocks < 1 or no `bar` return cudaErrorInvalidValue without
@@ -845,9 +1005,9 @@ extern "C" int dsa_capacity(int D, int mixed, int* threads) {
 // and x_b for odd i, so the result is in x_a when n_cycles is odd and in
 // x_b when it is even.  `bar` is one unsigned int, zero before the
 // launch, which no other launch in flight may share.  After the coins
-// come the layout operands (those of ls_tables, or of ls_tables_mixed),
-// then the rule (variant 0/1/2 = A/B/C, probability, probability_hard,
-// use_hard, activation).  Returns the launch's error (0 on success); D
+// come the layout operands (LAYOUT_OPERANDS above), then the rule
+// (variant 0/1/2 = A/B/C, probability, probability_hard, use_hard,
+// activation).  Returns the launch's error (0 on success); D
 // outside [1, 8], a variant outside [0, 2], no u, n_cycles < 1, Vp < 1,
 // blocks < 1 or no `bar` return cudaErrorInvalidValue without launching.
 

@@ -44,11 +44,11 @@ def launch_counters() -> Dict[str, Tuple[Any, str]]:
 
     return {
         "packed_maxsum_cycle": (M.packed_cycles, "launches"),
-        "ls_tables": (P.ls_tables, "launches"),
+        "ls_tables": (P.packed_local_tables, "launches"),
         "mgm": (P.packed_mgm_cycles, "launches"),
         "dsa": (P.packed_dsa_cycles, "launches"),
         "packed_maxsum_mixed": (M.packed_cycles, "mixed_launches"),
-        "ls_tables_mixed": (P.ls_tables, "mixed_launches"),
+        "ls_tables_mixed": (P.packed_local_tables, "mixed_launches"),
         "mgm_mixed": (P.packed_mgm_cycles, "mixed_launches"),
         "dsa_mixed": (P.packed_dsa_cycles, "mixed_launches"),
         "dpop_whole_sweep": (packed_dpop.whole_sweep, "launches"),

@@ -25,7 +25,11 @@ binary and a mixed branch), each behind a wrapper with a launch counter
 per branch and a plain PyTorch version doing the same arithmetic in the
 same order:
 
-* :func:`ls_tables` — local cost tables, current cost, best value, gain;
+* :func:`packed_local_tables` — K2, local cost tables, one launch a call
+  of a kernel that takes the tiles of
+  :func:`~pydcop_tpu_torch.ops.packed_maxsum.tile_table`, in the JAX
+  function's form (x ``[V]`` and the tables ``[V, D]`` in variable
+  order);
 * :func:`packed_mgm_cycles` — n MGM cycles: ONE cooperative launch a
   call, each cycle's tables and neighbourhood arbitration two phases of
   the grid split by a grid barrier (MGM reads its neighbours' gains of
@@ -52,6 +56,7 @@ from pydcop_tpu_torch.ops.packed_maxsum import (
     ARITIES,
     MAX_D,
     PackedMaxSumGraph,
+    _tiles,
     pack_for_gpu,
 )
 
@@ -63,6 +68,12 @@ EPS = 1e-9
 #: tie-break sentinel of a column with no neighbour at the max
 NO_INDEX = torch.iinfo(torch.int32).max
 VARIANTS = {"A": 0, "B": 1, "C": 2}
+#: K2's launch shape, chosen from a sweep on an H100 (PERF.md, K2):
+#: threads a block, and the tile widths a layout's tiles take (at most
+#: the threads; :func:`tables_tile_cols` picks one for the kernel's wave,
+#: :func:`tables_wave`)
+TABLES_THREADS = 128
+TABLES_TILE_WIDTHS = (32, 64, 128)
 
 
 @dataclass
@@ -217,6 +228,15 @@ def ls_tables_plain(pls: PackedLocalSearch, x_col: torch.Tensor,
     return tables, cur, best.to(torch.int32), gain
 
 
+def packed_local_tables_plain(pls: PackedLocalSearch,
+                              x: torch.Tensor) -> torch.Tensor:
+    """[V, D] tables in variable order at the variable-order assignment
+    ``x``: :func:`pack_x`, :func:`ls_tables_plain`, then the columns
+    gathered back into variable order."""
+    tables = ls_tables_plain(pls, pack_x(pls, x))[0]
+    return tables[:, pls.pg.var_order].T.contiguous()
+
+
 def mgm_move_plain(pls: PackedLocalSearch, x_col: torch.Tensor,
                    best: torch.Tensor, gain: torch.Tensor) -> torch.Tensor:
     """MGM's move: a column moves to ``best`` iff its gain is the strict
@@ -302,11 +322,12 @@ def _kernel(name: str):
 
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         argtypes = {
-            "ls_tables": [P] * 12 + [I] * 4 + [P],
+            "ls_tables": [P] * 8 + [I] * 7 + [P],
             "mgm_cycles": [P] * 12 + [I] * 3 + [P] * 2 + [I, I, P, P],
             "dsa_cycles": [P] * 12 + [I] * 4 + [F, F, I, F]
             + [I, I, P, P],
-            "ls_tables_mixed": [P] * 19 + [I] * 8 + [P],
+            "ls_tables_mixed": [P] * 15 + [I] * 11 + [P],
+            "tables_capacity": [I] * 3,
             "mgm_cycles_mixed": [P] * 19 + [I] * 7 + [P] * 4
             + [I, I, P, P],
             "dsa_cycles_mixed": [P] * 19 + [I] * 8 + [F, F, I, F]
@@ -360,9 +381,8 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _tables_layout(pls: PackedLocalSearch):
-    """The layout operands of ``ls_tables``, ``mgm_cycles`` and
-    ``dsa_cycles`` (binary) or of their ``_mixed`` entries, after the
-    state operands."""
+    """The layout operands of ``mgm_cycles`` and ``dsa_cycles`` (binary)
+    or of their ``_mixed`` entries, after the state operands."""
     pg = pls.pg
     cols = (pg.col_deg.data_ptr(), pg.col_slot0.data_ptr(),
             pg.col_stride.data_ptr())
@@ -386,31 +406,86 @@ def _count(fn, pls: PackedLocalSearch) -> None:
         fn.mixed_launches += 1
 
 
-def ls_tables(pls: PackedLocalSearch, x_col: torch.Tensor,
-              prefer_change: bool = False,
-              out: Optional[Tuple[torch.Tensor, ...]] = None):
-    """(tables [D, Vp], cur [Vp], best [Vp] int32, gain [Vp]) at the
-    column-order assignment ``x_col``: one launch of the ``ls_tables``
-    kernel on CUDA (``ls_tables.launches`` counts the binary branch's,
-    ``ls_tables.mixed_launches`` the mixed branch's), the plain version
-    on the CPU.  ``out`` reuses four output tensors."""
-    if not _on(pls, "x", x_col, torch.int32, (pls.Vp,)):
-        return ls_tables_plain(pls, x_col, prefer_change)
+_waves = {}
+
+
+def tables_wave(device: torch.device, D: int, mixed: bool,
+                threads: int) -> int:
+    """Tiles of one wave of K2's kernel of one branch at domain size
+    ``D`` on CUDA ``device``: the blocks of ``threads`` threads it holds
+    resident at once, as the C entry ``tables_capacity`` reports them
+    (its occupancy times the SMs); asked once per device and shape.  A
+    device that reports none raises RuntimeError."""
+    key = (device.index, D, mixed, threads)
+    if key not in _waves:
+        with torch.cuda.device(device):
+            wave = _kernel("tables_capacity")(D, int(mixed), threads)
+        if wave <= 0:
+            raise RuntimeError("ls_tables: the device reports no resident "
+                               "block")
+        _waves[key] = wave
+    return _waves[key]
+
+
+def tables_tile_cols(pg: PackedMaxSumGraph, wave: int) -> int:
+    """K2's tile width on layout ``pg``: the narrowest of
+    :data:`TABLES_TILE_WIDTHS` whose tile table fits one ``wave`` of
+    tiles (:func:`tables_wave`), else the widest.  Narrow tiles put more
+    blocks on the SMs, but past one wave a block's chain of dependent
+    loads is paid again (PERF.md, the K2 sweep).  Each width's table is
+    built once per layout (:func:`~pydcop_tpu_torch.ops.packed_maxsum.
+    tile_table`)."""
+    for cols in TABLES_TILE_WIDTHS:
+        if _tiles(pg, cols).shape[0] <= wave:
+            return cols
+    return TABLES_TILE_WIDTHS[-1]
+
+
+def tables_shape(pls: PackedLocalSearch, device: torch.device):
+    """(threads a block, tile width, tile table) of K2's launch on layout
+    ``pls`` on CUDA ``device``."""
+    threads = TABLES_THREADS
+    wave = tables_wave(device, pls.D, pls.pg.mixed is not None, threads)
+    cols = tables_tile_cols(pls.pg, wave)
+    return threads, cols, _tiles(pls.pg, cols)
+
+
+def _launch_tables(pls: PackedLocalSearch, x: torch.Tensor,
+                   tables: torch.Tensor,
+                   blocks: Optional[int] = None) -> None:
+    """K2's one launch on checked CUDA ``x`` ([V] in variable order, the
+    siblings read at their variables), into ``tables`` ([V, D] in
+    variable order).  The tiles are :func:`~pydcop_tpu_torch.ops.
+    packed_maxsum.tile_table`'s at :func:`tables_shape`'s width, cached
+    on the layout.  The grid is one block a tile; ``blocks`` forces
+    another (at least 1: blocks take tiles grid-stride, so any grid gives
+    the same tables).  A refused launch raises RuntimeError."""
     pg = pls.pg
-    if out is None:
-        f = dict(dtype=torch.float32, device=x_col.device)
-        out = (torch.empty((pg.D, pg.Vp), **f), torch.empty(pg.Vp, **f),
-               torch.empty(pg.Vp, dtype=torch.int32, device=x_col.device),
-               torch.empty(pg.Vp, **f))
-    tables, cur, best, gain = out
-    name = "ls_tables" if pg.mixed is None else "ls_tables_mixed"
-    err = _kernel(name)(
-        x_col.data_ptr(), tables.data_ptr(), cur.data_ptr(),
-        best.data_ptr(), gain.data_ptr(), *_tables_layout(pls),
-        int(prefer_change), _stream(x_col))
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"ls_tables: {blocks} blocks, at least 1 needed")
+    threads, cols, tiles = tables_shape(pls, x.device)
+    if blocks is None:
+        blocks = tiles.shape[0]
+    sibs = [idx.data_ptr() for _, idx in pls.siblings()]
+    ptrs = (x.data_ptr(), tables.data_ptr())
+    tail = (pls.col_var.data_ptr(), tiles.data_ptr(), tiles.shape[0], cols,
+            pg.D, pg.N, pg.Vp)
+    flags = (blocks, threads, _stream(x))
+    if pg.mixed is None:
+        name = "ls_tables"
+        err = _kernel(name)(
+            *ptrs, pg.cost_rows.data_ptr(), pg.unary_p.data_ptr(),
+            pg.mask_p.data_ptr(), *sibs, *tail, *flags)
+    else:
+        name = "ls_tables_mixed"
+        m = pg.mixed
+        err = _kernel(name)(
+            *ptrs, *(c.data_ptr() for c in m.costs), m.arity.data_ptr(),
+            m.cost_idx.data_ptr(), *sibs, pg.unary_p.data_ptr(),
+            pg.mask_p.data_ptr(), *tail,
+            *(int(sl.numel()) for sl in m.slots), *flags)
     _raise_on(err, name)
-    _count(ls_tables, pls)
-    return out
+    _count(packed_local_tables, pls)
 
 
 def coop_capacity(lib: str, entry: str, D: int,
@@ -527,7 +602,7 @@ def reset_launches() -> None:
     """Zero the launch counters of the three kernels' wrappers
     (``launches``: the binary kernels; ``mixed_launches``: the mixed
     ones)."""
-    for fn in (ls_tables, packed_mgm_cycles, packed_dsa_cycles):
+    for fn in (packed_local_tables, packed_mgm_cycles, packed_dsa_cycles):
         fn.launches = fn.mixed_launches = 0
 
 
@@ -536,14 +611,30 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def packed_local_tables(pls: PackedLocalSearch,
-                        x: torch.Tensor) -> torch.Tensor:
+def packed_local_tables(pls: PackedLocalSearch, x,
+                        blocks: Optional[int] = None) -> torch.Tensor:
     """Local cost tables ``[V, D]`` (variable order, PAD_COST at invalid
-    values) at the assignment ``x`` ([V] value indices): the port of
-    ``pallas_maxsum.py::packed_local_tables``, one ``ls_tables``
-    launch."""
-    tables = ls_tables(pls, pack_x(pls, x))[0]
-    return tables[:, pls.pg.var_order].T.contiguous()
+    values) at the assignment ``x`` ([V] value indices in variable order,
+    a tensor or a numpy array): the port of
+    ``pallas_maxsum.py::packed_local_tables``.
+
+    On the card ONE launch of the ``ls_tables`` kernel (K2), which reads
+    ``x`` as it is (int32 on the layout's device; another dtype is
+    converted first) and writes the tables in variable order
+    (``packed_local_tables.launches`` counts the binary branch's,
+    ``packed_local_tables.mixed_launches`` the mixed branch's);
+    ``blocks`` forces its grid.  On the CPU
+    :func:`packed_local_tables_plain`."""
+    x = torch.as_tensor(x, device=pls.device)
+    if x.dtype != torch.int32:
+        x = x.to(torch.int32)
+    x = x.contiguous()
+    if not _on(pls, "x", x, torch.int32, (pls.Vp,)):
+        return packed_local_tables_plain(pls, x)
+    tables = torch.empty((pls.Vp, pls.D), dtype=torch.float32,
+                         device=x.device)
+    _launch_tables(pls, x, tables, blocks)
+    return tables
 
 
 def packed_mgm_cycles(pls: PackedLocalSearch, x_col: torch.Tensor,

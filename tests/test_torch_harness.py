@@ -530,7 +530,7 @@ def test_launch_counters_name_every_counter():
                 if attr.endswith("launches"):
                     found.add((id(fn), attr))
     assert found and found <= named
-    ops.packed_local_search.ls_tables.launches = 3
+    ops.packed_local_search.packed_local_tables.launches = 3
     assert ops.read_launch_counters()["ls_tables"] == 3
     ops.reset_launch_counters()
     assert not any(ops.read_launch_counters().values())

@@ -74,13 +74,15 @@ def test_collect_launches_k2_once_a_cycle(algo, name, kw):
     assert (got.assignment, got.cost) == (want.assignment, want.cost)
     assert [h["cost"] for h in got.history] == \
         [h["cost"] for h in want.history]
-    counts = (P.ls_tables.launches, P.ls_tables.mixed_launches)
+    counts = (P.packed_local_tables.launches,
+              P.packed_local_tables.mixed_launches)
     assert counts == ((0, 24) if mixed else (24, 0))
     assert P.packed_mgm_cycles.launches == P.packed_dsa_cycles.launches == 0
     # a tail chunk replays the whole graph: its frozen cycles launch too
     P.reset_launches()
     card.run(cycles=20, chunk=8, collect_cycles=True)
-    assert sum((P.ls_tables.launches, P.ls_tables.mixed_launches)) == 24
+    assert sum((P.packed_local_tables.launches,
+                P.packed_local_tables.mixed_launches)) == 24
 
 
 @pytest.mark.parametrize("name,kw", [("meeting_scheduling", {}),

@@ -295,6 +295,34 @@ def test_packed_local_tables_match_jax(kind):
         assert np.all(got[t.domain_mask.numpy() == 0] == np.float32(PAD_COST))
 
 
+#: the binary graphs of the K2 plain-version check: every kind, and 20
+#: factors on 60 variables (columns without slots)
+PLAIN_K2_GRAPHS = [(kind, {}) for kind in KINDS] + [
+    ("int", {"V": 60, "F": 20})]
+
+
+@pytest.mark.parametrize("kind,kw", PLAIN_K2_GRAPHS)
+def test_packed_local_tables_plain_matches_jax(kind, kw):
+    """The variable-order plain version (the CPU half of K2's solve-path
+    form) against the JAX Pallas kernel in interpret mode: exact on
+    integer costs, within 1e-5 (1 + |t|) on float ones."""
+    jt, t, pls = packed_pair(kind, **kw)
+    if kw:
+        assert int((pls.pg.col_deg == 0).sum()) > 0
+    jpg = pack_for_pallas(jt)
+    x = random_x(t, 21)
+    ref = np.asarray(jax_packed_local_tables(jpg, jnp.asarray(x),
+                                             interpret=True))
+    got = pls_mod.packed_local_tables_plain(pls, torch.as_tensor(x))
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    got = got.numpy()
+    assert got.shape == (t.n_vars, t.max_domain_size)
+    if kind == "float":
+        assert np.all(np.abs(got - ref) <= 1e-5 * (1 + np.abs(ref)))
+    else:
+        assert np.array_equal(got, ref)
+
+
 @pytest.mark.parametrize("kind", ["int", "hard", "unequal"])
 def test_packed_mgm_matches_jax(kind):
     jt, t, pls = packed_pair(kind)
@@ -400,7 +428,8 @@ def test_hard_instance_fires_conflicts_and_lateral_moves():
     n_lateral = 0
     for s in range(10):
         x = pls_mod.pack_x(pls, torch.as_tensor(random_x(t, s)))
-        _, cur, best, gain = pls_mod.ls_tables(pls, x, prefer_change=True)
+        _, cur, best, gain = pls_mod.ls_tables_plain(pls, x,
+                                                     prefer_change=True)
         assert bool((cur >= ls.HARD_THRESHOLD).any())
         a = pls_mod.packed_dsa_cycles(pls, x, u, 1.0, "A")
         b = pls_mod.packed_dsa_cycles(pls, x, u, 1.0, "B")
@@ -472,7 +501,8 @@ def test_unequal_domains_best_never_lands_on_padding():
     for s in range(5):
         x = pls_mod.pack_x(pls, torch.as_tensor(random_x(t, s)))
         for prefer in (False, True):
-            _, _, best, _ = pls_mod.ls_tables(pls, x, prefer_change=prefer)
+            _, _, best, _ = pls_mod.ls_tables_plain(pls, x,
+                                                    prefer_change=prefer)
             assert bool((pls.pg.mask_p.T[torch.arange(pls.Vp),
                                          best.long()] > 0).all())
 
@@ -513,9 +543,9 @@ def test_wrappers_check_operands_and_leave_inputs_alone():
     pls_mod.packed_dsa_cycles(pls, x, torch.rand(3, pls.Vp), 0.7)
     assert torch.equal(x, keep)
     with pytest.raises(TypeError):
-        pls_mod.ls_tables(pls, x.long())
+        pls_mod.packed_mgm_cycles(pls, x.long(), 1)
     with pytest.raises(ValueError):
-        pls_mod.ls_tables(pls, x[:-1])
+        pls_mod.packed_local_tables(pls, x[:-1])
     with pytest.raises(ValueError):
         pls_mod.packed_mgm_cycles(pls, x, 0)
     with pytest.raises(ValueError):
@@ -525,7 +555,7 @@ def test_wrappers_check_operands_and_leave_inputs_alone():
         pls_mod.packed_dsa_cycles(pls, x, torch.rand(2, pls.Vp), 0.7,
                                   awake_uniforms=torch.rand(2, pls.Vp))
     # no launch happens on the CPU
-    assert pls_mod.ls_tables.launches == 0
+    assert pls_mod.packed_local_tables.launches == 0
     assert pls_mod.packed_mgm_cycles.launches == 0
     assert pls_mod.packed_dsa_cycles.launches == 0
 
@@ -553,11 +583,9 @@ def test_kernels_match_plain_on_gpu(kind):
     t = tensors_from_numpy(numpy_fields(jt), device="cuda")
     pls = pls_mod.pack_local_search(t)
     x = pls_mod.pack_x(pls, torch.as_tensor(random_x(t, 1), device="cuda"))
-    for prefer in (False, True):
-        k = pls_mod.ls_tables(pls, x, prefer_change=prefer)
-        p = pls_mod.ls_tables_plain(pls, x, prefer_change=prefer)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
+    x_var = pls_mod.unpack_x(pls, x)
+    assert torch.equal(pls_mod.packed_local_tables(pls, x_var),
+                       pls_mod.packed_local_tables_plain(pls, x_var))
     before = pls_mod.packed_mgm_cycles.launches
     k = pls_mod.packed_mgm_cycles(pls, x, 20)
     assert pls_mod.packed_mgm_cycles.launches == before + 1

@@ -115,6 +115,20 @@ def test_packed_local_tables_mixed_match_jax(name):
     assert np.allclose(got, gen, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", sorted(INSTANCES))
+def test_packed_local_tables_plain_mixed_match_jax(name):
+    """The variable-order plain version (the CPU half of K2-mixed's
+    solve-path form) against the JAX mixed Pallas kernel in interpret
+    mode, exactly, on every mixed instance."""
+    jt, t, pls, jp = pair(name)
+    x = random_x(t, 21)
+    ref = np.asarray(jax_packed_local_tables(jp.pg, jnp.asarray(x),
+                                             interpret=True))
+    got = P.packed_local_tables_plain(pls, torch.as_tensor(x)).numpy()
+    assert got.shape == (t.n_vars, t.max_domain_size)
+    assert np.array_equal(got, ref)
+
+
 @pytest.mark.parametrize("name", ["mixed_hub", "secp12"])
 def test_packed_mgm_mixed_matches_jax(name):
     jt, t, pls, jp = pair(name)
@@ -184,7 +198,7 @@ def test_conflicts_take_the_hard_probability(name):
     n_moved = 0
     for s in range(10):
         x = P.pack_x(pls, torch.as_tensor(random_x(t, s)))
-        _, cur, best, gain = P.ls_tables(pls, x, prefer_change=True)
+        _, cur, best, gain = P.ls_tables_plain(pls, x, prefer_change=True)
         want = (cur >= P.HARD) & (gain > 1e-9)
         got = P.packed_dsa_cycles(pls, x, u, 0.0, "A", probability_hard=1.0)
         assert torch.equal(got != x, want)
@@ -210,7 +224,7 @@ def test_mixed_siblings_layout():
     assert torch.equal(P.unpack_x(pls, P.pack_x(pls, x)), x)
     # the wrappers run the plain versions here: no launch is counted
     P.packed_mgm_cycles(pls, P.pack_x(pls, x), 2)
-    assert P.ls_tables.mixed_launches == 0
+    assert P.packed_local_tables.mixed_launches == 0
     assert P.packed_mgm_cycles.mixed_launches == 0
 
 
@@ -223,11 +237,9 @@ def test_mixed_kernels_match_plain_on_gpu(name):
     t = tensors_from_numpy(numpy_fields(jt), device="cuda")
     pls = P.pack_local_search(t)
     x = P.pack_x(pls, torch.as_tensor(random_x(t, 1), device="cuda"))
-    for prefer in (False, True):
-        k = P.ls_tables(pls, x, prefer_change=prefer)
-        p = P.ls_tables_plain(pls, x, prefer_change=prefer)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
+    x_var = P.unpack_x(pls, x)
+    assert torch.equal(P.packed_local_tables(pls, x_var),
+                       P.packed_local_tables_plain(pls, x_var))
     before = P.packed_mgm_cycles.mixed_launches
     k = P.packed_mgm_cycles(pls, x, 20)
     assert P.packed_mgm_cycles.mixed_launches == before + 1

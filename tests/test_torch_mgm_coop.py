@@ -252,7 +252,8 @@ def test_counters_stay_zero_on_the_cpu(layout):
     for blocks in (None, 1, 3):
         assert torch.equal(P.packed_mgm_cycles(pls, x, 3, blocks=blocks),
                            want)
-    for fn in (P.ls_tables, P.packed_mgm_cycles, P.packed_dsa_cycles):
+    for fn in (P.packed_local_tables, P.packed_mgm_cycles,
+               P.packed_dsa_cycles):
         assert fn.launches == fn.mixed_launches == 0
 
 

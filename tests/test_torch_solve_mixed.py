@@ -131,7 +131,7 @@ def test_packed_run_on_the_cpu_counts_no_launch():
             dcop, device="cpu", use_packed=True)
         assert solver.run(cycles=5).cycle == 5
     assert packed_cycles.mixed_launches == 0
-    assert P.ls_tables.mixed_launches == 0
+    assert P.packed_local_tables.mixed_launches == 0
     assert P.packed_dsa_cycles.mixed_launches == 0
 
 
