@@ -192,6 +192,22 @@ printed.
    generic maxsum open-ended on the 10k/30k colouring and SECP-3.9k with
    ``pipeline=True``: the same assignment as without it, at most one
    chunk later (``overshoot_cycles``);
+   batch: the batched engine (``pydcop_tpu_torch.batch.BatchEngine``) on
+   the JAX bench leg's 500-variable / 1,500-edge 3-colour soft
+   colourings: a bucket of 32 for each of maxsum, mgm, dsa, adsa and
+   gdba, 50 cycles and to convergence (at most 300), every lane equal to
+   its sequential solve on the card (maxsum's generic engine) and no
+   kernel of the port launched; then mgm at B = 1, 8, 32 and 1,000 (40
+   problems at 25 seeds), three solves of one sweep a size (eager, then
+   captured and replayed): wall and chunk-loop seconds, instances/s by
+   each, the runner calls and the counters;
+   dpop_batched: ``make_batched_sweep_fn`` at B = 100 on the 10k and 100k
+   bench trees (each instance the plan's tables plus its own offset): one
+   K10 launch for the 100 instances, the batched K10 ``torch.equal`` to
+   its plain version at the wrapper's grid and at 1 and 3 blocks, the
+   first and last instances equal to their single sweeps, events and
+   device µs of the batched call beside one single sweep's, tables/s of
+   each;
 5. times: each kernel's ms per cycle or sweep (CUDA events around a run
    of launches, after warm-up; MGM-2, MGM and DSA: 200 cycles of one
    call, device time a launch's over its cycles, the grid) at 10k/30k
@@ -3560,6 +3576,280 @@ def harness_captured_phase(instances, cpu_results, smi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# batched solving: the batch engine and K10's instance axis
+# ---------------------------------------------------------------------------
+
+#: the batch phase's instances, the JAX bench leg's (bench.py bench_batch):
+#: 500-variable / 1,500-edge 3-colour soft colourings, mgm, 50 cycles
+BATCH_V, BATCH_E, BATCH_CYCLES = 500, 1500, 50
+#: bucket sizes timed (B = 1,000: 500k variables and 1.5M edges)
+BATCH_SIZES = (1, 8, 32, 1000)
+#: distinct problems of the sweep: B = 1,000 solves each at 25 seeds (a
+#: set's ``iterations``), the smaller buckets distinct problems
+BATCH_PROBLEMS = 40
+#: solves of one sweep a size: the first eager (the runner's warm-up),
+#: the second captures and replays, the third replays
+BATCH_TURNS = 3
+#: the bucket each batched algorithm is held to its sequential solves at,
+#: with fixed cycles and to convergence (at most this many cycles)
+BATCH_EQ_B, BATCH_EQ_MAX_CYCLES = 32, 300
+BATCH_ALGOS = ("maxsum", "mgm", "dsa", "adsa", "gdba")
+
+
+def batch_items(dcops, algo, B):
+    """B items of ``algo``: problem ``i % len(dcops)``, seed ``i``."""
+    from pydcop_tpu_torch.batch import BatchItem
+
+    return [BatchItem(dcops[i % len(dcops)], algo, seed=i,
+                      label=f"gc{i % len(dcops)}s{i}") for i in range(B)]
+
+
+def batch_equal_sequential(dcops, device="cuda"):
+    """Each of the five batched algorithms on a bucket of BATCH_EQ_B
+    colourings on the card, with BATCH_CYCLES cycles and to convergence
+    (at most BATCH_EQ_MAX_CYCLES): every lane equal to its sequential
+    solve on the card (assignment, cost, stop cycle; maxsum's generic
+    engine, ``use_packed=False``, the engine the bucket runs; the others'
+    default engines), and no kernel of the port launched by the bucket.
+    Returns the rows to print."""
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+    from pydcop_tpu_torch.batch import BatchEngine, CompileCache
+
+    rows = []
+    for algo in BATCH_ALGOS:
+        items = batch_items(dcops, algo, BATCH_EQ_B)
+        engine = BatchEngine(cache=CompileCache(), device=device)
+        for mode, kw in (("fixed", {"cycles": BATCH_CYCLES}),
+                         ("converge", {"max_cycles": BATCH_EQ_MAX_CYCLES})):
+            reset_counts()
+            t0 = time.perf_counter()
+            got = engine.solve(items, **kw)
+            batch_s = time.perf_counter() - t0
+            counts = read_counts()
+            if any(counts.values()):
+                fail("batch", f"{algo} {mode}: the bucket launched "
+                     f"{ {k: v for k, v in counts.items() if v} }; its "
+                     f"generic cycle launches no kernel of the port")
+            t0 = time.perf_counter()
+            bad = []
+            for item, g in zip(items, got):
+                extra = {"use_packed": False} if algo == "maxsum" else {}
+                solver = load_algorithm_module(algo).build_solver(
+                    item.dcop, None, item.algo_def(), seed=item.seed,
+                    device=device, **extra)
+                w = solver.run(**kw)
+                if (g.assignment, g.cost, g.cycle, g.status) != \
+                        (w.assignment, w.cost, w.cycle, w.status):
+                    bad.append((item.label, g.cost, w.cost, g.cycle,
+                                w.cycle))
+            seq_s = time.perf_counter() - t0
+            if bad:
+                fail("batch", f"{algo} {mode}: {len(bad)} of "
+                     f"{len(items)} lanes differ from their sequential "
+                     f"solves on the card (label, batch cost, sequential "
+                     f"cost, cycles): {bad[:4]}")
+            rows.append(dict(
+                algo=algo, mode=mode, B=len(items), equal=True,
+                buckets=engine.counters.counts["buckets_formed"],
+                cycles=sorted({g.cycle for g in got}),
+                converged=engine.counters.counts["instances_converged"],
+                batch_s=round(batch_s, 3), sequential_s=round(seq_s, 3),
+                runners=engine.metrics()["runners"]))
+    return rows
+
+
+def batch_rates(dcops, smi, device="cuda"):
+    """mgm, BATCH_CYCLES cycles, at each of BATCH_SIZES: BATCH_TURNS
+    solves of one sweep by a fresh engine (eager, then captured and
+    replayed), each solve's wall time and its parts (the instances'
+    compile and solvers, the bucket's load, the chunk loop from the
+    runner calls to the values on the host, the scoring), instances/s by
+    the wall and by the loop, the runner calls it made and the engine's
+    counters; every turn's results equal the
+    first's, 50 cycles, FINISHED."""
+    from pydcop_tpu_torch.batch import BatchEngine, CompileCache
+
+    out = {}
+    for B in BATCH_SIZES:
+        items = batch_items(dcops, "mgm", B)
+        engine = BatchEngine(cache=CompileCache(), device=device)
+        turns, first = [], None
+        for turn in range(BATCH_TURNS):
+            before = {**engine.runner_calls, **engine.seconds}
+            t0 = time.perf_counter()
+            res = engine.solve(items, cycles=BATCH_CYCLES)
+            wall = time.perf_counter() - t0
+            calls = {k: v - before[k] for k, v in
+                     {**engine.runner_calls, **engine.seconds}.items()}
+            if any(r.status != "FINISHED" or r.cycle != BATCH_CYCLES
+                   or not math.isfinite(r.cost) for r in res):
+                fail("batch", f"B={B} turn {turn}: a lane did not finish "
+                     f"{BATCH_CYCLES} cycles with a finite cost")
+            got = [(r.assignment, r.cost) for r in res]
+            if first is None:
+                first = got
+            elif got != first:
+                fail("batch", f"B={B} turn {turn}: results differ from "
+                     f"the first turn's")
+            kind = ("replay" if calls["replays"] and not calls["captures"]
+                    else "capture+replay" if calls["captures"]
+                    else "eager")
+            turns.append(dict(
+                turn=turn, runner=kind, wall_s=wall,
+                **{k: calls[k] for k in engine.seconds},
+                instances_per_s=B / wall,
+                loop_instances_per_s=B / calls["loop_s"]))
+        m = engine.metrics()
+        out[B] = dict(turns=turns, counters={
+            k: m[k] for k in ("buckets_formed", "compile_hits",
+                              "compile_misses", "padding_waste",
+                              "fallback_sequential")},
+            cache=m["cache"], runners=m["runners"], seconds=m["seconds"],
+            mean_cost=float(np.mean([c for _, c in first])))
+        say("batch", kind="rate", algo="mgm", B=B, V=BATCH_V, E=BATCH_E,
+            cycles=BATCH_CYCLES, variables=B * BATCH_V,
+            edges=B * BATCH_E, problems=min(B, BATCH_PROBLEMS), **out[B],
+            nvidia_smi=smi)
+    return out
+
+
+def batch_phase(smi, device="cuda"):
+    """The batched engine on the card: its buckets equal the sequential
+    solves, then its rates (see :func:`batch_equal_sequential` and
+    :func:`batch_rates`)."""
+    t0 = time.perf_counter()
+    dcops = [coloring_dcop(BATCH_V, BATCH_E, seed=100 + i)
+             for i in range(BATCH_PROBLEMS)]
+    build_s = time.perf_counter() - t0
+    for row in batch_equal_sequential(dcops, device):
+        say("batch", kind="equal_sequential", **row)
+    rates = batch_rates(dcops, smi, device)
+    say("batch", kind="done", build_dcops_s=round(build_s, 3),
+        phase_s=round(time.perf_counter() - t0, 3))
+    return rates
+
+
+#: the batched sweep's instance count (the JAX bench's, bench.py:496-524)
+DPOP_BATCH = 100
+#: the batched branch of K10 (the ``design`` key of its kernels-line row)
+DPOP_BATCHED_DESIGN = (
+    "K10 with an instance axis: ONE cooperative launch for the B "
+    "instances of one tree, each level a grid-stride loop over (instance, "
+    "node tile) units before its one grid barrier, so the grid and the "
+    "2L - 1 barriers do not grow with B; the tree shared, each instance's "
+    "table, msg, cs and assign B strides apart")
+
+
+def dpop_batched_bytes_ops(ps, nb):
+    """Bytes and operations of nb sweeps of one tree in one call: each
+    instance's table read once and its assign written once, the tree
+    read once; nb times one sweep's operations."""
+    nbytes, nops = dpop_bytes_ops(ps)
+    N, D, L = ps.n_nodes, ps.D, ps.L
+    tree = 4 * ((N + 1) + int(ps.child_idx.numel()) + N + (L + 1))
+    one = nbytes - tree
+    return tree + nb * one, nb * nops
+
+
+def dpop_batched_phase(smi, trees, device="cuda"):
+    """``make_batched_sweep_fn`` on the card at B = DPOP_BATCH on the
+    bench trees (``trees``: name -> (dcop, packed sweep, plan)): the
+    JAX bench's stacked tables (each instance the plan's plus its own
+    uniform [0, 1e-3) offset), one K10 launch for the B instances, every
+    other counter 0; the batched K10 ``torch.equal`` to its plain
+    version at the wrapper's grid and at 1 and 3 blocks, the first and
+    last instances equal to their single sweeps; events and device µs
+    of the batched call and of one single sweep, tables/s of each.
+    Returns {name: kernels-line numbers}."""
+    import dataclasses
+
+    import torch
+
+    from pydcop_tpu_torch.ops.dpop_sweep import make_batched_sweep_fn
+    from pydcop_tpu_torch.ops.packed_dpop import (
+        pack_tables,
+        whole_sweep,
+        whole_sweep_batched,
+        whole_sweep_plain,
+    )
+
+    out = {}
+    B = DPOP_BATCH
+    for name, (_, ps, plan) in trees.items():
+        rng = np.random.default_rng(7)
+        off = torch.as_tensor(rng.uniform(0, 1e-3, (B, 1, 1, 1)).astype(
+            np.float32), device=device)
+        local_b = plan.local[None] + off
+        fn, args = make_batched_sweep_fn(plan, batch=B)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        assign = fn(local_b, *args)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: 0 for k in counts}
+        want.update(dpop_whole_sweep=1)
+        if counts != want:
+            fail("dpop_batched", f"{name}: launches {counts} in one "
+                 f"batched call of {B}, expected {want}")
+        tables = pack_tables(ps, local_b)
+        del local_b
+        plain = whole_sweep_plain(ps, tables)
+        err = 0.0
+        for blocks in COOP_GRIDS:
+            k = whole_sweep_batched(ps, tables, **(
+                {} if blocks == "wrapper" else {"blocks": blocks}))
+            for what, a, b in zip(("assign", "msg", "cs"), k, plain):
+                if not torch.equal(a, b):
+                    fail("dpop_batched", f"{name}: batched K10 {what} "
+                         f"differs from plain in {int((a != b).sum())} "
+                         f"entries (grid {blocks})")
+                err = max(err, float((a.double() - b.double()).abs().max()))
+        if not torch.equal(assign, plain[0]):
+            fail("dpop_batched", f"{name}: the batched function's assign "
+                 f"differs from the plain version's")
+        for b in (0, B - 1):
+            one = dataclasses.replace(ps, table=tables[b].contiguous(),
+                                      _plans=None)
+            if not torch.equal(whole_sweep(one)[0], assign[b]):
+                fail("dpop_batched", f"{name}: instance {b} differs from "
+                     f"its single sweep")
+        del plain
+        reps = 20 if ps.n_nodes <= 10_000 else 5
+        ms = cuda_ms(lambda: whole_sweep_batched(ps, tables), reps)
+        single_ms = cuda_ms(lambda: whole_sweep(ps), 20)
+        plain_ms = cuda_ms(lambda: whole_sweep_plain(ps, tables), 2)
+        dev_single = profile_us(lambda: [whole_sweep(ps)
+                                         for _ in range(20)], [DPOP_KERNEL])
+        dev = profile_us(lambda: [whole_sweep_batched(ps, tables)
+                                  for _ in range(reps)], [DPOP_KERNEL])
+        nbytes, nops = dpop_batched_bytes_ops(ps, B)
+        bound, by = bound_of(nbytes, nops)
+        from pydcop_tpu_torch.ops import packed_dpop
+
+        blocks = packed_dpop.sweep_blocks(
+            ps, *packed_dpop._capacity(ps.D, ps.mode), B)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, max_abs_err=err,
+                         launches=counts["dpop_whole_sweep"],
+                         blocks=blocks, profiler_us=dev[DPOP_KERNEL])
+        say("dpop_batched", case=name, B=B, n_nodes=ps.n_nodes, D=ps.D,
+            L=ps.L, launches_per_call=1, blocks=blocks,
+            first_call_s=round(call_s, 4), kernel_ms=ms,
+            profiler_kernel_us=dev[DPOP_KERNEL], plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, bytes_per_call=nbytes,
+            max_abs_err=err, tables_per_s=B * ps.n_nodes / (ms * 1e-3),
+            single_sweep_ms=single_ms,
+            single_profiler_us=dev_single[DPOP_KERNEL],
+            single_tables_per_s=ps.n_nodes / (single_ms * 1e-3),
+            table_gb=round(tables.numel() * 4 / 1e9, 3), nvidia_smi=smi)
+        del tables
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     try:
         import torch
@@ -3731,7 +4021,7 @@ def main():
             fail("dpop_kernel_vs_plain", f"{name}: {e}")
         dpop_err = max(dpop_err, err)
         if name.startswith("bench"):
-            dpop_packed[name] = (dcop, ps)
+            dpop_packed[name] = (dcop, ps, plan)
         say("dpop_kernel_vs_plain", case=name, n_nodes=ps.n_nodes, D=ps.D,
             L=ps.L, Bmax=plan.Bmax, max_children=ps.max_children,
             roots=len(tree.roots), mode=ps.mode, blocks=dpop_grid(ps),
@@ -4339,6 +4629,10 @@ def main():
                      "secp_3.9k": secp}
     k2_by_path, k2_err, _ = harness_collect_phase(harness_dcops)
     harness_captured_phase(harness_dcops, cpu_results, smi)
+    # batched solving: the batch engine's buckets (no kernel: the generic
+    # cycles, as the JAX package's vmap) and K10 with an instance axis
+    batch_phase(smi)
+    dpop_batched = dpop_batched_phase(smi, dpop_packed)
 
     # 5. times -------------------------------------------------------------
     timing = {}
@@ -4393,7 +4687,7 @@ def main():
             library_ms=None,
             library_note="no single PyTorch call computes an MGM-2 cycle",
             nvidia_smi=smi)
-    for name, (_, ps) in dpop_packed.items():
+    for name, (_, ps, _) in dpop_packed.items():
         ms, plain, bound, by, nbytes, device_us = time_dpop(ps)
         timing[name, "dpop_whole_sweep"] = (ms, plain, bound, by)
         blocks_of[name, "dpop_whole_sweep"] = dpop_grid(ps)
@@ -4530,6 +4824,10 @@ def main():
         ("dpop_whole_sweep", "pydcop_tpu_torch/csrc/dpop_sweep.cu",
          "pydcop_tpu/ops/pallas_dpop.py:306",
          main_launches["dpop_whole_sweep"], dpop_err),
+        ("dpop_whole_sweep_batched", "pydcop_tpu_torch/csrc/dpop_sweep.cu",
+         "pydcop_tpu/ops/pallas_dpop.py:306",
+         dpop_batched["bench_tree_10k"]["launches"],
+         max(v["max_abs_err"] for v in dpop_batched.values())),
         ("packed_mgm2_cycles", "pydcop_tpu_torch/csrc/mgm2.cu",
          "pydcop_tpu/ops/pallas_mgm2.py:448", main_launches["mgm2"],
          mgm2_err),
@@ -4588,7 +4886,12 @@ def main():
          "pydcop_tpu/ops/pallas_permute.py:88", 0,
          max(err for err, _ in permute_rows.values())),
     ]
+    b10k = dpop_batched["bench_tree_10k"]
+    timing["bench_tree_10k", "dpop_whole_sweep_batched"] = (
+        b10k["ms"], b10k["plain_ms"], b10k["bound_ms"], b10k["bound_by"])
+    blocks_of["bench_tree_10k", "dpop_whole_sweep_batched"] = b10k["blocks"]
     sizes_of = {"dpop_whole_sweep": "bench_tree_10k",
+                "dpop_whole_sweep_batched": "bench_tree_10k",
                 "packed_shard_fused_ba_act": "10k_30k",
                 "lane_permute": "N30000"}
     designs = {
@@ -4596,6 +4899,7 @@ def main():
         "packed_local_tables": K2_DESIGN,
         "packed_local_tables_mixed": K2_DESIGN,
         "dpop_whole_sweep": DPOP_DESIGN,
+        "dpop_whole_sweep_batched": DPOP_BATCHED_DESIGN,
         "packed_maxsum_mixed_cycle": (
             "one cooperative launch a cycle, two phases: the slots' r' over "
             "the grid (a ternary or quaternary slot one thread a value), a "
@@ -4618,7 +4922,14 @@ def main():
                "path's form, x and the tables [V, D] in variable order, "
                "one launch a call with no gather or transpose around it")
     notes = {"packed_local_tables": k2_note,
-             "packed_local_tables_mixed": k2_note}
+             "packed_local_tables_mixed": k2_note,
+             "dpop_whole_sweep_batched": (
+                 f"make_batched_sweep_fn at B = {DPOP_BATCH} on the 10k "
+                 f"bench tree: one launch a call (counted in "
+                 f"dpop_whole_sweep); times: the batched call's events "
+                 f"(its device us by the profiler: "
+                 f"{b10k['profiler_us']}), bound over the B instances' "
+                 f"tables")}
     # the launches of each path that runs K1 binary or K2
     by_path = {"packed_maxsum_cycle": {
         "maxsum": main_launches["packed_maxsum_cycle"],

@@ -9,9 +9,11 @@ runner also computes the chunk's convergence bool (the solver's
 ``chunk_converged_device`` against the chunk's input state) and, with
 ``collect``, each cycle's cost (the solver's ``chunk_cost``).
 
-* On CUDA the first :data:`EAGER_CALLS` calls run the chunk eagerly, so
-  a run of one or two chunks (a 200-cycle solve at the default chunk of
-  100) pays for no capture; they are also the capture's warm-up: they
+* On CUDA the first ``warmup`` calls (:data:`EAGER_CALLS` for a
+  solver's runner) run the chunk eagerly, so a run of one or two chunks
+  (a 200-cycle solve at the default chunk of 100) pays for no capture
+  (the batched engine's bucket runners, reused across solves, warm up
+  with one call); they are also the capture's warm-up: they
   build the kernels, the cached index plans and the launch libraries.
   The next call captures the chunk once as a ``torch.cuda.CUDAGraph``
   (``captures`` counts it; a failed capture raises, nothing falls back)
@@ -105,13 +107,16 @@ class ChunkRunner:
     #: that ``self.graph.debug_dump(path)`` can write its nodes
     keep_graph = False
 
-    def __init__(self, solver, chunk: int, collect: bool):
+    def __init__(self, solver, chunk: int, collect: bool,
+                 warmup: int = EAGER_CALLS):
         self.solver = solver
+        #: eager calls before the capture (at least 1, the warm-up)
+        self.warmup = max(1, int(warmup))
         self.chunk = int(chunk)
         self.collect = bool(collect)
         self.device = solver.device
         self.graph = None
-        #: eager calls on CUDA (the first :data:`EAGER_CALLS` calls)
+        #: eager calls on CUDA (the first ``warmup`` calls)
         self.eager_calls = 0
         #: CUDA graph captures of this runner (0 or 1)
         self.captures = 0
@@ -154,7 +159,7 @@ class ChunkRunner:
         if self.device.type != "cuda":
             coins = tuple(c.to(self.device) for c in coins)
             return self._cycles(state, coins, lambda i: i < n)
-        if self.graph is None and self.eager_calls < EAGER_CALLS:
+        if self.graph is None and self.eager_calls < self.warmup:
             # the first call is the warm-up, with its builds and plans;
             # the solver's check covers the later eager calls
             with sync_checked(self.solver.check_chunk_syncs

@@ -2,7 +2,8 @@
 
 Equivalent capability to the reference's pydcop/dcop_cli.py: global
 options (-v verbosity, --timeout with a forced-exit slack timer,
---output, --version, --log) and the subcommands ported so far (solve).
+--output, --version, --log) and the subcommands ported so far (solve,
+batch).
 """
 from __future__ import annotations
 
@@ -40,9 +41,10 @@ def make_parser() -> argparse.ArgumentParser:
                         help="logging fileConfig")
 
     subparsers = parser.add_subparsers(dest="command", required=True)
-    from pydcop_tpu_torch.commands import solve
+    from pydcop_tpu_torch.commands import batch, solve
 
-    solve.set_parser(subparsers)
+    for module in (solve, batch):
+        module.set_parser(subparsers)
     return parser
 
 

@@ -13,8 +13,11 @@ or amaxsum solve (one shard per visible device), with
 ``-c/--collect_on``, ``--run_metrics`` and ``--end_metrics`` (the JAX
 package's CSV files: one ``RUNNING`` line a cycle of the history, then
 the end line), with ``-m/--mode``, ``--period`` and ``--delay`` accepted
-for compatibility.  ``-d`` with a strategy name is not ported and fails;
-``--uiport`` raises :class:`~pydcop_tpu_torch.errors.NotPortedError`.
+for compatibility, and ``--batch`` with ``--max-padding-waste``: each
+file a separate instance, solved through the batched engine
+(:mod:`pydcop_tpu_torch.batch`).  ``-d`` with a strategy name is not
+ported and fails; ``--uiport`` and ``--compile-cache-dir`` raise
+:class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,20 @@ def set_parser(subparsers):
     parser = subparsers.add_parser("solve", help="solve a static DCOP")
     parser.set_defaults(func=run_cmd)
     parser.add_argument("dcop_files", nargs="+", help="DCOP YAML file(s)")
+    parser.add_argument(
+        "--batch", action="store_true",
+        help="treat each DCOP file as a SEPARATE instance and solve them "
+        "all through the batched engine (shape-bucketed, one runner per "
+        "bucket) instead of merging the files into one problem; prints "
+        "one metrics object per file")
+    parser.add_argument(
+        "--max-padding-waste", type=float, default=0.25,
+        help="with --batch: bucketing waste bound (the largest share of "
+        "a bucket's padded array cells that may hold no real data)")
+    parser.add_argument(
+        "--compile-cache-dir", default=None,
+        help="with --batch: a persistent compile cache directory; not "
+        "ported (bucket runners are CUDA graphs held in their process)")
     parser.add_argument("-a", "--algo", default=None,
                         help="algorithm name (required unless "
                         "--anytime-exact, which defaults to syncbb)")
@@ -123,6 +140,8 @@ def run_cmd(args):
             "--uiport (the UI server, runtime/ui.py and ws.py) is not "
             "ported to the PyTorch package yet")
 
+    if args.batch:
+        return _run_batch(args)
     search_family = ("syncbb", "ncbb")
     if args.anytime_exact:
         if args.algo is None:
@@ -208,3 +227,86 @@ def run_cmd(args):
         add_csvline(args.end_metrics, args.collect_on, metrics)
     output_metrics(metrics, args.output)
     return 0 if res.status in ("FINISHED", "TIMEOUT") else 1
+
+
+def _run_batch(args):
+    """``solve --batch f1.yaml f2.yaml ...`` — each file one instance,
+    solved through the batched engine on ``--device``.  Prints a JSON
+    object with per-file metrics plus the engine's bucket, cache and
+    runner summary (the JAX package's ``_run_batch``)."""
+    from pydcop_tpu_torch.batch import BatchEngine, BatchItem
+    from pydcop_tpu_torch.batch.cache import refuse_persistent_cache
+    from pydcop_tpu_torch.dcop import load_dcop_from_file
+
+    refuse_persistent_cache(args.compile_cache_dir)
+    if args.algo is None:
+        output_metrics({"status": "ERROR",
+                        "error": "--batch needs -a/--algo"}, args.output)
+        return 1
+    if args.distribution:
+        output_metrics(
+            {"status": "ERROR",
+             "error": "--batch does not combine with --distribution or "
+             "checkpointing; solve the instances separately"},
+            args.output,
+        )
+        return 1
+    # options the batched engine has no use for: refused, not ignored
+    unused = {
+        "--anytime-exact": args.anytime_exact,
+        "--frontier-width": bool(args.frontier_width),
+        "--run_metrics/--end_metrics/-c cycle_change": (
+            args.run_metrics is not None or args.end_metrics is not None
+            or args.collect_on == "cycle_change"),
+        "--shard-overlap": args.shard_overlap is not None,
+        "--dpop-budget-mb/--i-bound/--dpop-no-prune": (
+            args.dpop_budget_mb is not None or args.i_bound is not None
+            or args.dpop_no_prune),
+    }
+    given = [name for name, on in unused.items() if on]
+    if given:
+        output_metrics(
+            {"status": "ERROR",
+             "error": f"--batch does not combine with {', '.join(given)}; "
+             f"solve the instances separately"},
+            args.output,
+        )
+        return 1
+    algo_params = parse_algo_params(args.algo_params)
+    warn_process_mode(args.mode)
+
+    items, errors = [], {}
+    for fn in args.dcop_files:
+        try:
+            items.append(BatchItem(
+                load_dcop_from_file([fn]), args.algo,
+                algo_params=algo_params, seed=args.seed, label=fn,
+            ))
+        except Exception as e:
+            errors[fn] = {"status": "ERROR", "error": str(e)}
+
+    try:
+        engine = BatchEngine(max_padding_waste=args.max_padding_waste,
+                             device=args.device)
+        results = engine.solve(
+            items, cycles=args.cycles, timeout=args.timeout
+        )
+    except Exception as e:
+        output_metrics({"status": "ERROR", "error": str(e)}, args.output)
+        return 1
+
+    per_file = dict(errors)
+    for item, res in zip(items, results):
+        per_file[item.label] = res.metrics()
+    ok = not errors and all(
+        r.status in ("FINISHED", "TIMEOUT") for r in results
+    )
+    output_metrics(
+        {
+            "status": "FINISHED" if ok else "ERROR",
+            "results": per_file,
+            "batch": engine.metrics(),
+        },
+        args.output,
+    )
+    return 0 if ok else 1

@@ -27,8 +27,12 @@
 // every block resident, or the launch is refused) that walks the levels
 // itself: UTIL from level L-1 down to 0, then VALUE from 0 to L-1, with a
 // grid barrier (grid_sync.cuh word_barrier) between consecutive levels,
-// 2L - 1 a sweep (a block barrier on a grid of one block).  A level is a
-// grid-stride loop over node tiles; a tile is nodes_per_block nodes, one
+// 2L - 1 a sweep (a block barrier on a grid of one block).  The launch
+// may carry nb instances of one tree (their own tables, msg, cs and
+// assign, nb strides apart; the tree shared): each level then walks every
+// instance's nodes before its one barrier, so the grid, and the number of
+// barriers, do not grow with nb.  A level is a grid-stride loop over
+// (instance, node tile) units; a tile is nodes_per_block nodes, one
 // thread a (node, value).  UTIL: each thread sums its value's children
 // messages (kChildBatch loads in flight at a time, added in ascending
 // id; writes cs), and after a block barrier each reduces one parent
@@ -36,8 +40,8 @@
 // every thread of a block runs the same trip count, so the block
 // barriers stay legal; up to D = 16 the tile's tables are copied to
 // shared memory (cp.async) while the children are summed.  VALUE: one
-// thread a node (grid-stride), its parent's value, then a scan of its D
-// own values.  A child's msg, and a parent's assign, were written by
+// thread an (instance, node) (grid-stride), its parent's value, then a
+// scan of its D own values.  A child's msg, and a parent's assign, were written by
 // another block before the barrier: they are read through L2 (__ldcg).
 // level_start lives in device memory for the kernel; the C entry checks
 // its host copy.
@@ -87,10 +91,10 @@ __device__ __forceinline__ void level_barrier(unsigned* bar) {
 
 template <bool kMax>
 __global__ void dpop_sweep_coop_kernel(
-    const float* __restrict__ table, const int* __restrict__ child_ptr,
+    const float* __restrict__ table_all, const int* __restrict__ child_ptr,
     const int* __restrict__ child_idx, const int* __restrict__ parent,
-    const int* __restrict__ level_start, int L, int D, float* msg,
-    float* cs, int* assign, unsigned* bar) {
+    const int* __restrict__ level_start, int L, int D, int nb,
+    float* msg_all, float* cs_all, int* assign_all, unsigned* bar) {
   // cs of the tile's nodes [npb * D], then their tables [npb * D * D]
   // when D <= kStageMaxD
   extern __shared__ float cs_sh[];
@@ -100,13 +104,23 @@ __global__ void dpop_sweep_coop_kernel(
   const int slot = threadIdx.x / D;
   const int v = threadIdx.x - slot * D;
   const size_t dd = static_cast<size_t>(D);
+  // instance k's table, msg, cs and assign start k strides in; the tree
+  // (child_ptr, child_idx, parent, level_start) is every instance's
+  const size_t n_nodes = static_cast<size_t>(__ldg(level_start + L));
 
   // UTIL, deepest level first
   for (int l = L - 1; l >= 0; --l) {
     const int lo = __ldg(level_start + l);
     const int B = __ldg(level_start + l + 1) - lo;
     const int tiles = (B + npb - 1) / npb;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // a unit is one instance's tile: (instance, tile) instance-major
+    const long long units = static_cast<long long>(tiles) * nb;
+    for (long long unit = blockIdx.x; unit < units; unit += gridDim.x) {
+      const size_t inst = static_cast<size_t>(unit / tiles);
+      const int tile = static_cast<int>(unit - inst * tiles);
+      const float* table = table_all + inst * n_nodes * dd * dd;
+      float* msg = msg_all + inst * n_nodes * dd;
+      float* cs = cs_all + inst * n_nodes * dd;
       if (staged) {
         // the tile's tables are contiguous: copy them asynchronously,
         // their loads in flight with the children's below
@@ -170,8 +184,14 @@ __global__ void dpop_sweep_coop_kernel(
   const size_t nthreads = static_cast<size_t>(gridDim.x) * blockDim.x;
   for (int l = 0; l < L; ++l) {
     const size_t lo = static_cast<size_t>(__ldg(level_start + l));
-    const size_t hi = static_cast<size_t>(__ldg(level_start + l + 1));
-    for (size_t n = lo + tid; n < hi; n += nthreads) {
+    const size_t width = static_cast<size_t>(__ldg(level_start + l + 1)) - lo;
+    // one thread an (instance, node) of the level, instance-major
+    for (size_t u = tid; u < width * nb; u += nthreads) {
+      const size_t inst = u / width;
+      const size_t n = lo + (u - inst * width);
+      const float* table = table_all + inst * n_nodes * dd * dd;
+      const float* cs = cs_all + inst * n_nodes * dd;
+      int* assign = assign_all + inst * n_nodes;
       const int p = __ldg(parent + n);
       const int j = p < 0 ? 0 : __ldcg(assign + p);
       const float* t = table + n * dd * dd + j;
@@ -219,22 +239,26 @@ extern "C" int dpop_sweep_capacity(int D, int max_mode, int* threads) {
                        sweep_shared(D));
 }
 
-// Runs one whole sweep on `stream` as one cooperative launch of `blocks`
-// blocks (at most dpop_sweep_capacity(D, max_mode)): UTIL from the deepest
-// level up, then VALUE from the roots down.  `level_host` is level_start
-// ([L+1], level l = node ids [level_start[l], level_start[l+1])) in HOST
-// memory, `level_dev` the same in device memory; every other pointer is
-// device memory.  `bar` is one unsigned int, zero before the launch and
-// shared with no other launch.  Returns the launch's error (0 on
-// success).  D must be in [1, 1024], every level non-empty and blocks at
-// least 1, else cudaErrorInvalidValue without launching.
-extern "C" int dpop_whole_sweep(const float* table, const int* child_ptr,
-                                const int* child_idx, const int* parent,
-                                const int* level_dev, const int* level_host,
-                                int L, int D, int max_mode, float* msg,
-                                float* cs, int* assign, int blocks,
-                                unsigned* bar, void* stream) {
-  if (D < 1 || D > 1024 || L < 1 || blocks < 1 || bar == nullptr) {
+// Runs the whole sweeps of `nb` instances of one tree on `stream` as one
+// cooperative launch of `blocks` blocks (at most dpop_sweep_capacity(D,
+// max_mode)): UTIL from the deepest level up, then VALUE from the roots
+// down, each level over every instance before the barrier.  Instance k's
+// table is table + k * n_nodes * D * D, its msg and cs k * n_nodes * D in,
+// its assign k * n_nodes in (n_nodes = level_start[L]).  `level_host` is
+// level_start ([L+1], level l = node ids [level_start[l],
+// level_start[l+1])) in HOST memory, `level_dev` the same in device
+// memory; every other pointer is device memory.  `bar` is one unsigned
+// int, zero before the launch and shared with no other launch.  Returns
+// the launch's error (0 on success).  D must be in [1, 1024], nb and
+// blocks at least 1 and every level non-empty, else cudaErrorInvalidValue
+// without launching.
+extern "C" int dpop_whole_sweep_batched(
+    const float* table, const int* child_ptr, const int* child_idx,
+    const int* parent, const int* level_dev, const int* level_host, int L,
+    int D, int nb, int max_mode, float* msg, float* cs, int* assign,
+    int blocks, unsigned* bar, void* stream) {
+  if (D < 1 || D > 1024 || L < 1 || nb < 1 || blocks < 1 ||
+      bar == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int l = 0; l < L; ++l) {
@@ -243,12 +267,24 @@ extern "C" int dpop_whole_sweep(const float* table, const int* child_ptr,
     }
   }
   void* args[] = {&table, &child_ptr, &child_idx, &parent, &level_dev,
-                  &L,     &D,         &msg,       &cs,     &assign,
-                  &bar};
+                  &L,     &D,         &nb,        &msg,    &cs,
+                  &assign, &bar};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       const_cast<void*>(sweep_kernel(max_mode)),
       dim3(static_cast<unsigned>(blocks)),
       dim3(static_cast<unsigned>(sweep_threads(D))), args, sweep_shared(D),
       static_cast<cudaStream_t>(stream));
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// One whole sweep of one instance: dpop_whole_sweep_batched with nb = 1.
+extern "C" int dpop_whole_sweep(const float* table, const int* child_ptr,
+                                const int* child_idx, const int* parent,
+                                const int* level_dev, const int* level_host,
+                                int L, int D, int max_mode, float* msg,
+                                float* cs, int* assign, int blocks,
+                                unsigned* bar, void* stream) {
+  return dpop_whole_sweep_batched(table, child_ptr, child_idx, parent,
+                                  level_dev, level_host, L, D, 1, max_mode,
+                                  msg, cs, assign, blocks, bar, stream);
 }

@@ -563,3 +563,110 @@ def run_sweep_perlevel(plan: DpopPerLevelPlan):
         _value_step(assign, tables[li], lv.sep_ids, lv.node_ids, Dmax,
                     lv.W, N, mode)
     return assign[:N].to(torch.int32).cpu().numpy(), N
+
+
+# ---------------------------------------------------------------------------
+# batched sweeps: B instances of one tree
+# ---------------------------------------------------------------------------
+
+#: the JAX package's budget of a batched sweep on the CPU: 2 * batch *
+#: total_entries f32 entries (the input and the UTIL pass's saved tables)
+#: up to ~8 GiB
+CPU_BATCH_BUDGET_ENTRIES = 2 * 2 ** 30
+
+
+def batch_budget_entries(device: torch.device) -> int:
+    """f32 entries a batched sweep may hold on ``device``: half the
+    card's memory on CUDA (``total_memory``), the JAX package's ~8 GiB
+    entry count on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 8
+    return CPU_BATCH_BUDGET_ENTRIES
+
+
+def _run_sweep_batched(plan: DpopSweepPlan, local_b: torch.Tensor
+                       ) -> torch.Tensor:
+    """:func:`run_sweep`'s level scan over a leading instance axis:
+    ``local_b`` ``[nb, L, Bmax, S]`` → assign ``[nb, n_nodes]`` int32,
+    each instance's equal to its single sweep."""
+    Dmax, Sm, N, mode = plan.Dmax, plan.Sm, plan.n_nodes, plan.mode
+    nb = local_b.shape[0]
+    sizes = plan.level_sizes
+    tables: List[torch.Tensor] = [None] * plan.L
+    msg = None
+    for li in range(plan.L - 1, -1, -1):
+        B = sizes[li]
+        table = local_b[:, li, :B]  # [nb, B, S]
+        if li + 1 < plan.L:
+            Bc = sizes[li + 1]
+            idx = plan.align_idx[li + 1, :Bc].long()
+            aligned = torch.gather(msg, 2, idx[None].expand(nb, -1, -1))
+            combined = SegmentPlan(plan.parent_slot[li + 1, :Bc], B).sum(
+                aligned.transpose(0, 1))  # [B, nb, S]
+            table = table + combined.transpose(0, 1)
+        tables[li] = table
+        msg = _reduce_own(table.reshape(nb * B, Dmax, Sm), mode).reshape(
+            nb, B, Sm)
+
+    assign = torch.zeros((nb, N + 1), dtype=torch.int64, device=plan.device)
+    strides = _msg_strides(Dmax, plan.W, plan.device)
+    for li in range(plan.L):
+        B = sizes[li]
+        sep = plan.sep_ids[li, :B].long().clamp(0, N)
+        sep_pos = (assign[:, sep] * strides).sum(2)  # [nb, B]
+        t = tables[li].reshape(nb, B, Dmax, -1)
+        col = torch.gather(t, 3, sep_pos[:, :, None, None].expand(
+            nb, B, Dmax, 1))[..., 0]
+        assign[:, plan.node_ids[li, :B].long()] = _argred(
+            col.reshape(nb * B, Dmax), mode).reshape(nb, B)
+    return assign[:, :N].to(torch.int32)
+
+
+def make_batched_sweep_fn(plan: DpopSweepPlan, batch: Optional[int] = None):
+    """(fn, static_args) solving a BATCH of same-topology DPOP instances
+    in one call: ``fn(local_b, *static_args)`` with ``local_b``
+    ``[B, L, Bmax, S]`` (stacked plan tables, on the plan's device)
+    returns assignments ``[B, n_nodes]`` (int32, on that device).  The
+    JAX package's ``make_batched_sweep_fn``.
+
+    On CUDA a width-1 plan runs K10 with an instance axis: the B tables
+    packed as :func:`~pydcop_tpu_torch.ops.packed_dpop.pack_sweep` packs
+    one, then ONE cooperative launch for all B
+    (:func:`~pydcop_tpu_torch.ops.packed_dpop.whole_sweep_batched`).  A
+    wider plan, and any plan on the CPU, runs :func:`run_sweep`'s level
+    scan over the leading axis (the counterpart of JAX's vmap).
+
+    Memory grows with B: the input and the saved (or packed) tables are
+    each about ``B * plan.total_entries`` f32, so ``batch`` given over
+    :func:`batch_budget_entries` raises ``ValueError`` (JAX's message)
+    before anything is allocated."""
+    if batch is not None and \
+            2 * batch * plan.total_entries > batch_budget_entries(
+                plan.device):
+        raise ValueError(
+            f"batched sweep would hold ~"
+            f"{2 * batch * plan.total_entries * 4 / 2**30:.1f} GiB of "
+            f"tables in HBM; lower the batch (plan has "
+            f"{plan.total_entries} padded entries per instance)"
+        )
+    ps = None
+    if plan.device.type == "cuda":
+        from pydcop_tpu_torch.ops.packed_dpop import pack_sweep
+
+        ps = pack_sweep(plan)
+    if ps is not None:
+        from pydcop_tpu_torch.ops.packed_dpop import (
+            pack_tables,
+            whole_sweep_batched,
+        )
+
+        def run_packed(local_b, packed):
+            return whole_sweep_batched(packed,
+                                       pack_tables(packed, local_b))[0]
+
+        return run_packed, (ps,)
+
+    def run_scan(local_b, scan_plan):
+        return _run_sweep_batched(scan_plan, local_b)
+
+    return run_scan, (plan,)

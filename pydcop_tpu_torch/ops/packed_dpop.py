@@ -25,8 +25,11 @@ needs (W != 1, or a separator that is not the parent).
 (``csrc/dpop_sweep.cu``: ONE cooperative launch a sweep that walks the L
 UTIL levels, then the L VALUE levels, a grid barrier between consecutive
 levels) on CUDA tensors, and runs :func:`whole_sweep_plain`, the same
-arithmetic in the same order in torch ops, only on CPU tensors.  A build
-or launch failure on CUDA raises; nothing falls back.
+arithmetic in the same order in torch ops, only on CPU tensors.
+:func:`whole_sweep_batched` runs nb instances of one tree (one table
+each) the same way: one launch on CUDA for all nb, the plain version over
+a leading axis on the CPU.  A build or launch failure on CUDA raises;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -68,6 +71,9 @@ class PackedDpopSweep:
     #: the same on the device, for the kernel
     level_start_dev: torch.Tensor
     max_children: int
+    #: [n_nodes] int64 on the device: node n's row in the plan's
+    #: ``local.reshape(L * Bmax, S)`` (:func:`pack_tables`)
+    local_rows: Optional[torch.Tensor] = None
     #: plain version's per-level child-sum plans, built at its first call
     _plans: Optional[list] = field(default=None, repr=False)
 
@@ -114,8 +120,8 @@ def pack_sweep(plan: DpopSweepPlan) -> Optional[PackedDpopSweep]:
     child_idx = child_ids[np.argsort(parent[child_ids], kind="stable")]
 
     # plan.local at W = 1: flat slot = own * D + parent
-    table = plan.local[torch.as_tensor(lv_of, device=dev),
-                       torch.as_tensor(slot_of, device=dev)]
+    local_rows = torch.as_tensor(lv_of * plan.Bmax + slot_of, device=dev)
+    table = plan.local.reshape(L * plan.Bmax, -1)[local_rows]
     D = plan.Dmax
 
     def put(a):
@@ -128,7 +134,17 @@ def pack_sweep(plan: DpopSweepPlan) -> Optional[PackedDpopSweep]:
         parent=put(parent), level_start=level_start,
         level_start_dev=put(level_start),
         max_children=int(counts.max(initial=0)),
+        local_rows=local_rows,
     )
+
+
+def pack_tables(ps: PackedDpopSweep, local_b: torch.Tensor) -> torch.Tensor:
+    """``[nb, n_nodes, D, D]`` tables (own value major, gid order) of nb
+    instances of ``ps``'s tree from their stacked plan tables ``local_b``
+    ``[nb, L, Bmax, D * D]``, as :func:`pack_sweep` packs one."""
+    nb = local_b.shape[0]
+    rows = local_b.reshape(nb, -1, ps.D * ps.D)[:, ps.local_rows]
+    return rows.reshape(nb, ps.n_nodes, ps.D, ps.D).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -151,36 +167,52 @@ def _level_plans(ps: PackedDpopSweep) -> List[Optional[SegmentPlan]]:
     return ps._plans
 
 
-def whole_sweep_plain(ps: PackedDpopSweep):
+def whole_sweep_plain(ps: PackedDpopSweep,
+                      table: Optional[torch.Tensor] = None):
     """(assign [n_nodes] int32, msg [n_nodes, D], cs [n_nodes, D]) of one
     whole sweep: each node's child sum from 0 in ascending child gid,
     its message reduced over own values, then the values top-down (first
-    index on ties)."""
+    index on ties).  With ``table`` (``[nb, n_nodes, D, D]``, nb
+    instances of the tree): the nb sweeps at once, (assign [nb, n_nodes],
+    msg [nb, n_nodes, D], cs [nb, n_nodes, D]), each instance's equal to
+    its single sweep."""
+    single = table is None
+    if single:
+        table = ps.table[None]
     D, N, dev = ps.D, ps.n_nodes, ps.device
-    msg = torch.zeros((N, D), dtype=torch.float32, device=dev)
-    cs = torch.zeros((N, D), dtype=torch.float32, device=dev)
-    assign = torch.zeros(N, dtype=torch.int32, device=dev)
+    nb = table.shape[0]
+    # node-major inside: a level's rows are one slice, the child sums'
+    # plans add along the node axis
+    tab = table.transpose(0, 1)  # [N, nb, own i, parent j]
+    msg = torch.zeros((N, nb, D), dtype=torch.float32, device=dev)
+    cs = torch.zeros((N, nb, D), dtype=torch.float32, device=dev)
+    assign = torch.zeros((N, nb), dtype=torch.int32, device=dev)
     plans = _level_plans(ps)
     ls = ps.level_start
     for li in range(ps.L - 1, -1, -1):
         lo, hi = int(ls[li]), int(ls[li + 1])
         c = (plans[li].sum(msg[hi:int(ls[li + 2])]) if plans[li] is not None
-             else torch.zeros((hi - lo, D), dtype=torch.float32, device=dev))
+             else torch.zeros((hi - lo, nb, D), dtype=torch.float32,
+                              device=dev))
         cs[lo:hi] = c
-        t = ps.table[lo:hi] + c[:, :, None]  # [B, own i, parent j]
-        msg[lo:hi] = (torch.amin(t, dim=1) if ps.mode == "min"
-                      else torch.amax(t, dim=1))
+        t = tab[lo:hi] + c[:, :, :, None]  # [B, nb, own i, parent j]
+        msg[lo:hi] = (torch.amin(t, dim=2) if ps.mode == "min"
+                      else torch.amax(t, dim=2))
     for li in range(ps.L):
         lo, hi = int(ls[li]), int(ls[li + 1])
         par = ps.parent[lo:hi].long()
-        j = torch.where(par >= 0, assign[par.clamp(min=0)].long(), 0)
-        col = torch.gather(ps.table[lo:hi], 2,
-                           j.view(-1, 1, 1).expand(-1, D, 1))[:, :, 0]
+        j = torch.where(par[:, None] >= 0,
+                        assign[par.clamp(min=0)].long(), 0)  # [B, nb]
+        col = torch.gather(tab[lo:hi], 3,
+                           j[:, :, None, None].expand(-1, -1, D, 1))[..., 0]
         score = col + cs[lo:hi]
-        best = (torch.argmin(score, dim=1) if ps.mode == "min"
-                else torch.argmax(score, dim=1))
+        best = (torch.argmin(score, dim=2) if ps.mode == "min"
+                else torch.argmax(score, dim=2))
         assign[lo:hi] = best.to(torch.int32)
-    return assign, msg, cs
+    if single:
+        return assign[:, 0], msg[:, 0], cs[:, 0]
+    return (assign.t().contiguous(), msg.transpose(0, 1).contiguous(),
+            cs.transpose(0, 1).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +249,14 @@ def _capacity(D: int, mode: str) -> Tuple[int, int]:
     return int(blocks), int(threads.value)
 
 
-def sweep_blocks(ps: PackedDpopSweep, capacity: int, threads: int) -> int:
-    """Blocks of one sweep launch: the UTIL tiles (``threads // D`` nodes
-    each) of the widest level, at most ``capacity`` and
-    :data:`SWEEP_GRID_CAP`, at least 1 (every level is a grid-stride
-    loop)."""
+def sweep_blocks(ps: PackedDpopSweep, capacity: int, threads: int,
+                 nb: int = 1) -> int:
+    """Blocks of one sweep launch over ``nb`` instances: the UTIL tiles
+    (``threads // D`` nodes each) of the widest level times ``nb``, at
+    most ``capacity`` and :data:`SWEEP_GRID_CAP`, at least 1 (every level
+    is a grid-stride loop)."""
     widest = int(np.diff(ps.level_start).max())
-    tiles = -(-widest // max(1, threads // ps.D))
+    tiles = -(-widest // max(1, threads // ps.D)) * nb
     return max(1, min(capacity, tiles, SWEEP_GRID_CAP))
 
 
@@ -265,8 +298,8 @@ def whole_sweep(ps: PackedDpopSweep, blocks: Optional[int] = None):
     every UTIL and VALUE level (``whole_sweep.launches`` adds one a
     sweep), at ``blocks`` blocks when given (1 up to the kernel's
     capacity), else at those of :func:`sweep_blocks`; its barrier word is
-    allocated zeroed by this call and shared with no other.  On the CPU: the plain
-    version, and ``blocks`` has no use."""
+    allocated zeroed by this call and shared with no other.  On the CPU:
+    the plain version, and ``blocks`` has no use."""
     if not _on_cuda(ps):
         return whole_sweep_plain(ps)
     return _launch_sweep(ps, blocks)
@@ -276,18 +309,25 @@ def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _launch_sweep(ps: PackedDpopSweep, blocks: Optional[int]):
-    """:func:`whole_sweep` on a checked CUDA sweep: the kernel's one
-    launch, or RuntimeError."""
+def _grid(ps: PackedDpopSweep, blocks: Optional[int], nb: int = 1) -> int:
+    """The blocks of a launch over ``nb`` instances: ``blocks`` checked
+    against the kernel's capacity, or :func:`sweep_blocks`'s."""
     capacity, threads = _capacity(ps.D, ps.mode)
     if capacity <= 0:
         raise RuntimeError("dpop_whole_sweep: the device reports no "
                            "resident block for the cooperative launch")
     if blocks is None:
-        blocks = sweep_blocks(ps, capacity, threads)
-    elif not 1 <= blocks <= capacity:
+        return sweep_blocks(ps, capacity, threads, nb)
+    if not 1 <= blocks <= capacity:
         raise ValueError(f"dpop_whole_sweep: {blocks} blocks, the capacity "
                          f"is {capacity}")
+    return blocks
+
+
+def _launch_sweep(ps: PackedDpopSweep, blocks: Optional[int]):
+    """:func:`whole_sweep` on a checked CUDA sweep: the kernel's one
+    launch, or RuntimeError."""
+    blocks = _grid(ps, blocks)
     f = dict(dtype=torch.float32, device=ps.device)
     msg = torch.empty((ps.n_nodes, ps.D), **f)
     cs = torch.empty((ps.n_nodes, ps.D), **f)
@@ -307,6 +347,63 @@ def _launch_sweep(ps: PackedDpopSweep, blocks: Optional[int]):
 
 
 whole_sweep.launches = 0
+
+
+def _batched_kernel():
+    """The C entry ``dpop_whole_sweep_batched``, bound once."""
+    if not _batched_fn:
+        from pydcop_tpu_torch.ops.cuda_build import load
+
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn = load("dpop_sweep").dpop_whole_sweep_batched
+        fn.restype = ctypes.c_int
+        fn.argtypes = [P] * 6 + [I] * 4 + [P] * 3 + [I, P, P]
+        _batched_fn.append(fn)
+    return _batched_fn[0]
+
+
+_batched_fn = []
+
+
+def whole_sweep_batched(ps: PackedDpopSweep, table: torch.Tensor,
+                        blocks: Optional[int] = None):
+    """The whole sweeps of ``nb`` instances of ``ps``'s tree, one table
+    each (``table`` ``[nb, n_nodes, D, D]`` float32, own value major, on
+    the sweep's device): (assign [nb, n_nodes] int32, msg [nb, n_nodes,
+    D], cs [nb, n_nodes, D]), instance by instance what
+    :func:`whole_sweep` gives for that table.  On CUDA: ONE cooperative
+    launch for all nb (``whole_sweep.launches`` adds one), each level
+    over every instance before its barrier, at ``blocks`` blocks when
+    given, else at :func:`sweep_blocks`'s for nb; a failed launch raises.
+    On the CPU: :func:`whole_sweep_plain` over the leading axis."""
+    if table.dim() != 4 or tuple(table.shape[1:]) != (ps.n_nodes, ps.D,
+                                                      ps.D) \
+            or table.dtype != torch.float32 or table.shape[0] < 1:
+        raise ValueError("table must be float32 [nb, n_nodes, D, D], "
+                         "nb >= 1")
+    if table.device != ps.device or not table.is_contiguous():
+        raise ValueError(f"table must be contiguous on {ps.device}")
+    if not _on_cuda(ps):
+        return whole_sweep_plain(ps, table)
+    nb = int(table.shape[0])
+    blocks = _grid(ps, blocks, nb)
+    f = dict(dtype=torch.float32, device=ps.device)
+    msg = torch.empty((nb, ps.n_nodes, ps.D), **f)
+    cs = torch.empty((nb, ps.n_nodes, ps.D), **f)
+    assign = torch.empty((nb, ps.n_nodes), dtype=torch.int32,
+                         device=ps.device)
+    bar = torch.zeros(1, dtype=torch.int32, device=ps.device)
+    err = _batched_kernel()(
+        table.data_ptr(), ps.child_ptr.data_ptr(),
+        ps.child_idx.data_ptr(), ps.parent.data_ptr(),
+        ps.level_start_dev.data_ptr(), ps.level_start.ctypes.data, ps.L,
+        ps.D, nb, int(ps.mode == "max"), msg.data_ptr(), cs.data_ptr(),
+        assign.data_ptr(), blocks, bar.data_ptr(), _stream(ps.device))
+    if err != 0:
+        raise RuntimeError(f"dpop_whole_sweep_batched launch failed: CUDA "
+                           f"error {err}")
+    whole_sweep.launches += 1
+    return assign, msg, cs
 
 
 def reset_launches() -> None:

@@ -5,8 +5,10 @@ pydcop/infrastructure/Events.py :41-96): topic-based pub/sub with ``*``
 wildcard suffix matching, disabled by default, and one ``send_*`` helper
 per topic prefix.  The port emits ``harness.run.done`` (the solve
 harness, ``algorithms/base.py``), ``search.*`` (the frontier search,
-``search/solver.py``), ``dpop.minibucket.bounds`` (``algorithms/dpop.py``)
-and ``shard.comm.selected`` (the sharded engines, ``parallel/mesh.py``),
+``search/solver.py``), ``dpop.minibucket.bounds`` (``algorithms/dpop.py``),
+``shard.comm.selected`` (the sharded engines, ``parallel/mesh.py``) and
+``batch.*`` (the batched solve engine, ``batch/engine.py`` and
+``batch/cache.py``),
 with the JAX package's payload keys.  The other prefixes are kept for the
 modules that will emit them when they are ported.
 """
@@ -47,7 +49,11 @@ event_bus = EventDispatcher()
 
 #: fault/recovery topics (``faults.injected.<kind>``, ...)
 FAULT_TOPIC_PREFIX = "faults."
-#: batched-solve topics (``batch.bucket.formed``, ``batch.run.done``, ...)
+#: batched-solve topics: ``batch.bucket.formed`` (algo, signature, size,
+#: waste), ``batch.compile.hit`` / ``batch.compile.miss`` (the runner's
+#: cache key), ``batch.instance.converged`` (label, cycle),
+#: ``batch.lane.nonfinite`` (label, lane, cycle) and ``batch.run.done``
+#: (instances, buckets, wall, cache)
 BATCH_TOPIC_PREFIX = "batch."
 #: solve-service topics (``serve.job.submitted``, ``serve.job.done``, ...)
 SERVE_TOPIC_PREFIX = "serve."

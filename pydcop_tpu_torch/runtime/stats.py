@@ -1,7 +1,8 @@
 """Counters and the executed-config record of a solve.
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
-harness, the sharded engines and the frontier search use, with the same names and schemas,
+harness, the sharded engines, the frontier search and the batched solve
+engine use, with the same names and schemas,
 so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
@@ -82,6 +83,50 @@ class SearchCounters:
 
     def as_dict(self) -> dict:
         return dict(self.counts)
+
+
+#: counter names surfaced under ``BatchEngine.metrics()`` by the batched
+#: solve engine (``pydcop_tpu_torch/batch/engine.py``) — the JAX
+#: package's schema, one for the library API, ``solve --batch`` and the
+#: ``batch`` command.  ``compile_misses`` counts bucket-runner builds
+#: (the runner captures its chunk as a CUDA graph on the card).
+BATCH_COUNTERS = (
+    "instances_enqueued",     # items handed to BatchEngine.solve
+    "instances_solved",
+    "instances_converged",    # converged before the cycle limit
+    "buckets_formed",
+    "compile_hits",           # bucket-runner cache hits
+    "compile_misses",         # bucket runners built in this process
+    "fallback_sequential",    # algorithms outside the batched set, 1 by 1
+    "padded_cells",           # stacked array cells holding padding
+    "stacked_cells",          # total stacked array cells
+    "lanes_nonfinite",        # lanes frozen ERROR by the chunk-boundary
+                              # NaN/Inf check
+)
+
+
+class BatchCounters:
+    """Batched-solve counters collected by the BatchEngine and merged
+    into its run summary (``BatchEngine.metrics()``)."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in BATCH_COUNTERS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown batch counter {name!r}; add it to "
+                f"BATCH_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def as_dict(self) -> dict:
+        return dict(self.counts)
+
+    @property
+    def padding_waste(self) -> float:
+        total = self.counts["stacked_cells"]
+        return self.counts["padded_cells"] / total if total else 0.0
 
 
 def resolved_config(
