@@ -3730,6 +3730,371 @@ def batch_phase(smi, device="cuda"):
     return rates
 
 
+#: the JAX bench's serve leg (bench.py bench_serve at its defaults): 24
+#: jobs, 3-colour soft colourings of 120 and 60 variables with 3x edges,
+#: seeds 300 + i, Poisson arrivals at 20 jobs/s from seed 11, 8 lanes,
+#: run to convergence, at most 200 cycles
+SERVE_JOBS, SERVE_VARS, SERVE_RATE, SERVE_SEED = 24, 120, 20.0, 11
+SERVE_LANES, SERVE_MAX_CYCLES = 8, 200
+SERVE_ALGOS = ("mgm", "dsa", "maxsum")
+#: the service at a size users run: the JAX bench's bench_batch family
+#: (500 variables, 1,500 edges) with a 250 / 750 half size that folds
+#: into the larger buckets; SERVE_BIG_PROBLEMS problems, job i problem
+#: i % SERVE_BIG_PROBLEMS at seed i; mgm, 64 lanes, one burst and one
+#: Poisson stream at 25 jobs/s; SERVE_SAMPLE jobs checked
+SERVE_BIG_V, SERVE_BIG_JOBS, SERVE_BIG_PROBLEMS = 500, 512, 64
+SERVE_BIG_LANES, SERVE_BIG_RATE, SERVE_SAMPLE = 64, 25.0, 32
+#: the jobs of the burst traced by torch.profiler for the busy share
+SERVE_PROFILE_JOBS = 64
+#: seconds into the script after which the big runs take half the jobs
+SERVE_CUT_AFTER_S = 850.0
+#: the sequential fallback's instances (K6 and K10 through the service)
+SERVE_MGM2_V, SERVE_DPOP_NODES = 2_000, 3_000
+#: when the script started (the serve phase cuts its job count near the
+#: time limit)
+SCRIPT_T0 = time.perf_counter()
+
+
+def serve_family(n, V, seed0=300):
+    """The JAX bench serve leg's instances: job i a colouring of V (even
+    i) or V // 2 (odd i) variables with three edges a variable, seed
+    ``seed0 + i``."""
+    return [coloring_dcop(v, 3 * v, seed=seed0 + i)
+            for i, v in enumerate(V if i % 2 == 0 else V // 2
+                                  for i in range(n))]
+
+
+def poisson_offsets(n, rate, seed):
+    """The JAX serve command's seeded arrival offsets (seconds)."""
+    rng = np.random.default_rng(seed)
+    inter = rng.exponential(1.0 / rate, n)
+    inter[0] = 0.0
+    return [float(x) for x in np.cumsum(inter)]
+
+
+def serve_sequential(dcop, algo, seed, max_cycles, device="cuda",
+                     params=None):
+    """A job's sequential solve: maxsum's generic engine
+    (``use_packed=False``, the engine the buckets run), the others'
+    default engines (mgm's K4, dsa's K5 on the card)."""
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+    from pydcop_tpu_torch.batch import BatchItem
+
+    extra = {"use_packed": False} if algo == "maxsum" else {}
+    solver = load_algorithm_module(algo).build_solver(
+        dcop, None, BatchItem(dcop, algo, algo_params=params).algo_def(),
+        seed=seed, device=device, **extra)
+    return solver.run(max_cycles=max_cycles)
+
+
+def serve_run(jobs, algo, lanes, max_cycles, offsets, prewarm=(),
+              device="cuda", trace=False, **kw):
+    """Serve ``jobs`` (job i: ``(dcop, seed)``) through a started
+    SolveService, job i submitted at ``offsets[i]`` seconds, after a
+    blocking prewarm for the dcops ``prewarm``; every result awaited.
+    With ``trace`` the jobs run under torch.profiler (CUDA activity):
+    the device's busy share is its kernels' device time over the wall.
+    Returns the results and the run's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pydcop_tpu_torch.batch import CompileCache
+    from pydcop_tpu_torch.serve import SolveService
+
+    svc = SolveService(lanes=lanes, cache=CompileCache(),
+                       max_cycles=max_cycles, device=device, **kw)
+    prof = None
+    try:
+        svc.start()
+        t0 = time.perf_counter()
+        if prewarm:
+            svc.prewarm([(d, algo) for d in prewarm], block=True)
+        prewarm_s = time.perf_counter() - t0
+        warm = svc.metrics()["runners"]
+        if trace:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        sub = []
+        for i, (d, seed) in enumerate(jobs):
+            wait = offsets[i] - (time.perf_counter() - t0)
+            if wait > 0:
+                time.sleep(wait)
+            sub.append((svc.submit(d, algo, seed=seed),
+                        time.perf_counter() - t0))
+        results = [svc.result(jid, timeout=900) for jid, _ in sub]
+        wall = max(s + r.time for (_, s), r in zip(sub, results))
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+        metrics = svc.metrics()
+    finally:
+        svc.stop(drain=False)
+    busy = None
+    if prof is not None:
+        device_us = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us and "CUDA" in str(getattr(e, "device_type", "")):
+                device_us += us
+        busy = device_us * 1e-6 / wall if device_us else None
+    lat = np.array([r.time for r in results])
+    sched = np.array([s + r.time - o for (_, s), r, o in
+                      zip(sub, results, offsets)])
+    counters = metrics["serve"]
+    return results, dict(
+        jobs=len(jobs), wall_s=wall, jobs_per_s=len(jobs) / wall,
+        p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        sched_p50_ms=float(np.percentile(sched, 50)) * 1e3,
+        sched_p99_ms=float(np.percentile(sched, 99)) * 1e3,
+        prewarm_s=prewarm_s, runners=metrics["runners"],
+        runners_after_prewarm=warm, cache=metrics["cache"],
+        device_busy_share=busy,
+        counters={k: counters[k] for k in (
+            "jobs_admitted", "midflight_admissions", "lanes_reused",
+            "buckets_opened", "buckets_merged", "buckets_closed",
+            "prewarmed_runners", "jobs_fallback", "lanes_nan",
+            "jobs_quarantined", "buckets_failed", "jobs_resumed")},
+        statuses=sorted({r.status for r in results}),
+        cycles=[int(np.min([r.cycle for r in results])),
+                int(np.max([r.cycle for r in results]))])
+
+
+def serve_check(phase, results, jobs, algo, max_cycles, which=None,
+                device="cuda"):
+    """Each checked job's (assignment, cost, cycle, status) equal to its
+    sequential solve on the card; ``which`` picks the job indices (all
+    by default).  Returns the seconds the sequential solves took."""
+    t0 = time.perf_counter()
+    bad = []
+    for i in (range(len(jobs)) if which is None else which):
+        d, seed = jobs[i]
+        r = results[i]
+        w = serve_sequential(d, algo, seed, max_cycles, device)
+        if (r.assignment, r.cost, r.cycle, r.status) != \
+                (w.assignment, w.cost, w.cycle, w.status):
+            bad.append((i, r.cost, w.cost, r.cycle, w.cycle, r.status))
+    if bad:
+        fail("serve", f"{phase} {algo}: {len(bad)} served jobs differ "
+             f"from their sequential solves on the card (job, served cost, "
+             f"sequential cost, cycles, status): {bad[:4]}")
+    return time.perf_counter() - t0
+
+
+def serve_parity(smi, device="cuda"):
+    """The JAX bench's serve leg on the card for mgm, dsa and maxsum:
+    Poisson arrivals into 8-lane buckets, every job equal to its
+    sequential solve on the card, no kernel of the port launched by the
+    buckets."""
+    dcops = serve_family(SERVE_JOBS, SERVE_VARS)
+    jobs = [(d, i) for i, d in enumerate(dcops)]
+    offsets = poisson_offsets(SERVE_JOBS, SERVE_RATE, SERVE_SEED)
+    for algo in SERVE_ALGOS:
+        reset_counts()
+        results, row = serve_run(jobs, algo, SERVE_LANES, SERVE_MAX_CYCLES,
+                                 offsets, prewarm=dcops, device=device)
+        counts = read_counts()
+        if any(counts.values()):
+            fail("serve", f"parity {algo}: the buckets launched "
+                 f"{ {k: v for k, v in counts.items() if v} }; the "
+                 f"generic cycles launch no kernel of the port")
+        seq_s = serve_check("parity", results, jobs, algo,
+                            SERVE_MAX_CYCLES, device=device)
+        say("serve", kind="parity", algo=algo, vars=[SERVE_VARS,
+            SERVE_VARS // 2], rate=SERVE_RATE, arrival_seed=SERVE_SEED,
+            lanes=SERVE_LANES, equal=True, launches=0,
+            sequential_s=seq_s, **row, nvidia_smi=smi)
+
+
+def serve_at_size(smi, device="cuda"):
+    """mgm on the bench_batch family at 64 lanes: a burst and a seeded
+    Poisson stream (SERVE_BIG_JOBS jobs each, halved when the script is
+    past SERVE_CUT_AFTER_S), a sample of SERVE_SAMPLE jobs each equal to
+    its sequential solve; then a burst of SERVE_PROFILE_JOBS traced by
+    torch.profiler for the device's busy share."""
+    n = SERVE_BIG_JOBS
+    elapsed = time.perf_counter() - SCRIPT_T0
+    cut = elapsed > SERVE_CUT_AFTER_S
+    if cut:
+        n //= 2
+    t0 = time.perf_counter()
+    problems = serve_family(SERVE_BIG_PROBLEMS, SERVE_BIG_V, seed0=500)
+    build_s = time.perf_counter() - t0
+    jobs = [(problems[i % SERVE_BIG_PROBLEMS], i) for i in range(n)]
+    sample = list(range(0, n, max(1, n // SERVE_SAMPLE)))[:SERVE_SAMPLE]
+    out = {}
+    for mode, offsets in (
+            ("burst", [0.0] * n),
+            ("poisson", poisson_offsets(n, SERVE_BIG_RATE, SERVE_SEED))):
+        reset_counts()
+        results, row = serve_run(jobs, "mgm", SERVE_BIG_LANES,
+                                 SERVE_MAX_CYCLES, offsets,
+                                 prewarm=problems[:8], device=device)
+        counts = read_counts()
+        if any(counts.values()):
+            fail("serve", f"{mode}: the buckets launched kernels "
+                 f"{ {k: v for k, v in counts.items() if v} }")
+        seq_s = serve_check(mode, results, jobs, "mgm", SERVE_MAX_CYCLES,
+                            sample, device)
+        out[mode] = row
+        say("serve", kind="at_size", mode=mode, algo="mgm",
+            vars=[SERVE_BIG_V, SERVE_BIG_V // 2], problems=SERVE_BIG_PROBLEMS,
+            lanes=SERVE_BIG_LANES,
+            rate=SERVE_BIG_RATE if mode == "poisson" else None,
+            arrival_seed=SERVE_SEED if mode == "poisson" else None,
+            jobs_cut_from=SERVE_BIG_JOBS if cut else None,
+            script_s_at_start=round(elapsed, 1), build_dcops_s=build_s,
+            checked=len(sample), equal=True, sequential_s=seq_s, **row,
+            nvidia_smi=smi)
+    m = min(SERVE_PROFILE_JOBS, n)
+    _, row = serve_run(jobs[:m], "mgm", SERVE_BIG_LANES, SERVE_MAX_CYCLES,
+                       [0.0] * m, prewarm=problems[:8], device=device,
+                       trace=device == "cuda")
+    say("serve", kind="busy_share", mode="burst", algo="mgm", lanes=
+        SERVE_BIG_LANES, **row, nvidia_smi=smi)
+    return out
+
+
+def serve_fallback(smi, device="cuda"):
+    """One mgm2 job (a 2,000-variable colouring) and one dpop job (a
+    3,000-node tree) through the service on the card: its sequential
+    fallback launches K6 and K10, and each result equals
+    ``solve_result(..., device="cuda")``."""
+    from pydcop_tpu_torch.runtime import solve_result
+
+    mgm2 = coloring_dcop(SERVE_MGM2_V, 3 * SERVE_MGM2_V, seed=21)
+    tree = tree_dcop(SERVE_DPOP_NODES, seed=6)
+    for algo, dcop, counter in (("mgm2", mgm2, "mgm2"),
+                                ("dpop", tree, "dpop_whole_sweep")):
+        reset_counts()
+        results, row = serve_run([(dcop, 3)], algo, 2, SERVE_MAX_CYCLES,
+                                 [0.0], device=device)
+        counts = read_counts()
+        if device == "cuda" and not counts[counter]:
+            fail("serve", f"fallback {algo}: {counter} launched no time "
+                 f"({counts})")
+        want = solve_result(dcop, algo, seed=3, device=device)
+        r = results[0]
+        if (r.assignment, r.cost, r.cycle, r.status) != \
+                (want.assignment, want.cost, want.cycle, want.status):
+            fail("serve", f"fallback {algo}: served {r.cost} / {r.cycle} "
+                 f"cycles, solve_result {want.cost} / {want.cycle}")
+        say("serve", kind="fallback", algo=algo, launches=counts[counter],
+            counter=counter, cost=r.cost, cycle=r.cycle, equal=True,
+            jobs_fallback=row["counters"]["jobs_fallback"],
+            latency_ms=row["p50_ms"], nvidia_smi=smi)
+
+
+def serve_chaos(smi, device="cuda"):
+    """A persistent ``nan_lane`` on one maxsum job and a persistent
+    ``raise_in_step`` on one mgm job, on the card: the poisoned job ends
+    ERROR, every healthy job equals its sequential solve, and the
+    counters name the quarantine."""
+    from pydcop_tpu_torch.runtime.faults import Fault, FaultPlan
+
+    dcops = serve_family(8, SERVE_VARS)
+    jobs = [(d, i) for i, d in enumerate(dcops)]
+    for algo, kind, counter in (("maxsum", "nan_lane", "lanes_nan"),
+                                ("mgm", "raise_in_step",
+                                 "jobs_quarantined")):
+        plan = FaultPlan(faults=[Fault(kind=kind, jid="job-000003",
+                                       cycle=2)], seed=7)
+        results, row = serve_run(jobs, algo, 4, SERVE_MAX_CYCLES,
+                                 [0.0] * len(jobs), fault_plan=plan,
+                                 backoff_base=0.0, device=device)
+        if results[2].status != "ERROR":
+            fail("serve", f"chaos {kind}: the poisoned job ended "
+                 f"{results[2].status}, not ERROR")
+        serve_check(f"chaos {kind}", results, jobs, algo, SERVE_MAX_CYCLES,
+                    [i for i in range(len(jobs)) if i != 2], device)
+        if not row["counters"][counter] or (
+                kind == "raise_in_step" and not
+                row["counters"]["buckets_failed"]):
+            fail("serve", f"chaos {kind}: counters {row['counters']}")
+        say("serve", kind="chaos", fault=kind, algo=algo, healthy_equal=True,
+            poisoned="ERROR", counters=row["counters"], nvidia_smi=smi)
+
+
+def serve_resume(smi, device="cuda"):
+    """dsa jobs from YAML files through a journaled service on the card,
+    ``halt()`` after three ticks (lane checkpoints at every boundary),
+    then a new service ``resume()``s them: every job equals the
+    uninterrupted run and its sequential solve."""
+    import tempfile
+
+    from pydcop_tpu_torch.batch import CompileCache
+    from pydcop_tpu_torch.dcop import dcop_yaml, load_dcop_from_file
+    from pydcop_tpu_torch.serve import SolveService
+
+    work = tempfile.mkdtemp(prefix="serve_resume_")
+    files = []
+    for i, d in enumerate(serve_family(8, SERVE_VARS)):
+        files.append(os.path.join(work, f"job{i}.yaml"))
+        with open(files[-1], "w", encoding="utf-8") as f:
+            f.write(dcop_yaml(d))
+    dcops = [load_dcop_from_file(fn) for fn in files]
+
+    def service(journal):
+        return SolveService(lanes=4, cache=CompileCache(),
+                            max_cycles=SERVE_MAX_CYCLES, device=device,
+                            journal_dir=journal, checkpoint_every=1)
+
+    def drain(svc):
+        for _ in range(2000):
+            if not svc.tick() and all(j.done.is_set()
+                                      for j in svc._jobs.values()):
+                return
+        fail("serve", "resume: a service did not drain")
+
+    plain = service(None)
+    pj = [plain.submit(d, "dsa", seed=i) for i, d in enumerate(dcops)]
+    drain(plain)
+    want = [plain.result(j, timeout=60) for j in pj]
+    journal = os.path.join(work, "journal")
+    first = service(journal)
+    jids = [first.submit(d, "dsa", seed=i, source_file=fn)
+            for i, (d, fn) in enumerate(zip(dcops, files))]
+    for _ in range(3):
+        first.tick()
+    done_before = sum(first._jobs[j].done.is_set() for j in jids)
+    saved = first.counters.counts["checkpoints_saved"]
+    first.halt()
+    second = service(journal)
+    n = second.resume()
+    drain(second)
+    got = [second.result(j, timeout=60) if second._jobs.get(j)
+           else first.result(j, timeout=1) for j in jids]
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if (g.assignment, g.cost, g.cycle, g.status)
+           != (w.assignment, w.cost, w.cycle, w.status)]
+    if bad or n != len(jids) - done_before:
+        fail("serve", f"resume: jobs {bad} differ from the uninterrupted "
+             f"run; {n} resumed of {len(jids) - done_before} in flight")
+    serve_check("resume", got, [(d, i) for i, d in enumerate(dcops)],
+                "dsa", SERVE_MAX_CYCLES, device=device)
+    say("serve", kind="resume", algo="dsa", jobs=len(jids), resumed=n,
+        done_before_halt=done_before, checkpoints_saved=saved,
+        jobs_resumed=second.counters.counts["jobs_resumed"], equal=True,
+        nvidia_smi=smi)
+
+
+def serve_phase(smi, device="cuda"):
+    """The solve service on the card (see serve_parity, serve_at_size,
+    serve_fallback, serve_chaos and serve_resume)."""
+    t0 = time.perf_counter()
+    serve_parity(smi, device)
+    at_size = serve_at_size(smi, device)
+    serve_fallback(smi, device)
+    serve_chaos(smi, device)
+    serve_resume(smi, device)
+    say("serve", kind="done", phase_s=round(time.perf_counter() - t0, 3),
+        script_s=round(time.perf_counter() - SCRIPT_T0, 1))
+    return at_size
+
+
 #: the batched sweep's instance count (the JAX bench's, bench.py:496-524)
 DPOP_BATCH = 100
 #: the batched branch of K10 (the ``design`` key of its kernels-line row)
@@ -4632,6 +4997,9 @@ def main():
     # batched solving: the batch engine's buckets (no kernel: the generic
     # cycles, as the JAX package's vmap) and K10 with an instance axis
     batch_phase(smi)
+    # the solve service: continuous batching over the batch engine's
+    # bucket runners (no kernel), and its sequential fallback (K6, K10)
+    serve_phase(smi)
     dpop_batched = dpop_batched_phase(smi, dpop_packed)
 
     # 5. times -------------------------------------------------------------

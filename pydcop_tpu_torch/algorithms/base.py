@@ -71,6 +71,10 @@ class SolveResult:
     #: runtime/stats.SearchCounters host-traffic counts); None unless
     #: the solve ran the frontier engine
     search: Optional[Dict[str, Any]] = None
+    #: which solve-service replica served this job, under which job id,
+    #: and whether it resumed from a checkpoint; None unless the job
+    #: passed through the serve tier
+    serve: Optional[Dict[str, Any]] = None
 
     def metrics(self) -> Dict[str, Any]:
         out = {
@@ -93,6 +97,8 @@ class SolveResult:
             out["search"] = dict(self.search)
         if self.config is not None:
             out["config"] = dict(self.config)
+        if self.serve is not None:
+            out["serve"] = dict(self.serve)
         return out
 
 

@@ -29,8 +29,9 @@ Bit-identity with the sequential solves is the contract
   activate), as the JAX package's ``_pad_xs``;
 * **padding is inert by routing**: padded variables have one valid
   value and no factors; padded factors hold all-zero cost tables and
-  point every position at a reserved dummy variable; padded neighbour
-  pairs join the dummy to itself;
+  point every position at a reserved dummy variable (a serve lane's
+  spread over all its padded variables); padded neighbour pairs join
+  the dummy to itself;
 * **convergence is the harness's**: per lane, at chunk boundaries, the
   same prime chunk and two-stable-chunks rule; a converged lane is
   frozen (its state no longer changes) and the bucket stops once every
@@ -49,6 +50,14 @@ its own arrays in, so a repeat sweep replays the graph.  The rank
 tables' depth (a segment's largest row count) is the one dimension that
 depends on the data: a bucket deeper than the runner's tables grows
 them and starts a new graph (``regrows``).
+
+The serve scheduler (:mod:`pydcop_tpu_torch.serve.scheduler`) keeps a
+runner's bucket open: a call takes a per-lane cycle count (a ``[B]``
+count of cycles left rides the chunk's state beside ``done``, so lane
+``i`` runs its own ``n_i`` cycles of the chunk and then freezes), each
+lane draws its own coins (:meth:`_AdapterBase.chunk_coins_per_lane`,
+idle lanes none), and one lane's arrays are written into the buffers in
+place (:meth:`BucketRunner.load_lane`, rows and rank-table columns).
 """
 from __future__ import annotations
 
@@ -144,13 +153,26 @@ def _host(a) -> np.ndarray:
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
-def pad_instance(tensors, target: InstanceDims) -> Dict[str, np.ndarray]:
+def pad_instance(tensors, target: InstanceDims,
+                 spread: bool = False) -> Dict[str, np.ndarray]:
     """Pad one compiled instance's arrays to the bucket target shape
     (numpy, the JAX package's arrays and names).  Padding is inert by
-    construction — see the module docstring."""
+    construction — see the module docstring.  Padded factor positions
+    and pairs go to the dummy variable ``Vp - 1``; with ``spread`` (the
+    serve path's lanes) they go round-robin over the padded variables
+    ``V .. Vp-1`` instead, so no padded variable's segment, and so no
+    rank table of the union, is as deep as the instance's padding."""
     V, D = tensors.n_vars, tensors.max_domain_size
     Vp, Dp = target.V, target.D
-    dummy = Vp - 1  # only ever routed to when factors/pairs pad
+    pad_vars = Vp - V if spread and V < Vp else 1
+    routed = 0  # padded positions routed so far
+
+    def route(n: int) -> np.ndarray:
+        # the next n padded positions' variables
+        nonlocal routed
+        out = (Vp - pad_vars + (routed + np.arange(n)) % pad_vars)
+        routed += n
+        return out.astype(np.int32)
 
     mask = np.zeros((Vp, Dp), np.float32)
     mask[:V, :D] = _host(tensors.domain_mask)
@@ -166,11 +188,13 @@ def pad_instance(tensors, target: InstanceDims) -> Dict[str, np.ndarray]:
         F = b.n_factors
         t = np.full((fp,) + (Dp,) * a, PAD_COST, np.float32)
         t[(slice(0, F),) + (slice(0, D),) * a] = _host(b.tensors)
-        # padded factors: zero costs routed at the dummy var — zero
-        # messages / zero table rows, landing on the dummy only
+        # padded factors: zero costs routed at padded vars — zero
+        # messages / zero table rows, landing on padded vars only
         t[F:] = 0.0
-        vi = np.full((fp, a), dummy, np.int32)
+        vi = np.empty((fp, a), np.int32)
         vi[:F] = b.var_idx
+        # column by column: each position's rank table stays shallow
+        vi[F:] = route((fp - F) * a).reshape(a, fp - F).T
         arr[f"bt{i}"] = t
         arr[f"bv{i}"] = vi
         ev_parts.append(vi.reshape(-1))
@@ -182,10 +206,12 @@ def pad_instance(tensors, target: InstanceDims) -> Dict[str, np.ndarray]:
         src = _host(tensors.neighbor_src)
         dst = _host(tensors.neighbor_dst)
         M = src.shape[0]
-        nsrc = np.full(target.M, dummy, np.int32)
-        ndst = np.full(target.M, dummy, np.int32)
+        nsrc = np.empty(target.M, np.int32)
+        ndst = np.empty(target.M, np.int32)
         nsrc[:M] = src
         ndst[:M] = dst
+        # a padded pair joins a padded variable to itself
+        nsrc[M:] = ndst[M:] = route(target.M - M)
         arr["nsrc"] = nsrc
         arr["ndst"] = ndst
     return arr
@@ -222,6 +248,24 @@ class BucketMeta:
 # ---------------------------------------------------------------------------
 
 
+def rank_block(ids: np.ndarray, rows: np.ndarray, num_segments: int,
+               sentinel: int, depth: int = 0) -> np.ndarray:
+    """``[max(depth, ranks), num_segments]`` int64 rank table of the rows
+    ``rows`` (ascending row ids) whose segments are ``ids``: entry ``[k,
+    s]`` is segment ``s``'s k-th row, or ``sentinel`` when it has
+    fewer."""
+    ids = np.asarray(ids, dtype=np.int64)
+    counts = np.bincount(ids, minlength=num_segments)
+    R = max(int(counts.max(initial=0)), depth, 1)
+    order = np.argsort(ids, kind="stable")
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.empty(ids.shape[0], dtype=np.int64)
+    rank[order] = np.arange(ids.shape[0]) - start[ids[order]]
+    table = np.full((R, num_segments), sentinel, np.int64)
+    table[rank, ids] = rows
+    return table
+
+
 class RankTable:
     """The ordered segment sum of
     :class:`~pydcop_tpu_torch.ops.segments.SegmentPlan` at a fixed shape:
@@ -230,29 +274,22 @@ class RankTable:
     adds rank by rank from 0, so every segment gets ``((0 + row_0) +
     row_1) + ...`` as the plan's ``index_add_`` gives it (an added 0.0
     changes no sum that starts from +0.0).  The table is a
-    buffer: a bucket of the same shape copies its own in, and a captured
-    graph reads it."""
+    buffer: a bucket of the same shape copies its own in, a serve lane
+    writes its columns (:meth:`_Union.load_lane`), and a captured graph
+    reads it.  ``depth`` is the least rank count to allocate."""
 
     def __init__(self, segment_ids: np.ndarray, num_segments: int,
-                 device: torch.device):
+                 device: torch.device, depth: int = 0):
         self.num_segments = int(num_segments)
         self.n_rows = int(segment_ids.shape[0])
-        host = self.host_table(segment_ids)
+        host = self.host_table(segment_ids, depth)
         self.table = torch.as_tensor(host, device=device)
 
     def host_table(self, segment_ids: np.ndarray,
                    depth: int = 0) -> np.ndarray:
         """``[max(depth, ranks), num_segments]`` int64 rank table."""
-        ids = np.asarray(segment_ids, dtype=np.int64)
-        counts = np.bincount(ids, minlength=self.num_segments)
-        R = max(int(counts.max(initial=0)), depth, 1)
-        order = np.argsort(ids, kind="stable")
-        start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        rank = np.empty(self.n_rows, dtype=np.int64)
-        rank[order] = np.arange(self.n_rows) - start[ids[order]]
-        table = np.full((R, self.num_segments), self.n_rows, np.int64)
-        table[rank, ids] = np.arange(self.n_rows)
-        return table
+        return rank_block(segment_ids, np.arange(self.n_rows),
+                          self.num_segments, self.n_rows, depth)
 
     @property
     def depth(self) -> int:
@@ -306,16 +343,39 @@ class _Layout:
             leaf[lane_start[i]:lane_start[i + 1]]
             for i in range(len(self.lane_edges)) for leaf in leaves])
 
+    def spans(self, kind, lane: int) -> List[Tuple[int, int]]:
+        """The ``(start, stop)`` union rows of lane ``lane`` in a leaf of
+        ``kind``, in the lane's own padded order."""
+        if kind == "var":
+            return [(lane * self.Vp, (lane + 1) * self.Vp)]
+        if kind == "edge":
+            return [(int(s) + lane * e, int(s) + (lane + 1) * e)
+                    for s, e in zip(self.edge_start, self.lane_edges)]
+        f = self.F[kind[1]]
+        return [(lane * f, (lane + 1) * f)]
+
     def lane(self, kind, union: torch.Tensor, lane: int) -> torch.Tensor:
         """Lane ``lane``'s rows of a union leaf, in its padded layout."""
-        if kind == "var":
-            return union[lane * self.Vp:(lane + 1) * self.Vp]
-        if kind == "edge":
-            return torch.cat([
-                union[s + lane * e:s + (lane + 1) * e]
-                for s, e in zip(self.edge_start, self.lane_edges)])
-        f = self.F[kind[1]]
-        return union[lane * f:(lane + 1) * f]
+        spans = self.spans(kind, lane)
+        if len(spans) == 1:
+            a, b = spans[0]
+            return union[a:b]
+        return torch.cat([union[a:b] for a, b in spans])
+
+    def write(self, kind, union: torch.Tensor, lane: int, data) -> None:
+        """Copy lane ``lane``'s rows (``data``, in its padded layout) into
+        a union leaf in place."""
+        data = torch.as_tensor(np.ascontiguousarray(data)) \
+            if not torch.is_tensor(data) else data
+        off = 0
+        for a, b in self.spans(kind, lane):
+            union[a:b].copy_(data[off:off + b - a])
+            off += b - a
+
+    def fill(self, kind, union: torch.Tensor, lane: int, value) -> None:
+        """Fill lane ``lane``'s rows of a union leaf in place."""
+        for a, b in self.spans(kind, lane):
+            union[a:b].fill_(value)
 
     def lane_all(self, kind, rows: torch.Tensor) -> torch.Tensor:
         """[B] bool: every row of the lane is True (``rows`` [rows])."""
@@ -365,10 +425,14 @@ class _Union:
     ``ops/compile.py`` keeps on a graph, so the cycles build none), and
     the adapter's extra (``x:``) arrays."""
 
-    def __init__(self, meta: BucketMeta, B: int, fields, device):
+    def __init__(self, meta: BucketMeta, B: int, fields, device,
+                 depths: Optional[Dict[Tuple[str, Optional[int]], int]]
+                 = None):
         put = lambda a, dt: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a), dtype=dt, device=device)
+        depths = depths or {}
         Vu = B * meta.V
+        self.layout = _Layout(meta, B, device)
         #: (rank table, field, column or None) of every ordered sum
         self.tables: List[Tuple[RankTable, str, Optional[int]]] = []
         #: each bucket's [F, a] index tensor and its columns
@@ -389,7 +453,9 @@ class _Union:
             b.__dict__["_index"] = {dev: self.index[-1]}
             if meta.graph_type == "constraints_hypergraph":
                 # the local tables' ordered sums, one a scope position
-                plans = [RankTable(vi[:, p], Vu, dev) for p in range(a)]
+                plans = [RankTable(vi[:, p], Vu, dev,
+                                   depths.get((f"bv{i}", p), 0))
+                         for p in range(a)]
                 b.__dict__["_plans"] = {dev: plans}
                 self.tables += [(rt, f"bv{i}", p)
                                 for p, rt in enumerate(plans)]
@@ -411,7 +477,8 @@ class _Union:
         if meta.graph_type == "factor_graph":
             t = FactorGraphTensors(**common)
             # the beliefs' ordered sum over the edges
-            rt = RankTable(fields["edge_var"], Vu, t.device)
+            rt = RankTable(fields["edge_var"], Vu, t.device,
+                           depths.get(("edge_var", None), 0))
             t.__dict__["_edge_plan"] = rt
             self.tables.append((rt, "edge_var", None))
         else:
@@ -449,6 +516,76 @@ class _Union:
         for vi_t, cols in self.index:
             for p, c in enumerate(cols):
                 c.copy_(vi_t[:, p])
+        return True
+
+    def depths(self) -> Dict[Tuple[str, Optional[int]], int]:
+        """Each rank table's depth, by ``(field, column)``."""
+        return {(name, p): rt.depth for rt, name, p in self.tables}
+
+    def _lane_rows(self, name: str, lane: int) -> np.ndarray:
+        """The union rows of lane ``lane`` in the rows of the table over
+        ``name``, in the lane's own row order (ascending)."""
+        lay = self.layout
+        if name == "edge_var":
+            return np.concatenate(
+                [np.arange(a, b) for a, b in lay.spans("edge", lane)]
+                or [np.zeros(0, np.int64)])
+        f = lay.F[int(name[2:])]
+        return np.arange(lane * f, (lane + 1) * f)
+
+    def lane_blocks(self, lane: int, arrays) -> Optional[List[np.ndarray]]:
+        """Lane ``lane``'s columns of every rank table for its padded
+        ``arrays`` (lane-local variable ids), or None when a table is too
+        shallow for them."""
+        Vp = self.meta.V
+        out = []
+        for rt, name, p in self.tables:
+            ids = arrays[name] if p is None else arrays[name][:, p]
+            block = rank_block(np.asarray(ids).reshape(-1),
+                               self._lane_rows(name, lane), Vp, rt.n_rows,
+                               rt.depth)
+            if block.shape[0] > rt.depth:
+                return None
+            out.append(block)
+        return out
+
+    def load_lane(self, lane: int, arrays) -> bool:
+        """Write lane ``lane``'s padded ``arrays`` (lane-local indices, as
+        :func:`pad_instance` gives them) into its rows of every field and
+        its columns of every rank table, in place in the buffers a
+        captured graph reads; False, writing nothing, when a rank table
+        is too shallow for the lane (the caller then regrows)."""
+        blocks = self.lane_blocks(lane, arrays)
+        if blocks is None:
+            return False
+        lay, t, Vp = self.layout, self.t, self.meta.V
+        off = lane * Vp
+        as_t = lambda a: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(a))
+        lay.write("var", t.domain_mask, lane, arrays["mask"])
+        lay.write("var", t.unary_costs, lane, arrays["unary"])
+        lay.write("edge", t.edge_var, lane,
+                  as_t(arrays["edge_var"]).to(torch.int64) + off)
+        for i, b in enumerate(t.buckets):
+            kind = ("factor", i)
+            lay.write(kind, b.tensors, lane, arrays[f"bt{i}"])
+            vi = as_t(arrays[f"bv{i}"]).to(torch.int64) + off
+            vi_t, cols = self.index[i]
+            lay.write(kind, vi_t, lane, vi)
+            for p, c in enumerate(cols):
+                lay.write(kind, c, lane, vi[:, p].contiguous())
+        if isinstance(t, ConstraintGraphTensors):
+            M = int(np.asarray(arrays["nsrc"]).shape[0])
+            for buf, k in ((t.neighbor_src, "nsrc"),
+                           (t.neighbor_dst, "ndst")):
+                buf[lane * M:(lane + 1) * M].copy_(
+                    as_t(arrays[k]).to(torch.int64) + off)
+        for k, buf in self.extra.items():
+            a = np.asarray(arrays[k])
+            n = a.shape[0]
+            buf[lane * n:(lane + 1) * n].copy_(as_t(a))
+        for (rt, _name, _p), block in zip(self.tables, blocks):
+            rt.table[:, off:off + Vp].copy_(as_t(block))
         return True
 
 
@@ -501,12 +638,53 @@ class _AdapterBase:
         """Per-instance arrays besides the graph (``x:`` names)."""
         return {}
 
+    def lane_arrays(self, spec: _Spec, target: InstanceDims,
+                    spread: bool = False) -> Dict[str, np.ndarray]:
+        """The lane's padded arrays: the graph's and the extra ones
+        (``spread``: see :func:`pad_instance`)."""
+        return {**pad_instance(spec.tensors, target, spread),
+                **self.extra_arrays(spec, target)}
+
+    def idle_arrays(self, target: InstanceDims) -> Dict[str, np.ndarray]:
+        """An idle lane's arrays (a serve bucket's free lanes): one valid
+        value a variable, zero costs, each factor position on its own
+        variable in turn (so the rank tables stay shallow), the pairs on
+        variable 0.  Idle lanes are frozen; this keeps their cycles
+        finite."""
+        Vp, Dp = target.V, target.D
+        mask = np.zeros((Vp, Dp), np.float32)
+        mask[:, 0] = 1.0
+        arr = {"mask": mask, "unary": np.zeros((Vp, Dp), np.float32)}
+        ev = []
+        for i, (a, f) in enumerate(zip(target.arities, target.F)):
+            arr[f"bt{i}"] = np.zeros((f,) + (Dp,) * a, np.float32)
+            vi = (np.arange(f * a) % Vp).astype(np.int32).reshape(f, a)
+            arr[f"bv{i}"] = vi
+            ev.append(vi.reshape(-1))
+        arr["edge_var"] = (np.concatenate(ev) if ev
+                           else np.zeros(0, np.int32))
+        if target.graph_type == "constraints_hypergraph":
+            arr["nsrc"] = np.zeros(target.M, np.int32)
+            arr["ndst"] = np.zeros(target.M, np.int32)
+        return arr
+
     def initial_leaves(self, spec: _Spec, target: InstanceDims
                        ) -> List[np.ndarray]:
         """The lane's padded initial state, from its own solver at its
         TRUE shape."""
         (x,) = spec.solver.initial_state()
         return [pad_vec(_host(x), target.V, 0).astype(np.int32)]
+
+    def idle_leaves(self, target: InstanceDims) -> List[np.ndarray]:
+        """An idle lane's state leaves (zeros, the initial leaves'
+        shapes and dtypes)."""
+        return [np.zeros(target.V, np.int32)]
+
+    def lane_generators(self, spec: _Spec) -> Tuple[torch.Generator, ...]:
+        """The generators a lane draws its coins from: its solver's (the
+        lane's stream, which a serve checkpoint stores and a merge moves
+        with the lane); empty when the algorithm draws none."""
+        return ()
 
     def make_cycle(self, params: Dict[str, Any]):
         """cycle(union, leaves, coins) -> leaves, one cycle of every lane
@@ -519,6 +697,18 @@ class _AdapterBase:
         draws its own at its true V (``draw_chunk_coins``), padded with
         1.0 to Vp and laid lane-major: a tuple of ``[n, B·Vp]`` CPU
         tensors (empty when the algorithm draws none)."""
+        return self.chunk_coins_per_lane(specs, [n] * len(specs), target, n)
+
+    def chunk_coins_per_lane(self, specs: Sequence[Optional[_Spec]],
+                             ns: Sequence[int], target: InstanceDims,
+                             chunk: int) -> Tuple[torch.Tensor, ...]:
+        """Per-lane :meth:`chunk_coins` for the serve scheduler (the JAX
+        package's ``chunk_xs_per_lane``): lane ``i``'s solver draws its
+        own ``ns[i]`` cycles at its true V, padded with 1.0 to Vp and to
+        ``chunk`` rows; an idle lane (``specs[i]`` None or ``ns[i] <=
+        0``) draws nothing, so its generator does not advance, and gives
+        all-ones rows.  A tuple of ``[chunk, B·Vp]`` CPU tensors, empty
+        when the algorithm draws none."""
         return ()
 
     def make_converged(self, params: Dict[str, Any], layout: _Layout):
@@ -539,12 +729,14 @@ class _LocalSearchAdapter(_AdapterBase):
     def __init__(self, algo: str):
         self.algo = algo
 
-    def make_solver(self, item, tensors):
+    def solver_class(self):
         mod = load_algorithm_module(self.algo)
-        cls = {"mgm": "MgmSolver", "dsa": "DsaSolver",
-               "adsa": "ADsaSolver"}[self.algo]
-        return getattr(mod, cls)(item.dcop, tensors, item.algo_def(),
-                                 seed=item.seed, use_packed=False)
+        return getattr(mod, {"mgm": "MgmSolver", "dsa": "DsaSolver",
+                             "adsa": "ADsaSolver"}[self.algo])
+
+    def make_solver(self, item, tensors):
+        return self.solver_class()(item.dcop, tensors, item.algo_def(),
+                                   seed=item.seed, use_packed=False)
 
     def make_cycle(self, params):
         if self.algo == "mgm":
@@ -573,16 +765,23 @@ class _LocalSearchAdapter(_AdapterBase):
                                    act),)
         return cycle
 
-    def chunk_coins(self, specs, n, target):
+    def lane_generators(self, spec):
+        return () if self.algo == "mgm" else (spec.solver.coins,)
+
+    def chunk_coins_per_lane(self, specs, ns, target, chunk):
         if self.algo == "mgm":
             return ()
-        draws = [s.solver.draw_chunk_coins(n) for s in specs]
         Vp = target.V
-        return tuple(
-            torch.cat([torch.nn.functional.pad(d[k], (0, Vp - d[k].shape[1]),
-                                               value=1.0)
-                       for d in draws], dim=1)
-            for k in range(len(draws[0])))
+        # the coin arrays a cycle draws, as the solver's draw_chunk_coins
+        k = 2 if self.solver_class().wake_coins else 1
+        out = [torch.ones((chunk, len(specs) * Vp), dtype=torch.float32)
+               for _ in range(k)]
+        for i, (spec, n) in enumerate(zip(specs, ns)):
+            if spec is None or int(n) <= 0:
+                continue
+            for c, d in zip(out, spec.solver.draw_chunk_coins(int(n))):
+                c[:int(n), i * Vp:i * Vp + d.shape[1]] = d
+        return tuple(out)
 
 
 class _GdbaAdapter(_AdapterBase):
@@ -607,6 +806,17 @@ class _GdbaAdapter(_AdapterBase):
                 out[f"x:{name}{i}"] = pad_vec(
                     _host(vals[i]), fp, 0.0).astype(np.float32)
         return out
+
+    def idle_arrays(self, target):
+        return {**super().idle_arrays(target),
+                **{f"x:{name}{i}": np.zeros(fp, np.float32)
+                   for i, fp in enumerate(target.F)
+                   for name in ("fmin", "fmax")}}
+
+    def idle_leaves(self, target):
+        return [np.zeros(target.V, np.int32)] + [
+            np.zeros((fp,) + (target.D,) * a, np.float32)
+            for a, fp in zip(target.arities, target.F)]
 
     def initial_leaves(self, spec, target):
         x, ws = spec.solver.initial_state()
@@ -664,6 +874,11 @@ class _MaxSumAdapter(_AdapterBase):
         z = np.zeros((Ep, target.D), np.float32)
         return [z, z.copy(),
                 pad_vec(_host(values), target.V, 0).astype(np.int64)]
+
+    def idle_leaves(self, target):
+        Ep = sum(f * a for f, a in zip(target.F, target.arities))
+        z = np.zeros((Ep, target.D), np.float32)
+        return [z, z.copy(), np.zeros(target.V, np.int64)]
 
     def make_cycle(self, params):
         from pydcop_tpu_torch.ops.maxsum_kernels import maxsum_cycle
@@ -725,10 +940,12 @@ def runner_cache_key(algo: str, pkey: Tuple, signature: Tuple, chunk: int,
 class _BucketProgram:
     """The union's cycle as the solver a
     :class:`~pydcop_tpu_torch.algorithms.capture.ChunkRunner` drives:
-    state = (leaves, done [B] bool); a cycle leaves a done lane's leaves
-    unchanged, and the chunk's "convergence" is the ``[2, B]`` flags
-    (each lane's convergence, and its float leaves all finite or the lane
-    done)."""
+    state = (leaves, done [B] bool, left [B] int64); a cycle leaves the
+    leaves of a lane that is done or has no cycle left unchanged and
+    counts down every other lane's ``left`` (so lane ``i`` runs its own
+    ``n_i`` cycles of a chunk, the JAX runner's per-lane ``n_active``),
+    and the chunk's "convergence" is the ``[2, B]`` flags (each lane's
+    convergence, and its float leaves all finite or the lane done)."""
 
     def __init__(self, adapter: _AdapterBase, union: _Union,
                  layout: _Layout, params: Dict[str, Any]):
@@ -741,17 +958,18 @@ class _BucketProgram:
         self.check_chunk_syncs = False
 
     def step(self, state, coins):
-        leaves, done = state
+        leaves, done, left = state
         new = self.cycle(self.union, leaves, coins)
+        lane_frozen = done | (left <= 0)
         out = []
         for kind, old, cur in zip(self.kinds, leaves, new):
-            frozen = done[self.layout.lane_of(kind)]
+            frozen = lane_frozen[self.layout.lane_of(kind)]
             frozen = frozen.view((-1,) + (1,) * (cur.dim() - 1))
             out.append(torch.where(frozen, old, cur))
-        return tuple(out), done
+        return tuple(out), done, torch.clamp_min(left - 1, 0)
 
     def chunk_converged_device(self, prev, state):
-        leaves, done = state
+        leaves, done, _left = state
         conv = self.conv(prev[0], leaves)
         finite = torch.ones_like(done)
         for kind, leaf in zip(self.kinds, leaves):
@@ -766,18 +984,31 @@ class BucketRunner:
     of B lanes in buffers of the bucket's shape (:class:`_Union`) and a
     :class:`~pydcop_tpu_torch.algorithms.capture.ChunkRunner` over it.
     :meth:`load` copies a bucket's arrays in and returns its initial
-    state; a call ``(state, coins, n)`` runs ``n <= chunk`` live cycles
-    of every lane not done and returns ``(state, None, flags [2, B])``.
+    state; a call ``(state, coins, n)`` runs lane ``i``'s own ``n[i] <=
+    chunk`` live cycles, every lane not done, and returns ``(state,
+    None, flags [2, B])``.
     Eager on the CPU; on CUDA eager for its first call
-    (:data:`WARMUP_CALLS`), then one captured CUDA graph replayed."""
+    (:data:`WARMUP_CALLS`), then one captured CUDA graph replayed.
+
+    The serve scheduler (:mod:`pydcop_tpu_torch.serve.scheduler`) keeps
+    a runner open: :meth:`load_idle` builds the buffers with every lane
+    idle, :meth:`load_lane` writes one lane's arrays in place, and
+    :meth:`write_lane`/:meth:`read_lane` move a lane's state rows.  A
+    runner holds one bucket at a time, so it serves one worker at a
+    time (the cache hands it out exclusively,
+    :meth:`~pydcop_tpu_torch.batch.cache.CompileCache.checkout`)."""
 
     def __init__(self, adapter: _AdapterBase, meta: BucketMeta, B: int,
                  params: Dict[str, Any], chunk: int, device: torch.device):
         self.adapter, self.meta, self.B = adapter, meta, B
         self.params, self.chunk, self.device = params, chunk, device
         self.layout = _Layout(meta, B, device)
+        self.kinds = adapter.leaf_kinds(meta)
         self.union = None
         self.chunk_runner = None
+        #: each lane's padded host arrays: what a regrow rebuilds from
+        self.lane_arrays: Optional[List[Dict[str, np.ndarray]]] = None
+        self._pending_depths = None
         #: rank tables grown for a deeper bucket (each starts a new graph)
         self.regrows = 0
         self._retired = {"eager_calls": 0, "captures": 0, "replays": 0}
@@ -790,11 +1021,11 @@ class BucketRunner:
                 out[k] += getattr(self.chunk_runner, k)
         return out
 
-    def _build(self, fields) -> None:
+    def _build(self, fields, depths=None) -> None:
         if self.chunk_runner is not None:
             self._retired = self.calls()
             self.regrows += 1
-        self.union = _Union(self.meta, self.B, fields, self.device)
+        self.union = _Union(self.meta, self.B, fields, self.device, depths)
         program = _BucketProgram(self.adapter, self.union, self.layout,
                                  self.params)
         self.chunk_runner = ChunkRunner(program, self.chunk, False,
@@ -803,22 +1034,77 @@ class BucketRunner:
     def load(self, specs: Sequence[_Spec], target: InstanceDims):
         """Copy the bucket's arrays in (building the buffers at the first
         bucket, or deeper rank tables); returns its initial state."""
-        arrays = [{**pad_instance(s.tensors, target),
-                   **self.adapter.extra_arrays(s, target)} for s in specs]
+        arrays = [self.adapter.lane_arrays(s, target) for s in specs]
         fields = _union_fields(self.meta, self.layout, arrays)
         if self.union is None or not self.union.load(fields):
             self._build(fields)
-        kinds = self.adapter.leaf_kinds(self.meta)
+        self.lane_arrays = arrays
         lanes = [self.adapter.initial_leaves(s, target) for s in specs]
         leaves = tuple(
             torch.as_tensor(self.layout.stack(kind, [ln[j] for ln in lanes]),
                             device=self.device)
-            for j, kind in enumerate(kinds))
+            for j, kind in enumerate(self.kinds))
         done = torch.zeros(self.B, dtype=torch.bool, device=self.device)
         return leaves, done
 
-    def __call__(self, state, coins, n: int):
-        return self.chunk_runner(state, coins, n)
+    # -- serve: an open bucket, lane by lane ---------------------------------
+
+    def load_idle(self, target: InstanceDims, depths=None):
+        """Every lane idle (:meth:`_AdapterBase.idle_arrays`) unless the
+        buffers exist (a pooled runner keeps its own); the buffers are
+        built at the first call, from the lanes loaded by then, each
+        rank table at least ``depths`` deep (by ``(field, column)``).
+        Returns the all-done state of idle lanes."""
+        if self.union is None:
+            self.lane_arrays = [self.adapter.idle_arrays(target)] * self.B
+            self._pending_depths = depths
+        idle = self.adapter.idle_leaves(target)
+        leaves = tuple(
+            torch.as_tensor(self.layout.stack(kind, [leaf] * self.B),
+                            device=self.device)
+            for kind, leaf in zip(self.kinds, idle))
+        done = torch.ones(self.B, dtype=torch.bool, device=self.device)
+        return leaves, done
+
+    def load_lane(self, lane: int, arrays: Dict[str, np.ndarray]) -> bool:
+        """Write lane ``lane``'s padded arrays into the buffers in place;
+        a lane deeper than the rank tables regrows them (every lane's
+        arrays rebuilt into new buffers, a new graph; the lanes' states
+        are the caller's and are not touched).  True when it regrew."""
+        self.lane_arrays = list(self.lane_arrays)
+        self.lane_arrays[lane] = arrays
+        if self.union is None or self.union.load_lane(lane, arrays):
+            return False
+        self._build(_union_fields(self.meta, self.layout, self.lane_arrays),
+                    self.union.depths())
+        return True
+
+    def write_lane(self, state, lane: int, leaves) -> None:
+        """Lane ``lane``'s leaves (its padded layout) into ``state``'s
+        union leaves, in place."""
+        for kind, union, leaf in zip(self.kinds, state[0], leaves):
+            self.layout.write(kind, union, lane, leaf)
+
+    def read_lane(self, state, lane: int) -> Tuple[torch.Tensor, ...]:
+        """A copy of lane ``lane``'s leaves, in its padded layout."""
+        return tuple(self.layout.lane(kind, union, lane).clone()
+                     for kind, union in zip(self.kinds, state[0]))
+
+    def __call__(self, state, coins, n):
+        leaves, done = state
+        if self.union is None:
+            self._build(_union_fields(self.meta, self.layout,
+                                      self.lane_arrays),
+                        self._pending_depths)
+        # lanes with no cycle left run none; a chunk runs at least one
+        # (frozen) cycle
+        ns = np.asarray(n, dtype=np.int64)
+        n_max = max(1, int(ns.max()))
+        left = torch.as_tensor(ns).to(self.device)
+        coins = tuple(c[:n_max] for c in coins)
+        (leaves, done, _), _, flags = self.chunk_runner(
+            (leaves, done, left), coins, n_max)
+        return (leaves, done), None, flags
 
 
 def build_bucket_runner(adapter: _AdapterBase, meta: BucketMeta, B: int,
@@ -1028,7 +1314,7 @@ class BatchEngine:
         while done < limit:
             n = min(chunk, limit - done)
             coins = adapter.chunk_coins(specs, n, target)
-            state, _, flags = runner(state, coins, n)
+            state, _, flags = runner(state, coins, [n] * B)
             done += n
             stop_cycle[~done_mask] = done
 
@@ -1111,4 +1397,4 @@ class BatchEngine:
 __all__ = ["BatchEngine", "BatchItem", "BucketMeta", "BucketRunner",
            "DEFAULT_MAX_CYCLES", "RankTable", "SUPPORTED_ALGOS",
            "adapter_for", "build_bucket_runner", "pad_instance", "pad_vec",
-           "runner_cache_key"]
+           "rank_block", "runner_cache_key"]

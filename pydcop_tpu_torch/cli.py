@@ -3,7 +3,7 @@
 Equivalent capability to the reference's pydcop/dcop_cli.py: global
 options (-v verbosity, --timeout with a forced-exit slack timer,
 --output, --version, --log) and the subcommands ported so far (solve,
-batch).
+batch, serve).
 """
 from __future__ import annotations
 
@@ -41,9 +41,9 @@ def make_parser() -> argparse.ArgumentParser:
                         help="logging fileConfig")
 
     subparsers = parser.add_subparsers(dest="command", required=True)
-    from pydcop_tpu_torch.commands import batch, solve
+    from pydcop_tpu_torch.commands import batch, serve, solve
 
-    for module in (solve, batch):
+    for module in (solve, batch, serve):
         module.set_parser(subparsers)
     return parser
 

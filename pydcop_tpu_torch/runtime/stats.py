@@ -1,13 +1,14 @@
 """Counters and the executed-config record of a solve.
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
-harness, the sharded engines, the frontier search and the batched solve
-engine use, with the same names and schemas,
+harness, the sharded engines, the frontier search, the batched solve
+engine and the solve service use, with the same names and schemas,
 so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 #: counter names surfaced under ``SolveResult.metrics()["harness"]`` by
 #: the chunked solve harness — how often the host blocked on the device
@@ -127,6 +128,83 @@ class BatchCounters:
     def padding_waste(self) -> float:
         total = self.counts["stacked_cells"]
         return self.counts["padded_cells"] / total if total else 0.0
+
+
+#: counter names surfaced under ``metrics()["serve"]`` by the
+#: continuous-batching solve service (:mod:`pydcop_tpu_torch.serve`) —
+#: the JAX package's ``SERVE_COUNTERS``, name for name: the
+#: admission/slot-reuse scorecard of a serving session, alongside the
+#: per-sweep BatchCounters
+SERVE_COUNTERS = (
+    "jobs_submitted",         # jobs accepted by SolveService.submit
+    "jobs_admitted",          # jobs placed into a bucket lane
+    "jobs_completed",
+    "jobs_preempted",         # deadline-expired jobs evicted from lanes
+    "jobs_resumed",           # jobs restored from a journal checkpoint
+    "jobs_fallback",          # algorithms outside the batched set, 1 by 1
+    "lanes_reused",           # admissions into a lane a prior job freed
+    "midflight_admissions",   # admissions into an already-running bucket
+    "buckets_opened",
+    "buckets_merged",         # under-filled same-signature buckets folded
+    "buckets_closed",
+    "deadline_shrunk_lanes",  # lane-chunks clamped for deadline pressure
+    "prewarmed_runners",      # runners scheduled for ahead-of-arrival build
+    "prewarm_skipped_exact",  # prewarm items outside the batched set:
+                              # nothing to prewarm, solved 1 by 1 later
+    "checkpoints_saved",      # per-lane chunk-boundary snapshots written
+    # -- fault isolation / overload: the alerting surface of the service
+    "scheduler_restarts",     # supervisor relaunches of the tick loop
+    "buckets_failed",         # bucket workers torn down by a step exception
+    "jobs_retried",           # quarantine retry re-admissions (with backoff)
+    "jobs_quarantined",       # poison jobs escalated to sequential fallback
+    "lanes_nan",              # non-finite lane detections (state or cost)
+    "jobs_shed",              # overload rejections + displaced pending jobs
+    "quota_rejections",       # submits rejected by the per-tenant quota
+    "ticks_stalled",          # injected stall_tick faults absorbed
+    "faults_injected",        # serve fault-plan faults fired (any kind)
+    "events_dropped",         # per-job stream events dropped (slow consumer)
+    "torn_journal_lines",     # journal lines skipped as torn on resume
+    "journal_compactions",    # jobs.jsonl compaction rewrites
+)
+
+
+class ServeCounters:
+    """Continuous-batching service counters collected by the
+    SolveService scheduler (``SolveService.metrics()['serve']``).
+
+    ``replica`` labels which fleet replica this service is (None for a
+    standalone service; the fleets are not ported yet)."""
+
+    def __init__(self, replica: Optional[str] = None):
+        self.replica = replica
+        self.counts = {k: 0 for k in SERVE_COUNTERS}
+        #: per-tenant share of ``events_dropped``
+        self.events_dropped_by_tenant: dict = {}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown serve counter {name!r}; add it to "
+                f"SERVE_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def drop_event(self, tenant: Optional[str], n: int = 1) -> None:
+        """Count one dropped stream event against its tenant (and the
+        flat ``events_dropped`` total)."""
+        self.inc("events_dropped", n)
+        t = tenant or "default"
+        self.events_dropped_by_tenant[t] = (
+            self.events_dropped_by_tenant.get(t, 0) + n
+        )
+
+    def as_dict(self) -> dict:
+        out = dict(self.counts)
+        out["replica"] = self.replica
+        out["events_dropped_by_tenant"] = dict(
+            self.events_dropped_by_tenant
+        )
+        return out
 
 
 def resolved_config(

@@ -3,9 +3,10 @@ of the JAX package (``pydcop_tpu``), not even its JAX-free modules.
 
 The test process itself has JAX loaded (``tests/conftest.py`` imports
 it), so the import check runs in a fresh interpreter: it imports the
-port (its sharded engines and K3's wrapper included), solves the
-tutorial instance on the CPU (maxsum, dpop, maxsum and amaxsum sharded by
-a placement) and reports every
+port (its sharded engines, K3's wrapper and the serve modules included),
+solves the tutorial instance on the CPU (maxsum, dpop, maxsum and amaxsum
+sharded by a placement, and one maxsum job served by a SolveService) and
+reports every
 JAX or JAX-package module that got loaded.  A source scan backs it up for code
 paths a single solve does not reach."""
 import ast
@@ -33,6 +34,9 @@ from pydcop_tpu_torch.distribution import Distribution, load_dist, yaml_dist
 from pydcop_tpu_torch.parallel import ShardedLocalSearch, build_mesh
 from pydcop_tpu_torch.parallel import boundary, collectives, packed_mesh
 from pydcop_tpu_torch.runtime import solve_result
+from pydcop_tpu_torch.runtime import checkpoint, faults
+from pydcop_tpu_torch.serve import SolveService, errors, scheduler, service
+from pydcop_tpu_torch.commands import serve as serve_cmd
 make_parser()
 dcop = load_dcop_from_file([sys.argv[2]])
 res = solve_result(dcop, "maxsum", device="cpu")
@@ -44,10 +48,16 @@ sharded = solve_result(dcop, "maxsum", distribution=dist, n_shards=2,
                        device="cpu")
 asharded = solve_result(dcop, "amaxsum", distribution=dist, n_shards=2,
                         cycles=40, device="cpu")
+svc = SolveService(lanes=2, device="cpu")
+jid = svc.submit(dcop, "maxsum", seed=0)
+for _ in range(200):
+    if not svc.tick():
+        break
+served = svc.result(jid, timeout=10)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pydcop_tpu"))
 print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost,
-                  "sharded_cost": sharded.cost,
+                  "sharded_cost": sharded.cost, "served_cost": served.cost,
                   "amaxsum_status": asharded.status, "bad": bad}))
 """
 
@@ -62,6 +72,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["cost"] == 12 and got["dpop_cost"] == 12
     assert got["sharded_cost"] == 12
+    assert got["served_cost"] == 12
     assert got["amaxsum_status"] == "FINISHED"
     assert got["bad"] == []
 
