@@ -223,6 +223,35 @@ printed.
    its bytes bound, its plain version's time, and its device time per
    launch from a torch.profiler trace.
 
+6. warm: warm repair (``ops/headroom.py``, ``algorithms/warm.py``,
+   ``runtime/repair.py``; the generic engines, no kernel launched) at
+   the JAX churn leg's size: maxsum on the 100,000-variable ring lattice
+   (200,000 binary factors, D = 4, tables uniform [0, 5) from
+   ``default_rng(77)``, headroom 0.1, chunk 10, damping 0.7) through
+   a ``WarmRepairController`` and ``solver.run``: 60 base chunks, then
+   50 seeded table edits (``edit_factor``, writes in place) each
+   followed by a 3-chunk ``run(resume=True)`` window — captures
+   unchanged, ms a write and a window, the first chunk and the first
+   three windows equal to a CPU controller's (values equal, messages
+   within TOL); five factors on one variable run it past its plan
+   depth — exactly one repack at this size, one more capture; mgm through ``build_warm_solver`` + ``change_factor_function``
+   + ``run(resume=True)`` at 2,000 variables, 50 edits — captures
+   unchanged, every window's assignment and cost equal to the CPU run;
+   a controller with one free variable slot given two variables —
+   exactly one repack and one more capture, equal to the CPU run;
+   memo: the solution cache through ``SolveService(memo=True)`` on the
+   card: the JAX memo leg's trace (800-variable soft 3-colourings with
+   1,598 edges, mgm, seed 1, a cold budget of 2,000 cycles; 4 novel, 4
+   duplicates, 4 one-edit variants, 4 duplicates) one request at a
+   time — exact hits equal to their cached results with no runner call,
+   every served variant no worse than its seed, each variant beside its
+   cold ``solve_result`` on the card (costs, times, the speedup of the
+   variant hits); a
+   ``corrupt_cache_entry`` fault skipped and counted, never served; then
+   the serve phase's at-size Poisson stream (512 mgm jobs, 64 problems,
+   64 lanes, 25 jobs/s) with the cache, job i at seed i mod 64 — every
+   exact hit equal to its first copy, hits by kind, jobs/s, p50/p99.
+
 ``python3 chip_smoke.py --ab PARENT_TREE
 [k1,k1_mixed,mgm2,mgm,dsa,k2,dpop,sharded,harness]`` runs no phase above: it
 times dba, gdba and amaxsum 200-cycle solves (the second solve of a
@@ -3860,7 +3889,8 @@ def serve_run(jobs, algo, lanes, max_cycles, offsets, prewarm=(),
             "jobs_quarantined", "buckets_failed", "jobs_resumed")},
         statuses=sorted({r.status for r in results}),
         cycles=[int(np.min([r.cycle for r in results])),
-                int(np.max([r.cycle for r in results]))])
+                int(np.max([r.cycle for r in results]))],
+        **({"memo": metrics["memo"]} if "memo" in metrics else {}))
 
 
 def serve_check(phase, results, jobs, algo, max_cycles, which=None,
@@ -4213,6 +4243,539 @@ def dpop_batched_phase(smi, trees, device="cuda"):
         del tables
         torch.cuda.empty_cache()
     return out
+
+
+#: the warm phase: the JAX churn leg's maxsum ring lattice (bench.py
+#: bench_churn: every variable constrained to its two successors, D = 4,
+#: tables uniform [0, 5) from default_rng(77), headroom 0.1, chunk 10,
+#: damping 0.7, 60 base chunks, 50 seeded table edits each followed by
+#: a 3-chunk window); the CPU run of the same stream checks the first
+#: chunk and WARM_CPU_EDITS windows (a CPU window at this size, scoring
+#: included, takes about two seconds); WARM_REPACK_ADDS factors added
+#: to one variable of degree 4 (plan depth 8) run the stream past its
+#: headroom
+WARM_V, WARM_D, WARM_EDITS, WARM_CHUNK = 100_000, 4, 50, 10
+WARM_BASE_CHUNKS, WARM_WINDOW, WARM_CPU_EDITS = 60, 3, 3
+WARM_REPACK_ADDS = 5
+#: the warm phase's mgm sub-leg (bench_churn's: 2,000 variables, 6,000
+#: edges, seed 5, headroom 0.1, chunk 16, 50 edits of rng 99)
+WARM_MGM_V, WARM_MGM_CHUNK = 2_000, 16
+
+
+def ring_lattice(V=WARM_V, D=WARM_D, seed=77):
+    """bench_churn's instance: edges (i, i+1) and (i, i+2) mod V, tables
+    uniform [0, 5); returns the arrays and the generator, whose next
+    draws are the edit stream's rows and tables."""
+    rng = np.random.default_rng(seed)
+    ei = np.concatenate([np.arange(V), np.arange(V)])
+    ej = np.concatenate([(np.arange(V) + 1) % V, (np.arange(V) + 2) % V])
+    mats = rng.uniform(0.0, 5.0, (ei.size, D, D)).astype(np.float32)
+    return ei, ej, mats, rng
+
+
+def ring_dcop(ei, ej, mats, V, D):
+    """The lattice as the port's DCOP objects, named as
+    ``compile_binary_from_arrays`` names its slots: the controller's
+    edits and scoring read it, and a repack compiles it."""
+    from pydcop_tpu_torch.dcop import (
+        DCOP,
+        Domain,
+        NAryMatrixRelation,
+        Variable,
+    )
+
+    dom = Domain("d", "d", list(range(D)))
+    vs = [Variable(f"v{i:06d}", dom) for i in range(V)]
+    d = DCOP("ring")
+    for v in vs:
+        d.add_variable(v)
+    for k in range(ei.size):
+        d.add_constraint(NAryMatrixRelation(
+            [vs[ei[k]], vs[ej[k]]], mats[k], name=f"c{k:06d}"))
+    return d
+
+
+def warm_maxsum_leg(smi, device="cuda", V=WARM_V):
+    """The maxsum warm stream on the ring lattice through the path a
+    user runs: a ``WarmRepairController`` on the lattice's compiled
+    arrays, ``solver.run`` to a converged base, then WARM_EDITS seeded
+    table edits (``edit_factor``: in-place writes, the dirtied messages
+    reset) each followed by ``run(resume=True)`` for a WARM_WINDOW-chunk
+    window (its coin draw, end-of-run state and host scoring included).
+    The captures must not change over the stream.  The first chunk and
+    the first WARM_CPU_EDITS windows are held to a CPU controller:
+    values equal, messages within TOL; the CPU windows start from the
+    card's base state (a CPU base of 600 cycles at this size would take
+    about half a minute).  Then WARM_REPACK_ADDS factors on one
+    variable run the stream past its plan depth: exactly one repack at
+    this size, the values carried by name, one more capture."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef
+    from pydcop_tpu_torch.algorithms.base import synchronize
+    from pydcop_tpu_torch.dcop import DCOP, NAryMatrixRelation
+    from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays
+    from pydcop_tpu_torch.runtime.repair import WarmRepairController
+
+    t0 = time.perf_counter()
+    ei, ej, mats, rng = ring_lattice(V, WARM_D)
+    mut_rows = rng.integers(0, ei.size, size=WARM_EDITS)
+    mut_tabs = rng.uniform(0.0, 5.0, (WARM_EDITS, WARM_D, WARM_D)).astype(
+        np.float32)
+    algo_def = AlgorithmDef.build_with_default_params(
+        "maxsum", {"damping": 0.7, "noise": 0.0})
+    t1 = time.perf_counter()
+    dc = ring_dcop(ei, ej, mats, V, WARM_D)
+    # the CPU controller's own DCOP (an edit replaces its constraint)
+    dc_cpu = DCOP("ring", variables=dc.variables)
+    dc_cpu.constraints = dict(dc.constraints)
+    dcop_s = time.perf_counter() - t1
+
+    def edit(d, m):
+        k = int(mut_rows[m])
+        vs = [d.variables[f"v{int(v):06d}"] for v in (ei[k], ej[k])]
+        return NAryMatrixRelation(vs, mut_tabs[m], name=f"c{k:06d}")
+
+    def controller_on(dev, d):
+        base = compile_binary_from_arrays(ei, ej, mats, V, device=dev)
+        return WarmRepairController(d, "maxsum", algo_def=algo_def,
+                                    headroom=0.1, chunk=WARM_CHUNK,
+                                    tensors=base, device=dev)
+
+    def window(ctl, chunks, resume=True):
+        return ctl.solver.run(resume=resume, cycles=chunks * WARM_CHUNK,
+                              chunk=WARM_CHUNK)
+
+    def host(ctl):
+        return [t.cpu().clone() for t in ctl.solver._last_state[:3]]
+
+    def values(ctl):
+        s = ctl.solver
+        return s.tensors.assignment_from_indices(
+            s.values_of(s._last_state).cpu().numpy())
+
+    t1 = time.perf_counter()
+    card = controller_on(device, dc)
+    build_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    window(card, 1, resume=False)
+    first = host(card)
+    res = window(card, WARM_BASE_CHUNKS - 1)
+    card.phase_done(res)
+    base_s = time.perf_counter() - t1
+    base_state = host(card)
+    captures = card.total_traces()
+    writes, windows, checked = [], [], []
+    for m in range(WARM_EDITS):
+        t1 = time.perf_counter()
+        card.edit_factor(edit(dc, m))
+        synchronize(card.solver.device)
+        writes.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        res = window(card, WARM_WINDOW)
+        windows.append(time.perf_counter() - t1)
+        card.phase_done(res)
+        if m < WARM_CPU_EDITS:
+            checked.append(host(card))
+    if card.total_traces() != captures or \
+            card.counters.counts["repair_retraces"]:
+        fail("warm", f"maxsum: captures {captures} before the stream, "
+             f"{card.total_traces()} after, "
+             f"{card.counters.counts['repair_retraces']} retraces")
+    t1 = time.perf_counter()
+    dc.solution_cost(res.assignment)
+    score_ms = (time.perf_counter() - t1) * 1e3
+    # the CPU run of the same stream: the first chunk from the zero
+    # state, then the first windows from the card's base state
+    cpu_t = time.perf_counter()
+    cpu = controller_on("cpu", dc_cpu)
+    errs = []
+
+    def same(what, got, want):
+        q, r, v = got
+        wq, wr, wv = want
+        if not torch.equal(v, wv):
+            fail("warm", f"maxsum {what}: {int((v != wv).sum())} values "
+                 f"differ from the CPU run")
+        err = max(float((q - wq).abs().max()), float((r - wr).abs().max()))
+        if err > TOL:
+            fail("warm", f"maxsum {what}: messages {err} from the CPU run")
+        errs.append(err)
+
+    window(cpu, 1, resume=False)
+    same("first chunk", host(cpu), first)
+    cpu.solver._last_state = tuple(base_state) + (
+        cpu.solver.resident_leaves(),)
+    for m, want in enumerate(checked):
+        cpu.edit_factor(edit(dc_cpu, m))
+        window(cpu, WARM_WINDOW)
+        same(f"edit {m}", host(cpu), want)
+    cpu_s = time.perf_counter() - cpu_t
+    del cpu, dc_cpu
+    write_ms = np.array(writes) * 1e3
+    window_ms = np.array(windows) * 1e3
+    say("warm", kind="maxsum_stream", vars=V, factors=int(ei.size),
+        D=WARM_D, edges_capacity=card.solver.tensors.n_edges,
+        vars_capacity=card.solver.tensors.n_vars, headroom=0.1,
+        chunk=WARM_CHUNK, base_chunks=WARM_BASE_CHUNKS, edits=WARM_EDITS,
+        window_chunks=WARM_WINDOW,
+        plan_depth=card.solver.tensors.plan_depths,
+        captures_before=captures, captures_after=card.total_traces(),
+        repair_retraces=card.counters.counts["repair_retraces"],
+        dcop_build_s=dcop_s, build_s=build_s, base_s=base_s,
+        write_ms_mean=float(write_ms.mean()),
+        write_ms_p50=float(np.percentile(write_ms, 50)),
+        write_ms_p99=float(np.percentile(write_ms, 99)),
+        window_ms_mean=float(window_ms.mean()),
+        window_ms_p50=float(np.percentile(window_ms, 50)),
+        window_ms_p99=float(np.percentile(window_ms, 99)),
+        host_score_ms=score_ms,
+        recover_ms_mean=float((write_ms + window_ms).mean()),
+        cpu_checked=["first chunk"] + [f"edit {m}" for m in
+                                       range(len(checked))],
+        values_equal=True, max_msg_err=max(errs), cpu_s=cpu_s,
+        nvidia_smi=smi)
+    # past the headroom at this size: factors on v000000 (degree 4)
+    v0 = dc.variables["v000000"]
+    before = values(card)
+    base = card.total_traces()
+    add_ms = []
+    for j in range(WARM_REPACK_ADDS):
+        other = dc.variables[f"v{50 + j:06d}"]
+        t1 = time.perf_counter()
+        card.add_constraint(NAryMatrixRelation(
+            [v0, other], rng.uniform(0.0, 5.0, (WARM_D, WARM_D)),
+            name=f"x{j:02d}"))
+        synchronize(card.solver.device)
+        add_ms.append((time.perf_counter() - t1) * 1e3)
+    repacks = card.counters.counts["headroom_exhausted_repacks"]
+    after = values(card)
+    moved = [n for n in before if after.get(n) != before[n]]
+    res = window(card, WARM_WINDOW)
+    card.phase_done(res)
+    if repacks != 1 or card.total_traces() != base + 1 or \
+            card.counters.counts["repair_retraces"] != 1 or moved:
+        fail("warm", f"maxsum repack: {repacks} repacks, captures {base} "
+             f"-> {card.total_traces()}, {card.counters.as_dict()}, "
+             f"values moved {moved[:5]}")
+    if res.status != "FINISHED" or not np.isfinite(res.cost):
+        fail("warm", f"maxsum repack: the window after it {res.status} "
+             f"{res.cost}")
+    say("warm", kind="maxsum_repack", vars=V, adds=WARM_REPACK_ADDS,
+        repacks=repacks, captures_before=base,
+        captures_after=card.total_traces(),
+        vars_capacity=card.solver.tensors.n_vars,
+        edges_capacity=card.solver.tensors.n_edges,
+        plan_depth=card.solver.tensors.plan_depths,
+        add_ms=[round(x, 3) for x in add_ms[:-1]],
+        repack_add_ms=add_ms[-1], values_carried=True,
+        window_ms=res.time * 1e3, cost=res.cost,
+        phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+
+
+def warm_mgm_stream(dcop, device, n=WARM_EDITS):
+    """bench_churn's mgm sub-leg through the solver API:
+    ``build_warm_solver`` + ``change_factor_function`` + ``run(resume=
+    True)``, one WARM_MGM_CHUNK-cycle chunk after each edit.  Returns
+    the results, the captures after warm-up and at the end, and the
+    stream's seconds."""
+    from pydcop_tpu_torch.algorithms.warm import build_warm_solver
+    from pydcop_tpu_torch.runtime.repair import perturbed_constraint
+
+    s = build_warm_solver(dcop, algo="mgm", seed=5, headroom=0.1,
+                          device=device)
+    out = [s.run(chunk=WARM_MGM_CHUNK)]
+    base = s.trace_count()
+    names = sorted(dcop.constraints)
+    rng = np.random.default_rng(99)
+    t0 = time.perf_counter()
+    for m in range(n):
+        name = names[int(rng.integers(len(names)))]
+        s.change_factor_function(perturbed_constraint(
+            dcop.constraints[name], seed=m))
+        out.append(s.run(resume=True, cycles=WARM_MGM_CHUNK,
+                         chunk=WARM_MGM_CHUNK))
+    return out, base, s.trace_count(), time.perf_counter() - t0
+
+
+def warm_repack(dcop, device):
+    """A stream run past its headroom: a controller with ONE free
+    variable slot, two variables added, a 3-chunk window after each —
+    exactly one repack and one more capture."""
+    from pydcop_tpu_torch.dcop import Variable, constraint_from_str
+    from pydcop_tpu_torch.runtime.repair import WarmRepairController
+
+    ctl = WarmRepairController(dcop, "mgm", seed=7, headroom=0.0,
+                               min_free=1, chunk=WARM_MGM_CHUNK,
+                               device=device)
+    res = ctl.solver.run(chunk=ctl.chunk)
+    ctl.phase_done(res)
+    base = ctl.total_traces()
+    v0 = sorted(dcop.variables)[0]
+    for i in range(2):
+        z = Variable(f"zz{i}", dcop.variables[v0].domain)
+        ctl.add_variable(z)
+        ctl.add_constraint(constraint_from_str(
+            f"czz{i}", f"0 if zz{i} == {v0} else 2",
+            [z, dcop.variables[v0]]))
+        res = ctl.solver.run(resume=True, cycles=3 * ctl.chunk,
+                             chunk=ctl.chunk)
+        ctl.phase_done(res)
+    return ctl, base, res
+
+
+def warm_phase(smi, device="cuda"):
+    """Warm repair on the card (see warm_maxsum_leg, warm_mgm_stream and
+    warm_repack): no kernel of the port is launched (the warm engines
+    are the generic ones), captures unchanged over the streams, one
+    more after the repack, and each stream equal to its CPU run."""
+    t0 = time.perf_counter()
+    reset_counts()
+    warm_maxsum_leg(smi, device)
+    got, base, end, secs = warm_mgm_stream(
+        coloring_dcop(WARM_MGM_V, 3 * WARM_MGM_V, seed=5), device)
+    if end != base:
+        fail("warm", f"mgm: captures {base} after warm-up, {end} after "
+             f"the stream")
+    want, _, _, cpu_s = warm_mgm_stream(
+        coloring_dcop(WARM_MGM_V, 3 * WARM_MGM_V, seed=5), "cpu")
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if (g.assignment, g.cost) != (w.assignment, w.cost)]
+    if bad:
+        fail("warm", f"mgm: windows {bad[:5]} differ from the CPU run")
+    say("warm", kind="mgm_stream", vars=WARM_MGM_V, factors=3 * WARM_MGM_V,
+        edits=WARM_EDITS, chunk=WARM_MGM_CHUNK, captures_before=base,
+        captures_after=end, stream_s=secs,
+        ms_per_edit_window=secs / WARM_EDITS * 1e3, cpu_stream_s=cpu_s,
+        equal_to_cpu=True, final_cost=got[-1].cost, nvidia_smi=smi)
+    ctl, base, res = warm_repack(
+        coloring_dcop(WARM_MGM_V, 3 * WARM_MGM_V, seed=5), device)
+    c = ctl.counters.as_dict()
+    if c["headroom_exhausted_repacks"] != 1 or \
+            ctl.total_traces() != base + 1 or c["repair_retraces"] != 1:
+        fail("warm", f"repack: {c}, captures {base} -> "
+             f"{ctl.total_traces()}")
+    want_ctl, _, want = warm_repack(
+        coloring_dcop(WARM_MGM_V, 3 * WARM_MGM_V, seed=5), "cpu")
+    if (res.assignment, res.cost) != (want.assignment, want.cost):
+        fail("warm", "repack: the card's stream differs from the CPU's")
+    counts = read_counts()
+    if any(counts.values()):
+        fail("warm", f"the warm engines launched "
+             f"{ {k: v for k, v in counts.items() if v} }; they run the "
+             f"generic cycles")
+    say("warm", kind="repack", algo="mgm", vars=WARM_MGM_V, repacks=1,
+        captures_before=base, captures_after=ctl.total_traces(),
+        counters=c, equal_to_cpu=True, launches=0,
+        phase_s=time.perf_counter() - t0, nvidia_smi=smi)
+
+
+#: the memo leg at the JAX bench's size (bench.py bench_memo): soft
+#: 3-colourings of MEMO_V variables and 2 MEMO_V - 2 edges (the port's
+#: colouring family, coloring_dcop), mgm at seed 1, a cold budget of
+#: MEMO_COLD_CYCLES; the trace 4 novel, 4 duplicates, 4 one-edit
+#: variants (edit seeds 100-103), 4 duplicates
+MEMO_V, MEMO_COLD_CYCLES, MEMO_BASES = 800, 2000, 4
+#: the at-size stream with the cache: serve_at_size's Poisson
+#: stream, job i on problem i % 64 at seed i % 64; seconds into the
+#: script after which it takes half the jobs (a quarter 100 s later)
+MEMO_STREAM_CUT_AFTER_S = 950.0
+
+
+def memo_instance(seed, edit_seed=None):
+    from pydcop_tpu_torch.runtime.repair import perturbed_constraint
+
+    d = coloring_dcop(MEMO_V, 2 * MEMO_V - 2, seed=seed)
+    if edit_seed is not None:
+        name = sorted(d.constraints)[2]
+        d.constraints[name] = perturbed_constraint(d.constraints[name],
+                                                   seed=edit_seed)
+    return d
+
+
+def memo_trace_leg(smi, device="cuda"):
+    """The memo bench leg's trace through ``SolveService(memo=True)`` on
+    the card, one request at a time: every exact hit equal to its cached
+    result with no runner call, every served variant no worse than its
+    seed (the cache's guarantee); each variant beside its cold solve
+    (``solve_result`` on the card): costs, times and whether the served
+    one is no worse (measured, as the JAX bench's
+    ``memo_never_worse_trace``: a warm repair and a cold solve reach
+    different local optima, so it is not a guarantee); the hit counts,
+    p50 latency by kind and the variant speedup: the median cold ms over
+    the median served ms, over the requests served as a variant hit."""
+    from pydcop_tpu_torch.batch import CompileCache
+    from pydcop_tpu_torch.runtime import solve_result
+    from pydcop_tpu_torch.serve import SolveService
+
+    trace = ([("novel", s, None) for s in range(MEMO_BASES)]
+             + [("dup", s, None) for s in range(MEMO_BASES)]
+             + [("variant", s, 100 + s) for s in range(MEMO_BASES)]
+             + [("dup", s, None) for s in range(MEMO_BASES)])
+    svc = SolveService(lanes=8, cache=CompileCache(), memo=True,
+                       max_cycles=MEMO_COLD_CYCLES, device=device)
+    first, lat, rows = {}, {}, []
+    cold_ms = []
+    try:
+        svc.start()
+        for kind, s, es in trace:
+            d = memo_instance(s, es)
+            calls = dict(svc.metrics()["runners"])
+            res = svc.result(svc.submit(d, "mgm", seed=1), timeout=600)
+            hit = res.memo["hit"]
+            lat.setdefault(hit, []).append(res.time * 1e3)
+            if res.status != "FINISHED":
+                fail("memo", f"{kind} {s}: {res.status}")
+            if hit == "exact":
+                f = first[s]
+                if (res.assignment, res.cost, res.cycle) != \
+                        (f.assignment, f.cost, f.cycle):
+                    fail("memo", f"exact hit {s} differs from its cached "
+                         f"result")
+                if svc.metrics()["runners"] != calls:
+                    fail("memo", f"exact hit {s} made a runner call")
+            elif kind == "novel":
+                first[s] = res
+            if kind == "variant":
+                t1 = time.perf_counter()
+                cold = solve_result(d, "mgm", seed=1,
+                                    cycles=MEMO_COLD_CYCLES, device=device)
+                cold_ms.append((time.perf_counter() - t1) * 1e3)
+                seed_cost = res.memo.get("seed_cost")
+                if hit == "variant" and res.cost > seed_cost + 1e-6:
+                    fail("memo", f"variant {s} served {res.cost}, worse "
+                         f"than its seed {seed_cost}")
+                rows.append({"base": s, "hit": hit, "cost": res.cost,
+                             "seed_cost": seed_cost, "cold_cost": cold.cost,
+                             "no_worse_than_cold":
+                                 res.cost <= cold.cost + 1e-6,
+                             "warm_ms": res.time * 1e3,
+                             "cold_ms": cold_ms[-1],
+                             "repacks": res.memo.get("repacks")})
+        stats = svc.metrics()["memo"]
+    finally:
+        svc.stop(drain=False)
+    warm = [r for r in rows if r["hit"] == "variant"]
+    say("memo", kind="trace", vars=MEMO_V, edges=2 * MEMO_V - 2,
+        algo="mgm", seed=1, cold_cycles=MEMO_COLD_CYCLES,
+        requests=len(trace), hits_exact=stats["hits_exact"],
+        hits_variant=stats["hits_variant"], misses=stats["misses"],
+        cold_fallbacks=stats["variant_cold_fallbacks"],
+        p50_ms={k: float(np.percentile(v, 50)) for k, v in lat.items()},
+        variants=rows,
+        variant_speedup_median=(
+            float(np.median([r["cold_ms"] for r in warm])
+                  / np.median([r["warm_ms"] for r in warm]))
+            if warm else None),
+        exact_equal=True, exact_runner_calls=0, never_worse_than_seed=True,
+        never_worse_than_cold=all(r["no_worse_than_cold"] for r in rows),
+        nvidia_smi=smi)
+
+
+def memo_corrupt_leg(smi, device="cuda"):
+    """The ``corrupt_cache_entry`` fault on the card: a journaled
+    service caches one solve and corrupts its persisted entry; a new
+    service's ``resume()`` skips and counts it, and the duplicate is
+    solved again (a miss), never served from the corrupt file."""
+    import tempfile
+
+    from pydcop_tpu_torch.batch import CompileCache
+    from pydcop_tpu_torch.runtime.faults import Fault, FaultPlan
+    from pydcop_tpu_torch.serve import SolveService
+
+    journal = os.path.join(tempfile.mkdtemp(prefix="memo_"), "journal")
+    d = memo_instance(0)
+    plan = FaultPlan(faults=[Fault(kind="corrupt_cache_entry",
+                                   jid="job-000001")], seed=7)
+    runs = []
+    for fp in (plan, None):
+        svc = SolveService(lanes=2, cache=CompileCache(), memo=True,
+                           max_cycles=MEMO_COLD_CYCLES, device=device,
+                           journal_dir=journal, fault_plan=fp)
+        try:
+            if fp is None:
+                svc.resume()
+            svc.start()
+            res = svc.result(svc.submit(d, "mgm", seed=1), timeout=600)
+            runs.append((res, svc.metrics()["memo"],
+                         svc.counters.counts["faults_injected"]))
+        finally:
+            svc.stop(drain=False)
+    (r1, m1, injected), (r2, m2, _) = runs
+    if not injected or m2["corrupt_skipped"] != 1 or m2["rehydrated"] \
+            or r2.memo["hit"] != "miss":
+        memo_dir = os.path.join(journal, "memo")
+        fail("memo", f"corrupt entry: first job {r1.status} {r1.memo} "
+             f"{m1}, injected {injected}, files "
+             f"{sorted(os.listdir(memo_dir)) if os.path.isdir(memo_dir) else None}; "
+             f"then {m2}, hit {r2.memo['hit']}")
+    if (r2.assignment, r2.cost) != (r1.assignment, r1.cost):
+        fail("memo", "corrupt entry: the re-solve differs from the first")
+    say("memo", kind="corrupt_entry", faults_injected=injected,
+        corrupt_skipped=m2["corrupt_skipped"], rehydrated=m2["rehydrated"],
+        second_hit=r2.memo["hit"], served_from_corrupt=False,
+        nvidia_smi=smi)
+
+
+def memo_stream_leg(smi, device="cuda"):
+    """serve_at_size's Poisson stream with the cache: SERVE_BIG_JOBS mgm
+    jobs on SERVE_BIG_PROBLEMS problems of SERVE_BIG_V / SERVE_BIG_V // 2
+    variables, SERVE_BIG_LANES lanes, SERVE_BIG_RATE jobs/s from arrival
+    seed SERVE_SEED; job i on problem i % 64 at seed i % 64, so jobs i
+    and i + 64 are exact duplicates.  Every hit equals the result of its
+    first copy."""
+    n = SERVE_BIG_JOBS
+    elapsed = time.perf_counter() - SCRIPT_T0
+    cut = elapsed > MEMO_STREAM_CUT_AFTER_S
+    if cut:
+        n //= 2
+    if elapsed > MEMO_STREAM_CUT_AFTER_S + 100.0:
+        n //= 2
+    problems = serve_family(SERVE_BIG_PROBLEMS, SERVE_BIG_V, seed0=500)
+    jobs = [(problems[i % SERVE_BIG_PROBLEMS], i % SERVE_BIG_PROBLEMS)
+            for i in range(n)]
+    reset_counts()
+    results, row = serve_run(
+        jobs, "mgm", SERVE_BIG_LANES, SERVE_MAX_CYCLES,
+        poisson_offsets(n, SERVE_BIG_RATE, SERVE_SEED),
+        prewarm=problems[:8], device=device, memo=True)
+    counts = read_counts()
+    if any(counts.values()):
+        fail("memo", f"stream: the buckets launched kernels "
+             f"{ {k: v for k, v in counts.items() if v} }")
+    hits = {}
+    bad = []
+    for i, r in enumerate(results):
+        hit = r.memo["hit"]
+        hits[hit] = hits.get(hit, 0) + 1
+        if hit == "exact":
+            f = results[i % SERVE_BIG_PROBLEMS]
+            if (r.assignment, r.cost, r.cycle, r.status) != \
+                    (f.assignment, f.cost, f.cycle, f.status):
+                bad.append(i)
+    if bad:
+        fail("memo", f"stream: exact hits {bad[:5]} differ from their "
+             f"first copies")
+    memo_stats = row.pop("memo")
+    say("memo", kind="stream", algo="mgm", vars=[SERVE_BIG_V,
+        SERVE_BIG_V // 2], problems=SERVE_BIG_PROBLEMS,
+        lanes=SERVE_BIG_LANES, rate=SERVE_BIG_RATE,
+        arrival_seed=SERVE_SEED, seeds="i mod 64",
+        jobs_cut_from=SERVE_BIG_JOBS if cut else None,
+        script_s_at_start=round(elapsed, 1), hits_by_kind=hits,
+        memo=memo_stats, exact_equal_first_copy=True, **row,
+        nvidia_smi=smi)
+
+
+def memo_phase(smi, device="cuda"):
+    """The solution cache on the card (see memo_trace_leg,
+    memo_corrupt_leg and memo_stream_leg)."""
+    t0 = time.perf_counter()
+    memo_trace_leg(smi, device)
+    memo_corrupt_leg(smi, device)
+    memo_stream_leg(smi, device)
+    say("memo", kind="done", phase_s=round(time.perf_counter() - t0, 3),
+        script_s=round(time.perf_counter() - SCRIPT_T0, 1))
 
 
 def main():
@@ -5327,6 +5890,11 @@ def main():
             **({"launches_by_path": by_path[name]}
                if name in by_path else {}),
         })
+    # warm repair (no kernel: the warm engines are the generic cycles)
+    # and the solution cache over the service, last: their host-bound
+    # stream is the phase whose length varies most
+    warm_phase(smi)
+    memo_phase(smi)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -155,7 +155,7 @@ class AlgorithmDef(SimpleRepr):
 def list_available_algorithms() -> List[str]:
     import pydcop_tpu_torch.algorithms as pkg
 
-    exclude = {"base", "capture"}
+    exclude = {"base", "capture", "warm"}
     return sorted(
         m.name
         for m in pkgutil.iter_modules(pkg.__path__)

@@ -75,6 +75,14 @@ class SolveResult:
     #: and whether it resumed from a checkpoint; None unless the job
     #: passed through the serve tier
     serve: Optional[Dict[str, Any]] = None
+    #: warm-repair scorecard (runtime/stats.RepairCounters: mutations
+    #: applied, headroom claims, repacks, retraces); None unless the
+    #: solve ran through a warm-repair engine
+    repair: Optional[Dict[str, Any]] = None
+    #: solution-cache provenance (exact replay, warm-started variant
+    #: repair, or a plain solve), attached by the serve tier's memo layer
+    #: (serve/memo.py); None elsewhere
+    memo: Optional[Dict[str, Any]] = None
 
     def metrics(self) -> Dict[str, Any]:
         out = {
@@ -99,6 +107,10 @@ class SolveResult:
             out["config"] = dict(self.config)
         if self.serve is not None:
             out["serve"] = dict(self.serve)
+        if self.repair is not None:
+            out["repair"] = dict(self.repair)
+        if self.memo is not None:
+            out["memo"] = dict(self.memo)
         return out
 
 
@@ -296,6 +308,14 @@ class SynchronousTensorSolver:
         reseed their generators unless the run is a warm restart, as the
         JAX harness restarts its key at ``PRNGKey(seed)`` (and continues
         it on ``resume``)."""
+
+    def resident_leaves(self) -> tuple:
+        """State tensors the fixed-shape runner reads in place: a captured
+        chunk takes them as its own buffers (no copy in before a replay,
+        no write back), and a run keeps them uncloned in its final state.
+        The warm solvers' operands (``algorithms/warm.py``); none by
+        default."""
+        return ()
 
     def trace_count(self) -> int:
         """Fixed-shape runners built: a CUDA graph capture each on the
@@ -503,7 +523,7 @@ class SynchronousTensorSolver:
             self._captures[key] = (self._captures.get(key, 0)
                                    + runner.captures - captures)
             # the runner's state may alias a captured graph's buffers
-            state = clone_state(state)
+            state = clone_state(state, keep=self.resident_leaves())
         self._last_state = state
         counters.counts["compile_cache_evictions"] = self._runners.evictions
         self.last_counters = counters

@@ -19,7 +19,10 @@ runner also computes the chunk's convergence bool (the solver's
   (``captures`` counts it; a failed capture raises, nothing falls back)
   and replays it, and so does every later call.  The graph reads the
   state, the chunk's coins (``[chunk, ...]``, the true ``n`` rows copied
-  in before each replay) and ``n_active`` from static buffers; a frozen
+  in before each replay) and ``n_active`` from static buffers (the
+  solver's ``resident_leaves`` — the warm solvers' operands — are their
+  own buffers: read in place, never copied in or written back, so a write
+  into them between replays is a mutation the graph sees); a frozen
   cycle is a ``torch.where`` on the device ``i < n_active``, as JAX's
   ``lax.cond``; at its end the graph writes the new state back into the
   state buffers in place.  A replay copies a state that is not the
@@ -72,8 +75,11 @@ def unflatten(like, leaves: Sequence[torch.Tensor]):
     return build(like)
 
 
-def clone_state(state):
-    return unflatten(state, [t.clone() for t in flatten(state)])
+def clone_state(state, keep: Sequence[torch.Tensor] = ()):
+    """A copy of ``state``; the tensors of ``keep`` stay shared."""
+    kept = {id(t) for t in keep}
+    return unflatten(state, [t if id(t) in kept else t.clone()
+                             for t in flatten(state)])
 
 
 #: eager calls of a CUDA runner before it captures its chunk
@@ -97,7 +103,8 @@ def sync_checked(enabled: bool):
 
 class ChunkRunner:
     """One fixed-shape chunk of ``chunk`` cycles of ``solver`` (its
-    ``step``, ``chunk_cost`` and ``chunk_converged_device``).  Calling it
+    ``step``, ``chunk_cost``, ``chunk_converged_device`` and
+    ``resident_leaves``).  Calling it
     with ``(state, coins, n)`` — ``coins`` the tuple of ``[n, ...]`` CPU
     tensors of :meth:`~SynchronousTensorSolver.draw_chunk_coins` — runs
     ``n <= chunk`` live cycles and returns ``(state, costs [chunk] or
@@ -141,8 +148,10 @@ class ChunkRunner:
                 continue
             new = solver.step(state, tuple(c[i] for c in coins))
             if a is not True:
+                # a leaf the cycle passed through (the warm solvers'
+                # operands) is kept as it is, not copied
                 new = unflatten(state, [
-                    torch.where(a, n, o)
+                    o if n is o else torch.where(a, n, o)
                     for n, o in zip(flatten(new), flatten(state))])
             state = new
             if self.collect:
@@ -175,7 +184,11 @@ class ChunkRunner:
 
     def _capture(self, like, coins) -> None:
         dev = self.device
-        self._state = [torch.empty_like(t) for t in flatten(like)]
+        # the solver's resident leaves are the graph's own buffers: a
+        # write into them (a warm mutation) is read by the next replay
+        resident = {id(t) for t in self.solver.resident_leaves()}
+        self._state = [t if id(t) in resident else torch.empty_like(t)
+                       for t in flatten(like)]
         self._like = like
         self._coins = tuple(
             torch.zeros((self.chunk,) + tuple(c.shape[1:]), dtype=c.dtype,
@@ -196,7 +209,8 @@ class ChunkRunner:
                 new, costs, conv = self._cycles(
                     state, self._coins, lambda i: idx[i] < self._n)
                 for buf, t in zip(self._state, flatten(new)):
-                    buf.copy_(t)
+                    if t is not buf:
+                        buf.copy_(t)
         finally:
             if gc_was:
                 gc.enable()

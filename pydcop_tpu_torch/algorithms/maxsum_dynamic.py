@@ -15,8 +15,8 @@ so the next ``packed_cycles`` call — one cooperative launch of the
 hand-written kernel on CUDA — runs on the swapped table; a mixed-arity
 layout is re-packed (:func:`~pydcop_tpu_torch.ops.packed_maxsum.solver_layout`),
 as the JAX package re-packs.  A swap lands between two calls, never
-inside one.  The JAX package's module, ported; its warm engine
-(``headroom=``) is not, and raises.
+inside one.  The JAX package's module, ported, with its warm engine
+(``build_solver(headroom=)``, ``algorithms/warm.py``).
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ from pydcop_tpu_torch.algorithms.maxsum import MaxSumSolver
 from pydcop_tpu_torch.dcop.dcop import DCOP
 from pydcop_tpu_torch.dcop.relations import Constraint
 from pydcop_tpu_torch.device import DeviceLike
-from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.ops.compile import PAD_COST, compile_factor_graph
 from pydcop_tpu_torch.ops.packed_maxsum import solver_layout, swap_factor
 
@@ -136,15 +135,25 @@ class DynamicMaxSumSolver(MaxSumSolver):
 def build_solver(dcop: DCOP, computation_graph=None, algo_def=None,
                  seed: int = 0, device: DeviceLike = None,
                  use_packed: Optional[bool] = None, headroom=None):
-    """The cold solver with hot-swap semantics.  ``headroom`` (the JAX
-    package's warm engine) is not ported and raises."""
-    if headroom is not None:
-        raise NotPortedError(
-            "maxsum_dynamic headroom= (the warm-repair engine) is not "
-            "ported to the PyTorch package yet")
+    """The cold solver with hot-swap semantics.  ``headroom`` (a float
+    fraction, e.g. 0.25) builds the WARM engine instead
+    (``algorithms/warm.py``): a swap is a fixed-shape write in place,
+    with no re-capture of the chunk; the warm engine is the generic one,
+    so ``use_packed=True`` does not combine with it."""
     algo_def = algo_def or AlgorithmDef.build_with_default_params(
         "maxsum_dynamic", parameters_definitions=algo_params
     )
+    if headroom is not None:
+        from pydcop_tpu_torch.algorithms.warm import build_warm_solver
+
+        if use_packed:
+            raise ValueError(
+                "maxsum_dynamic headroom= runs the generic warm engine; "
+                "use_packed=True does not combine with it")
+        return build_warm_solver(
+            dcop, algo="maxsum_dynamic", algo_def=algo_def, seed=seed,
+            headroom=headroom, device=device,
+        )
     tensors = compile_factor_graph(dcop, device=device)
     return DynamicMaxSumSolver(dcop, tensors, algo_def, seed, use_packed)
 

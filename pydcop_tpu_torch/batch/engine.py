@@ -957,6 +957,11 @@ class _BucketProgram:
         self.device = union.t.device
         self.check_chunk_syncs = False
 
+    def resident_leaves(self) -> tuple:
+        """None: the union's arrays are graph constants, its state leaves
+        the runner's own buffers."""
+        return ()
+
     def step(self, state, coins):
         leaves, done, left = state
         new = self.cycle(self.union, leaves, coins)

@@ -26,13 +26,17 @@ re-seated at their last checkpointed chunk boundary.  ``--max-pending``
 and ``--tenant-quota`` turn on admission control — rejected submits land
 in the output's ``rejected`` list with their retry-after hints — and
 ``--fault-plan plan.yaml`` arms the seeded serve fault injector.
+``--memo`` turns on the cross-request solution cache
+(:mod:`pydcop_tpu_torch.serve.memo`; ``--memo-ttl`` seconds a result
+lives, ``--memo-max-edits`` factor edits a warm-started variant may
+replay), persisted beside the journal with ``--journal-dir`` and
+rehydrated by ``--resume``; its scorecard lands in ``serve.memo`` and
+each job's provenance in its ``memo`` key.
 
 Not ported yet, and refused with
 :class:`~pydcop_tpu_torch.errors.NotPortedError` (the JSON error the
 port's ``solve`` and ``batch`` use): ``--replicas`` above 1 and
-``--processes`` (the fleets), ``--memo`` / ``--memo-ttl`` /
-``--memo-max-edits`` (the solution cache) and ``--uiport`` (the GUI
-server).
+``--processes`` (the fleets) and ``--uiport`` (the GUI server).
 """
 from __future__ import annotations
 
@@ -117,14 +121,18 @@ def set_parser(subparsers):
     parser.add_argument("--uiport", type=int, default=None,
                         help="the GUI server: not ported")
     parser.add_argument("--memo", action="store_true",
-                        help="the cross-request solution cache: not "
-                        "ported")
-    parser.add_argument("--memo-ttl", type=float, default=None,
-                        help="solution-cache entry time-to-live: not "
-                        "ported")
-    parser.add_argument("--memo-max-edits", type=int, default=None,
-                        help="solution-cache warm-start edits: not "
-                        "ported")
+                        help="enable the cross-request solution cache: "
+                        "exact duplicates are served bit-identically "
+                        "from the cache, near-duplicates warm-start from "
+                        "the nearest cached solution — never worse than "
+                        "its seed.  Persisted beside the journal when "
+                        "--journal-dir is given; --resume rehydrates")
+    parser.add_argument("--memo-ttl", type=float, default=3600.0,
+                        help="solution-cache entry time-to-live in "
+                        "seconds")
+    parser.add_argument("--memo-max-edits", type=int, default=8,
+                        help="max factor-diff edits for a warm-start "
+                        "variant hit (beyond it: cold solve)")
     parser.add_argument("--seed-period", type=int, default=None,
                         help="cycle job seeds with this period "
                         "instead of 0..N-1 — with one file, jobs i "
@@ -138,19 +146,13 @@ def set_parser(subparsers):
 
 
 def refuse_unported(args) -> None:
-    """Raise :class:`NotPortedError` for a flag of the fleet, memo or UI
-    tiers (none is accepted and then ignored)."""
+    """Raise :class:`NotPortedError` for a flag of the fleet or UI tiers
+    (none is accepted and then ignored)."""
     refused = []
     if args.replicas > 1:
         refused.append(f"--replicas {args.replicas} (the solve fleet)")
     if args.processes:
         refused.append("--processes (the process fleet)")
-    if args.memo:
-        refused.append("--memo (the solution cache)")
-    if args.memo_ttl is not None:
-        refused.append("--memo-ttl (the solution cache)")
-    if args.memo_max_edits is not None:
-        refused.append("--memo-max-edits (the solution cache)")
     if args.uiport is not None:
         refused.append("--uiport (the GUI server)")
     if refused:
@@ -205,6 +207,14 @@ def run_cmd(args):
             )
             return 1
 
+    memo_cfg = None
+    if args.memo:
+        from pydcop_tpu_torch.serve.memo import MemoConfig
+
+        memo_cfg = MemoConfig(
+            ttl_s=args.memo_ttl, max_edits=args.memo_max_edits,
+        )
+
     try:
         service = SolveService(
             lanes=args.lanes,
@@ -213,6 +223,7 @@ def run_cmd(args):
             max_pending=args.max_pending,
             tenant_quota=args.tenant_quota,
             fault_plan=fault_plan,
+            memo=memo_cfg,
             device=args.device,
         )
     except DeviceUnavailableError as e:

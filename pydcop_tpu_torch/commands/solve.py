@@ -9,7 +9,8 @@ and ``-d`` with a distribution YAML file, which drives a sharded maxsum
 or amaxsum solve (one shard per visible device), with
 ``--shard-overlap`` and ``--shard-boundary-threshold`` (plus the global
 ``--timeout`` and ``--output``), the exact-search options
-``--anytime-exact`` and ``--frontier-width``, and the metrics options
+``--anytime-exact`` and ``--frontier-width``, ``--headroom`` (the
+warm-repair engine, ``metrics()["repair"]``), and the metrics options
 ``-c/--collect_on``, ``--run_metrics`` and ``--end_metrics`` (the JAX
 package's CSV files: one ``RUNNING`` line a cycle of the history, then
 the end line), with ``-m/--mode``, ``--period`` and ``--delay`` accepted
@@ -124,6 +125,13 @@ def set_parser(subparsers):
     parser.add_argument("--frontier-width", type=int, default=0,
                         help="with --anytime-exact (or engine:frontier): "
                         "frontier slab rows B (0 = auto)")
+    # warm repair
+    parser.add_argument("--headroom", type=float, default=None,
+                        help="build the WARM-repair engine with this "
+                        "reserved headroom fraction (e.g. 0.25): live "
+                        "mutations become fixed-shape writes in place "
+                        "with no re-capture; repair counters land in "
+                        "metrics['repair'] (maxsum/mgm/dsa/adsa)")
     return parser
 
 
@@ -214,6 +222,7 @@ def run_cmd(args):
             shard_boundary_threshold=args.shard_boundary_threshold,
             collect_cycles=args.run_metrics is not None
             or args.collect_on == "cycle_change",
+            headroom=args.headroom,
         )
     except Exception as e:
         output_metrics({"status": "ERROR", "error": str(e)}, args.output)
@@ -262,6 +271,7 @@ def _run_batch(args):
         "--dpop-budget-mb/--i-bound/--dpop-no-prune": (
             args.dpop_budget_mb is not None or args.i_bound is not None
             or args.dpop_no_prune),
+        "--headroom": args.headroom is not None,
     }
     given = [name for name, on in unused.items() if on]
     if given:

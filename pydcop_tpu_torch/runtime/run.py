@@ -7,9 +7,10 @@ object (e.g. loaded from a distribution YAML) drives a sharded solve: the
 factors go to the shards of their host agents
 (:func:`_solve_under_placement`, maxsum and amaxsum; with
 ``collect_cycles`` one cycle a dispatch and its cost, as in the JAX
-package).  A distribution
-strategy given by name, checkpointing, warm-repair headroom and the
-elastic driver each refuse with :class:`~pydcop_tpu_torch.errors.NotPortedError`.
+package).  ``headroom`` builds the warm-repair engine
+(``algorithms/warm.py``).  A distribution strategy given by name,
+checkpointing and the elastic path each refuse with
+:class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -73,6 +74,11 @@ def solve_result(
     pipelined dispatch (``algorithms/base.py``); solvers without a chunk
     loop (dpop, syncbb, ncbb) ignore both, as in the JAX package.
 
+    ``headroom`` (a fraction, e.g. 0.25) builds the warm-repair engine
+    at that reserved capacity instead of the cold one (maxsum,
+    maxsum_dynamic, mgm, dsa, adsa; ValueError for the others), and
+    sets ``metrics()["repair"]``.
+
     ``distribution`` as a ``Distribution`` object drives a sharded maxsum
     or amaxsum solve (:func:`_solve_under_placement`) over ``n_shards``
     shards of ``device`` — by default one per visible device of its kind: the card
@@ -84,7 +90,6 @@ def solve_result(
 
     refused = {
         "checkpoint_dir/resume": bool(checkpoint_dir) or resume,
-        "headroom": headroom is not None,
         "fault_plan/elastic": fault_plan is not None or elastic is not None,
         "a distribution strategy given by name": (
             distribution is not None
@@ -98,6 +103,10 @@ def solve_result(
                 f"none")
     dev = resolve_device(device)
     if isinstance(distribution, Distribution):
+        if headroom is not None:
+            raise ValueError(
+                "headroom builds the single-device warm-repair engine; it "
+                "does not combine with a distribution")
         return _solve_under_placement(
             dcop, algo, algo_params, distribution, cycles, timeout, dev,
             shard_overlap, shard_boundary_threshold, n_shards,
@@ -110,8 +119,20 @@ def solve_result(
     algo_module = load_algorithm_module(algo_def.algo)
     graph_module = load_graph_module(graph or algo_module.GRAPH_TYPE)
     cg = graph_module.build_computation_graph(dcop)
-    solver = algo_module.build_solver(dcop, cg, algo_def, seed=seed,
-                                      device=dev)
+    if headroom is not None:
+        from pydcop_tpu_torch.algorithms.warm import build_warm_solver
+        from pydcop_tpu_torch.runtime.stats import RepairCounters
+
+        solver = build_warm_solver(
+            dcop, algo=algo_def.algo, algo_def=algo_def, seed=seed,
+            headroom=headroom, device=dev,
+        )
+        # standalone solves get the scorecard too: metrics()["repair"]
+        # pins that the warm engine (not the cold one) actually ran
+        solver.repair_counters = RepairCounters()
+    else:
+        solver = algo_module.build_solver(dcop, cg, algo_def, seed=seed,
+                                          device=dev)
     stop_cycle = (
         cycles
         if cycles is not None

@@ -2,7 +2,8 @@
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
 harness, the sharded engines, the frontier search, the batched solve
-engine and the solve service use, with the same names and schemas,
+engine, the solve service, the warm-repair layer and the solution cache
+use, with the same names and schemas,
 so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
@@ -205,6 +206,93 @@ class ServeCounters:
             self.events_dropped_by_tenant
         )
         return out
+
+
+#: counter names surfaced under ``SolveResult.metrics()["repair"]`` by
+#: the warm-repair layer (runtime/repair.WarmRepairController +
+#: algorithms/warm) — the JAX package's ``REPAIR_COUNTERS``, name for
+#: name: the fixed-shape mutation scorecard of a live run
+REPAIR_COUNTERS = (
+    "mutations_applied",          # fixed-shape buffer-write mutations
+    "headroom_claimed",           # slots claimed (add variable/factor)
+    "headroom_released",          # slots released (remove)
+    "headroom_exhausted_repacks",  # ONE counted repack per exhaustion
+    "repair_retraces",            # chunk-runner captures caused by
+                                  # repairs (0 while headroom holds)
+    "time_to_recover_s",          # wall seconds from mutation to the
+                                  # re-converged fixed point (float sum)
+)
+
+
+class RepairCounters:
+    """Warm-repair counters collected by the repair controller and
+    attached to every ``SolveResult`` of a warm engine
+    (``metrics()['repair']``).  ``time_to_recover_s`` accumulates float
+    seconds; everything else is an integer count."""
+
+    def __init__(self):
+        self.counts = {
+            k: (0.0 if k == "time_to_recover_s" else 0)
+            for k in REPAIR_COUNTERS
+        }
+
+    def inc(self, name: str, n=1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown repair counter {name!r}; add it to "
+                f"REPAIR_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def as_dict(self) -> dict:
+        out = dict(self.counts)
+        out["time_to_recover_s"] = round(out["time_to_recover_s"], 6)
+        return out
+
+
+#: counter names surfaced under ``metrics()["memo"]`` by the
+#: cross-request solution cache (``serve/memo.py::MemoCache``) — the
+#: JAX package's ``MEMO_COUNTERS``, name for name: the hit-taxonomy /
+#: invalidation / sharing scorecard of a serving run
+MEMO_COUNTERS = (
+    "hits_exact",              # content-hash exact-duplicate hits
+    "hits_variant",            # embedding-matched warm-start hits
+    "misses",                  # lookups that found nothing servable
+    "inserts",                 # solved jobs added to the cache
+    "evicted_lru",             # entries displaced at max_entries
+    "expired_ttl",             # entries dropped past their TTL
+    "invalidated_churn",       # entries dropped by a churn event
+    "variant_rejected_gate",   # candidates refused by the feasibility
+                               # gate (shape mismatch / diff too large)
+    "variant_cold_fallbacks",  # warm repairs discarded for converging
+                               # worse than their seed, or refused by
+                               # the warm path (never-worse guarantee:
+                               # the cold result is served)
+    "variant_repacks",         # headroom-exhausted repacks during replay
+    "corrupt_skipped",         # CRC-failed npz entries skipped-and-
+                               # counted on rehydrate/adopt, never served
+    "rehydrated",              # entries restored from disk by resume()
+    "adopted",                 # entries adopted from peers
+)
+
+
+class MemoCounters:
+    """Solution-cache counters collected by the MemoCache and merged
+    into the serve summary (``SolveService.metrics()['memo']``)."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in MEMO_COUNTERS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown memo counter {name!r}; add it to "
+                f"MEMO_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def as_dict(self) -> dict:
+        return dict(self.counts)
 
 
 def resolved_config(

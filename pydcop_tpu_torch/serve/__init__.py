@@ -8,16 +8,25 @@ deadline, folded into already-running shape buckets at chunk boundaries
 their results stream back as blocking futures, per-job
 anytime-assignment iterators and ``serve.*`` events.  The buckets run on
 the card (cuda unless the caller asks for the CPU) as CUDA graphs of the
-batch engine's bucket runners.
+batch engine's bucket runners.  With ``memo`` a service consults the
+cross-request *solution* cache (:class:`MemoCache`): canonical-hash
+exact hits are replayed, near-duplicates warm-repaired from the nearest
+cached solve.
 
-Not ported yet: the solution cache (``memo``), the router, the
-replicated and process fleets and the runner artifacts.
+Not ported yet: the router, the replicated and process fleets and the
+runner artifacts.
 """
 from pydcop_tpu_torch.serve.errors import (  # noqa: F401
     DeadlineInfeasible,
     ServeError,
     ServiceOverloaded,
     ServiceStopped,
+)
+from pydcop_tpu_torch.serve.memo import (  # noqa: F401
+    MemoCache,
+    MemoConfig,
+    MemoEntry,
+    MemoProbe,
 )
 from pydcop_tpu_torch.serve.scheduler import (  # noqa: F401
     BucketWorker,
@@ -36,6 +45,10 @@ from pydcop_tpu_torch.serve.service import (  # noqa: F401
 __all__ = [
     "BucketWorker",
     "DeadlineInfeasible",
+    "MemoCache",
+    "MemoConfig",
+    "MemoEntry",
+    "MemoProbe",
     "ServeError",
     "ServeJob",
     "ServiceOverloaded",

@@ -69,9 +69,19 @@ Fault isolation is layered the way an OS supervises processes:
 All of it is observable (``serve.fault.*`` events +
 :class:`~pydcop_tpu_torch.runtime.stats.ServeCounters`) and
 deterministically testable through the seedable serve faults in
-:mod:`pydcop_tpu_torch.runtime.faults`.  The solution cache (``memo=``)
-and the portfolio prewarm (``prewarm_predicted``) are not ported yet and
-raise :class:`~pydcop_tpu_torch.errors.NotPortedError`.
+:mod:`pydcop_tpu_torch.runtime.faults`.
+
+With ``memo`` the service consults the cross-request solution cache
+(:mod:`pydcop_tpu_torch.serve.memo`) once per job before admission (its
+content hashes computed on the prep threads, so the tick only looks
+them up): an exact duplicate is answered from the cache with no runner
+call, a k-edit variant by a warm repair of the nearest cached solve (on
+the service's device), never worse than its seed; a miss — or a variant
+the warm path refuses — is solved as usual and its result cached.  A
+device fault in the warm repair ends the job ``ERROR``: it is not
+quietly solved cold.
+The portfolio prewarm (``prewarm_predicted``) is not ported yet and
+raises :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -183,6 +193,12 @@ class ServeJob:
     isolate_key: Optional[str] = None  # quarantine group tag
     lossy_notified: bool = False  # one serve.stream.lossy per job
     service_stopped: bool = False  # failed by a dead scheduler
+    # solution-cache bookkeeping (serve/memo.py): one probe per job,
+    # at its first admission pass
+    memo_checked: bool = False   # probe ran (exactly once per job)
+    memo_future: Any = None      # in-flight background canonicalization
+    memo_probe: Any = None       # the MemoProbe (hit artifacts)
+    memo_served: bool = False    # answered from cache, skip insert
 
     def restore_target(self) -> InstanceDims:
         """The exact padded target a checkpointed job must re-seat at
@@ -239,8 +255,10 @@ class SolveService:
     ``backoff_base``/``backoff_max`` shape both exponential backoffs
     (the JAX package's watchdog policy).  ``fault_plan`` arms the
     seedable serve-fault injector (runtime/faults.py) for deterministic
-    chaos testing.  ``memo`` (the solution cache) is not ported: a
-    truthy value raises :class:`NotPortedError`.
+    chaos testing.  ``memo`` is None/False (no solution cache), True /
+    a :class:`~pydcop_tpu_torch.serve.memo.MemoConfig` (build one on the
+    service's device, persisted beside the journal when there is one),
+    or a ready :class:`~pydcop_tpu_torch.serve.memo.MemoCache`.
     """
 
     def __init__(
@@ -265,10 +283,6 @@ class SolveService:
         memo=None,
         device: DeviceLike = None,
     ):
-        if memo:
-            raise NotPortedError(
-                "the cross-request solution cache (SolveService(memo=...), "
-                "serve --memo) is not ported to the PyTorch package yet")
         self.device = resolve_device(device)
         self.lanes = int(lanes)
         self.max_buckets = max_buckets
@@ -321,6 +335,23 @@ class SolveService:
         #: runner calls of closed workers and of prewarms (the live
         #: workers' are added in metrics())
         self._runner_calls = dict.fromkeys(RUNNER_CALLS, 0)
+        #: cross-request solution cache (serve/memo.py)
+        self.memo = None
+        if memo is not None and memo is not False:
+            from pydcop_tpu_torch.serve.memo import (
+                MEMO_SUBDIR,
+                MemoCache,
+                MemoConfig,
+            )
+
+            if isinstance(memo, MemoCache):
+                self.memo = memo
+            else:
+                cfg = memo if isinstance(memo, MemoConfig) else None
+                mdir = (os.path.join(journal_dir, MEMO_SUBDIR)
+                        if journal_dir else None)
+                self.memo = MemoCache(cfg, directory=mdir,
+                                      device=self.device)
         if journal_dir:
             os.makedirs(os.path.join(journal_dir, CKPT_SUBDIR),
                         exist_ok=True)
@@ -606,7 +637,13 @@ class SolveService:
             self._tenant_open[tenant] = (
                 self._tenant_open.get(tenant, 0) + 1
             )
-        if (
+        if self.memo is not None and self._prep_pool is not None:
+            # the content hashes off the scheduler thread (the tick's
+            # probe is then index lookups only); the spec build waits
+            # for the probe's miss — an exact hit never needs it
+            job.memo_future = self._prep_pool.submit(
+                self.memo.canonicalize, dcop)
+        elif (
             job.spec is None
             and self._prep_pool is not None
             and algo in SUPPORTED_ALGOS
@@ -702,12 +739,23 @@ class SolveService:
                 return
             deadline = monotonic() + timeout
 
+    def churn_event(self, tenant: Optional[str] = None) -> int:
+        """A churn event (live mutation burst, scenario epoch, tenant
+        redeploy) makes cached RESULTS stale even though the service
+        itself is fine: drop the tenant's solution-cache namespace
+        (every tenant when None).  No-op without a memo cache; returns
+        the number of entries invalidated."""
+        if self.memo is None:
+            return 0
+        return self.memo.churn_event(tenant)
+
     def metrics(self) -> Dict[str, Any]:
         """The serve counters, the runner cache's stats, the open
         buckets, the pending count and ``runners``: the eager calls,
         captures, replays and rank-table regrows of the bucket runners
         this service drove (its prewarms included), as
-        ``BatchEngine.metrics()`` reports them."""
+        ``BatchEngine.metrics()`` reports them; with a solution cache,
+        its scorecard under ``memo``."""
         with self._lock:
             workers = [
                 {"algo": w.algo, "signature": list(map(str, w.signature)),
@@ -719,13 +767,16 @@ class SolveService:
             for w in self._workers:
                 for k, v in w.runner_calls().items():
                     runners[k] += v
-        return {
+        out = {
             "serve": self.counters.as_dict(),
             "cache": {**self.cache.stats(), **self.cache.pool_stats()},
             "workers": workers,
             "pending": pending,
             "runners": runners,
         }
+        if self.memo is not None:
+            out["memo"] = self.memo.stats()
+        return out
 
     # -- prewarm ------------------------------------------------------------
 
@@ -1191,6 +1242,22 @@ class SolveService:
             if gated:  # quarantine backoff gate
                 not_ready.append(job)
                 continue
+            if self.memo is not None and not job.memo_checked:
+                if job.memo_future is not None \
+                        and not job.memo_future.done():
+                    not_ready.append(job)
+                    continue
+                job.memo_checked = True
+                if self._serve_from_memo(job):
+                    continue
+                if (job.spec is None and job.spec_future is None
+                        and self._prep_pool is not None
+                        and job.algo in SUPPORTED_ALGOS):
+                    # a miss: its spec now builds in the background
+                    job.spec_future = self._prep_pool.submit(
+                        self._build_spec, job)
+                    not_ready.append(job)
+                    continue
             ready = self._prepare(job)
             if ready is False:
                 continue
@@ -1432,6 +1499,58 @@ class SolveService:
                 self._runner_calls[k] += v
         w.close(keep_runner)
 
+    def _serve_from_memo(self, job: ServeJob) -> bool:
+        """Consult the cross-request solution cache before paying for
+        admission.  Returns True when the job was answered — from the
+        cache (exact replay, no runner call; or a warm-repaired
+        variant) or as ``ERROR`` when the lookup or the warm repair
+        raised (a device fault is never hidden behind a cold solve);
+        False routes it onward with its probe attached, so completion
+        caches the solve.  Runs on the scheduler thread, like
+        ``_solve_fallback``."""
+        try:
+            artifacts = None
+            if job.memo_future is not None:
+                artifacts = job.memo_future.result()
+                job.memo_future = None
+            probe = self.memo.probe(
+                job.dcop, job.algo, algo_params=job.algo_params,
+                seed=job.seed, tenant=job.tenant, artifacts=artifacts,
+            )
+            job.memo_probe = probe
+            if probe.kind == "exact":
+                res = self.memo.result_from_entry(probe.entry, probe)
+                res.time = monotonic() - job.submitted_at
+                job.memo_served = True
+                self._complete(job, res)
+                return True
+            if probe.kind != "variant":
+                return False
+            res = self.memo.serve_variant(
+                probe, job.dcop, algo_params=job.algo_params,
+                device=self.device,
+            )
+        except Exception as e:
+            job.memo_served = True
+            self._complete(job, SolveResult(
+                status="ERROR", assignment={}, cost=None, violation=None,
+                cycle=0, msg_count=0, msg_size=0.0,
+                time=monotonic() - job.submitted_at,
+            ), error=f"solution cache: {e!r}")
+            return True
+        if res is not None:
+            res.time = monotonic() - job.submitted_at
+            job.memo_served = True
+            self._complete(job, res)
+            return True
+        # the warm repair could not uphold the never-worse guarantee (or
+        # refused the diff): mark the provenance and solve cold through
+        # the normal path (the fallback is counted by the cache)
+        probe.kind = "miss"
+        probe.cold_fallback = True
+        probe.entry = probe.diff = probe.distance = None
+        return False
+
     def _solve_fallback(self, job: ServeJob) -> None:
         """Algorithms outside the batched set solve sequentially on
         the scheduler thread, on the service's device (mgm2 runs its
@@ -1491,6 +1610,22 @@ class SolveService:
             "jid": job.jid,
             "resumed": job.resumed,
         }
+        if self.memo is not None and job.memo_probe is not None:
+            job.memo_probe.decorate(res)
+            if (not job.memo_served and error is None
+                    and res.status == "FINISHED"):
+                entry = self.memo.memoize(job.memo_probe, job.dcop, res)
+                inj = self._injector
+                if entry is not None and entry.path and inj is not None:
+                    due = inj.due("corrupt_cache_entry", self._ticks,
+                                  jid=job.jid)
+                    if due is not None:
+                        self.counters.inc("faults_injected")
+                        send_serve("fault.injected", {
+                            "kind": "corrupt_cache_entry",
+                            "jid": job.jid,
+                        })
+                        self.memo.corrupt_entry(entry.key)
         payload = {
             "jid": job.jid, "status": res.status, "cycle": res.cycle,
             "cost": res.cost, "latency": round(res.time, 4),
@@ -1712,6 +1847,13 @@ class SolveService:
             return 0
         from pydcop_tpu_torch.dcop import load_dcop_from_file
         from pydcop_tpu_torch.runtime.checkpoint import read_state_npz
+
+        if self.memo is not None:
+            # rehydrate the solution cache from its CRC'd npz entries
+            # beside the journal — a duplicate of an already-served job
+            # hits again right after the crash; corrupt entries are
+            # skipped-and-counted, never served
+            self.memo.rehydrate()
 
         path = os.path.join(self.journal_dir, JOBS_JOURNAL)
         if not os.path.exists(path):

@@ -5,8 +5,9 @@ The test process itself has JAX loaded (``tests/conftest.py`` imports
 it), so the import check runs in a fresh interpreter: it imports the
 port (its sharded engines, K3's wrapper and the serve modules included),
 solves the tutorial instance on the CPU (maxsum, dpop, maxsum and amaxsum
-sharded by a placement, and one maxsum job served by a SolveService) and
-reports every
+sharded by a placement, and one maxsum job and a one-edit variant of it
+served by a SolveService with its solution cache, the variant by a warm
+repair) and reports every
 JAX or JAX-package module that got loaded.  A source scan backs it up for code
 paths a single solve does not reach."""
 import ast
@@ -37,6 +38,12 @@ from pydcop_tpu_torch.runtime import solve_result
 from pydcop_tpu_torch.runtime import checkpoint, faults
 from pydcop_tpu_torch.serve import SolveService, errors, scheduler, service
 from pydcop_tpu_torch.commands import serve as serve_cmd
+from pydcop_tpu_torch.ops import headroom
+from pydcop_tpu_torch.algorithms import warm
+from pydcop_tpu_torch.runtime import repair
+from pydcop_tpu_torch.dcop import canonical
+from pydcop_tpu_torch.portfolio import features
+from pydcop_tpu_torch.serve import memo
 make_parser()
 dcop = load_dcop_from_file([sys.argv[2]])
 res = solve_result(dcop, "maxsum", device="cpu")
@@ -48,17 +55,28 @@ sharded = solve_result(dcop, "maxsum", distribution=dist, n_shards=2,
                        device="cpu")
 asharded = solve_result(dcop, "amaxsum", distribution=dist, n_shards=2,
                         cycles=40, device="cpu")
-svc = SolveService(lanes=2, device="cpu")
+svc = SolveService(lanes=2, device="cpu", memo=True)
 jid = svc.submit(dcop, "maxsum", seed=0)
 for _ in range(200):
     if not svc.tick():
         break
 served = svc.result(jid, timeout=10)
+# a one-edit variant: served by a warm repair (features, canonical
+# hashes, the warm solver and its controller)
+name = sorted(dcop.constraints)[0]
+dcop.constraints[name] = repair.perturbed_constraint(
+    dcop.constraints[name], seed=1)
+jid = svc.submit(dcop, "maxsum", seed=0)
+for _ in range(200):
+    if not svc.tick():
+        break
+variant = svc.result(jid, timeout=10).metrics()["memo"]["hit"]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pydcop_tpu"))
 print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost,
                   "sharded_cost": sharded.cost, "served_cost": served.cost,
-                  "amaxsum_status": asharded.status, "bad": bad}))
+                  "amaxsum_status": asharded.status, "variant": variant,
+                  "bad": bad}))
 """
 
 
@@ -74,6 +92,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert got["sharded_cost"] == 12
     assert got["served_cost"] == 12
     assert got["amaxsum_status"] == "FINISHED"
+    assert got["variant"] == "variant"
     assert got["bad"] == []
 
 

@@ -238,8 +238,18 @@ def test_swap_factor_refuses():
 
 
 def test_headroom_not_ported():
-    with pytest.raises(NotPortedError, match="headroom"):
-        build_solver(_equality_dcop(), device="cpu", headroom=0.25)
+    """``headroom=`` was refused until the warm engine was ported; it now
+    builds the warm engine (``tests/test_torch_warm_repair.py`` holds it
+    to the JAX package), and only its combination with the packed
+    engine, which the warm layer does not run, is refused."""
+    from pydcop_tpu_torch.algorithms.warm import WarmMaxSumSolver
+
+    solver = build_solver(_equality_dcop(), device="cpu", headroom=0.25)
+    assert isinstance(solver, WarmMaxSumSolver)
+    assert solver.run(cycles=10).assignment == {"x": 0, "y": 0}
+    with pytest.raises(ValueError, match="use_packed"):
+        build_solver(_equality_dcop(), device="cpu", headroom=0.25,
+                     use_packed=True)
 
 
 # ---------------------------------------------------------------------------

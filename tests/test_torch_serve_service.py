@@ -18,8 +18,7 @@ noise 0):
 * deadlines and pressure, prewarm hits, the background thread end to
   end, the fallback algorithms (mgm2, dpop) on the service's device,
   ``serve.*`` events and the counters, the ``metrics()`` shape, the
-  cuda default and the refused options (``memo=``,
-  ``prewarm_predicted``).
+  cuda default and the refused option (``prewarm_predicted``).
 
 Tests drive :meth:`SolveService.tick` synchronously (no scheduler
 thread) where the schedule matters; every service is stopped by the
@@ -305,11 +304,15 @@ class TestPrewarm:
         assert cache.hits == 3 and cache.misses == 1
 
     def test_predicted_prewarm_and_memo_are_refused(self, services):
+        """The portfolio prewarm is still refused; ``memo=`` was refused
+        until the solution cache was ported and now builds one
+        (``tests/test_torch_memo.py`` holds it to the JAX package)."""
+        from pydcop_tpu_torch.serve import MemoCache
+
         svc = services()
         with pytest.raises(NotPortedError, match="prewarm_predicted"):
             svc.prewarm_predicted([_load()])
-        with pytest.raises(NotPortedError, match="solution cache"):
-            SolveService(memo=True, device="cpu")
+        assert isinstance(services(memo=True).memo, MemoCache)
 
 
 class TestMergeAndEvict:

@@ -96,7 +96,7 @@ def test_unported_options_refuse():
 
     dcop = load_dcop_from_file(_path("graph_coloring_tuto"))
     for kw in ({"distribution": "oneagent"}, {"checkpoint_dir": "x"},
-               {"headroom": 0.25}, {"elastic": {}}):
+               {"elastic": {}}):
         with pytest.raises(NotPortedError):
             solve_result(dcop, "maxsum", device="cpu", **kw)
     with pytest.raises(NotPortedError):
