@@ -52,8 +52,8 @@ printed.
    mgm2_kernel_vs_plain: the MGM-2 kernel (one cooperative launch a
    call, the six rounds of each cycle phases split by grid barriers)
    against its plain version on those four instances and the 100k/300k
-   colouring, from one x and one set of coins: x equal after 20 cycles
-   for each favor at threshold 0.5 and for unilateral at thresholds 0
+   colouring, from one x and one set of coins: x equal after 10 cycles
+   (MGM2_CHECK_CYCLES) for each favor at threshold 0.5 and for unilateral at thresholds 0
    and 1, at the wrapper's grid and at forced grids of 1 and 3 blocks;
    and on the near-tie instances of ``mgm2_tie_case`` (binary and mixed
    layouts: the response and winner rounds walk a column's slots again,
@@ -77,7 +77,7 @@ printed.
    a star whose hub holds 2,500 unary, binary and ternary factors, and a
    6,000-variable graph of arity 1-4 with domains of 4 and 3 values;
    there also the mixed branch of the MGM-2 kernel against its plain
-   version, cycle by cycle for 20 cycles from one x and one set of coins,
+   version, cycle by cycle for 10 cycles from one x and one set of coins,
    for each favor at threshold 0.5, at the wrapper's grid and at forced
    grids of 1 and 3 blocks (x equal after every cycle; offers, accepted
    pairs and pair moves printed; some graph must make pair moves);
@@ -157,8 +157,9 @@ printed.
    PyTorch tensor code on the card, no kernel of its own) on the JAX
    bench's two anytime-search instances (k10x4: a 10-clique at D=4,
    i_bound 0; k11x3_ib2: two 11-cliques at D=3, i_bound 2), width 256, 8
-   steps a chunk: optimal, cost equal to the port's NCBB, cost,
-   assignment and per-chunk history equal to the CPU frontier's, the
+   steps a chunk: optimal, cost equal to the port's NCBB, per-chunk
+   history equal to the CPU frontier's over its first 150 chunks
+   (cost, assignment and chunks too where it proves within them), the
    bound sandwich and a monotone incumbent; its first chunks run with
    ``torch.cuda.set_sync_debug_mode("error")`` around the chunk call
    (one host read a chunk, after it); nodes/s, chunks and time to the
@@ -194,7 +195,7 @@ printed.
    chunk later (``overshoot_cycles``);
    batch: the batched engine (``pydcop_tpu_torch.batch.BatchEngine``) on
    the JAX bench leg's 500-variable / 1,500-edge 3-colour soft
-   colourings: a bucket of 32 for each of maxsum, mgm, dsa, adsa and
+   colourings: a bucket of 16 for each of maxsum, mgm, dsa, adsa and
    gdba, 50 cycles and to convergence (at most 300), every lane equal to
    its sequential solve on the card (maxsum's generic engine) and no
    kernel of the port launched; then mgm at B = 1, 8, 32 and 1,000 (40
@@ -229,13 +230,13 @@ printed.
    (200,000 binary factors, D = 4, tables uniform [0, 5) from
    ``default_rng(77)``, headroom 0.1, chunk 10, damping 0.7) through
    a ``WarmRepairController`` and ``solver.run``: 60 base chunks, then
-   50 seeded table edits (``edit_factor``, writes in place) each
+   25 seeded table edits (``edit_factor``, writes in place) each
    followed by a 3-chunk ``run(resume=True)`` window — captures
    unchanged, ms a write and a window, the first chunk and the first
    three windows equal to a CPU controller's (values equal, messages
    within TOL); five factors on one variable run it past its plan
    depth — exactly one repack at this size, one more capture; mgm through ``build_warm_solver`` + ``change_factor_function``
-   + ``run(resume=True)`` at 2,000 variables, 50 edits — captures
+   + ``run(resume=True)`` at 2,000 variables, 25 edits — captures
    unchanged, every window's assignment and cost equal to the CPU run;
    a controller with one free variable slot given two variables —
    exactly one repack and one more capture, equal to the CPU run;
@@ -250,7 +251,30 @@ printed.
    ``corrupt_cache_entry`` fault skipped and counted, never served; then
    the serve phase's at-size Poisson stream (512 mgm jobs, 64 problems,
    64 lanes, 25 jobs/s) with the cache, job i at seed i mod 64 — every
-   exact hit equal to its first copy, hits by kind, jobs/s, p50/p99.
+   exact hit equal to its first copy, hits by kind, jobs/s, p50/p99;
+   fleet: the thread-hosted ``SolveFleet`` (one CUDA context): the JAX
+   bench's fleet leg (the serve leg's 24 dsa jobs, Poisson 20 jobs/s)
+   at 1, 2 and 4 replicas, every job equal to its standalone solve on
+   the card, then a tick-driven ``kill_replica`` of replica-0 of 2 —
+   every job equal, the orphans re-seated, the RTO; the 512-job mgm
+   burst at 64 lanes at 1 and 2 replicas (a sample of 32 checked); two
+   replicas' prewarms at once (captures on two scheduler threads, then
+   replays, every job equal); an mgm2 and a dpop job through a
+   replica's fallback (K6, K10 counted, equal to the CPU solve);
+   procfleet: the ``ProcessFleet`` (children ``serve-replica --device
+   cuda``, each its own CUDA context; the kernels built before any
+   child starts): the fleet leg at 1, 2 and 4 of four children, an
+   mgm2 job in each of two children at once (K6 in two contexts, equal
+   to the CPU solve), kill -9 of a child holding jobs (every job
+   equal, re-seats, RTO, the relaunch), a ``corrupt_artifact`` fault
+   rejected and counted by the relaunched child; then the 512-job
+   burst (its jobs on 16 of the family's problems, whose files every
+   child loads first) at 1, 2 and 4 children of a fleet grown by cold
+   joins from the artifact store (misses 0, no ``nvcc`` run), with the
+   card's free memory and each child's reserve at each size.
+
+``python3 chip_smoke.py --phases fleet,procfleet`` runs those phases
+alone (no kernel check, no result lines).
 
 ``python3 chip_smoke.py --ab PARENT_TREE
 [k1,k1_mixed,mgm2,mgm,dsa,k2,dpop,sharded,harness]`` runs no phase above: it
@@ -311,12 +335,32 @@ SECP_BIG_SCALE = 10
 
 
 def say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t": round(time.perf_counter() - SCRIPT_T0, 1)}),
+          flush=True)
 
 
 def fail(phase, msg):
     print(json.dumps({"phase": phase, "error": msg}), flush=True)
     sys.exit(1)
+
+
+def run_all(cmds, timeout):
+    """Run the commands (argv lists, from the repository's root) all at
+    once; returns ``(returncode, stdout, stderr)`` in their order."""
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=ROOT)
+             for argv in cmds]
+    out = []
+    for proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        out.append((proc.returncode, stdout, stderr))
+    return out
 
 
 def coloring_arrays(V, E, C=3, seed=1):
@@ -979,7 +1023,13 @@ def mgm2_run(pm, x, u, threshold, favor, grid):
     return M._launch_cycles(pm, x, *u, threshold, favor, grid)
 
 
-def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
+#: cycles each K6 check (binary and mixed) holds the kernel to its plain
+#: version: the plain MGM-2 at the degree-2,500 stars is the script's
+#: slowest check (20 before the fleets' phases were added)
+MGM2_CHECK_CYCLES = 10
+
+
+def mgm2_kernel_vs_plain(pm, cycles=MGM2_CHECK_CYCLES, seed=0):
     """The MGM-2 kernel against its plain version on the card, from one
     x and one set of coins, for each rule of MGM2_RULES, at the wrapper's
     grid and at the forced ones.  Returns (max abs error over every x,
@@ -1011,7 +1061,7 @@ def mgm2_kernel_vs_plain(pm, cycles=20, seed=0):
     return err, stats
 
 
-def mgm2_mixed_vs_plain(pm, cycles=20, seed=0):
+def mgm2_mixed_vs_plain(pm, cycles=MGM2_CHECK_CYCLES, seed=0):
     """The mixed branch of the MGM-2 kernel against its plain version on
     the card, cycle by cycle from one x and one set of coins, for each
     favor at threshold 0.5, at the wrapper's grid and at the forced ones
@@ -2701,6 +2751,10 @@ def lane_permute_vs_plain_and_times(N, S=3, reps=200):
 SEARCH_CASES = {"k10x4": (10, 1, 4, 3, 0), "k11x3_ib2": (11, 2, 3, 7, 2)}
 #: the frontier's shape on them, as the JAX bench runs them
 SEARCH_WIDTH, SEARCH_STEPS = 256, 8
+#: the CPU frontier the card's is held to runs at most this many chunks
+#: (k11x3_ib2 takes ~870, ~45 s on the CPU): the card's first chunks'
+#: history equals it, and the card's proof equals NCBB's optimum
+SEARCH_CPU_CHUNKS = 150
 #: chunks run with torch.cuda.set_sync_debug_mode("error") around the
 #: chunk call, the one read after it
 SEARCH_SYNC_CHUNKS = 20
@@ -2842,8 +2896,10 @@ def frontier_profile(eng, state, chunks=5):
 def search_frontier_phase(smi, device="cuda"):
     """The frontier on the JAX bench's two anytime-search instances, on
     the card: it proves optimality, its cost equals the port's NCBB host
-    loop, its cost, assignment and per-chunk history equal the CPU
-    frontier's, the lower bound never exceeds the upper bound and the
+    loop, its per-chunk history equals the CPU frontier's over the CPU's
+    first SEARCH_CPU_CHUNKS chunks (and its cost, assignment and chunks
+    too where the CPU proves within them), the lower bound never exceeds
+    the upper bound and the
     incumbent never rises; a chunk reads the device once (its first
     SEARCH_SYNC_CHUNKS chunks run with the sync debug mode at "error"
     around the chunk call).  Returns the card/CPU rows."""
@@ -2861,7 +2917,7 @@ def search_frontier_phase(smi, device="cuda"):
         ncbb = NcbbSolver(dcop, device=device).run()
         ncbb_s = time.perf_counter() - t0
         cpu = FrontierSearchSolver(dcop, device="cpu", **kw).run(
-            collect_cycles=True)
+            cycles=SEARCH_CPU_CHUNKS, collect_cycles=True)
         solver = FrontierSearchSolver(dcop, device=device, **kw)
         torch.cuda.synchronize()
         res = solver.run(collect_cycles=True)
@@ -2869,15 +2925,16 @@ def search_frontier_phase(smi, device="cuda"):
         if not s["optimal"] or res.cost != ncbb.cost:
             fail("search_frontier", f"{name}: optimal={s['optimal']} cost "
                  f"{res.cost} against NCBB's {ncbb.cost}")
-        if (res.cost, res.assignment, res.cycle, s["nodes"]) != (
-                cpu.cost, cpu.assignment, cpu.cycle, c["nodes"]):
+        if c["optimal"] and (res.cost, res.assignment, res.cycle,
+                             s["nodes"]) != (cpu.cost, cpu.assignment,
+                                             cpu.cycle, c["nodes"]):
             fail("search_frontier", f"{name}: card cost {res.cost} in "
                  f"{res.cycle} chunks, {s['nodes']} nodes != CPU cost "
                  f"{cpu.cost} in {cpu.cycle} chunks, {c['nodes']} nodes "
                  f"(same assignment: {res.assignment == cpu.assignment})")
         keys = ("cycle", "cost", "lower_bound", "upper_bound", "gap")
-        if [[h[k] for k in keys] for h in res.history] != \
-                [[h[k] for k in keys] for h in cpu.history]:
+        if [[h[k] for k in keys] for h in res.history[:len(cpu.history)]] \
+                != [[h[k] for k in keys] for h in cpu.history]:
             fail("search_frontier", f"{name}: the card's per-chunk "
                  f"history differs from the CPU's")
         inc = [h["cost"] for h in res.history if h["cost"] is not None]
@@ -2918,7 +2975,8 @@ def search_frontier_phase(smi, device="cuda"):
             optimal=True, cost=res.cost, ncbb_cost=ncbb.cost,
             cpu_cost=cpu.cost, chunks=s["chunks"], nodes=s["nodes"],
             nodes_per_s=s["nodes_per_s"], cpu_nodes_per_s=c["nodes_per_s"],
-            time_to_proof_s=res.time, cpu_time_to_proof_s=cpu.time,
+            time_to_proof_s=res.time, cpu_chunks=cpu.cycle,
+            cpu_optimal=bool(c["optimal"]), cpu_s=cpu.time,
             ms_per_chunk=1e3 * res.time / max(1, s["chunks"]),
             scalar_reads_per_chunk=s["scalar_reads"] / max(1, s["chunks"]),
             host_reads_per_chunk=1, sync_checked_chunks=n_sync,
@@ -2939,22 +2997,20 @@ def search_dpop_frontier_phase(device="cuda"):
     with open(path, "w", encoding="utf-8") as f:
         f.write(dcop_yaml(search_dcop(K, R, D, seed)))
     got = {}
-    for tag, argv in (("sweep", ["-a", "dpop"]),
-                      ("dpop_frontier", ["-a", "dpop", "-p",
-                                         "engine:frontier"]),
-                      ("anytime_exact", ["--anytime-exact"])):
-        proc = subprocess.run(
-            [sys.executable, "-m", "pydcop_tpu_torch", "solve", *argv,
-             "--device", device, path], capture_output=True, text=True,
-            timeout=600, cwd=ROOT)
+    runs = (("sweep", ["-a", "dpop"]),
+            ("dpop_frontier", ["-a", "dpop", "-p", "engine:frontier"]),
+            ("anytime_exact", ["--anytime-exact"]))
+    procs = run_all([[sys.executable, "-m", "pydcop_tpu_torch", "solve",
+                      *argv, "--device", device, path]
+                     for _tag, argv in runs], timeout=600)
+    for (tag, _argv), (rc, stdout, stderr) in zip(runs, procs):
         try:
-            got[tag] = json.loads(proc.stdout)
+            got[tag] = json.loads(stdout)
         except ValueError:
-            fail("search_dpop_frontier", f"{tag}: rc={proc.returncode} no "
-                 f"JSON; stderr: {proc.stderr[-2000:]}")
-        if proc.returncode != 0 or got[tag].get("status") != "FINISHED":
-            fail("search_dpop_frontier", f"{tag}: rc={proc.returncode} "
-                 f"{got[tag]}")
+            fail("search_dpop_frontier", f"{tag}: rc={rc} no JSON; "
+                 f"stderr: {stderr[-2000:]}")
+        if rc != 0 or got[tag].get("status") != "FINISHED":
+            fail("search_dpop_frontier", f"{tag}: rc={rc} {got[tag]}")
     sweep = got["sweep"]["cost"]
     for tag in ("dpop_frontier", "anytime_exact"):
         r = got[tag]
@@ -3621,8 +3677,9 @@ BATCH_PROBLEMS = 40
 #: the second captures and replays, the third replays
 BATCH_TURNS = 3
 #: the bucket each batched algorithm is held to its sequential solves at,
-#: with fixed cycles and to convergence (at most this many cycles)
-BATCH_EQ_B, BATCH_EQ_MAX_CYCLES = 32, 300
+#: with fixed cycles and to convergence (at most this many cycles); 32
+#: before the fleets' phases were added
+BATCH_EQ_B, BATCH_EQ_MAX_CYCLES = 16, 300
 BATCH_ALGOS = ("maxsum", "mgm", "dsa", "adsa", "gdba")
 
 
@@ -3776,7 +3833,7 @@ SERVE_BIG_LANES, SERVE_BIG_RATE, SERVE_SAMPLE = 64, 25.0, 32
 #: the jobs of the burst traced by torch.profiler for the busy share
 SERVE_PROFILE_JOBS = 64
 #: seconds into the script after which the big runs take half the jobs
-SERVE_CUT_AFTER_S = 850.0
+SERVE_CUT_AFTER_S = 500.0
 #: the sequential fallback's instances (K6 and K10 through the service)
 SERVE_MGM2_V, SERVE_DPOP_NODES = 2_000, 3_000
 #: when the script started (the serve phase cuts its job count near the
@@ -4254,7 +4311,7 @@ def dpop_batched_phase(smi, trees, device="cuda"):
 #: included, takes about two seconds); WARM_REPACK_ADDS factors added
 #: to one variable of degree 4 (plan depth 8) run the stream past its
 #: headroom
-WARM_V, WARM_D, WARM_EDITS, WARM_CHUNK = 100_000, 4, 50, 10
+WARM_V, WARM_D, WARM_EDITS, WARM_CHUNK = 100_000, 4, 25, 10
 WARM_BASE_CHUNKS, WARM_WINDOW, WARM_CPU_EDITS = 60, 3, 3
 WARM_REPACK_ADDS = 5
 #: the warm phase's mgm sub-leg (bench_churn's: 2,000 variables, 6,000
@@ -4579,7 +4636,7 @@ MEMO_V, MEMO_COLD_CYCLES, MEMO_BASES = 800, 2000, 4
 #: the at-size stream with the cache: serve_at_size's Poisson
 #: stream, job i on problem i % 64 at seed i % 64; seconds into the
 #: script after which it takes half the jobs (a quarter 100 s later)
-MEMO_STREAM_CUT_AFTER_S = 950.0
+MEMO_STREAM_CUT_AFTER_S = 650.0
 
 
 def memo_instance(seed, edit_seed=None):
@@ -4778,6 +4835,669 @@ def memo_phase(smi, device="cuda"):
         script_s=round(time.perf_counter() - SCRIPT_T0, 1))
 
 
+# --------------------------------------------------------------------------
+# the solve fleets: threads (one CUDA context) and child processes
+# --------------------------------------------------------------------------
+
+#: the JAX bench's fleet leg (bench.py:1412-1560): the serve leg's trace
+#: (dsa) at 1, 2 and 4 replicas, then a kill of replica-0 of 2 at
+#: supervisor pass FLEET_KILL_TICK
+FLEET_ALGO, FLEET_REPLICAS, FLEET_KILL_TICK = "dsa", (1, 2, 4), 4
+#: the at-size burst (SERVE_BIG_JOBS mgm jobs at SERVE_BIG_LANES lanes)
+#: at these replica counts: threads, processes
+FLEET_BURST_REPLICAS, PROCFLEET_BURST_REPLICAS = (1, 2), (1, 2, 4)
+#: the mgm2 job run in each of two children at once (K6 in two CUDA
+#: contexts), held to its CPU solve
+PROCFLEET_MGM2_V = 500
+#: the process fleet's burst draws its jobs from the family's first
+#: PROCFLEET_BURST_PROBLEMS problems (half of each size): every child
+#: loads each problem's YAML file before the burst, 0.4-0.6 s a file on
+#: the chip machine's host
+PROCFLEET_BURST_PROBLEMS = 16
+#: a wait longer than two of a child's report intervals (0.25 s): every
+#: child's next report reads the card's memory after the last change
+PROCFLEET_REPORT_S = 0.6
+#: past this many seconds into the script the bursts are halved
+FLEET_CUT_AFTER_S = 1000.0
+
+
+_BIG_PROBLEMS = []
+
+
+def big_problems():
+    """The serve phase's at-size family (SERVE_BIG_PROBLEMS mgm
+    colourings of SERVE_BIG_V / SERVE_BIG_V // 2 variables), built once
+    a process."""
+    if not _BIG_PROBLEMS:
+        _BIG_PROBLEMS.extend(serve_family(SERVE_BIG_PROBLEMS, SERVE_BIG_V,
+                                          seed0=500))
+    return _BIG_PROBLEMS
+
+
+def fleet_replay(fleet, jobs, algo, offsets, files=None):
+    """Submit ``jobs`` (job i: ``(dcop, seed)``, and its YAML ``files[i]``
+    for a process fleet) at ``offsets[i]`` seconds into a started fleet;
+    every result awaited.  Latency is against the scheduled arrival,
+    as the JAX bench's fleet leg reads it (a process fleet's result time
+    is the child's, without the socket's transit)."""
+    t0 = time.perf_counter()
+    sub = []
+    for i, (d, seed) in enumerate(jobs):
+        wait = offsets[i] - (time.perf_counter() - t0)
+        if wait > 0:
+            time.sleep(wait)
+        kw = {"source_file": files[i]} if files else {}
+        sub.append((fleet.submit(d, algo, seed=seed, **kw),
+                    time.perf_counter() - t0))
+    results = [fleet.result(jid, timeout=600) for jid, _ in sub]
+    done = [s + r.time for (_, s), r in zip(sub, results)]
+    lat = np.array([c - o for c, o in zip(done, offsets)])
+    wall = max(done)
+    return results, dict(
+        jobs=len(jobs), wall_s=wall, jobs_per_s=len(jobs) / wall,
+        p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        replicas_served=sorted({r.serve["replica"] for r in results}),
+        statuses=sorted({r.status for r in results}))
+
+
+def fleet_check(phase, what, results, want, which=None):
+    """Each checked result's (assignment, cost, cycle, status) equal to
+    ``want`` (its standalone solve on the card)."""
+    bad = [(i, results[i].cost, want[i].cost, results[i].cycle,
+            want[i].cycle, results[i].status)
+           for i in (range(len(results)) if which is None else which)
+           if (results[i].assignment, results[i].cost, results[i].cycle,
+               results[i].status) != (want[i].assignment, want[i].cost,
+                                      want[i].cycle, want[i].status)]
+    if bad:
+        fail(phase, f"{what}: {len(bad)} jobs differ from their standalone "
+             f"solves on the card (job, cost, want, cycle, want, status): "
+             f"{bad[:4]}")
+
+
+def fleet_runners(fleet):
+    """The bucket runners' calls summed over a thread fleet's replicas."""
+    out = {}
+    for h in fleet._handles.values():
+        for k, v in h.service.metrics()["runners"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def fleet_burst_jobs(n_problems=SERVE_BIG_PROBLEMS):
+    """The at-size burst: SERVE_BIG_JOBS mgm jobs (halved past
+    FLEET_CUT_AFTER_S), job i on problem i % ``n_problems`` of the big
+    family at seed i, a sample of SERVE_SAMPLE of them checked."""
+    n = SERVE_BIG_JOBS
+    cut = time.perf_counter() - SCRIPT_T0 > FLEET_CUT_AFTER_S
+    if cut:
+        n //= 2
+    problems = big_problems()
+    jobs = [(problems[i % n_problems], i) for i in range(n)]
+    sample = list(range(0, n, max(1, n // SERVE_SAMPLE)))[:SERVE_SAMPLE]
+    return jobs, sample, cut
+
+
+def fleet_trace_leg(smi, device):
+    """The JAX bench's fleet leg on the card at 1, 2 and 4 thread
+    replicas (prewarmed, then started), every job equal to its
+    standalone solve; then 2 replicas, tick-driven, with ``kill_replica``
+    of replica-0 at supervisor pass FLEET_KILL_TICK: every job equal to
+    the unfailed run, the orphans re-seated, a finite RTO."""
+    import tempfile
+
+    from pydcop_tpu_torch.runtime.faults import Fault, FaultPlan
+    from pydcop_tpu_torch.serve import SolveFleet
+
+    dcops = serve_family(SERVE_JOBS, SERVE_VARS)
+    jobs = [(d, i) for i, d in enumerate(dcops)]
+    offsets = poisson_offsets(SERVE_JOBS, SERVE_RATE, SERVE_SEED)
+    t0 = time.perf_counter()
+    want = [serve_sequential(d, FLEET_ALGO, i, SERVE_MAX_CYCLES, device)
+            for d, i in jobs]
+    seq_s = time.perf_counter() - t0
+    rows = {}
+    for n in FLEET_REPLICAS:
+        reset_counts()
+        fleet = SolveFleet(replicas=n, lanes=SERVE_LANES,
+                           max_cycles=SERVE_MAX_CYCLES, device=device)
+        try:
+            t0 = time.perf_counter()
+            fleet.prewarm([(d, FLEET_ALGO) for d in dcops], block=True)
+            prewarm_s = time.perf_counter() - t0
+            warm = fleet_runners(fleet)
+            fleet.start()
+            results, row = fleet_replay(fleet, jobs, FLEET_ALGO, offsets)
+            m = fleet.metrics()
+            runners = fleet_runners(fleet)
+        finally:
+            fleet.stop(drain=False)
+        counts = read_counts()
+        if any(counts.values()):
+            fail("fleet", f"trace at {n}: the buckets launched "
+                 f"{ {k: v for k, v in counts.items() if v} }")
+        fleet_check("fleet", f"trace at {n} replicas", results, want)
+        rows[n] = row
+        say("fleet", kind="trace", algo=FLEET_ALGO, replicas=n,
+            vars=[SERVE_VARS, SERVE_VARS // 2], rate=SERVE_RATE,
+            arrival_seed=SERVE_SEED, lanes=SERVE_LANES, equal=True,
+            launches=0, prewarm_s=prewarm_s, runners_after_prewarm=warm,
+            runners=runners, routed_warm=m["fleet"]["jobs_routed_warm"],
+            sequential_s=seq_s, **row, nvidia_smi=smi)
+    jd = tempfile.mkdtemp(prefix="fleet_kill_")
+    plan = FaultPlan(faults=[Fault(kind="kill_replica", replica=0,
+                                   cycle=FLEET_KILL_TICK)])
+    fleet = SolveFleet(replicas=2, lanes=SERVE_LANES,
+                       max_cycles=SERVE_MAX_CYCLES, journal_dir=jd,
+                       checkpoint_every=1, fault_plan=plan, device=device)
+    try:
+        fleet.prewarm([(d, FLEET_ALGO) for d in dcops], block=True)
+        jids = [fleet.submit(d, FLEET_ALGO, seed=i) for d, i in jobs]
+        t0 = time.perf_counter()
+        for _ in range(20_000):
+            if not fleet.tick():
+                break
+        wall = time.perf_counter() - t0
+        results = [fleet.result(j, timeout=60) for j in jids]
+        m = fleet.metrics()
+    finally:
+        fleet.stop(drain=False)
+    fleet_check("fleet", "kill_replica", results, want)
+    fl, recov = m["fleet"], m["recoveries"]
+    if not fl["jobs_reseated"] or not recov or recov[0]["rto_s"] is None:
+        fail("fleet", f"kill_replica: nothing re-seated or no RTO ({fl}, "
+             f"{recov})")
+    say("fleet", kind="kill", algo=FLEET_ALGO, replicas=2,
+        kill_at_pass=FLEET_KILL_TICK, equal=True,
+        reseated=fl["jobs_reseated"],
+        checkpoint_reseats=fl["reseat_checkpoint_hits"],
+        cold_restarts=fl["reseat_cold_restarts"],
+        rto_s=recov[0]["rto_s"], orphans=recov[0]["jobs"], wall_s=wall,
+        nvidia_smi=smi)
+    return rows
+
+
+def fleet_burst_leg(smi, device):
+    """SERVE_BIG_JOBS mgm jobs (500 / 250 variables) at SERVE_BIG_LANES
+    lanes in one burst through 1 and 2 thread replicas."""
+    from pydcop_tpu_torch.serve import SolveFleet
+
+    jobs, sample, cut = fleet_burst_jobs()
+    problems = big_problems()
+    want = {i: serve_sequential(jobs[i][0], "mgm", jobs[i][1],
+                                SERVE_MAX_CYCLES, device) for i in sample}
+    rows = {}
+    for n in FLEET_BURST_REPLICAS:
+        fleet = SolveFleet(replicas=n, lanes=SERVE_BIG_LANES,
+                           max_cycles=SERVE_MAX_CYCLES, device=device)
+        try:
+            fleet.prewarm([(d, "mgm") for d in problems[:8]], block=True)
+            fleet.start()
+            results, row = fleet_replay(fleet, jobs, "mgm",
+                                        [0.0] * len(jobs))
+            runners = fleet_runners(fleet)
+        finally:
+            fleet.stop(drain=False)
+        fleet_check("fleet", f"burst at {n} replicas",
+                    [results[i] for i in sample],
+                    [want[i] for i in sample])
+        rows[n] = row
+        say("fleet", kind="burst", algo="mgm", replicas=n,
+            vars=[SERVE_BIG_V, SERVE_BIG_V // 2],
+            problems=SERVE_BIG_PROBLEMS, lanes=SERVE_BIG_LANES,
+            jobs_cut_from=SERVE_BIG_JOBS if cut else None,
+            checked=len(sample), equal=True, runners=runners, **row,
+            nvidia_smi=smi)
+    return rows
+
+
+def fleet_capture_leg(smi, device):
+    """Two started thread replicas prewarmed at the same signature set
+    at once (their captures, each on its own scheduler thread, meet the
+    process-wide capture lock), then eight jobs on each: every job equal
+    to its standalone solve, its step a replay."""
+    import threading
+
+    from pydcop_tpu_torch.serve import SolveFleet
+
+    dcops = serve_family(16, SERVE_VARS, seed0=700)
+    want = [serve_sequential(d, "mgm", i, SERVE_MAX_CYCLES, device)
+            for i, d in enumerate(dcops)]
+    fleet = SolveFleet(replicas=2, lanes=SERVE_LANES,
+                       max_cycles=SERVE_MAX_CYCLES, device=device)
+    try:
+        fleet.start()
+        errs = []
+
+        def warm(i):
+            try:
+                fleet.handle(i).service.prewarm(
+                    [(d, "mgm") for d in dcops[:8]], block=True)
+            except Exception as e:  # reported below, the phase fails
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=warm, args=(i,))
+                   for i in (0, 1)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        prewarm_s = time.perf_counter() - t0
+        if errs or any(t.is_alive() for t in threads):
+            fail("fleet", f"overlapping prewarms: {errs}")
+        warm_calls = [fleet.handle(i).service.metrics()["runners"]
+                      for i in (0, 1)]
+        jids = []
+        for k in (0, 1):
+            fleet.router.set_partitioned(f"replica-{1 - k}", True)
+            fleet.router.set_partitioned(f"replica-{k}", False)
+            jids += [fleet.submit(dcops[i], "mgm", seed=i)
+                     for i in range(8 * k, 8 * k + 8)]
+        results = [fleet.result(j, timeout=300) for j in jids]
+        calls = [fleet.handle(i).service.metrics()["runners"]
+                 for i in (0, 1)]
+    finally:
+        fleet.stop(drain=False)
+    fleet_check("fleet", "overlapping captures", results, want)
+    served = [r.serve["replica"] for r in results]
+    if served != ["replica-0"] * 8 + ["replica-1"] * 8 or (
+            device == "cuda" and any(c["captures"] < 1 or c["replays"] < 1
+                                     for c in calls)):
+        fail("fleet", f"overlapping captures: served by {served}, runner "
+             f"calls {calls}")
+    say("fleet", kind="captures", algo="mgm", replicas=2, equal=True,
+        prewarm_s=prewarm_s, runners_after_prewarm=warm_calls,
+        runners=calls, nvidia_smi=smi)
+
+
+def fleet_fallback_leg(smi, device):
+    """One mgm2 job (a SERVE_MGM2_V-variable colouring) and one dpop job
+    (a SERVE_DPOP_NODES-node tree) through a thread replica's
+    sequential fallback: K6 and K10 launch, and each result equals the
+    CPU solve (the kernels' plain versions)."""
+    from pydcop_tpu_torch.runtime import solve_result
+    from pydcop_tpu_torch.serve import SolveFleet
+
+    mgm2 = coloring_dcop(SERVE_MGM2_V, 3 * SERVE_MGM2_V, seed=21)
+    tree = tree_dcop(SERVE_DPOP_NODES, seed=6)
+    out = {}
+    fleet = SolveFleet(replicas=2, lanes=2, max_cycles=SERVE_MAX_CYCLES,
+                       device=device)
+    try:
+        fleet.start()
+        for algo, dcop, counter in (("mgm2", mgm2, "mgm2"),
+                                    ("dpop", tree, "dpop_whole_sweep")):
+            reset_counts()
+            res = fleet.result(fleet.submit(dcop, algo, seed=3),
+                               timeout=300)
+            counts = read_counts()
+            if device == "cuda" and not counts[counter]:
+                fail("fleet", f"fallback {algo}: {counter} launched no "
+                     f"time ({counts})")
+            want = solve_result(dcop, algo, seed=3, device="cpu")
+            if (res.assignment, res.cost, res.cycle, res.status) != \
+                    (want.assignment, want.cost, want.cycle, want.status):
+                fail("fleet", f"fallback {algo}: served {res.cost} / "
+                     f"{res.cycle} cycles, the CPU solve {want.cost} / "
+                     f"{want.cycle}")
+            out[counter] = counts[counter]
+            say("fleet", kind="fallback", algo=algo, counter=counter,
+                launches=counts[counter], replica=res.serve["replica"],
+                cost=res.cost, cycle=res.cycle, equal_cpu=True,
+                latency_ms=res.time * 1e3, nvidia_smi=smi)
+    finally:
+        fleet.stop(drain=False)
+    return out
+
+
+def fleet_phase(smi, device="cuda"):
+    """The thread-hosted solve fleet on the card (see fleet_trace_leg,
+    fleet_burst_leg, fleet_capture_leg and fleet_fallback_leg).
+    Returns the fallback's launches by counter."""
+    t0 = time.perf_counter()
+    fleet_trace_leg(smi, device)
+    fleet_burst_leg(smi, device)
+    fleet_capture_leg(smi, device)
+    launches = fleet_fallback_leg(smi, device)
+    say("fleet", kind="done", phase_s=round(time.perf_counter() - t0, 3),
+        script_s=round(time.perf_counter() - SCRIPT_T0, 1))
+    return launches
+
+
+def write_yaml(dcops, directory, stem):
+    """Each dcop as ``<directory>/<stem><i>.yaml`` (a process fleet's
+    jobs cross to the children by path); returns the paths."""
+    from pydcop_tpu_torch.dcop import dcop_yaml
+
+    paths = []
+    for i, d in enumerate(dcops):
+        paths.append(os.path.join(directory, f"{stem}{i}.yaml"))
+        with open(paths[-1], "w", encoding="utf-8") as f:
+            f.write(dcop_yaml(d))
+    return paths
+
+
+def procfleet_wait(phase, fleet, pred, what, timeout=300.0):
+    """Wait (head supervision running) until ``pred()``; fail past
+    ``timeout`` seconds."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    fail(phase, f"{what}: not within {timeout} s ({fleet.metrics()['fleet']})")
+
+
+def procfleet_children(fleet):
+    """The live children's last reports (pid, nvcc runs, launches, CUDA
+    memory), by replica."""
+    live = {n for n, h in fleet._handles.items() if h.up and not h.dead}
+    return {n: p for n, p in fleet.metrics()["processes"].items()
+            if n in live}
+
+
+def procfleet_memory(fleet):
+    """Each live child's ``memory_reserved`` and the card's free and
+    total bytes (``mem_get_info``), from its latest report."""
+    kids = procfleet_children(fleet)
+    return {n: {k: p.get(k) for k in ("memory_reserved", "mem_free",
+                                       "mem_total")}
+            for n, p in kids.items()}
+
+
+def procfleet_reported(fleet, key="pid"):
+    """True when every live child has reported (``key``)."""
+    kids = procfleet_children(fleet)
+    live = [n for n, h in fleet._handles.items() if h.up and not h.dead]
+    return len(kids) == len(live) and all(key in p for p in kids.values())
+
+
+def procfleet_route_to(fleet, names):
+    """Only ``names`` take new placements (the others partitioned), once
+    each of them is routable: a child whose heartbeat went stale during
+    a long tick (a capture at 64 lanes, say) is a stall, routed around
+    until the supervisor sees it beat again (counted in
+    ``replicas_stalled``)."""
+    for n in fleet.router.up():
+        fleet.router.set_partitioned(n, n not in names)
+    procfleet_wait("procfleet", fleet, lambda: set(names) <= set(
+        fleet.router.routable()), f"{names} routable")
+
+
+def procfleet_trace_leg(smi, work, device, fleet, t_spawn):
+    """``fleet``'s four replica children on the card (lanes SERVE_LANES,
+    journaled, checkpoint every chunk, spawned at ``t_spawn``): the
+    fleet trace at 1, 2 and 4 of them (the
+    rest partitioned), every job equal to its standalone solve; an mgm2
+    job in the fallback of each of two children at once (K6 in two CUDA
+    contexts, each equal to the CPU solve); then kill -9 of replica-0
+    holding jobs of a burst of the trace: every job equal, the orphans
+    re-seated, a finite RTO, the slot relaunched; a ``corrupt_artifact``
+    fault on every recipe, then the relaunched child's prewarm rejects it
+    (counted) and rebuilds."""
+    from pydcop_tpu_torch.runtime import solve_result
+    from pydcop_tpu_torch.runtime.faults import Fault
+
+    dcops = serve_family(SERVE_JOBS, SERVE_VARS)
+    files = write_yaml(dcops, work, "trace")
+    jobs = [(d, i) for i, d in enumerate(dcops)]
+    offsets = poisson_offsets(SERVE_JOBS, SERVE_RATE, SERVE_SEED)
+    want = [serve_sequential(d, FLEET_ALGO, i, SERVE_MAX_CYCLES, device)
+            for d, i in jobs]
+    mgm2 = coloring_dcop(PROCFLEET_MGM2_V, 3 * PROCFLEET_MGM2_V, seed=21)
+    [mgm2_file] = write_yaml([mgm2], work, "mgm2_")
+    try:
+        if not fleet.wait_ready(timeout=300):
+            fail("procfleet", "trace: the four children not ready")
+        ready_s = time.perf_counter() - t_spawn
+        fleet.start()
+        procfleet_wait("procfleet", fleet, lambda: procfleet_reported(
+            fleet), "the children's first reports")
+        memory_idle = procfleet_memory(fleet)
+        t0 = time.perf_counter()
+        fleet.prewarm([(f, FLEET_ALGO) for f in files])
+        procfleet_wait("procfleet", fleet, lambda: fleet.handle(0).service
+                       .cache.stats().get("pooled", 0) > 0,
+                       "the trace's prewarm")
+        prewarm_s = time.perf_counter() - t0
+        names = [f"replica-{i}" for i in range(4)]
+        for n in FLEET_REPLICAS:
+            procfleet_route_to(fleet, names[:n])
+            results, row = fleet_replay(fleet, jobs, FLEET_ALGO, offsets,
+                                        files)
+            fleet_check("procfleet", f"trace at {n} children", results,
+                        want)
+            say("procfleet", kind="trace", algo=FLEET_ALGO, children=n,
+                vars=[SERVE_VARS, SERVE_VARS // 2], rate=SERVE_RATE,
+                arrival_seed=SERVE_SEED, lanes=SERVE_LANES, equal=True,
+                ready_s=ready_s, prewarm_s=prewarm_s,
+                stalls=fleet.metrics()["fleet"]["replicas_stalled"],
+                memory_idle=memory_idle, **row, nvidia_smi=smi)
+        # K6 in two CUDA contexts at once
+        before = {n: p["launches"]["mgm2"]
+                  for n, p in procfleet_children(fleet).items()}
+        jids = []
+        for k in (0, 1):
+            procfleet_route_to(fleet, [names[k]])
+            jids.append(fleet.submit(mgm2, "mgm2", seed=3 + k,
+                                     source_file=mgm2_file))
+        sub_t = time.perf_counter()
+        res = [fleet.result(j, timeout=300) for j in jids]
+        both_s = time.perf_counter() - sub_t
+        time.sleep(PROCFLEET_REPORT_S)  # the children's reports after
+        procfleet_wait("procfleet", fleet, lambda: device != "cuda" or all(
+            procfleet_children(fleet)[names[k]]["launches"]["mgm2"]
+            > before[names[k]] for k in (0, 1)), "K6 launches reported")
+        k6 = {names[k]: procfleet_children(fleet)[names[k]]["launches"]
+              ["mgm2"] - before[names[k]] for k in (0, 1)}
+        for k, r in enumerate(res):
+            w = solve_result(mgm2, "mgm2", seed=3 + k, device="cpu")
+            if (r.assignment, r.cost, r.cycle, r.status) != \
+                    (w.assignment, w.cost, w.cycle, w.status) or \
+                    r.serve["replica"] != names[k]:
+                fail("procfleet", f"mgm2 in {names[k]}: served {r.cost} / "
+                     f"{r.cycle} on {r.serve['replica']}, the CPU solve "
+                     f"{w.cost} / {w.cycle}")
+        say("procfleet", kind="fallback", algo="mgm2", counter="mgm2",
+            launches_by_child=k6, equal_cpu=True, both_s=both_s,
+            latency_ms=[r.time * 1e3 for r in res],
+            memory=procfleet_memory(fleet), nvidia_smi=smi)
+        # kill -9 of replica-0 holding jobs of a burst of the trace
+        procfleet_route_to(fleet, names[:2])
+        sub = [fleet.submit(d, FLEET_ALGO, seed=i, source_file=files[i])
+               for d, i in jobs]
+        time.sleep(0.05)
+        h0 = fleet.handle(0)
+        held = h0.service._backlog
+        t_kill = time.perf_counter()
+        h0.kill()
+        results = [fleet.result(j, timeout=600) for j in sub]
+        fleet_check("procfleet", "kill -9", results, want)
+        m = fleet.metrics()
+        fl, recov = m["fleet"], m["recoveries"]
+        if not fl["jobs_reseated"] or not recov or \
+                recov[-1]["rto_s"] is None:
+            fail("procfleet", f"kill -9: nothing re-seated or no RTO "
+                 f"({fl}, {recov})")
+        procfleet_wait("procfleet", fleet, lambda: fleet.metrics()[
+            "fleet"]["replicas_relaunched"] >= 1, "the relaunch")
+        if not fleet.wait_ready(timeout=300):
+            fail("procfleet", "kill -9: the relaunched child not ready")
+        relaunch_s = time.perf_counter() - t_kill
+        say("procfleet", kind="kill9", algo=FLEET_ALGO, children=2,
+            held_by_killed=held, equal=True, reseated=fl["jobs_reseated"],
+            checkpoint_reseats=fl["reseat_checkpoint_hits"],
+            cold_restarts=fl["reseat_cold_restarts"],
+            rto_s=recov[-1]["rto_s"], relaunched=fl["replicas_relaunched"],
+            relaunch_ready_s=relaunch_s, stalls=fl["replicas_stalled"],
+            down_reason=h0.down_reason, nvidia_smi=smi)
+        # the corrupt_artifact fault's own hand on every recipe; the
+        # relaunched child (a fresh process) then loads the trace's
+        arts = sorted(a for a in os.listdir(fleet.artifact_dir)
+                      if a.endswith(".rnr"))
+        for a in arts:
+            fleet._inject("corrupt_artifact", Fault(
+                kind="corrupt_artifact", cycle=0,
+                path=os.path.join(fleet.artifact_dir, a)), time.monotonic())
+        hr = fleet.handle(0)
+        hr.service.prewarm([(f, FLEET_ALGO) for f in files])
+        procfleet_wait("procfleet", fleet, lambda: procfleet_prewarmed(
+            hr, 1), f"{hr.name}'s prewarm")
+        stats = hr.service.cache.stats()
+        rejected = stats.get("artifacts", {}).get("rejected_corrupt", 0)
+        corrupted = fleet.metrics()["fleet"]["artifacts_corrupted"]
+        if not corrupted or not rejected or stats["misses"] != 1:
+            fail("procfleet", f"corrupt_artifact: {corrupted} of {arts} "
+                 f"corrupted, {hr.name}'s cache {stats}")
+        say("procfleet", kind="corrupt_artifact", child=hr.name,
+            corrupted=corrupted, rejected_corrupt=rejected,
+            rebuilt=stats["misses"], nvidia_smi=smi)
+    finally:
+        fleet.stop(drain=False)
+    return k6
+
+
+def procfleet_prewarmed(h, k):
+    """True once child ``h`` reported ``k`` prewarms done (each prewarm
+    loads its items' files, then builds or loads one runner)."""
+    return h.service.counters.as_dict().get("prewarmed_runners", 0) >= k
+
+
+def procfleet_burst_leg(smi, work, device, fleet, files):
+    """The at-size burst through a process fleet (lanes SERVE_BIG_LANES)
+    grown 1 → 2 → 4 children, the card's free memory and each child's
+    reserve read at each size: replica-0 prewarms the family's first 8
+    files (its runner exported to the artifact store), then every later
+    child cold-joins — its prewarm rebuilds that runner from its recipe
+    (misses 0, no ``nvcc`` run) before its first job — and every child
+    loads the burst's PROCFLEET_BURST_PROBLEMS files in a prewarm
+    (set-up, as the thread fleet's dcops are built before it; the
+    children load in parallel).
+    Then the burst at 1, 2 and 4 children (the rest partitioned).
+    ``fleet`` started with replica-0 alone; ``files`` are the problems'
+    YAML files."""
+    jobs, sample, cut = fleet_burst_jobs(PROCFLEET_BURST_PROBLEMS)
+    want = {i: serve_sequential(jobs[i][0], "mgm", jobs[i][1],
+                                SERVE_MAX_CYCLES, device) for i in sample}
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        job_files = [files[i % PROCFLEET_BURST_PROBLEMS]
+                     for i in range(len(jobs))]
+        if not fleet.wait_ready(timeout=300):
+            fail("procfleet", "burst: replica-0 not ready")
+        fleet.start()
+        procfleet_wait("procfleet", fleet, lambda: procfleet_reported(
+            fleet), "replica-0's first report")
+        time.sleep(PROCFLEET_REPORT_S)  # a report after the trace fleet
+        memory = {1: procfleet_memory(fleet)}
+        h0 = fleet.handle(0)
+        fleet.prewarm([(f, "mgm") for f in files[:8]])
+        procfleet_wait("procfleet", fleet,
+                       lambda: procfleet_prewarmed(h0, 1),
+                       "replica-0's prewarm")
+        h0.service.prewarm([(f, "mgm") for f in files])
+        joined, names = {}, []
+        for k in (1, 2):
+            names += [fleet.add_replica() for _ in range(k)]
+            if not fleet.wait_ready(timeout=300):
+                fail("procfleet", f"burst: {names} not ready")
+            procfleet_wait("procfleet", fleet, lambda: procfleet_reported(
+                fleet), "the joiners' first reports")
+            time.sleep(PROCFLEET_REPORT_S)  # every child's, after the join
+            memory[len(names) + 1] = procfleet_memory(fleet)
+            for name in names[-k:]:
+                fleet.handle(name).service.prewarm(
+                    [(f, "mgm") for f in files])
+        for name in names:
+            h = fleet.handle(name)
+            procfleet_wait("procfleet", fleet, lambda h=h:
+                           procfleet_prewarmed(h, 1) and procfleet_reported(
+                               fleet, "nvcc_runs"), f"{name}'s cold join")
+            stats = h.service.cache.stats()
+            joined[name] = dict(
+                misses=stats["misses"],
+                artifact_hits=stats.get("artifact_hits"),
+                entries=stats["entries"],
+                nvcc_runs=procfleet_children(fleet)[name]["nvcc_runs"])
+            if stats["misses"] or joined[name]["nvcc_runs"] or \
+                    stats.get("artifact_hits") != stats["entries"]:
+                fail("procfleet", f"cold join of {name}: {joined[name]}")
+        procfleet_wait("procfleet", fleet, lambda: procfleet_prewarmed(
+            h0, 2), "replica-0's load of the family")
+        load_s = time.perf_counter() - t0
+        say("procfleet", kind="cold_join", joined=joined, setup_s=load_s,
+            artifacts=fleet.metrics()["artifacts"], nvidia_smi=smi)
+        order = ["replica-0"] + names
+        for n in PROCFLEET_BURST_REPLICAS:
+            procfleet_route_to(fleet, order[:n])
+            results, row = fleet_replay(fleet, jobs, "mgm",
+                                        [0.0] * len(jobs), job_files)
+            fleet_check("procfleet", f"burst at {n} children",
+                        [results[i] for i in sample],
+                        [want[i] for i in sample])
+            procfleet_wait("procfleet", fleet, lambda: procfleet_reported(
+                fleet), "the children's reports")
+            out[n] = row
+            say("procfleet", kind="burst", algo="mgm", children=n,
+                alive=len(order), vars=[SERVE_BIG_V, SERVE_BIG_V // 2],
+                problems=PROCFLEET_BURST_PROBLEMS, lanes=SERVE_BIG_LANES,
+                jobs_cut_from=SERVE_BIG_JOBS if cut else None,
+                checked=len(sample), equal=True,
+                stalls=fleet.metrics()["fleet"]["replicas_stalled"],
+                memory_at_spawn=memory.get(n),
+                memory=procfleet_memory(fleet), **row, nvidia_smi=smi)
+    finally:
+        fleet.stop(drain=False)
+    return out
+
+
+def procfleet_phase(smi, device="cuda"):
+    """The process fleet on the card (see procfleet_trace_leg and
+    procfleet_burst_leg).  The kernels' libraries are built before any
+    child starts (``cuda_build.build_all``), so no child runs ``nvcc``.
+    Returns K6's launches by child."""
+    import shutil
+    import tempfile
+
+    from pydcop_tpu_torch.ops import cuda_build
+
+    from pydcop_tpu_torch.runtime.faults import FaultPlan
+    from pydcop_tpu_torch.serve import ProcessFleet
+
+    t0 = time.perf_counter()
+    cuda_build.build_all()
+    work = tempfile.mkdtemp(prefix="procfleet_")
+    # both fleets' children start now, together, and the head writes
+    # the burst's YAML files while they do
+    t_spawn = time.perf_counter()
+    fleets = [
+        ProcessFleet(replicas=4, lanes=SERVE_LANES,
+                     max_cycles=SERVE_MAX_CYCLES,
+                     journal_dir=os.path.join(work, "trace_fleet"),
+                     checkpoint_every=1, backoff_base=0.1,
+                     fault_plan=FaultPlan(faults=[], seed=7), device=device),
+        ProcessFleet(replicas=1, lanes=SERVE_BIG_LANES,
+                     max_cycles=SERVE_MAX_CYCLES,
+                     journal_dir=os.path.join(work, "burst_fleet"),
+                     device=device)]
+    try:
+        files = write_yaml(big_problems()[:PROCFLEET_BURST_PROBLEMS], work,
+                           "big")
+        k6 = procfleet_trace_leg(smi, work, device, fleets[0], t_spawn)
+        procfleet_burst_leg(smi, work, device, fleets[1], files)
+    finally:
+        for fleet in fleets:
+            fleet.stop(drain=False)
+        shutil.rmtree(work, ignore_errors=True)
+    say("procfleet", kind="done",
+        phase_s=round(time.perf_counter() - t0, 3),
+        script_s=round(time.perf_counter() - SCRIPT_T0, 1))
+    return k6
+
+
 def main():
     try:
         import torch
@@ -4829,6 +5549,16 @@ def main():
         cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), build_s=round(build_s, 3),
         ptxas=ptxas)
+    if sys.argv[1:2] == ["--phases"]:
+        # python3 chip_smoke.py --phases fleet,procfleet: those phases
+        # alone, no kernel check and no result lines
+        phases = {"fleet": fleet_phase, "procfleet": procfleet_phase}
+        for name in sys.argv[2].split(","):
+            if name not in phases:
+                fail("phases", f"{name}: not in {sorted(phases)}")
+            phases[name](smi)
+        print(smi, flush=True)
+        return
 
     # 2. kernels against their plain versions, on the card ----------------
     ei, ej, mats, un = coloring_arrays(10_000, 30_000)
@@ -4915,8 +5645,8 @@ def main():
             fail("mgm2_kernel_vs_plain", f"{name}: {e}")
         mgm2_err = max(mgm2_err, err)
         say("mgm2_kernel_vs_plain", case=name, D=pg.D, N=pg.N, Vp=pg.Vp,
-            max_deg=int(pg.col_deg.max()), max_abs_err=err, cycles=20,
-            **stats)
+            max_deg=int(pg.col_deg.max()), max_abs_err=err,
+            cycles=MGM2_CHECK_CYCLES, **stats)
     for mixed in (False, True):
         try:
             runs = mgm2_tie_vs_plain(mixed)
@@ -5020,7 +5750,8 @@ def main():
                           if isinstance(v, dict))
         say("mgm2_kernel_vs_plain", layout="mixed", case=name, D=pg.D,
             N=pg.N, Vp=pg.Vp, binary_slots=int(pm.deg_col.sum()),
-            max_abs_err=err, cycles=20, threshold=0.5, **stats)
+            max_abs_err=err, cycles=MGM2_CHECK_CYCLES, threshold=0.5,
+            **stats)
     if not pair_moves:
         fail("mgm2_kernel_vs_plain", "no mixed graph made a pair move: the "
              "pairing of the mixed branch went unchecked")
@@ -5104,22 +5835,23 @@ def main():
     from pydcop_tpu_torch.dcop import load_dcop_from_file
 
     tuto = os.path.join(ROOT, "tests", "instances", "graph_coloring_tuto.yaml")
-    for algo in ("maxsum", "mgm", "dsa", "mgm2", "dpop", "dba", "gdba"):
+    cli_algos = ("maxsum", "mgm", "dsa", "mgm2", "dpop", "dba", "gdba")
+    # one process a command, all started together
+    procs = run_all([[sys.executable, "-m", "pydcop_tpu_torch", "solve",
+                      "-a", algo, tuto] for algo in cli_algos], timeout=300)
+    for algo, (rc, stdout, stderr) in zip(cli_algos, procs):
         phase = {"maxsum": "cli", "dpop": "cli_dpop"}.get(
             algo, "cli_local_search")
-        proc = subprocess.run(
-            [sys.executable, "-m", "pydcop_tpu_torch", "solve", "-a", algo,
-             tuto], capture_output=True, text=True, timeout=300, cwd=ROOT)
         try:
-            out = json.loads(proc.stdout)
+            out = json.loads(stdout)
         except ValueError:
-            fail(phase, f"{algo}: rc={proc.returncode} no JSON; stderr: "
-                 f"{proc.stderr[-2000:]}")
+            fail(phase, f"{algo}: rc={rc} no JSON; stderr: "
+                 f"{stderr[-2000:]}")
         want = 12 if algo in ("maxsum", "dpop") else solve_result(
             load_dcop_from_file([tuto]), algo, device="cpu").cost
-        if proc.returncode != 0 or out.get("status") != "FINISHED" \
+        if rc != 0 or out.get("status") != "FINISHED" \
                 or out.get("cost") != want:
-            fail(phase, f"{algo}: rc={proc.returncode} "
+            fail(phase, f"{algo}: rc={rc} "
                  f"status={out.get('status')} cost={out.get('cost')} "
                  f"(expected {want}) error={out.get('error')}")
         say(phase, algo=algo, status=out["status"], cost=out["cost"],
@@ -5895,6 +6627,21 @@ def main():
     # stream is the phase whose length varies most
     warm_phase(smi)
     memo_phase(smi)
+    # the fleets: a replica's sequential fallback launches K6 and K10
+    # (the thread fleet's one CUDA context; two children's contexts)
+    fleet_launches = fleet_phase(smi)
+    child_k6 = procfleet_phase(smi)
+    for row in kernels:
+        paths = row.setdefault("launches_by_path", {})
+        if row["name"] == "packed_mgm2_cycles":
+            paths["fleet_replica_fallback_mgm2_job"] = fleet_launches["mgm2"]
+            for child, n in sorted(child_k6.items()):
+                paths[f"procfleet_{child}_fallback_mgm2_job"] = n
+        elif row["name"] == "dpop_whole_sweep":
+            paths["fleet_replica_fallback_dpop_job"] = \
+                fleet_launches["dpop_whole_sweep"]
+        if not paths:
+            del row["launches_by_path"]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,12 @@ The kernel wrappers count their launches in Python, which a replay does
 not run: the capture records each counter's increase inside the graph
 (and takes it back, since a capture launches nothing), and every replay
 adds it again, so the counters read what the card launched.
+
+Captures are serialized process-wide (:data:`CAPTURE_LOCK`), replays
+are not: the solve fleet's replicas capture on their own scheduler
+threads in one CUDA context, and a capture turns the garbage collector
+off and takes the launch counters' increase for its graph, both of
+which another thread's capture in the same window would undo.
 ``chip_smoke.py``'s harness phase holds the recorded count to the kernel
 nodes of the captured graph (``keep_graph``) and to a profiler trace of
 the replays.  The
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
@@ -84,6 +91,9 @@ def clone_state(state, keep: Sequence[torch.Tensor] = ()):
 
 #: eager calls of a CUDA runner before it captures its chunk
 EAGER_CALLS = 2
+
+#: one capture at a time in a process (see the module docstring)
+CAPTURE_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -196,6 +206,11 @@ class ChunkRunner:
         self._n = torch.full((), self.chunk, dtype=torch.int64, device=dev)
         idx = torch.arange(self.chunk, device=dev)
         state = unflatten(like, self._state)
+        with CAPTURE_LOCK:
+            self._capture_locked(state, idx)
+        self.captures += 1
+
+    def _capture_locked(self, state, idx) -> None:
         before = read_launch_counters()
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
         # "thread_local": only this thread's unsafe CUDA calls invalidate
@@ -230,7 +245,6 @@ class ChunkRunner:
         self._out = (costs, conv)
         self._idx = idx
         self.graph = graph
-        self.captures += 1
 
     def _replay(self, state, coins, n: int):
         # the solver's check: each replay, its coin staging included,

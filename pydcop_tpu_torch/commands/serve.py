@@ -1,13 +1,13 @@
 """`pydcop_tpu_torch serve` — the continuous-batching solve service's CLI
 front door.
 
-The port of the JAX package's ``serve`` command, its single-service path:
-feeds a stream of jobs drawn from the given DCOP files through an
-in-process :class:`~pydcop_tpu_torch.serve.SolveService` on ``--device``
-(cuda unless ``--device cpu`` is given) and prints one JSON object with
-per-job metrics, the serve counters, the runner cache's scorecard, the
-bucket runners' calls and the (seeded, reproducible) arrival trace — the
-JAX command's keys.
+The port of the JAX package's ``serve`` command: feeds a stream of jobs
+drawn from the given DCOP files through an in-process
+:class:`~pydcop_tpu_torch.serve.SolveService` on ``--device`` (cuda unless
+``--device cpu`` is given) and prints one JSON object with per-job
+metrics, the serve counters, the runner cache's scorecard, the bucket
+runners' calls and the (seeded, reproducible) arrival trace — the JAX
+command's keys.
 
 Arrival models:
 
@@ -33,10 +33,23 @@ replay), persisted beside the journal with ``--journal-dir`` and
 rehydrated by ``--resume``; its scorecard lands in ``serve.memo`` and
 each job's provenance in its ``memo`` key.
 
+``--replicas N`` (N > 1) serves the same trace through the fleet tier:
+N replicated services (threads of this process, one CUDA context)
+behind a runner-cache-signature router, per-replica journal streaming
+into ``fleet.jsonl`` with ``--journal-dir``, and failover re-seating —
+with a ``kill_replica`` fault in the plan, every in-flight job of the
+killed replica completes on a peer bit-identically.  ``--processes``
+makes each of the ``--replicas`` replicas (one included) a child
+process (``serve-replica``, its own CUDA context on the card): a
+socket-streamed journal, a ``kill -9`` failure domain and shared runner
+artifacts; it needs ``--journal-dir``, and its jobs need their YAML
+files (the children load them).  With a fleet the output JSON has a
+``fleet`` section (router state, per-replica counters, the
+recovery-time objective) in place of ``serve``.
+
 Not ported yet, and refused with
 :class:`~pydcop_tpu_torch.errors.NotPortedError` (the JSON error the
-port's ``solve`` and ``batch`` use): ``--replicas`` above 1 and
-``--processes`` (the fleets) and ``--uiport`` (the GUI server).
+port's ``solve`` and ``batch`` use): ``--uiport`` (the GUI server).
 """
 from __future__ import annotations
 
@@ -78,10 +91,17 @@ def set_parser(subparsers):
     parser.add_argument("--lanes", type=int, default=4,
                         help="lane (slot) count of each service bucket")
     parser.add_argument("--replicas", type=int, default=1,
-                        help="solve-service replicas: above 1 (the "
-                        "fleet tier) is not ported")
+                        help="solve-service replicas; > 1 serves "
+                        "through the fleet tier (SolveFleet): jobs "
+                        "route by runner-cache signature onto warm "
+                        "replicas, a dead replica's in-flight jobs "
+                        "re-seat on peers bit-identically, and the "
+                        "output JSON gains a 'fleet' section")
     parser.add_argument("--processes", action="store_true",
-                        help="replicas as child processes: not ported")
+                        help="each replica is a real child PROCESS "
+                        "(ProcessFleet) — socket-streamed journal, "
+                        "kill -9 failure domain, shared runner "
+                        "artifacts; requires --journal-dir")
     parser.add_argument("--deadline", type=float, default=None,
                         help="per-job deadline in seconds (deadline-"
                         "pressured lanes shrink their chunks; expired "
@@ -146,19 +166,12 @@ def set_parser(subparsers):
 
 
 def refuse_unported(args) -> None:
-    """Raise :class:`NotPortedError` for a flag of the fleet or UI tiers
-    (none is accepted and then ignored)."""
-    refused = []
-    if args.replicas > 1:
-        refused.append(f"--replicas {args.replicas} (the solve fleet)")
-    if args.processes:
-        refused.append("--processes (the process fleet)")
+    """Raise :class:`NotPortedError` for a flag of the UI tier (never
+    accepted and then ignored)."""
     if args.uiport is not None:
-        refused.append("--uiport (the GUI server)")
-    if refused:
         raise NotPortedError(
-            f"serve: {', '.join(refused)} not ported to the PyTorch "
-            f"package yet; it serves one in-process SolveService")
+            "serve: --uiport (the GUI server) not ported to the PyTorch "
+            "package yet")
 
 
 def run_cmd(args):
@@ -166,8 +179,10 @@ def run_cmd(args):
 
     from pydcop_tpu_torch.dcop import load_dcop_from_file
     from pydcop_tpu_torch.serve import (
+        ProcessFleet,
         ServeError,
         ServiceOverloaded,
+        SolveFleet,
         SolveService,
     )
 
@@ -176,6 +191,25 @@ def run_cmd(args):
         output_metrics(
             {"status": "ERROR",
              "error": "--resume requires --journal-dir"},
+            args.output,
+        )
+        return 1
+    fleet_mode = args.replicas > 1 or args.processes
+    if args.resume and fleet_mode:
+        output_metrics(
+            {"status": "ERROR",
+             "error": "--resume is a single-service flag; a fleet "
+                      "re-seats a dead replica's jobs on live peers "
+                      "instead of restarting"},
+            args.output,
+        )
+        return 1
+    if args.processes and not args.journal_dir:
+        output_metrics(
+            {"status": "ERROR",
+             "error": "--processes requires --journal-dir (the "
+                      "socket journal, heartbeat files and shared "
+                      "artifact store live there)"},
             args.output,
         )
         return 1
@@ -215,17 +249,28 @@ def run_cmd(args):
             ttl_s=args.memo_ttl, max_edits=args.memo_max_edits,
         )
 
+    common = dict(
+        lanes=args.lanes,
+        max_cycles=args.max_cycles,
+        journal_dir=args.journal_dir,
+        max_pending=args.max_pending,
+        tenant_quota=args.tenant_quota,
+        fault_plan=fault_plan,
+        memo=memo_cfg,
+        device=args.device,
+    )
+    fleet = None
     try:
-        service = SolveService(
-            lanes=args.lanes,
-            max_cycles=args.max_cycles,
-            journal_dir=args.journal_dir,
-            max_pending=args.max_pending,
-            tenant_quota=args.tenant_quota,
-            fault_plan=fault_plan,
-            memo=memo_cfg,
-            device=args.device,
-        )
+        if args.processes:
+            fleet = ProcessFleet(replicas=args.replicas, **common)
+            try:
+                fleet.wait_ready()
+            except DeviceUnavailableError:
+                fleet.stop(drain=False)
+                raise
+        elif fleet_mode:
+            fleet = SolveFleet(replicas=args.replicas, **common)
+        service = fleet if fleet is not None else SolveService(**common)
     except DeviceUnavailableError as e:
         output_metrics({"status": "ERROR", "error": str(e)}, args.output)
         return 1
@@ -233,9 +278,12 @@ def run_cmd(args):
     if args.resume:
         n_resumed = service.resume()
     if args.prewarm and pool:
+        # a process fleet ships prewarms by source path (the DCOP
+        # objects live in the children); everything else takes objects
+        heads = ([fn for fn, _dcop in pool] if args.processes
+                 else [dcop for _fn, dcop in pool])
         service.prewarm(
-            [(dcop, args.algo, algo_params) for _fn, dcop in pool],
-            block=True,
+            [(h, args.algo, algo_params) for h in heads], block=True,
         )
     service.start()
 
@@ -296,7 +344,12 @@ def run_cmd(args):
             m = res.metrics()
             m["tenant"] = job.tenant
             m["label"] = job.label
-            m["resumed"] = bool(job.resumed)
+            # fleet jobs carry re-seat provenance instead of a resumed
+            # flag; surface both through the same key
+            m["resumed"] = bool(
+                getattr(job, "resumed", False)
+                or (m.get("serve") or {}).get("resumed")
+            )
             per_job[jid] = m
             if res.status not in ("FINISHED", "TIMEOUT"):
                 ok = False
@@ -314,8 +367,11 @@ def run_cmd(args):
         },
         "rejected": rejected,
         "resumed_jobs": n_resumed,
-        "serve": service.metrics(),
     }
+    if fleet is not None:
+        payload["fleet"] = fleet.metrics()
+    else:
+        payload["serve"] = service.metrics()
     output_metrics(payload, args.output)
     return 0 if ok and not errors else 1
 

@@ -2,8 +2,8 @@
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
 harness, the sharded engines, the frontier search, the batched solve
-engine, the solve service, the warm-repair layer and the solution cache
-use, with the same names and schemas,
+engine, the solve service and its fleets, the warm-repair layer and the
+solution cache use, with the same names and schemas,
 so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
@@ -174,7 +174,7 @@ class ServeCounters:
     SolveService scheduler (``SolveService.metrics()['serve']``).
 
     ``replica`` labels which fleet replica this service is (None for a
-    standalone service; the fleets are not ported yet)."""
+    standalone service)."""
 
     def __init__(self, replica: Optional[str] = None):
         self.replica = replica
@@ -206,6 +206,61 @@ class ServeCounters:
             self.events_dropped_by_tenant
         )
         return out
+
+
+#: counter names surfaced under ``SolveFleet.metrics()['fleet']`` by
+#: the replicated solve fleet (pydcop_tpu_torch.serve.fleet) — the
+#: routing / failover / recovery scorecard of a fleet session, alongside
+#: each replica's own ServeCounters; the JAX package's
+#: ``FLEET_COUNTERS``, name for name
+FLEET_COUNTERS = (
+    "jobs_routed",             # jobs placed on a replica by the router
+    "jobs_routed_warm",        # placements onto an already-warm replica
+    "jobs_reseated",           # failover re-seats onto a peer replica
+    "reseat_checkpoint_hits",  # re-seats restored from a lane checkpoint
+    "reseat_cold_restarts",    # re-seats replayed from cycle 0
+    "replicas_up",             # replicas brought up (initial + later)
+    "replicas_down",           # replicas declared dead (kill / crash)
+    "replicas_stalled",        # replicas with a stale heartbeat
+    "replicas_healed",         # stalled/partitioned replicas recovered
+    "replicas_partitioned",    # replicas made unreachable for placement
+    "jobs_shed",               # fleet-level admission rejections
+    "quota_rejections",        # fleet-level per-tenant quota rejections
+    "faults_injected",         # fleet fault-plan faults fired
+    "journal_torn_lines",      # torn fleet-journal lines skipped on load
+    "recoveries_completed",    # replica losses fully recovered (RTO set)
+    "devices_lost",            # devices lost by replicas (kill_device
+                               # faults with a replica)
+    "capacity_reduced",        # reduced-capacity advertisements pushed
+                               # to the router after device loss
+    "replicas_relaunched",     # dead replica PROCESSES respawned by the
+                               # process fleet's backoff relauncher
+    "socket_partitions",       # journal-socket partitions injected
+                               # (partition_socket faults)
+    "artifacts_corrupted",     # runner artifacts corrupted in place
+                               # (corrupt_artifact faults)
+    "memo_shared",             # solution-cache entries broadcast to
+                               # peer replicas via the journal stream
+)
+
+
+class FleetCounters:
+    """Fleet-level counters collected by the SolveFleet supervisor and
+    merged into its run summary (``SolveFleet.metrics()['fleet']``)."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in FLEET_COUNTERS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown fleet counter {name!r}; add it to "
+                f"FLEET_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def as_dict(self) -> dict:
+        return dict(self.counts)
 
 
 #: counter names surfaced under ``SolveResult.metrics()["repair"]`` by

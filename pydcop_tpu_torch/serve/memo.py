@@ -1,7 +1,9 @@
 """Cross-request solution cache with embedding-matched warm starts.
 
-The port of the JAX package's ``serve/memo.py``, whole; the fleets that
-share entries between replicas wait for ROADMAP A7 part 3.  Users do not submit only *novel* DCOPs — they submit
+The port of the JAX package's ``serve/memo.py``, whole; a fleet shares
+entries between its replicas through ``on_insert`` (the thread fleet
+adopts the entry into every peer's cache, the process fleet sends its
+file's path to every peer).  Users do not submit only *novel* DCOPs — they submit
 duplicates and k-edit variants, and every request would otherwise pay a
 full solve.  This layer sits ABOVE the runner cache (which only reuses
 *shapes*) and makes repeated traffic structurally cheaper:
@@ -55,7 +57,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -242,6 +244,7 @@ class MemoCache:
         directory: Optional[str] = None,
         counters: Optional[MemoCounters] = None,
         device: DeviceLike = None,
+        on_insert: Optional[Callable[[MemoEntry], None]] = None,
     ):
         self.config = config or MemoConfig()
         #: device of the warm repairs (cuda unless ``device="cpu"``;
@@ -250,6 +253,9 @@ class MemoCache:
         self.device = device
         self.directory = directory
         self.counters = counters or MemoCounters()
+        #: fleet-sharing tap: called (outside the lock) with every
+        #: locally-inserted entry after it is persisted
+        self.on_insert = on_insert
         self._lock = threading.Lock()
         self._entries: Dict[str, MemoEntry] = {}
         #: content hash → feature vector (insertion order, bounded)
@@ -562,6 +568,8 @@ class MemoCache:
                              "cost": entry.cost})
         for old in evicted:
             self._unlink(old)
+        if self.on_insert is not None:
+            self.on_insert(entry)
         return entry
 
     def _write_entry(self, entry: MemoEntry) -> None:

@@ -63,7 +63,6 @@ from pydcop_tpu_torch.batch.engine import (
     runner_cache_key,
 )
 from pydcop_tpu_torch.device import DeviceLike, resolve_device
-from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.runtime.stats import ServeCounters
 
 #: the runner calls a worker reports (``SolveService.metrics()["runners"]``)
@@ -150,32 +149,37 @@ def warm_bucket_runner(adapter, target: InstanceDims,
                        params: Dict[str, Any], B: int, chunk: int,
                        aot: bool = False, device: DeviceLike = None,
                        like: Optional[Sequence[Dict[str, np.ndarray]]]
-                       = None):
+                       = None,
+                       depths: Optional[Dict[Tuple[str, Optional[int]],
+                                             int]] = None):
     """Build one bucket runner AND run it: its warm-up call and, on the
     card, the capture of its chunk (:data:`~pydcop_tpu_torch.batch.
     engine.WARMUP_CALLS` + 1 calls) on dummy inputs with every lane
     idle and done, so a prewarmed signature's first admitted step
-    replays.  ``like`` (padded lane arrays of the expected traffic)
-    sizes the rank tables for the deepest of them, so admitting such a
-    lane regrows nothing.  ``aot=True`` (the JAX package's serialized
-    runner artifacts) raises :class:`NotPortedError`."""
-    if aot:
-        raise NotPortedError(
-            "ahead-of-time runner artifacts (warm_bucket_runner(aot=True), "
-            "the fleet's artifact store) are not ported to the PyTorch "
-            "package: a bucket runner is a CUDA graph held in its process")
+    replays.  ``like`` (padded lane arrays of the expected traffic) and
+    ``depths`` (by ``(field, column)``) size the rank tables for the
+    deepest of them, so admitting such a lane regrows nothing.  With
+    ``aot=True`` the runner carries its recipe (``runner.recipe``,
+    :func:`~pydcop_tpu_torch.serve.artifacts.runner_recipe`) — the
+    port's twin of the JAX package's ahead-of-time runner: what a
+    fleet's artifact store saves, so another process rebuilds it."""
     device = resolve_device(device)
     meta = BucketMeta.of(target)
     runner = build_bucket_runner(adapter, meta, B, params, chunk, device)
-    depths: Dict[Tuple[str, Optional[int]], int] = {}
+    want = dict(depths or {})
     for arrays in like or ():
         for k, d in lane_depths(arrays, target.graph_type, target.V).items():
-            depths[k] = max(depths.get(k, 0), d)
-    state = runner.load_idle(target, depths)
+            want[k] = max(want.get(k, 0), d)
+    state = runner.load_idle(target, want)
     _, _, coins = dummy_bucket_inputs(adapter.algo, target, B, chunk)
     for _ in range(WARMUP_CALLS + 1):
         state, _, flags = runner(state, coins, [0] * B)
     flags.cpu()
+    if aot:
+        from pydcop_tpu_torch.serve.artifacts import runner_recipe
+
+        runner.recipe = runner_recipe(adapter.algo, params, target, B,
+                                      chunk, runner.union.depths())
     return runner
 
 
@@ -286,6 +290,17 @@ class BucketWorker:
 
     def matches(self, algo: str, pkey: Tuple) -> bool:
         return self.algo == algo and self.pkey == pkey
+
+    def _export(self) -> None:
+        """Hand this worker's runner, its buffers now built, to the
+        cache's artifact store (a process fleet's shared recipes)."""
+        if getattr(self.runner, "recipe", None) is None:
+            from pydcop_tpu_torch.serve.artifacts import runner_recipe
+
+            self.runner.recipe = runner_recipe(
+                self.algo, self.params, self.target, self.B, self.chunk,
+                self.runner.union.depths())
+        self.cache.export(self.key, self.runner)
 
     def runner_calls(self) -> Dict[str, int]:
         """The runner calls this worker made (a cold runner's from its
@@ -417,6 +432,9 @@ class BucketWorker:
         done = torch.as_tensor(done_mask).to(self.device)
         self.state, _, flags = self.runner((self.state[0], done), coins, ns)
         flags_np = flags.cpu().numpy()  # the step's ONE device→host read
+        if self.steps == 0 and getattr(self.cache, "exports_artifacts",
+                                       False):
+            self._export()
         conv_np, finite_np = flags_np[0], flags_np[1]
         self.nonfinite = [
             i for i, ln in enumerate(self.lanes)

@@ -96,6 +96,7 @@ from collections import deque
 from time import monotonic, sleep
 from typing import (
     Any,
+    Callable,
     Dict,
     Iterator,
     List,
@@ -120,6 +121,7 @@ from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.runtime.events import event_bus, send_serve
 from pydcop_tpu_torch.runtime.faults import (
     FaultPlan,
+    HeartbeatWriter,
     InjectedFault,
     ServeFaultInjector,
 )
@@ -258,7 +260,13 @@ class SolveService:
     chaos testing.  ``memo`` is None/False (no solution cache), True /
     a :class:`~pydcop_tpu_torch.serve.memo.MemoConfig` (build one on the
     service's device, persisted beside the journal when there is one),
-    or a ready :class:`~pydcop_tpu_torch.serve.memo.MemoCache`.
+    or a ready :class:`~pydcop_tpu_torch.serve.memo.MemoCache` (the
+    fleet passes per-replica caches wired with its sharing tap).  The
+    fleet hooks: ``replica`` names this service in its fleet (stamped on
+    every result's ``metrics()["serve"]`` and on the counters),
+    ``heartbeat_path`` is the file the tick touches for the fleet's
+    supervisor, and ``on_complete(job, result)`` is called after each
+    job turns terminal.
     """
 
     def __init__(
@@ -280,6 +288,10 @@ class SolveService:
         backoff_max: float = 2.0,
         journal_compact_bytes: int = 1 << 20,
         fault_plan: Optional[FaultPlan] = None,
+        replica: Optional[str] = None,
+        heartbeat_path: Optional[str] = None,
+        on_complete: Optional[Callable[["ServeJob", SolveResult],
+                                       None]] = None,
         memo=None,
         device: DeviceLike = None,
     ):
@@ -287,7 +299,19 @@ class SolveService:
         self.lanes = int(lanes)
         self.max_buckets = max_buckets
         self.cache = cache if cache is not None else global_compile_cache()
-        self.counters = counters if counters is not None else ServeCounters()
+        #: fleet identity: stamped on every completed job's
+        #: ``metrics()["serve"]`` and the counters summary, so failover
+        #: paths are auditable post-hoc; None for a standalone service
+        self.replica = replica
+        self.counters = (
+            counters if counters is not None
+            else ServeCounters(replica=replica)
+        )
+        if replica is not None and self.counters.replica is None:
+            self.counters.replica = replica
+        #: completion hook (the fleet's journal-streaming tap): called
+        #: after a job turns terminal, on whichever thread completed it
+        self.on_complete = on_complete
         self.max_cycles = int(max_cycles)
         self.journal_dir = journal_dir
         self.checkpoint_every = int(checkpoint_every)
@@ -325,7 +349,17 @@ class SolveService:
             and fault_plan.serve_faults() else None
         )
         self._done_jids: set = set()
+        #: liveness channel to a fleet supervisor (the heartbeat file
+        #: protocol of runtime/faults.py): the TICK loop touches it, not
+        #: a side thread, so staleness faithfully reflects a wedged or
+        #: killed scheduler
+        self._hb = (
+            HeartbeatWriter(heartbeat_path)
+            if heartbeat_path is not None else None
+        )
         self._stall_until = 0.0  # injected stall gate (stall_replica)
+        #: set by halt(): the tick in flight completes nothing further
+        self._halted = False
         #: (factor, exempt_priority) applied to every bucket's
         #: deadline-chunk clamp
         self._deadline_pressure: Tuple[float, Optional[int]] = (1.0, None)
@@ -405,13 +439,14 @@ class SolveService:
         completing or journaling anything further; in-flight lanes are
         abandoned where they stand and only the journal — submissions,
         ``JID:`` completion lines, lane checkpoints — survives for a
-        restarted service to recover from.  Blocked
+        peer replica or a restarted service to recover from.  Blocked
         :meth:`result` callers raise :class:`ServiceStopped` through
         the liveness gate instead of hanging."""
         with self._lock:
             self._failure = RuntimeError(
                 "replica halted (injected kill)"
             )
+            self._halted = True
         self._stop = True
         self._wake.set()
 
@@ -848,9 +883,10 @@ class SolveService:
         )
 
         def build():
-            runner = warm_bucket_runner(adapter, target, params, lanes,
-                                        self._chunk(), device=self.device,
-                                        like=like)
+            runner = warm_bucket_runner(
+                adapter, target, params, lanes, self._chunk(),
+                aot=self.cache.exports_artifacts, device=self.device,
+                like=like)
             with self._lock:
                 for k, v in runner_totals(runner).items():
                     self._runner_calls[k] += v
@@ -1007,7 +1043,14 @@ class SolveService:
         if stall:
             remain = stall - monotonic()
             if remain > 0:
-                sleep(remain)  # wedged
+                sleep(remain)  # wedged: the heartbeat goes stale too
+        if self._halted:
+            return False  # killed while wedged: nothing further runs
+        if self._hb is not None:
+            try:
+                self._hb.beat()
+            except OSError:  # heartbeat dir vanished: stay alive
+                pass
         inj = self._injector
         if inj is not None:
             f = inj.due("stall_tick", self._ticks)
@@ -1019,6 +1062,8 @@ class SolveService:
                     "duration": f.duration,
                 })
                 sleep(f.duration)
+                if self._halted:
+                    return False
         self._drain_prewarm()
         self._admit_pending()
         with self._lock:
@@ -1578,6 +1623,11 @@ class SolveService:
                   error: Optional[str] = None) -> None:
         if job.done.is_set():
             return  # already terminal (defensive: double release)
+        if self._halted and not job.service_stopped:
+            # a halted replica completes and journals nothing further:
+            # its jobs are a peer's now (the JAX package's halted tick
+            # still completes them, a second ``done`` in fleet.jsonl)
+            return
         with self._lock:
             job.result = res
         now = monotonic()
@@ -1603,10 +1653,10 @@ class SolveService:
             self.counters.inc("jobs_preempted")
         self._journal_done(job.jid)
         self._drop_checkpoint(job.jid)
-        # serving provenance: which JID served the job (a standalone
-        # service is no fleet replica: the JAX package's key, None)
+        # serving provenance: which replica/JID actually served the
+        # job — the post-hoc audit trail of every failover re-seat
         res.serve = {
-            "replica": None,
+            "replica": self.replica,
             "jid": job.jid,
             "resumed": job.resumed,
         }
@@ -1634,6 +1684,13 @@ class SolveService:
             payload["error"] = error
         job.emit("job.done", payload)
         job.done.set()
+        if self.on_complete is not None:
+            try:
+                self.on_complete(job, res)
+            except Exception as e:  # a fleet tap must never wedge a lane
+                send_serve("complete_tap.failed", {
+                    "jid": job.jid, "error": repr(e),
+                })
         self._maybe_compact_journal()
 
     # -- journal / crash resume --------------------------------------------
@@ -1809,9 +1866,11 @@ class SolveService:
         for i, lane in enumerate(w.lanes):
             if lane is None:
                 continue
-            # a service can only resume jobs it can reload from a
-            # source file
-            if lane.job.source_file is None:
+            # a standalone service can only resume jobs it can reload
+            # from a source file; a fleet REPLICA checkpoints every
+            # lane — the fleet holds the dcop in memory, so failover
+            # re-seats need no file to restore from
+            if lane.job.source_file is None and self.replica is None:
                 continue
             arrays, meta = w.lane_checkpoint(i, lane)
             write_state_npz(self._ckpt_path(lane.job.jid), arrays, meta)

@@ -5,9 +5,12 @@ The test process itself has JAX loaded (``tests/conftest.py`` imports
 it), so the import check runs in a fresh interpreter: it imports the
 port (its sharded engines, K3's wrapper and the serve modules included),
 solves the tutorial instance on the CPU (maxsum, dpop, maxsum and amaxsum
-sharded by a placement, and one maxsum job and a one-edit variant of it
+sharded by a placement, one maxsum job and a one-edit variant of it
 served by a SolveService with its solution cache, the variant by a warm
-repair) and reports every
+repair, one mgm job through a two-replica SolveFleet, and one dsa job
+through the process fleet's child body — the ``serve-replica`` command's
+ReplicaWorker, hosted on a thread over a real socket journal, with a
+runner artifact store) and reports every
 JAX or JAX-package module that got loaded.  A source scan backs it up for code
 paths a single solve does not reach."""
 import ast
@@ -44,8 +47,36 @@ from pydcop_tpu_torch.runtime import repair
 from pydcop_tpu_torch.dcop import canonical
 from pydcop_tpu_torch.portfolio import features
 from pydcop_tpu_torch.serve import memo
+from pydcop_tpu_torch.serve import ProcessFleet, SolveFleet, artifacts
+from pydcop_tpu_torch.serve import fleet, procfleet, router, wire
+from pydcop_tpu_torch.commands import serve_replica
+import tempfile, threading, time
 make_parser()
 dcop = load_dcop_from_file([sys.argv[2]])
+fl = SolveFleet(replicas=2, lanes=2, device="cpu")
+fj = fl.submit(dcop, "mgm", seed=0)
+for _ in range(200):
+    if not fl.tick():
+        break
+fleet_cost = fl.result(fj, timeout=10).cost
+recs = []
+hub = wire.JournalHub(on_record=lambda client, body: recs.append(body))
+worker = procfleet.ReplicaWorker(("127.0.0.1", hub.port), "w0",
+                                 artifact_dir=tempfile.mkdtemp(),
+                                 device="cpu")
+wt = threading.Thread(target=worker.run, daemon=True)
+wt.start()
+hub.send("w0", {"cmd": "submit", "jid": "job-000001", "algo": "dsa",
+                "algo_params": {}, "seed": 0, "source_file": sys.argv[2]})
+deadline = time.monotonic() + 60
+while time.monotonic() < deadline and not any(
+        r.get("evt") == "complete" for r in recs):
+    hub.pump(0.02)
+hub.send("w0", {"cmd": "stop"})
+while wt.is_alive() and time.monotonic() < deadline:
+    hub.pump(0.02)
+hub.stop()
+child = [r["result"]["status"] for r in recs if r.get("evt") == "complete"]
 res = solve_result(dcop, "maxsum", device="cpu")
 exact = solve_result(dcop, "dpop", device="cpu")
 comps = sorted(dcop.variables) + sorted(dcop.constraints)
@@ -76,7 +107,7 @@ bad = sorted(m for m in sys.modules
 print(json.dumps({"cost": res.cost, "dpop_cost": exact.cost,
                   "sharded_cost": sharded.cost, "served_cost": served.cost,
                   "amaxsum_status": asharded.status, "variant": variant,
-                  "bad": bad}))
+                  "fleet_cost": fleet_cost, "child": child, "bad": bad}))
 """
 
 
@@ -93,6 +124,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert got["served_cost"] == 12
     assert got["amaxsum_status"] == "FINISHED"
     assert got["variant"] == "variant"
+    assert got["fleet_cost"] == 12
+    assert got["child"] == ["FINISHED"]
     assert got["bad"] == []
 
 

@@ -1,10 +1,11 @@
 """The port's ``serve`` command on the CPU, held to the JAX package's
 ``serve`` command: the same JSON keys (top level, per job and the
 ``serve`` section), the same seeded Poisson arrival trace, every job
-equal to the port's standalone solve, and each flag of the unported
-fleet and UI tiers refused with ``NotPortedError``'s JSON error (exit 1),
-none accepted and then ignored (the memo flags, ported since, are held
-to the JAX command in ``tests/test_torch_memo_cli.py``)."""
+equal to the port's standalone solve, the fleet flags taken (the fleets
+are held to the JAX command in ``tests/test_torch_fleet_cli.py``), and
+the unported UI tier's flag refused with ``NotPortedError``'s JSON error
+(exit 1), never accepted and then ignored (the memo flags are held to
+the JAX command in ``tests/test_torch_memo_cli.py``)."""
 import json
 import os
 import subprocess
@@ -66,8 +67,6 @@ def test_every_job_equals_its_standalone_solve(outputs):
 
 
 @pytest.mark.parametrize("flags,what", [
-    (["--replicas", "2"], "--replicas 2"),
-    (["--processes"], "--processes"),
     (["--uiport", "9000"], "--uiport"),
 ])
 def test_unported_flags_are_refused(flags, what, capsys):
@@ -76,6 +75,24 @@ def test_unported_flags_are_refused(flags, what, capsys):
     out = json.loads(capsys.readouterr().out)
     assert rc == 1 and out["status"] == "ERROR"
     assert what in out["error"] and "not ported" in out["error"]
+
+
+@pytest.mark.parametrize("flags", [["--replicas", "2"], ["--processes"]])
+def test_fleet_flags_are_taken(flags, capsys):
+    """``--replicas 2`` serves through a thread fleet (its ``fleet``
+    section in place of ``serve``); ``--processes`` asks for a process
+    fleet, which needs ``--journal-dir`` — a JSON error without it."""
+    rc = cli.main(["serve", "-a", "mgm", FILES[0], "--device", "cpu",
+                   "--jobs", "2", "--lanes", "2", *flags])
+    out = json.loads(capsys.readouterr().out)
+    if "--processes" in flags:
+        assert rc == 1 and "--journal-dir" in out["error"]
+        return
+    assert rc == 0 and out["status"] == "FINISHED"
+    assert "serve" not in out
+    assert set(out["fleet"]["replicas"]) == {"replica-0", "replica-1"}
+    assert all(m["serve"]["replica"].startswith("replica-")
+               for m in out["results"].values())
 
 
 def test_resume_needs_a_journal(capsys):

@@ -321,9 +321,13 @@ def test_warm_runner_sizes_its_tables_for_the_traffic():
     for i, arrays in enumerate(like):
         assert not runner.load_lane(i, arrays)  # no regrow
     assert runner.regrows == 0
-    with pytest.raises(Exception, match="not ported"):
-        warm_bucket_runner(adapter, target, {}, 4, CHUNK, aot=True,
-                           device="cpu")
+    # aot=True: the runner carries its recipe (the artifact store's
+    # payload), its rank tables as deep as the traffic's
+    aot = warm_bucket_runner(adapter, target, {}, 4, CHUNK, aot=True,
+                             device="cpu", like=like)
+    assert aot.recipe["algo"] == "mgm" and aot.recipe["lanes"] == 4
+    assert {(f, c): d for f, c, d in aot.recipe["depths"]} == \
+        runner.union.depths()
     assert state[1].all()
 
 
