@@ -273,8 +273,27 @@ printed.
    joins from the artifact store (misses 0, no ``nvcc`` run), with the
    card's free memory and each child's reserve at each size.
 
-``python3 chip_smoke.py --phases fleet,procfleet`` runs those phases
-alone (no kernel check, no result lines).
+Then, last, the phase ``resilience``: on the 10k/30k colouring a
+200-cycle maxsum, dsa and mgm ``solve_result`` with a snapshot every 50
+cycles (K1, K5, K4: one launch a run between snapshots), a fresh solver
+restored from the cycle-100 snapshot and run to 200 (``torch.equal`` to
+the straight run: the state, maxsum's beliefs of one more cycle, dsa's
+coin generator; the snapshot also restored on the CPU), the ms of a
+``save_checkpoint`` and a ``load_checkpoint`` and the snapshot's bytes;
+a ``corrupt_checkpoint`` and a ``truncate_checkpoint`` fault on the
+newest snapshot (the manager skips it; the resume comes from the one
+before and ends at the straight run); ``VirtualOrchestrator`` runs of
+maxsum and mgm with 200 agents (adhoc, capacity 5× the even share),
+k = 3 replicas and a scenario removing ``a000``, 20 cycles a phase, ==
+a CPU twin on copies of the placement and the replicas (the ms of
+``start_replication``, of the repair's build and solve, its size,
+largest arity and engine — K4's mixed branch or the generic engine —
+and of each phase); and an mgm run whose 0.3 s delays convert to cycles
+at the card's measured rate, with a ``UiServer`` whose cycle events a
+stdlib ws client in this script receives, and ``/state``.
+
+``python3 chip_smoke.py --phases fleet,procfleet,resilience`` runs those
+phases alone (no kernel check, no result lines).
 
 ``python3 chip_smoke.py --ab PARENT_TREE
 [k1,k1_mixed,mgm2,mgm,dsa,k2,dpop,sharded,harness]`` runs no phase above: it
@@ -5498,6 +5517,432 @@ def procfleet_phase(smi, device="cuda"):
     return k6
 
 
+
+# -- resilience and the control plane -----------------------------------------
+
+#: the colouring of the resilience phase (the 10k/30k of the main path)
+RESIL_V, RESIL_E = 10_000, 30_000
+#: the checkpointed solves: cycles, snapshot period, the restored cycle
+RESIL_CYCLES = 200
+RESIL_EVERY = 50
+RESIL_RESTORE = 100
+#: the orchestrator legs: agents (adhoc), replicas, cycles a phase, and
+#: each agent's capacity as a multiple of the even share of the memory
+#: (room for its own computations and k replicas of others)
+RESIL_AGENTS = 200
+RESIL_K = 3
+RESIL_PHASE_CYCLES = 20
+RESIL_CAPACITY = 5.0
+#: the UI leg's scenario delays (seconds of solver activity)
+RESIL_UI_DELAY = 0.3
+
+
+def resil_dcop(algo):
+    """The 10k/30k colouring with RESIL_AGENTS agents whose capacities
+    leave room for the algorithm's computations and RESIL_K replicas."""
+    from pydcop_tpu_torch.algorithms import load_algorithm_module
+    from pydcop_tpu_torch.dcop import AgentDef
+    from pydcop_tpu_torch.graph import load_graph_module
+
+    dcop = coloring_dcop(RESIL_V, RESIL_E)
+    mod = load_algorithm_module(algo)
+    cg = load_graph_module(mod.GRAPH_TYPE).build_computation_graph(dcop)
+    share = sum(mod.computation_memory(n) for n in cg.nodes) / RESIL_AGENTS
+    dcop.add_agents([AgentDef(f"a{i:03d}", capacity=RESIL_CAPACITY * share)
+                     for i in range(RESIL_AGENTS)])
+    return dcop
+
+
+def resil_state_equal(a, b):
+    from pydcop_tpu_torch.runtime.checkpoint import flatten_state
+
+    la, lb = flatten_state(a), flatten_state(b)
+    return len(la) == len(lb) and all(
+        torch_equal(x, y) for x, y in zip(la, lb))
+
+
+def torch_equal(x, y):
+    import torch
+
+    return x.shape == y.shape and bool(torch.equal(x.cpu(), y.cpu()))
+
+
+def resil_checkpoint_leg(smi, dcop, algo, counter, device, work):
+    """Checkpointed solve_result (RESIL_CYCLES cycles, a snapshot every
+    RESIL_EVERY), a straight run, and a fresh solver restored from the
+    cycle-RESIL_RESTORE snapshot run to RESIL_CYCLES: its state must be
+    ``torch.equal`` to the straight run's (dsa: its coin generator too).
+    Returns the kernel's launches on the checkpointed run, the snapshot
+    directory and the straight solver."""
+    import torch
+
+    from pydcop_tpu_torch.algorithms import AlgorithmDef, \
+        load_algorithm_module
+    from pydcop_tpu_torch.runtime import solve_result
+    from pydcop_tpu_torch.runtime.checkpoint import (
+        CheckpointManager,
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    mod = load_algorithm_module(algo)
+
+    def fresh():
+        return mod.build_solver(dcop, None, AlgorithmDef.build_with_default_params(
+            algo, {}, mode=dcop.objective), seed=0, device=device)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    d = os.path.join(work, algo)
+    reset_counts()
+    res = solve_result(dcop, algo, cycles=RESIL_CYCLES, checkpoint_dir=d,
+                       checkpoint_every=RESIL_EVERY, device=device)
+    launches_ckpt = read_counts()[counter]
+    mgr = CheckpointManager(d)
+    snaps = [c for c, _ in mgr.snapshots()]
+    if res.cycle != RESIL_CYCLES or RESIL_RESTORE not in snaps:
+        fail("resilience", f"{algo}: checkpointed run ended at {res.cycle}"
+             f" with snapshots {snaps}")
+    straight = fresh()
+    reset_counts()
+    ref = straight.run(cycles=RESIL_CYCLES)
+    launches_straight = read_counts()[counter]
+    restored = fresh()
+    sync()
+    t = time.perf_counter()
+    meta = load_checkpoint(mgr.path_for(RESIL_RESTORE), restored)
+    sync()
+    load_ms = (time.perf_counter() - t) * 1e3
+    reset_counts()
+    got = restored.run(cycles=RESIL_CYCLES - RESIL_RESTORE, resume=True)
+    launches_restored = read_counts()[counter]
+    if meta["cycle"] != RESIL_RESTORE \
+            or not resil_state_equal(restored._last_state,
+                                     straight._last_state) \
+            or got.assignment != ref.assignment \
+            or res.assignment != ref.assignment:
+        fail("resilience", f"{algo}: the run restored at cycle "
+             f"{RESIL_RESTORE} is not torch.equal to the straight run")
+    extra = {}
+    if algo == "maxsum":
+        # the beliefs of one more cycle from each state (K1, outside the
+        # counted runs)
+        from pydcop_tpu_torch.ops.packed_maxsum import packed_cycles
+
+        q1, r1, b1, v1 = packed_cycles(straight.packed, *straight._last_state[:2],
+                                       1, damping=straight.damping)
+        q2, r2, b2, v2 = packed_cycles(restored.packed, *restored._last_state[:2],
+                                       1, damping=restored.damping)
+        if not (torch_equal(b1, b2) and torch_equal(v1, v2)):
+            fail("resilience", "maxsum: beliefs differ after the restore")
+        extra["beliefs_equal"] = True
+    if algo == "dsa":
+        if not torch.equal(restored.coins.get_state(),
+                           straight.coins.get_state()):
+            fail("resilience", "dsa: the restored coin stream did not "
+                 "continue to the straight run's")
+        extra["generator_continued"] = True
+    path = os.path.join(work, f"{algo}_save.npz")
+    sync()
+    t = time.perf_counter()
+    save_checkpoint(path, straight, cycle=RESIL_CYCLES)
+    save_ms = (time.perf_counter() - t) * 1e3
+    # a card-written snapshot restores on the CPU too
+    if device == "cuda":
+        from pydcop_tpu_torch.algorithms import AlgorithmDef as AD
+
+        cpu = mod.build_solver(dcop, None, AD.build_with_default_params(
+            algo, {}, mode=dcop.objective), seed=0, device="cpu")
+        load_checkpoint(path, cpu)
+        if not resil_state_equal(cpu._last_state, straight._last_state):
+            fail("resilience", f"{algo}: the card's snapshot restored on "
+                 f"the CPU differs")
+    say("resilience", kind="checkpoint", algo=algo, nvidia_smi=smi,
+        engine=meta["extra"]["engine"], counter=counter,
+        launches_checkpointed=launches_ckpt,
+        launches_straight=launches_straight,
+        launches_restored=launches_restored, snapshots=snaps,
+        save_ms=round(save_ms, 3), load_ms=round(load_ms, 3),
+        snapshot_bytes=os.path.getsize(path), state_equal=True,
+        cost=ref.cost, **extra)
+    return launches_ckpt, d, straight
+
+
+def resil_fault_leg(smi, dcop, directory, straight, device):
+    """A corrupt_checkpoint and a truncate_checkpoint fault on the newest
+    snapshot: the manager skips it, and a resumed solve_result comes from
+    the one before and ends at the straight run's state."""
+    from pydcop_tpu_torch.runtime import solve_result
+    from pydcop_tpu_torch.runtime.checkpoint import CheckpointManager
+    from pydcop_tpu_torch.runtime.faults import (
+        Fault,
+        FaultPlan,
+        apply_checkpoint_faults,
+    )
+
+    mgr = CheckpointManager(directory)
+    newest = mgr.latest()[0]
+    damaged = apply_checkpoint_faults(
+        FaultPlan(faults=[Fault(kind="corrupt_checkpoint")], seed=3),
+        directory, attempt=0)
+    got = mgr.latest_valid_state()
+    if len(damaged) != 1 or got is None or got[0] >= newest:
+        fail("resilience", f"corrupt_checkpoint: damaged {damaged}, the "
+             f"manager's newest valid snapshot {got and got[0]}")
+    skipped_to = got[0]
+    reset_counts()
+    res = solve_result(dcop, "maxsum", cycles=RESIL_CYCLES,
+                       checkpoint_dir=directory,
+                       checkpoint_every=RESIL_EVERY, resume=True,
+                       fault_plan=FaultPlan(faults=[
+                           Fault(kind="truncate_checkpoint")], seed=5),
+                       device=device)
+    launches = read_counts()["packed_maxsum_cycle"]
+    ref = straight.values_of(straight._last_state).cpu().numpy()
+    want = straight.tensors.assignment_from_indices(ref)
+    if res.cycle != RESIL_CYCLES or res.assignment != want:
+        fail("resilience", "the resume past a truncated snapshot did not "
+             "reach the straight run's assignment")
+    say("resilience", kind="checkpoint_faults", nvidia_smi=smi,
+        newest=newest, corrupt_skipped_to=skipped_to,
+        resumed_cycles=RESIL_CYCLES - skipped_to, k1_launches=launches,
+        assignment_equal=True)
+    return launches
+
+
+def resil_orchestrators(algo, device, twin=True):
+    """The card's orchestrator (adhoc, RESIL_K replicas) and, with
+    ``twin``, a CPU twin built on copies of its placement and replicas."""
+    from pydcop_tpu_torch.distribution import Distribution
+    from pydcop_tpu_torch.replication import ReplicaDistribution
+    from pydcop_tpu_torch.runtime.orchestrator import VirtualOrchestrator
+
+    t = time.perf_counter()
+    card = VirtualOrchestrator(resil_dcop(algo), algo, distribution="adhoc",
+                               device=device)
+    build_s = time.perf_counter() - t
+    card.deploy_computations()
+    t = time.perf_counter()
+    card.start_replication(RESIL_K)
+    replication_s = time.perf_counter() - t
+    if not twin:
+        return card, None, build_s, replication_s
+    cpu = VirtualOrchestrator(resil_dcop(algo), algo,
+                              distribution=Distribution(
+                                  card.distribution.mapping()),
+                              device="cpu")
+    cpu.deploy_computations()
+    cpu.replicas = ReplicaDistribution(card.replicas.mapping())
+    return card, cpu, build_s, replication_s
+
+
+def resil_scenario(victim, delay):
+    from pydcop_tpu_torch.dcop import DcopEvent, EventAction, Scenario
+
+    return Scenario([
+        DcopEvent("d1", delay=delay),
+        DcopEvent("e1", actions=[EventAction("remove_agent", agent=victim)]),
+        DcopEvent("d2", delay=delay)])
+
+
+def resil_orchestrator_leg(smi, algo, counter, device):
+    """VirtualOrchestrator on the 10k/30k colouring: a scenario removing
+    one agent, RESIL_PHASE_CYCLES cycles a phase; the final cost and
+    assignment must equal the CPU twin's.  Returns the kernel's launches
+    and the repair's K4-mixed launches."""
+    card, cpu, build_s, replication_s = resil_orchestrators(algo, device)
+    victim = sorted(card.dcop.agents)[0]
+    orphans = len(card.distribution.computations_hosted(victim))
+    reset_counts()
+    res = card.run(resil_scenario(victim, 3600.0), cycles=RESIL_PHASE_CYCLES)
+    counts = read_counts()
+    want = cpu.run(resil_scenario(victim, 3600.0), cycles=RESIL_PHASE_CYCLES)
+    if res.cost != want.cost or res.assignment != want.assignment \
+            or card.distribution.mapping() != cpu.distribution.mapping():
+        fail("resilience", f"orchestrator {algo}: card cost {res.cost} != "
+             f"CPU {want.cost} (or the placements differ)")
+    rep = card.repair_log[0]
+    # the repair DCOP's constraints have arity > 2: it packs (K4's mixed
+    # branch) while every arity is at most 4, else the generic engine
+    # runs it, with no kernel
+    k4_mixed = counts["mgm_mixed"]
+    engine = "K4 mixed" if k4_mixed else "generic (no kernel)"
+    # (a CPU rehearsal launches no kernel)
+    if device != "cpu" and (rep["max_arity"] <= 4) != (k4_mixed > 0):
+        fail("resilience", f"orchestrator {algo}: the repair DCOP's widest "
+             f"constraint has arity {rep['max_arity']}, yet K4's mixed "
+             f"branch launched {k4_mixed} times")
+    say("resilience", kind="orchestrator", algo=algo, nvidia_smi=smi,
+        computations=len(card.cg.nodes), agents=RESIL_AGENTS, k=RESIL_K,
+        build_s=round(build_s, 3), start_replication_ms=round(
+            replication_s * 1e3, 3),
+        victim=victim, orphans=orphans,
+        repair_variables=rep["variables"],
+        repair_constraints=rep["constraints"],
+        repair_max_arity=rep["max_arity"],
+        repair_build_ms=round(rep["build_s"] * 1e3, 3),
+        repair_solve_ms=round(rep["solve_s"] * 1e3, 3),
+        repair_engine=engine,
+        phases=[{"cycles": p["cycles"], "ms": round(p["s"] * 1e3, 3)}
+                for p in card.phase_log],
+        launches={counter: counts[counter], "mgm_mixed": k4_mixed},
+        cost=res.cost, cpu_cost=want.cost, equal_to_cpu=True)
+    return counts[counter], k4_mixed
+
+
+def ws_handshake(port):
+    """A stdlib ws client's socket after the upgrade handshake."""
+    import base64
+    import socket
+
+    from pydcop_tpu_torch.runtime.ws import _accept_key
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=10)
+    key = base64.b64encode(os.urandom(16)).decode()
+    sock.sendall(
+        f"GET / HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+        f"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+        f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n"
+        .encode())
+    resp = b""
+    while b"\r\n\r\n" not in resp:
+        chunk = sock.recv(4096)
+        if not chunk:
+            fail("resilience", "ui: the ws handshake was cut")
+        resp += chunk
+    if _accept_key(key).encode() not in resp:
+        fail("resilience", "ui: wrong Sec-WebSocket-Accept")
+    return sock, resp.split(b"\r\n\r\n", 1)[1]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def resil_ui_leg(smi, device):
+    """One mgm orchestrator run whose scenario delays convert to cycles at
+    the card's measured rate, with a UiServer: a stdlib ws client in this
+    script receives the cycle events, and /state the end metrics.
+    Returns K4's launches."""
+    import http.client
+    import threading
+
+    from pydcop_tpu_torch.runtime import ws
+    from pydcop_tpu_torch.runtime.events import event_bus
+    from pydcop_tpu_torch.runtime.ui import UiServer
+
+    card, _, _, _ = resil_orchestrators("mgm", device, twin=False)
+    victim = sorted(card.dcop.agents)[1]
+    ui = UiServer(port=free_port(), ws_port=free_port(), orchestrator=card)
+    ui.start()
+    got, done = [], threading.Event()
+    try:
+        sock, leftover = ws_handshake(ui.ws_port)
+        reader = ws._BufferedSock(sock, leftover)
+        t0 = time.perf_counter()
+        while ui._ws.n_clients < 1:
+            if time.perf_counter() - t0 > 10:
+                fail("resilience", "ui: the ws client was not registered")
+            time.sleep(0.01)
+
+        def listen():
+            while not done.is_set():
+                opcode, payload = ws.read_frame(reader)
+                if opcode is None:
+                    return
+                got.append(json.loads(payload.decode()))
+
+        listener = threading.Thread(target=listen, daemon=True)
+        listener.start()
+        bus_was, event_bus.enabled = event_bus.enabled, True
+        try:
+            reset_counts()
+            res = card.run(resil_scenario(victim, RESIL_UI_DELAY))
+            k4 = read_counts()["mgm"]
+        finally:
+            event_bus.enabled = bus_was
+        ui.update_state(**card.end_metrics())
+        conn = http.client.HTTPConnection("127.0.0.1", ui.port, timeout=10)
+        conn.request("GET", "/state")
+        state = json.loads(conn.getresponse().read())
+        conn.close()
+        t0 = time.perf_counter()
+        while not any(m.get("evt") == "cycle"
+                      and m.get("cycles") == res.cycle for m in got):
+            if time.perf_counter() - t0 > 10:
+                fail("resilience", f"ui: no cycle event of {res.cycle} "
+                     f"cycles reached the ws client")
+            time.sleep(0.01)
+    finally:
+        done.set()
+        ui.stop()
+    cycles = [m["cycles"] for m in got if m.get("evt") == "cycle"]
+    faults_seen = sorted({m["kind"] for m in got if m.get("evt") == "fault"})
+    if state.get("cycle") != res.cycle or state.get("cost") != res.cost \
+            or "recovered.repair" not in faults_seen:
+        fail("resilience", f"ui: /state {state.get('cycle')}/"
+             f"{state.get('cost')} against {res.cycle}/{res.cost}, fault "
+             f"events {faults_seen}")
+    say("resilience", kind="ui_orchestrator", nvidia_smi=smi,
+        delay_s=RESIL_UI_DELAY,
+        phases=[{"delay": p["delay"], "budget": p["budget"],
+                 "cycles": p["cycles"], "ms": round(p["s"] * 1e3, 3)}
+                for p in card.phase_log],
+        cycle_events=cycles, fault_events=faults_seen,
+        ws_messages=len(got), state_keys=sorted(state),
+        packed_mgm_cycles=k4, cost=res.cost)
+    return k4
+
+
+def resilience_phase(smi, device="cuda"):
+    """Resilience and the control plane on the card: checkpointed maxsum
+    (K1), dsa (K5) and mgm (K4) solves == their straight runs, checkpoint
+    faults, the orchestrator with replication and repair (== its CPU
+    twin), and the UI server during a delay-driven run.  Returns the
+    launches of K1, K4 (binary, mixed) and K5 on this path."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="resilience_")
+    launches = {}
+    try:
+        dcop = coloring_dcop(RESIL_V, RESIL_E)
+        for algo, counter in (("maxsum", "packed_maxsum_cycle"),
+                              ("dsa", "dsa"), ("mgm", "mgm")):
+            n, d, straight = resil_checkpoint_leg(smi, dcop, algo, counter,
+                                                  device, work)
+            launches[f"{algo}_checkpointed"] = n
+            if algo == "maxsum":
+                launches["maxsum_checkpoint_faults"] = resil_fault_leg(
+                    smi, dcop, d, straight, device)
+        for algo, counter in (("maxsum", "packed_maxsum_cycle"),
+                              ("mgm", "mgm")):
+            n, k4_mixed = resil_orchestrator_leg(smi, algo, counter, device)
+            launches[f"orchestrator_{algo}"] = n
+            launches[f"orchestrator_{algo}_repair_mixed"] = k4_mixed
+        launches["orchestrator_mgm_ui"] = resil_ui_leg(smi, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # on the card every leg but the repairs runs K1, K4 or K5 (the legs
+    # check the repairs' K4-mixed launches against their arity)
+    idle = sorted(leg for leg, n in launches.items()
+                  if n == 0 and not leg.endswith("_repair_mixed"))
+    if idle and device != "cpu":
+        fail("resilience", f"{idle}: the path's kernel was launched no "
+             f"time")
+    say("resilience", kind="done", nvidia_smi=smi, launches=launches,
+        phase_s=round(time.perf_counter() - t0, 3),
+        script_s=round(time.perf_counter() - SCRIPT_T0, 1))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -5552,7 +5997,8 @@ def main():
     if sys.argv[1:2] == ["--phases"]:
         # python3 chip_smoke.py --phases fleet,procfleet: those phases
         # alone, no kernel check and no result lines
-        phases = {"fleet": fleet_phase, "procfleet": procfleet_phase}
+        phases = {"fleet": fleet_phase, "procfleet": procfleet_phase,
+                  "resilience": resilience_phase}
         for name in sys.argv[2].split(","):
             if name not in phases:
                 fail("phases", f"{name}: not in {sorted(phases)}")
@@ -6631,8 +7077,30 @@ def main():
     # (the thread fleet's one CUDA context; two children's contexts)
     fleet_launches = fleet_phase(smi)
     child_k6 = procfleet_phase(smi)
+    # checkpoints, checkpoint faults, the orchestrator and the UI: K1,
+    # K4 and K5 launch on this path
+    resil = resilience_phase(smi)
+    resil_rows = {
+        "packed_maxsum_cycle": {
+            "resilience_maxsum_checkpointed": resil["maxsum_checkpointed"],
+            "resilience_maxsum_checkpoint_faults":
+                resil["maxsum_checkpoint_faults"],
+            "resilience_orchestrator_maxsum": resil["orchestrator_maxsum"]},
+        "packed_dsa_cycles": {
+            "resilience_dsa_checkpointed": resil["dsa_checkpointed"]},
+        "packed_mgm_cycles": {
+            "resilience_mgm_checkpointed": resil["mgm_checkpointed"],
+            "resilience_orchestrator_mgm": resil["orchestrator_mgm"],
+            "resilience_orchestrator_mgm_ui": resil["orchestrator_mgm_ui"]},
+        "packed_mgm_cycles_mixed": {
+            "resilience_repair_dcop_maxsum":
+                resil["orchestrator_maxsum_repair_mixed"],
+            "resilience_repair_dcop_mgm":
+                resil["orchestrator_mgm_repair_mixed"]},
+    }
     for row in kernels:
         paths = row.setdefault("launches_by_path", {})
+        paths.update(resil_rows.get(row["name"], {}))
         if row["name"] == "packed_mgm2_cycles":
             paths["fleet_replica_fallback_mgm2_job"] = fleet_launches["mgm2"]
             for child, n in sorted(child_k6.items()):

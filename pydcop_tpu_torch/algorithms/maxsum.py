@@ -95,6 +95,7 @@ class MaxSumSolver(SynchronousTensorSolver):
     def __init__(self, dcop, tensors: FactorGraphTensors, algo_def,
                  seed: int = 0, use_packed: Optional[bool] = None):
         super().__init__(dcop, tensors, algo_def)
+        self.seed = seed
         precision = self.params.get("precision") or "f32"
         if precision != "f32":
             raise NotPortedError(
@@ -131,6 +132,11 @@ class MaxSumSolver(SynchronousTensorSolver):
         values = masked_argmin(self.tensors.unary_costs,
                                self.tensors.domain_mask)
         return q, r, values
+
+    def checkpoint_engine(self) -> str:
+        """The layout of the state leaves (``runtime/checkpoint.py``):
+        the packed engine's q and r are in its slot order."""
+        return "packed" if self.packed is not None else "generic"
 
     def _supports_fixed_chunk(self, collect):
         # the packed engine's cooperative launches are not captured

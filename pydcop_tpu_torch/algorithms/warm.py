@@ -78,6 +78,11 @@ class _WarmMixin:
     #: set by the repair controller; attached to every SolveResult
     repair_counters = None
 
+    def checkpoint_engine(self) -> str:
+        """The layout of the state leaves (``runtime/checkpoint.py``):
+        the capacity layout with its operands."""
+        return "warm"
+
     def _init_warm(self, layout: HeadroomLayout, seed: int) -> None:
         self.layout = layout
         self.seed = seed
@@ -130,8 +135,8 @@ class _WarmMixin:
         """Re-adopt a checkpoint's headroom layout (the JAX package's
         schema v3): the mutated operand tensors were restored with the
         state leaves; this restores the claimed/free slot maps and the
-        capacity host metadata so they are addressable by name.  Its
-        caller, the solver checkpoint, waits for ROADMAP A6."""
+        capacity host metadata so they are addressable by name.  Called
+        by ``runtime/checkpoint.py::load_checkpoint``."""
         self.layout = HeadroomLayout.from_meta(hmeta["layout"])
         t = self.tensors
         t.layout = self.layout

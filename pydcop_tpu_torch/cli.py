@@ -3,7 +3,8 @@
 Equivalent capability to the reference's pydcop/dcop_cli.py: global
 options (-v verbosity, --timeout with a forced-exit slack timer,
 --output, --version, --log) and the subcommands ported so far (solve,
-batch, serve, and serve-replica, the process fleet's child).
+run, batch, serve, serve-replica — the process fleet's child —,
+replica_dist and checkpoint).
 """
 from __future__ import annotations
 
@@ -41,9 +42,18 @@ def make_parser() -> argparse.ArgumentParser:
                         help="logging fileConfig")
 
     subparsers = parser.add_subparsers(dest="command", required=True)
-    from pydcop_tpu_torch.commands import batch, serve, serve_replica, solve
+    from pydcop_tpu_torch.commands import (
+        batch,
+        checkpoint_cmd,
+        replica_dist,
+        run,
+        serve,
+        serve_replica,
+        solve,
+    )
 
-    for module in (solve, batch, serve, serve_replica):
+    for module in (solve, run, batch, serve, serve_replica, replica_dist,
+                   checkpoint_cmd):
         module.set_parser(subparsers)
     return parser
 

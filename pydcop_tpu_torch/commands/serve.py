@@ -47,9 +47,9 @@ files (the children load them).  With a fleet the output JSON has a
 ``fleet`` section (router state, per-replica counters, the
 recovery-time objective) in place of ``serve``.
 
-Not ported yet, and refused with
-:class:`~pydcop_tpu_torch.errors.NotPortedError` (the JSON error the
-port's ``solve`` and ``batch`` use): ``--uiport`` (the GUI server).
+``--uiport`` serves the GUI websocket protocol + HTTP ``/state`` and the
+SSE stream (``runtime/ui.py``) for the service's lifetime: its
+``serve.*`` events reach the clients.
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ from pydcop_tpu_torch.commands._utils import (
     output_metrics,
     parse_algo_params,
 )
-from pydcop_tpu_torch.errors import DeviceUnavailableError, NotPortedError
+from pydcop_tpu_torch.errors import DeviceUnavailableError
 
 
 def set_parser(subparsers):
@@ -139,7 +139,8 @@ def set_parser(subparsers):
                         "(resumed from their last chunk boundary) "
                         "before submitting new ones")
     parser.add_argument("--uiport", type=int, default=None,
-                        help="the GUI server: not ported")
+                        help="serve the GUI websocket protocol + HTTP "
+                        "/state on this port (ws on port+1)")
     parser.add_argument("--memo", action="store_true",
                         help="enable the cross-request solution cache: "
                         "exact duplicates are served bit-identically "
@@ -165,15 +166,6 @@ def set_parser(subparsers):
     return parser
 
 
-def refuse_unported(args) -> None:
-    """Raise :class:`NotPortedError` for a flag of the UI tier (never
-    accepted and then ignored)."""
-    if args.uiport is not None:
-        raise NotPortedError(
-            "serve: --uiport (the GUI server) not ported to the PyTorch "
-            "package yet")
-
-
 def run_cmd(args):
     import numpy as np
 
@@ -186,7 +178,6 @@ def run_cmd(args):
         SolveService,
     )
 
-    refuse_unported(args)
     if args.resume and not args.journal_dir:
         output_metrics(
             {"status": "ERROR",
@@ -274,87 +265,90 @@ def run_cmd(args):
     except DeviceUnavailableError as e:
         output_metrics({"status": "ERROR", "error": str(e)}, args.output)
         return 1
-    n_resumed = 0
-    if args.resume:
-        n_resumed = service.resume()
-    if args.prewarm and pool:
-        # a process fleet ships prewarms by source path (the DCOP
-        # objects live in the children); everything else takes objects
-        heads = ([fn for fn, _dcop in pool] if args.processes
-                 else [dcop for _fn, dcop in pool])
-        service.prewarm(
-            [(h, args.algo, algo_params) for h in heads], block=True,
-        )
-    service.start()
+    from pydcop_tpu_torch.runtime.ui import serving
 
-    # arrival schedule (recorded for reproducibility)
-    n_jobs = args.jobs if args.jobs is not None else len(pool)
-    offsets = [0.0] * n_jobs
-    if args.arrival == "poisson" and n_jobs:
-        rng = np.random.default_rng(args.arrival_seed)
-        inter = rng.exponential(1.0 / max(args.rate, 1e-9), n_jobs)
-        inter[0] = 0.0
-        offsets = [float(x) for x in np.cumsum(inter)]
-    trace = [round(o, 6) for o in offsets]
-
-    jids, rejected = [], []
-    t0 = time.monotonic()
-    for i in range(n_jobs):
-        fn, dcop = pool[i % len(pool)] if pool else (None, None)
-        if dcop is None:
-            break
-        wait = offsets[i] - (time.monotonic() - t0)
-        if wait > 0:
-            time.sleep(wait)
-        seed = i if args.seed_period is None else i % args.seed_period
-        try:
-            jids.append(service.submit(
-                dcop, args.algo, algo_params=algo_params, seed=seed,
-                priority=args.priority, deadline_s=args.deadline,
-                label=f"{fn}:{i}", source_file=fn,
-            ))
-        except ServeError as e:
-            # admission control said no: a structured, recorded
-            # rejection — never a silent drop
-            rej = {"label": f"{fn}:{i}", "error": str(e)}
-            if isinstance(e, ServiceOverloaded):
-                rej.update(e.to_dict())
-            rejected.append(rej)
-
-    # resumed jobs are part of the session too
-    all_jids = sorted(
-        set(jids) | {j for j in service._jobs if args.resume}
-    )
-    per_job = dict(errors)
-    ok = True
-    try:
-        for jid in all_jids:
-            try:
-                res = service.result(jid, timeout=args.timeout)
-            except TimeoutError:
-                per_job[jid] = {"status": "TIMEOUT",
-                                "error": "service timeout"}
-                ok = False
-                continue
-            except ServeError as e:
-                per_job[jid] = {"status": "ERROR", "error": str(e)}
-                ok = False
-                continue
-            job = service._jobs[jid]
-            m = res.metrics()
-            m["tenant"] = job.tenant
-            m["label"] = job.label
-            # fleet jobs carry re-seat provenance instead of a resumed
-            # flag; surface both through the same key
-            m["resumed"] = bool(
-                getattr(job, "resumed", False)
-                or (m.get("serve") or {}).get("resumed")
+    with serving(args.uiport):
+        n_resumed = 0
+        if args.resume:
+            n_resumed = service.resume()
+        if args.prewarm and pool:
+            # a process fleet ships prewarms by source path (the DCOP
+            # objects live in the children); everything else takes objects
+            heads = ([fn for fn, _dcop in pool] if args.processes
+                     else [dcop for _fn, dcop in pool])
+            service.prewarm(
+                [(h, args.algo, algo_params) for h in heads], block=True,
             )
-            per_job[jid] = m
-            if res.status not in ("FINISHED", "TIMEOUT"):
-                ok = False
-    finally:
-        service.stop(drain=False)
+        service.start()
+
+        # arrival schedule (recorded for reproducibility)
+        n_jobs = args.jobs if args.jobs is not None else len(pool)
+        offsets = [0.0] * n_jobs
+        if args.arrival == "poisson" and n_jobs:
+            rng = np.random.default_rng(args.arrival_seed)
+            inter = rng.exponential(1.0 / max(args.rate, 1e-9), n_jobs)
+            inter[0] = 0.0
+            offsets = [float(x) for x in np.cumsum(inter)]
+        trace = [round(o, 6) for o in offsets]
+
+        jids, rejected = [], []
+        t0 = time.monotonic()
+        for i in range(n_jobs):
+            fn, dcop = pool[i % len(pool)] if pool else (None, None)
+            if dcop is None:
+                break
+            wait = offsets[i] - (time.monotonic() - t0)
+            if wait > 0:
+                time.sleep(wait)
+            seed = i if args.seed_period is None else i % args.seed_period
+            try:
+                jids.append(service.submit(
+                    dcop, args.algo, algo_params=algo_params, seed=seed,
+                    priority=args.priority, deadline_s=args.deadline,
+                    label=f"{fn}:{i}", source_file=fn,
+                ))
+            except ServeError as e:
+                # admission control said no: a structured, recorded
+                # rejection — never a silent drop
+                rej = {"label": f"{fn}:{i}", "error": str(e)}
+                if isinstance(e, ServiceOverloaded):
+                    rej.update(e.to_dict())
+                rejected.append(rej)
+
+        # resumed jobs are part of the session too
+        all_jids = sorted(
+            set(jids) | {j for j in service._jobs if args.resume}
+        )
+        per_job = dict(errors)
+        ok = True
+        try:
+            for jid in all_jids:
+                try:
+                    res = service.result(jid, timeout=args.timeout)
+                except TimeoutError:
+                    per_job[jid] = {"status": "TIMEOUT",
+                                    "error": "service timeout"}
+                    ok = False
+                    continue
+                except ServeError as e:
+                    per_job[jid] = {"status": "ERROR", "error": str(e)}
+                    ok = False
+                    continue
+                job = service._jobs[jid]
+                m = res.metrics()
+                m["tenant"] = job.tenant
+                m["label"] = job.label
+                # fleet jobs carry re-seat provenance instead of a resumed
+                # flag; surface both through the same key
+                m["resumed"] = bool(
+                    getattr(job, "resumed", False)
+                    or (m.get("serve") or {}).get("resumed")
+                )
+                per_job[jid] = m
+                if res.status not in ("FINISHED", "TIMEOUT"):
+                    ok = False
+        finally:
+            service.stop(drain=False)
 
     payload = {
         "status": "FINISHED" if ok and not errors else "ERROR",

@@ -5,19 +5,23 @@ Equivalent capability to the reference's pydcop/commands/solve.py
 same JSON as the JAX package's ``solve``.  The options ported so far are
 ``-a``, ``-p``, ``--cycles``, ``--seed``, ``--device``, the dpop
 shorthands ``--dpop-budget-mb``, ``--i-bound`` and ``--dpop-no-prune``,
-and ``-d`` with a distribution YAML file, which drives a sharded maxsum
-or amaxsum solve (one shard per visible device), with
-``--shard-overlap`` and ``--shard-boundary-threshold`` (plus the global
-``--timeout`` and ``--output``), the exact-search options
-``--anytime-exact`` and ``--frontier-width``, ``--headroom`` (the
-warm-repair engine, ``metrics()["repair"]``), and the metrics options
-``-c/--collect_on``, ``--run_metrics`` and ``--end_metrics`` (the JAX
-package's CSV files: one ``RUNNING`` line a cycle of the history, then
-the end line), with ``-m/--mode``, ``--period`` and ``--delay`` accepted
-for compatibility, and ``--batch`` with ``--max-padding-waste``: each
-file a separate instance, solved through the batched engine
-(:mod:`pydcop_tpu_torch.batch`).  ``-d`` with a strategy name is not
-ported and fails; ``--uiport`` and ``--compile-cache-dir`` raise
+and ``-d``: a distribution YAML file drives a sharded maxsum or amaxsum
+solve (one shard per visible device), with ``--shard-overlap`` and
+``--shard-boundary-threshold``, and a strategy name (``oneagent``,
+``adhoc``) is computed and validated (plus the global ``--timeout`` and
+``--output``), the exact-search options ``--anytime-exact`` and
+``--frontier-width``, ``--headroom`` (the warm-repair engine,
+``metrics()["repair"]``), the metrics options ``-c/--collect_on``,
+``--run_metrics`` and ``--end_metrics`` (the JAX package's CSV files: one
+``RUNNING`` line a cycle of the history, then the end line), with
+``-m/--mode``, ``--period`` and ``--delay`` accepted for compatibility,
+``--batch`` with ``--max-padding-waste`` (each file a separate instance,
+solved through the batched engine, :mod:`pydcop_tpu_torch.batch`), the
+resilience options ``--checkpoint``, ``--checkpoint-every``, ``--resume``
+and ``--fault-plan`` (its checkpoint kinds), and ``--uiport`` (the UI
+server, ``runtime/ui.py``).  ``--elastic``, ``--elastic-chunk``,
+``--scrub-every``, ``--elastic-min-devices``, a fault plan's device kinds
+and ``--compile-cache-dir`` raise
 :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 """
 from __future__ import annotations
@@ -73,7 +77,8 @@ def set_parser(subparsers):
     parser.add_argument("--delay", type=float, default=None,
                         help="accepted for compatibility")
     parser.add_argument("--uiport", type=int, default=None,
-                        help="the GUI websocket server: not ported")
+                        help="serve the GUI websocket protocol + HTTP "
+                        "/state on this port (ws on port+1)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--cycles", type=int, default=None,
                         help="run exactly this many cycles")
@@ -86,8 +91,8 @@ def set_parser(subparsers):
         help="a distribution YAML file, which drives the solve: factors "
         "are sharded by host agent onto one shard per visible device "
         "(maxsum and amaxsum; other algorithms reject an explicit "
-        "placement). "
-        "Distribution strategy names are not ported")
+        "placement), or a strategy name (oneagent, adhoc), which is "
+        "computed and validated")
     parser.add_argument("--shard-overlap",
                         choices=["off", "exact", "stale"], default=None,
                         help="sharded-engine collective path: off = dense "
@@ -132,7 +137,40 @@ def set_parser(subparsers):
                         "mutations become fixed-shape writes in place "
                         "with no re-capture; repair counters land in "
                         "metrics['repair'] (maxsum/mgm/dsa/adsa)")
+    # crash resilience
+    parser.add_argument("--fault-plan", default=None,
+                        help="seeded FaultPlan YAML: its checkpoint kinds "
+                        "damage --checkpoint's newest snapshot before "
+                        "--resume reads it; the device kinds "
+                        "(kill_device/shrink_mesh/corrupt_slab) need the "
+                        "elastic driver, which is not ported")
+    # the elastic device-fault tier (the JAX package's parallel/elastic.py)
+    parser.add_argument("--elastic", action="store_true",
+                        help="the elastic sharded driver: not ported")
+    parser.add_argument("--elastic-chunk", type=int, default=8,
+                        help="cycles per elastic chunk boundary (with "
+                        "the elastic driver, not ported)")
+    parser.add_argument("--scrub-every", type=int, default=0,
+                        help="shadow-recompute scrub every K chunks "
+                        "(with the elastic driver, not ported)")
+    parser.add_argument("--elastic-min-devices", type=int, default=2,
+                        help="shrink floor of the elastic driver (not "
+                        "ported)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="rotating snapshot directory: solver state "
+                        "is persisted every --checkpoint-every cycles "
+                        "(atomic + checksummed)")
+    parser.add_argument("--checkpoint-every", type=int, default=10)
+    parser.add_argument("--resume", action="store_true",
+                        help="warm-start from the newest valid snapshot "
+                        "in --checkpoint (corrupt files are skipped)")
     return parser
+
+
+#: the elastic driver's flags and their defaults: any other value asks
+#: for the driver, which is not ported
+ELASTIC_DEFAULTS = {"elastic": False, "elastic_chunk": 8, "scrub_every": 0,
+                    "elastic_min_devices": 2}
 
 
 def run_cmd(args):
@@ -143,10 +181,13 @@ def run_cmd(args):
         output_metrics({"status": "ERROR", "error": error}, args.output)
         return 1
 
-    if args.uiport:
+    elastic = [f"--{k.replace('_', '-')}"
+               for k, v in ELASTIC_DEFAULTS.items() if getattr(args, k) != v]
+    if elastic:
         raise NotPortedError(
-            "--uiport (the UI server, runtime/ui.py and ws.py) is not "
-            "ported to the PyTorch package yet")
+            f"{', '.join(elastic)}: the elastic sharded driver "
+            f"(parallel/elastic.py) is not ported to the PyTorch package "
+            f"yet")
 
     if args.batch:
         return _run_batch(args)
@@ -209,24 +250,46 @@ def run_cmd(args):
                 distribution = load_dist_from_file(distribution)
             except Exception as e:
                 raise ValueError(f"cannot load distribution: {e}") from e
-        res = solve_result(
-            dcop,
-            args.algo,
-            distribution=distribution,
-            timeout=args.timeout,
-            cycles=args.cycles,
-            algo_params=algo_params,
-            seed=args.seed,
-            device=args.device,
-            shard_overlap=args.shard_overlap,
-            shard_boundary_threshold=args.shard_boundary_threshold,
-            collect_cycles=args.run_metrics is not None
-            or args.collect_on == "cycle_change",
-            headroom=args.headroom,
-        )
+        fault_plan = None
+        if args.fault_plan:
+            from pydcop_tpu_torch.runtime.faults import FaultPlan
+
+            try:
+                fault_plan = FaultPlan.from_yaml(args.fault_plan)
+            except Exception as e:
+                raise ValueError(f"cannot load fault plan: {e}") from e
     except Exception as e:
         output_metrics({"status": "ERROR", "error": str(e)}, args.output)
         return 1
+    from pydcop_tpu_torch.runtime.ui import serving
+
+    with serving(args.uiport) as ui:
+        try:
+            res = solve_result(
+                dcop,
+                args.algo,
+                distribution=distribution,
+                timeout=args.timeout,
+                cycles=args.cycles,
+                algo_params=algo_params,
+                seed=args.seed,
+                device=args.device,
+                shard_overlap=args.shard_overlap,
+                shard_boundary_threshold=args.shard_boundary_threshold,
+                collect_cycles=args.run_metrics is not None
+                or args.collect_on == "cycle_change",
+                headroom=args.headroom,
+                checkpoint_dir=args.checkpoint,
+                checkpoint_every=args.checkpoint_every,
+                resume=args.resume,
+                fault_plan=fault_plan,
+            )
+        except Exception as e:
+            output_metrics({"status": "ERROR", "error": str(e)},
+                           args.output)
+            return 1
+        if ui is not None:
+            ui.update_state(**res.metrics())
     metrics = res.metrics()
     if args.run_metrics and res.history:
         for h in res.history:
@@ -272,6 +335,9 @@ def _run_batch(args):
             args.dpop_budget_mb is not None or args.i_bound is not None
             or args.dpop_no_prune),
         "--headroom": args.headroom is not None,
+        "--checkpoint/--resume/--fault-plan": bool(
+            args.checkpoint or args.resume or args.fault_plan),
+        "--uiport": args.uiport is not None,
     }
     given = [name for name, on in unused.items() if on]
     if given:

@@ -24,12 +24,15 @@ protocol.
   indistinguishable from a real one.
 * :func:`corrupt_checkpoint` — deterministic byte-flips / truncation
   for hardening tests of :mod:`pydcop_tpu_torch.runtime.checkpoint`.
+* :func:`apply_checkpoint_faults` — fires the checkpoint kinds against
+  a snapshot directory's newest file (``solve_result(checkpoint_dir=,
+  resume=True, fault_plan=)`` and the orchestrator's auto-resume call it
+  before they restore).
 
-The consumers of the fleet, process-fleet, churn and device kinds (the
-fleets, the orchestrator's warm repair, the elastic runner) and
-:func:`apply_checkpoint_faults` (it needs the solver checkpoints'
-``CheckpointManager``) are not ported yet: the plan parses them, and
-:func:`apply_checkpoint_faults` raises
+The fleets consume the fleet and process-fleet kinds, the orchestrator
+the churn kinds.  The device kinds' consumer (the elastic runner) and
+the rank kinds' (the process runtime) are not ported: the plan parses
+them, and a solve given them raises
 :class:`~pydcop_tpu_torch.errors.NotPortedError`.
 
 Every random choice flows from an explicit seed; the same plan + seed
@@ -110,6 +113,9 @@ PROCESS_KINDS = ("kill_process", "partition_socket", "corrupt_artifact")
 #: set, consumed by RankFaultInjector and the coordinator watchdog
 RUNTIME_KINDS = ("kill_rank", "stall_rank", "kill_agent",
                  "corrupt_checkpoint", "truncate_checkpoint")
+
+#: the kinds that damage a snapshot file before a resume reads it
+CHECKPOINT_KINDS = ("corrupt_checkpoint", "truncate_checkpoint")
 
 #: device-tier fault kinds (consumed by the elastic sharded runner,
 #: the JAX package's parallel/elastic.py, not ported yet) —
@@ -702,17 +708,66 @@ def corrupt_checkpoint(path: str, seed: int = 0,
             f.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
 
 
+#: the kinds whose consumers are not ported: the elastic runner's
+#: device kinds and the process runtime's rank kinds
+UNPORTED_KINDS = DEVICE_KINDS + ("kill_rank", "stall_rank")
+
+
+def refuse_unported_kinds(plan: FaultPlan) -> None:
+    """Raise :class:`~pydcop_tpu_torch.errors.NotPortedError` naming the
+    plan's kinds whose consumer is not ported (never accepted and then
+    ignored)."""
+    from pydcop_tpu_torch.errors import NotPortedError
+
+    kinds = sorted({f.kind for f in plan.faults if f.kind in UNPORTED_KINDS})
+    if kinds:
+        raise NotPortedError(
+            f"fault kinds {kinds} need the elastic sharded driver (device "
+            f"kinds) or the process runtime (rank kinds), which are not "
+            f"ported to the PyTorch package yet")
+
+
+#: who consumes each family of kinds, for the refusals that name it
+CONSUMERS = (
+    (CHURN_KINDS + ("kill_agent",), "the orchestrator (run)"),
+    (CHECKPOINT_KINDS, "a resume from a snapshot directory"),
+    (SERVE_KINDS, "the solve service (serve)"),
+    (FLEET_KINDS, "the solve fleets (serve --replicas)"),
+    (PROCESS_KINDS, "the process fleet (serve --processes)"),
+)
+
+
+def check_consumed(plan: FaultPlan, consumed, consumer: str) -> None:
+    """Refuse the plan's kinds that ``consumer`` does not take, never
+    accepting and then ignoring one: those whose consumer is not ported
+    raise :class:`~pydcop_tpu_torch.errors.NotPortedError`, the others
+    ``ValueError`` naming them and where they are consumed."""
+    refuse_unported_kinds(plan)
+    other = sorted({f.kind for f in plan.faults} - set(consumed))
+    if other:
+        where = [name for kinds, name in CONSUMERS
+                 if set(kinds) & set(other)]
+        raise ValueError(
+            f"fault kinds {other} are consumed by {' and '.join(where)}, "
+            f"not by {consumer}")
+
+
 def apply_checkpoint_faults(plan: FaultPlan, directory: Optional[str],
                             attempt: int) -> List[str]:
     """Host-side: fire the plan's checkpoint faults due at ``attempt``
     against their explicit paths or the newest snapshot in
-    ``directory``.  Not ported: the newest snapshot comes from the
-    solver checkpoints' ``CheckpointManager``, which the PyTorch package
-    does not have yet."""
-    from pydcop_tpu_torch.errors import NotPortedError
+    ``directory``.  Returns the damaged paths (for logging/metrics)."""
+    from pydcop_tpu_torch.runtime.checkpoint import CheckpointManager
 
-    raise NotPortedError(
-        "apply_checkpoint_faults is not ported to the PyTorch package: "
-        "it needs the solver checkpoints (CheckpointManager), which are "
-        "not ported yet; corrupt_checkpoint(path) damages a given file"
-    )
+    damaged = []
+    for f in plan.checkpoint_faults(attempt):
+        path = f.path
+        if path is None and directory:
+            latest = CheckpointManager(directory).latest()
+            path = latest[1] if latest else None
+        if path and os.path.exists(path):
+            mode = ("truncate" if f.kind == "truncate_checkpoint"
+                    else "corrupt")
+            corrupt_checkpoint(path, seed=plan.seed, mode=mode)
+            damaged.append(path)
+    return damaged

@@ -1,16 +1,29 @@
 """One-call solve API.
 
 Equivalent capability to the reference's pydcop/infrastructure/run.py
-(solve) without the thread/process agent plumbing: build graph → compile
-to tensors on the device → run synchronous rounds.  A ``Distribution``
-object (e.g. loaded from a distribution YAML) drives a sharded solve: the
-factors go to the shards of their host agents
-(:func:`_solve_under_placement`, maxsum and amaxsum; with
-``collect_cycles`` one cycle a dispatch and its cost, as in the JAX
-package).  ``headroom`` builds the warm-repair engine
-(``algorithms/warm.py``).  A distribution strategy given by name,
-checkpointing and the elastic path each refuse with
-:class:`~pydcop_tpu_torch.errors.NotPortedError`.
+(solve :52, run_local_thread_dcop :145, run_local_process_dcop :225)
+without the thread/process agent plumbing: build graph → compile to
+tensors on the device → run synchronous rounds.
+
+* A ``Distribution`` object (e.g. loaded from a distribution YAML)
+  drives a sharded solve: the factors go to the shards of their host
+  agents (:func:`_solve_under_placement`, maxsum and amaxsum; with
+  ``collect_cycles`` one cycle a dispatch and its cost, as in the JAX
+  package).  A distribution strategy given by NAME (``oneagent``,
+  ``adhoc``) is computed and validated, as in the JAX package: a
+  single-device solve needs no placement to run.
+* ``headroom`` builds the warm-repair engine (``algorithms/warm.py``).
+* ``checkpoint_dir`` runs the solve in chunks of ``checkpoint_every``
+  cycles with a rotating snapshot after each (:func:`_run_with_checkpoints`,
+  ``runtime/checkpoint.py``); ``resume`` warm-starts from the newest
+  valid snapshot.  A fault plan's checkpoint kinds fire on that
+  directory just before the resume reads it.
+* :func:`run_local_thread_dcop` returns a deployed
+  :class:`~pydcop_tpu_torch.runtime.orchestrator.VirtualOrchestrator`.
+
+Refused with :class:`~pydcop_tpu_torch.errors.NotPortedError`: the
+elastic path (``elastic=`` and the device-tier fault kinds), the rank
+fault kinds and :func:`run_local_process_dcop` (the process runtime).
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ def solve_result(
     device: DeviceLike = None,
     collect_cycles: bool = False,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
     resume: bool = False,
     pipeline: bool = False,
     chunk: Optional[int] = None,
@@ -85,24 +99,34 @@ def solve_result(
     count on cuda, 1 on the CPU.  ``shard_overlap`` and
     ``shard_boundary_threshold`` choose its collective path as in the JAX
     package (only the dense one is ported); they and ``n_shards`` apply
-    to that path only."""
+    to that path only.  As a strategy NAME it is computed and validated
+    (an unported strategy raises ``NotPortedError``).
+
+    ``checkpoint_dir`` + ``checkpoint_every`` (default 10) persist
+    rotating state snapshots every *k* cycles
+    (``runtime/checkpoint.CheckpointManager``); ``resume=True``
+    warm-starts from the newest valid snapshot in that directory
+    (damaged snapshots are skipped with a warning).  Not supported on
+    the placement-driven path.  ``fault_plan``'s checkpoint kinds
+    (``corrupt_checkpoint``, ``truncate_checkpoint``) fire on that
+    directory before the resume; its other kinds have no consumer in a
+    single solve and raise."""
     from pydcop_tpu_torch.distribution.objects import Distribution
 
-    refused = {
-        "checkpoint_dir/resume": bool(checkpoint_dir) or resume,
-        "fault_plan/elastic": fault_plan is not None or elastic is not None,
-        "a distribution strategy given by name": (
-            distribution is not None
-            and not isinstance(distribution, Distribution)),
-    }
-    for name, given in refused.items():
-        if given:
-            raise NotPortedError(
-                f"{name} is not ported to the PyTorch package yet: pass a "
-                f"Distribution object (e.g. a distribution YAML file) or "
-                f"none")
+    if elastic is not None:
+        raise NotPortedError(
+            "elastic= (the elastic sharded driver, parallel/elastic.py) "
+            "is not ported to the PyTorch package yet")
+    if fault_plan is not None:
+        _check_fault_plan(fault_plan, checkpoint_dir, resume)
     dev = resolve_device(device)
     if isinstance(distribution, Distribution):
+        if checkpoint_dir or resume:
+            raise ValueError(
+                "checkpointing is not supported on the placement-"
+                "driven solve path; rerun without an explicit "
+                "distribution object"
+            )
         if headroom is not None:
             raise ValueError(
                 "headroom builds the single-device warm-repair engine; it "
@@ -119,6 +143,18 @@ def solve_result(
     algo_module = load_algorithm_module(algo_def.algo)
     graph_module = load_graph_module(graph or algo_module.GRAPH_TYPE)
     cg = graph_module.build_computation_graph(dcop)
+    if distribution is not None:
+        from pydcop_tpu_torch.distribution import load_distribution_module
+
+        dist_module = load_distribution_module(distribution)
+        if dcop.agents:
+            dist_module.distribute(
+                cg,
+                dcop.agents.values(),
+                hints=getattr(dcop, "dist_hints", None),
+                computation_memory=algo_module.computation_memory,
+                communication_load=algo_module.communication_load,
+            )
     if headroom is not None:
         from pydcop_tpu_torch.algorithms.warm import build_warm_solver
         from pydcop_tpu_torch.runtime.stats import RepairCounters
@@ -138,11 +174,110 @@ def solve_result(
         if cycles is not None
         else (algo_def.params.get("stop_cycle") or None)
     )
+    if checkpoint_dir:
+        if resume and fault_plan is not None:
+            from pydcop_tpu_torch.runtime.faults import \
+                apply_checkpoint_faults
+
+            for path in apply_checkpoint_faults(fault_plan, checkpoint_dir,
+                                                attempt=0):
+                logging.getLogger("pydcop_tpu_torch.run").warning(
+                    "fault plan damaged checkpoint %s", path)
+        return _run_with_checkpoints(
+            solver, checkpoint_dir, checkpoint_every or 10, stop_cycle,
+            timeout, resume, collect_cycles,
+        )
+    if resume:
+        raise ValueError("resume=True reads checkpoint_dir's snapshots: "
+                         "pass checkpoint_dir as well")
     return solver.run(
         cycles=stop_cycle, timeout=timeout, collect_cycles=collect_cycles,
         pipeline=pipeline,
         **({"chunk": chunk} if chunk is not None else {}),
     )
+
+
+def _check_fault_plan(fault_plan, checkpoint_dir: Optional[str],
+                      resume: bool) -> None:
+    """A single solve consumes a fault plan's checkpoint kinds only
+    (before its resume); every other kind is refused, never ignored."""
+    from pydcop_tpu_torch.runtime.faults import CHECKPOINT_KINDS, \
+        check_consumed
+
+    check_consumed(fault_plan, CHECKPOINT_KINDS, "a single solve")
+    if fault_plan.faults and not (checkpoint_dir and resume):
+        raise ValueError(
+            "checkpoint fault kinds fire on checkpoint_dir's newest "
+            "snapshot before a resume: pass checkpoint_dir and resume=True")
+
+
+def _run_with_checkpoints(
+    solver,
+    checkpoint_dir: str,
+    checkpoint_every: int,
+    cycles: Optional[int],
+    timeout: Optional[float],
+    resume: bool,
+    collect_cycles: bool,
+) -> SolveResult:
+    """Chunked solver run with periodic rotating snapshots.
+
+    Every ``checkpoint_every`` cycles the solver state is snapshotted
+    (atomic + checksummed); with ``resume`` the newest valid snapshot
+    warm-starts the run and only the remaining cycles execute.  With no
+    explicit cycle budget the run executes the solver's default budget
+    with a final snapshot at the end.  Each checkpoint boundary ends a
+    ``run``: the packed engines launch once a chunk of at most
+    ``checkpoint_every`` cycles.
+    """
+    from pydcop_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(checkpoint_dir)
+    done = 0
+    warm = False
+    if resume:
+        meta = mgr.load_latest_into(solver)
+        if meta is not None:
+            done = int(meta.get("cycle", 0) or 0)
+            warm = True
+    if cycles is None:
+        res = solver.run(timeout=timeout, collect_cycles=collect_cycles,
+                         resume=warm)
+        mgr.save_solver(solver, done + res.cycle)
+        return res
+    t0 = perf_counter()
+    every = max(1, checkpoint_every)
+    res = None
+    history = []
+    while done < cycles:
+        n = min(every, cycles - done)
+        left = None if timeout is None else timeout - (perf_counter() - t0)
+        if left is not None and left <= 0:
+            break
+        res = solver.run(cycles=n, timeout=left,
+                         collect_cycles=collect_cycles, resume=warm)
+        warm = True
+        done += res.cycle
+        if res.history:
+            history.extend(res.history)
+        mgr.save_solver(solver, done)
+        if res.status == "TIMEOUT":
+            break
+        if res.cycle < n:
+            # the solver finished ahead of its cycle budget (e.g. the
+            # frontier search proved optimality): burning the rest of
+            # the budget in no-op chunks would just churn snapshots
+            break
+    if res is None:  # resumed at/after the requested budget
+        res = solver.run(cycles=1, collect_cycles=collect_cycles,
+                         resume=warm)
+        done += res.cycle
+        mgr.save_solver(solver, done)
+    res.cycle = done
+    res.time = perf_counter() - t0
+    if history:
+        res.history = history
+    return res
 
 
 def _solve_under_placement(
@@ -292,3 +427,50 @@ def solve(
         dcop, algo, distribution, graph, timeout, cycles, algo_params, seed,
         device=device,
     ).assignment
+
+
+#: the replica-placement method (``replication/__init__.py``)
+REPLICATION_METHOD = "dist_ucs_hostingcosts"
+
+
+def run_local_thread_dcop(
+    dcop: DCOP,
+    algo: Union[str, AlgorithmDef],
+    distribution: Union[str, Any] = "adhoc",
+    graph: Optional[str] = None,
+    collector=None,
+    collect_moment: str = "value_change",
+    period: Optional[float] = None,
+    replication: Optional[str] = None,
+    seed: int = 0,
+    device: DeviceLike = None,
+):
+    """Reference-parity constructor (infrastructure/run.py:145): returns a
+    deployed orchestrator.  In thread mode the tensor runtime is the whole
+    agent population in one process.  ``replication`` names the one
+    replica-placement method (``dist_ucs_hostingcosts``); replicas are
+    placed by ``start_replication(k)``."""
+    from pydcop_tpu_torch.runtime.orchestrator import VirtualOrchestrator
+
+    if replication not in (None, REPLICATION_METHOD):
+        raise ValueError(
+            f"unknown replication method {replication!r}; the one method "
+            f"is {REPLICATION_METHOD!r}")
+    orch = VirtualOrchestrator(
+        dcop, algo, distribution=distribution, graph=graph,
+        collect_on=collect_moment, period=period, collector=collector,
+        seed=seed, device=device,
+    )
+    orch.deploy_computations()
+    return orch
+
+
+
+def run_local_process_dcop(*args, **kwargs):
+    """The reference's multi-process runtime (infrastructure/run.py
+    :225): the JAX package runs it over OS processes
+    (``runtime/process.py``), which is not ported."""
+    raise NotPortedError(
+        "run_local_process_dcop (the process runtime, runtime/process.py) "
+        "is not ported to the PyTorch package yet; use "
+        "run_local_thread_dcop")

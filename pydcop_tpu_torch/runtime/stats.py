@@ -2,8 +2,8 @@
 
 The parts of the JAX package's ``runtime/stats.py`` that the chunked
 harness, the sharded engines, the frontier search, the batched solve
-engine, the solve service and its fleets, the warm-repair layer and the
-solution cache use, with the same names and schemas,
+engine, the solve service and its fleets, the warm-repair layer, the
+solution cache and the orchestrator's fault section use, with the same names and schemas,
 so that ``SolveResult.metrics()`` has the same keys in both packages.
 """
 from __future__ import annotations
@@ -303,6 +303,46 @@ class RepairCounters:
         out = dict(self.counts)
         out["time_to_recover_s"] = round(out["time_to_recover_s"], 6)
         return out
+
+
+#: counter names surfaced under ``metrics()["resilience"]`` — the JAX
+#: package's ``RESILIENCE_COUNTERS``, name for name: one schema for the
+#: thread mode (the orchestrator) and the process mode (not ported), so
+#: collectors need no mode-specific parsing
+RESILIENCE_COUNTERS = (
+    "faults_injected",      # fault-plan faults fired (any kind)
+    "rank_crashes",         # ranks seen dead (injected kill or signal)
+    "rank_stalls",          # ranks declared stalled by the watchdog
+    "retries",              # full-mesh relaunches after a failure
+    "resumes",              # runs warm-started from a checkpoint
+    "repairs",              # agent-removal repair DCOPs solved
+    "checkpoints_saved",
+    "checkpoints_rejected",  # snapshots refused (checksum/version)
+    "degraded_to_thread",   # process mode fell back to thread mode
+)
+
+
+class FaultCounters:
+    """Fault + recovery counters collected by the orchestrator and
+    merged into its end metrics (``metrics()['resilience']``)."""
+
+    def __init__(self):
+        self.counts = {k: 0 for k in RESILIENCE_COUNTERS}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        if name not in self.counts:
+            raise KeyError(
+                f"unknown resilience counter {name!r}; add it to "
+                f"RESILIENCE_COUNTERS"
+            )
+        self.counts[name] += n
+
+    def as_dict(self) -> dict:
+        return dict(self.counts)
+
+    @property
+    def any_faults(self) -> bool:
+        return any(self.counts.values())
 
 
 #: counter names surfaced under ``metrics()["memo"]`` by the

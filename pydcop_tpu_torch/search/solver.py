@@ -13,9 +13,13 @@ incumbent.  It speaks the same surface as every other solver —
 ``search.done`` on the event bus (``runtime/events.py``).
 
 The JAX package's ``search/solver.py`` on this package's engine.  Not
-ported with it: the checkpoint surface (``solve_result`` refuses
-``checkpoint_dir``) and the program auditor's budget and trace count.  ``resume=True`` continues in-process from the
-previous run's device state.
+ported with it: the program auditor's budget and trace count.
+``resume=True`` continues from the previous run's device state, in
+process or restored from a solver checkpoint (``solve_result``'s
+``checkpoint_dir``: ``runtime/checkpoint.py`` saves the state dict, its
+leaves by sorted key, and the host half beside it: the stashed rows and
+the best bound, without which a resumed run could lose frontier nodes
+and claim a proof it does not have).
 """
 from __future__ import annotations
 
@@ -169,6 +173,33 @@ class FrontierSearchSolver:
 
     def _stash_rows(self) -> int:
         return int(sum(r.shape[0] for r in self._stash))
+
+    def checkpoint_engine(self) -> str:
+        """The layout of the state leaves (``runtime/checkpoint.py``)."""
+        return "frontier"
+
+    def checkpoint_host_arrays(self) -> Dict[str, np.ndarray]:
+        """The host half of the search state, which a checkpoint carries
+        beside the device leaves: the stashed rows the annex has not
+        taken back yet, and the best bound published so far."""
+        n = max(self.n, 1)
+        rows = (np.concatenate(self._stash, axis=0) if self._stash
+                else np.zeros((0, n + 3), np.float64))
+        return {"stash": rows,
+                "lb_best": np.asarray(self._lb_best, np.float64)}
+
+    def restore_checkpoint_host(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Adopt :meth:`checkpoint_host_arrays`' output; a stash of
+        another width raises ``ValueError`` before anything changes."""
+        rows = np.asarray(arrays["stash"], np.float64)
+        width = max(self.n, 1) + 3
+        if rows.ndim != 2 or rows.shape[1] != width:
+            raise ValueError(
+                f"checkpoint stash rows have shape {rows.shape}, this "
+                f"search stashes rows of {width} — different problem?")
+        self._stash = [rows] if rows.size else []
+        self._lb_best = float(arrays["lb_best"])
+        self._injected = 0
 
     # -- run ----------------------------------------------------------------
 

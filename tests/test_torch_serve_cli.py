@@ -3,9 +3,8 @@
 ``serve`` section), the same seeded Poisson arrival trace, every job
 equal to the port's standalone solve, the fleet flags taken (the fleets
 are held to the JAX command in ``tests/test_torch_fleet_cli.py``), and
-the unported UI tier's flag refused with ``NotPortedError``'s JSON error
-(exit 1), never accepted and then ignored (the memo flags are held to
-the JAX command in ``tests/test_torch_memo_cli.py``)."""
+``--uiport`` serving the service's events to a ws client (the memo flags
+are held to the JAX command in ``tests/test_torch_memo_cli.py``)."""
 import json
 import os
 import subprocess
@@ -70,11 +69,49 @@ def test_every_job_equals_its_standalone_solve(outputs):
     (["--uiport", "9000"], "--uiport"),
 ])
 def test_unported_flags_are_refused(flags, what, capsys):
-    rc = cli.main(["serve", "-a", "mgm", FILES[0], "--device", "cpu",
-                   *flags])
+    """The UI tier's flag is ported now: ``serve --uiport`` serves the
+    service's ``serve.*`` events over the ws protocol for its lifetime,
+    and its jobs and JSON are those of a run without it."""
+    import socket
+    import threading
+
+    from pydcop_tpu_torch.runtime import ui as ui_mod
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    flags = [what, str(port)]
+    pushed, started = [], threading.Event()
+    real = ui_mod.UiServer
+
+    class Recording(real):
+        def start(self):
+            super().start()
+            started.set()
+
+        def _family_cb(self, family):
+            cb = super()._family_cb(family)
+
+            def record(topic, evt):
+                pushed.append((family, topic))
+                cb(topic, evt)
+
+            return record
+
+    ui_mod.UiServer = Recording
+    try:
+        rc = cli.main(["serve", "-a", "mgm", FILES[0], "--device", "cpu",
+                       "--jobs", "2", *flags])
+    finally:
+        ui_mod.UiServer = real
     out = json.loads(capsys.readouterr().out)
-    assert rc == 1 and out["status"] == "ERROR"
-    assert what in out["error"] and "not ported" in out["error"]
+    assert rc == 0 and out["status"] == "FINISHED" and started.is_set()
+    assert ("serve", "serve.job.done") in pushed
+    assert cli.main(["serve", "-a", "mgm", FILES[0], "--device", "cpu",
+                     "--jobs", "2"]) == 0
+    plain = json.loads(capsys.readouterr().out)
+    assert {j: m["assignment"] for j, m in out["results"].items()} == \
+        {j: m["assignment"] for j, m in plain["results"].items()}
 
 
 @pytest.mark.parametrize("flags", [["--replicas", "2"], ["--processes"]])

@@ -36,7 +36,6 @@ from pydcop_tpu.runtime.stats import ServeCounters as JaxServeCounters
 from pydcop_tpu_torch.batch import CompileCache
 from pydcop_tpu_torch.batch.engine import BatchItem, adapter_for
 from pydcop_tpu_torch.dcop import load_dcop_from_file
-from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.runtime import checkpoint as port_ckpt
 from pydcop_tpu_torch.runtime import faults as port_faults
 from pydcop_tpu_torch.runtime.faults import (
@@ -574,9 +573,21 @@ class TestInjectorSemantics:
             Fault(kind="stall_tick")
 
     def test_checkpoint_faults_need_the_unported_manager(self, tmp_path):
+        """The solver checkpoints' manager is ported now: the fault
+        damages the newest snapshot of the directory, and nothing in an
+        empty one."""
         plan = FaultPlan(faults=[Fault(kind="corrupt_checkpoint")])
-        with pytest.raises(NotPortedError, match="CheckpointManager"):
-            port_faults.apply_checkpoint_faults(plan, str(tmp_path), 0)
+        assert port_faults.apply_checkpoint_faults(
+            plan, str(tmp_path), 0) == []
+        for cycle in (5, 10):
+            port_ckpt.write_state_npz(
+                str(tmp_path / f"ck_{cycle:08d}.npz"),
+                {"a": np.arange(4096, dtype=np.float32)}, {"k": cycle})
+        assert port_faults.apply_checkpoint_faults(
+            plan, str(tmp_path), 0) == [str(tmp_path / "ck_00000010.npz")]
+        with pytest.raises(ValueError):
+            port_ckpt.read_state_npz(str(tmp_path / "ck_00000010.npz"))
+        port_ckpt.read_state_npz(str(tmp_path / "ck_00000005.npz"))
 
     def test_corrupt_checkpoint_is_caught_by_the_crc(self, tmp_path):
         path = str(tmp_path / "c.npz")

@@ -300,7 +300,7 @@ def test_cli_distribution_file_round_trip(tmp_path):
     # a placement that misses computations fails loudly
     bad_f = tmp_path / "bad.yaml"
     bad_f.write_text("distribution:\n  a0: [v00]\n")
-    for extra in (["-d", str(bad_f)], ["-d", "adhoc"],
+    for extra in (["-d", str(bad_f)], ["-d", "gh_cgdp"],
                   ["-d", str(dist_f), "--shard-overlap", "exact"],
                   ["--shard-overlap", "off"]):
         out = subprocess.run(cmd[:8] + extra + [str(prob)],
@@ -401,8 +401,10 @@ def test_lifted_refusals_run(what):
 def test_unported_solve_paths_refuse():
     d = load_dcop_from_file([os.path.join(INST, "graph_coloring_tuto.yaml")])
     dist = _full_distribution(d, 3, Distribution)
-    with pytest.raises(NotPortedError, match="by name"):
-        solve_result(d, "maxsum", distribution="adhoc", device="cpu")
+    # strategy names are computed and validated since the placement
+    # strategies came (oneagent, adhoc); the others still refuse
+    with pytest.raises(NotPortedError, match="heur_comhost"):
+        solve_result(d, "maxsum", distribution="heur_comhost", device="cpu")
     res = solve_result(d, "amaxsum", distribution=dist, device="cpu")
     assert res.status == "FINISHED" and res.config["algo"] == "amaxsum"
     for algo in ("dpop", "mgm"):

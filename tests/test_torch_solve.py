@@ -94,8 +94,14 @@ def test_fixed_cycles_and_stop_cycle():
 def test_unported_options_refuse():
     from pydcop_tpu_torch.errors import NotPortedError
 
+    from pydcop_tpu_torch.runtime.faults import Fault, FaultPlan
+
     dcop = load_dcop_from_file(_path("graph_coloring_tuto"))
-    for kw in ({"distribution": "oneagent"}, {"checkpoint_dir": "x"},
+    # strategy names and checkpointing are ported; the strategies that
+    # wait, the elastic driver and its device faults still refuse
+    for kw in ({"distribution": "heur_comhost"},
+               {"fault_plan": FaultPlan(faults=[
+                   Fault(kind="kill_device", device=0)])},
                {"elastic": {}}):
         with pytest.raises(NotPortedError):
             solve_result(dcop, "maxsum", device="cpu", **kw)

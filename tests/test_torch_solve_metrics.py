@@ -3,7 +3,8 @@
 ``--end_metrics`` (the end line) write the JAX package's CSV header and
 rows, every column but ``time`` equal on a deterministic instance
 (maxsum at noise 0); ``-c cycle_change`` turns ``collect_cycles`` on;
-``--uiport`` is refused with ``NotPortedError``; the placement path and
+``--uiport`` serves the UI beside the solve and ``--elastic`` is refused
+with ``NotPortedError``; the placement path and
 the exact-search family collect too."""
 import csv
 import json
@@ -134,13 +135,29 @@ def test_run_metrics_turn_collect_on(tmp_path):
 
 
 def test_uiport_is_not_ported(capsys):
-    with pytest.raises(NotPortedError, match="uiport"):
-        solve_cmd.run_cmd(_args("-a", "maxsum", "--uiport", "8000",
+    """``--uiport`` is ported now: the UI server runs beside the solve and
+    stops with it, and the metrics are the same as without it; the
+    elastic flags are what still refuse."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert solve_cmd.run_cmd(_args("-a", "maxsum", "--cycles", "5",
+                                   "--uiport", str(port),
+                                   _path("graph_coloring_tuto"))) == 0
+    served = json.loads(capsys.readouterr().out)
+    assert solve_cmd.run_cmd(_args("-a", "maxsum", "--cycles", "5",
+                                   _path("graph_coloring_tuto"))) == 0
+    plain = json.loads(capsys.readouterr().out)
+    assert served["assignment"] == plain["assignment"]
+    with pytest.raises(NotPortedError, match="elastic"):
+        solve_cmd.run_cmd(_args("-a", "maxsum", "--elastic",
                                 _path("graph_coloring_tuto")))
-    assert main(["solve", "--device", "cpu", "-a", "maxsum", "--uiport",
-                 "8000", _path("graph_coloring_tuto")]) == 1
+    assert main(["solve", "--device", "cpu", "-a", "maxsum", "--elastic",
+                 _path("graph_coloring_tuto")]) == 1
     out = json.loads(capsys.readouterr().out)
-    assert out["status"] == "ERROR" and "uiport" in out["error"]
+    assert out["status"] == "ERROR" and "elastic" in out["error"]
 
 
 def test_failed_solve_prints_an_error(tmp_path, capsys):
