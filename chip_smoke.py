@@ -158,7 +158,7 @@ printed.
    bench's two anytime-search instances (k10x4: a 10-clique at D=4,
    i_bound 0; k11x3_ib2: two 11-cliques at D=3, i_bound 2), width 256, 8
    steps a chunk: optimal, cost equal to the port's NCBB, per-chunk
-   history equal to the CPU frontier's over its first 150 chunks
+   history equal to the CPU frontier's over its first 60 chunks
    (cost, assignment and chunks too where it proves within them), the
    bound sandwich and a monotone incumbent; its first chunks run with
    ``torch.cuda.set_sync_debug_mode("error")`` around the chunk call
@@ -230,13 +230,13 @@ printed.
    (200,000 binary factors, D = 4, tables uniform [0, 5) from
    ``default_rng(77)``, headroom 0.1, chunk 10, damping 0.7) through
    a ``WarmRepairController`` and ``solver.run``: 60 base chunks, then
-   25 seeded table edits (``edit_factor``, writes in place) each
+   15 seeded table edits (``edit_factor``, writes in place) each
    followed by a 3-chunk ``run(resume=True)`` window — captures
    unchanged, ms a write and a window, the first chunk and the first
    three windows equal to a CPU controller's (values equal, messages
    within TOL); five factors on one variable run it past its plan
    depth — exactly one repack at this size, one more capture; mgm through ``build_warm_solver`` + ``change_factor_function``
-   + ``run(resume=True)`` at 2,000 variables, 25 edits — captures
+   + ``run(resume=True)`` at 2,000 variables, 15 edits — captures
    unchanged, every window's assignment and cost equal to the CPU run;
    a controller with one free variable slot given two variables —
    exactly one repack and one more capture, equal to the CPU run;
@@ -267,8 +267,8 @@ printed.
    mgm2 job in each of two children at once (K6 in two contexts, equal
    to the CPU solve), kill -9 of a child holding jobs (every job
    equal, re-seats, RTO, the relaunch), a ``corrupt_artifact`` fault
-   rejected and counted by the relaunched child; then the 512-job
-   burst (its jobs on 16 of the family's problems, whose files every
+   rejected and counted by the relaunched child; then a 256-job burst
+   of the at-size jobs (on 8 of the family's problems, whose files every
    child loads first) at 1, 2 and 4 children of a fleet grown by cold
    joins from the artifact store (misses 0, no ``nvcc`` run), with the
    card's free memory and each child's reserve at each size.
@@ -292,8 +292,29 @@ and of each phase); and an mgm run whose 0.3 s delays convert to cycles
 at the card's measured rate, with a ``UiServer`` whose cycle events a
 stdlib ws client in this script receives, and ``/state``.
 
-``python3 chip_smoke.py --phases fleet,procfleet,resilience`` runs those
-phases alone (no kernel check, no result lines).
+Then the phase ``sharded_compact``: the packed sharded engines at 8
+shards in every overlap mode (``off``, ``exact``, ``stale``, and
+``exact`` with ``exchange=True`` on a pairwise cut), every shard in one
+group and split into two (``split_groups``: the launches write
+partials and only the boundary columns cross), on the 10k/30k
+colouring and SECP4-3.9k (maxsum, amaxsum, mgm, dsa, adsa) and a
+10k-variable ring lattice (maxsum, mgm; pairwise): K7, K8 and K9
+launch by launch against their plain versions in each compact mode,
+each 200-cycle run's launches (one K7 or K9 a group a cycle; K8 once,
+or four times across two groups), exact and the exchange
+``torch.equal`` to off (values and the owner-reconciled beliefs),
+stale ``torch.equal`` to its CPU run; the cut fraction, the boundary
+columns, the plan's bytes a cycle dense and compact, cycles/s, and on
+the colouring the device µs a cycle of maxsum and mgm; the generic
+sharded engine (maxsum on a D = 10 colouring, mgm, dba and gdba on the
+10k/30k CSP with ``use_packed=False``: equal to the CPU run, no kernel
+launched, cycles/s beside the packed engine's); and ``solve -d
+placement.yaml --shard-overlap exact`` and ``stale`` through the CLI
+(its ``metrics()["shard"]`` equal to the library's).  Each phase's
+seconds are printed as a ``phase_seconds`` line after it.
+
+``python3 chip_smoke.py --phases fleet,procfleet,resilience,sharded_compact``
+runs those phases alone (no kernel check, no result lines).
 
 ``python3 chip_smoke.py --ab PARENT_TREE
 [k1,k1_mixed,mgm2,mgm,dsa,k2,dpop,sharded,harness]`` runs no phase above: it
@@ -357,6 +378,18 @@ def say(phase, **fields):
     print(json.dumps({"phase": phase, **fields,
                       "t": round(time.perf_counter() - SCRIPT_T0, 1)}),
           flush=True)
+
+
+_PHASE_MARKS = []
+
+
+def phase_seconds(name):
+    """Print the seconds since the previous mark (the script's start for
+    the first): the length of the phase ``name`` that just ended."""
+    now = time.perf_counter()
+    last = _PHASE_MARKS[-1] if _PHASE_MARKS else SCRIPT_T0
+    _PHASE_MARKS.append(now)
+    say("phase_seconds", name=name, s=round(now - last, 1))
 
 
 def fail(phase, msg):
@@ -1801,6 +1834,9 @@ def is_mixed(dcop):
 #: shards of the sharded phases: the count of a host of 8 cards, run as
 #: 8 shards on the one card (4 on the star and the unequal domains)
 SHARDS = 8
+#: cycles of each engine run of the sharded kernels' launch-by-launch
+#: checks (the script's time limit holds every phase)
+SHARDED_CHECK_CYCLES = 10
 
 
 def checked_kernels(errs):
@@ -1868,14 +1904,19 @@ def split_groups(devices):
     return [list(range(0, n, 2)), list(range(1, n, 2))]
 
 
-def sharded_kernel_vs_plain(t, n_shards, cycles=20, split=False):
+def sharded_kernel_vs_plain(t, n_shards, cycles=20, split=False,
+                            overlap=None, exchange=None,
+                            dampings=(0.5, 0.0)):
     """K7, K8 and K9 against their plain versions on the card, launch by
     launch inside real sharded runs: maxsum at damping 0.5 and 0 (K7),
     amaxsum at activation 0.7 (K7's activation branch), mgm and dsa (K9,
     K8 in mgm), ``cycles`` cycles each; on a mixed graph the kernels'
     mixed branches.  ``split``: the shards in two groups on the card
     (:func:`split_groups`), so K7 and K9 write partials and K8 runs its
-    "max" and "min" modes.  Returns (errs per kernel and branch, stats)."""
+    "max" and "min" modes.  ``overlap`` and ``exchange``: the engines'
+    collective path (the compact modes combine the partials at the
+    boundary only); ``dampings`` the maxsum runs'.  Returns (errs per
+    kernel and branch, stats)."""
     import contextlib
     from unittest import mock
 
@@ -1889,17 +1930,20 @@ def sharded_kernel_vs_plain(t, n_shards, cycles=20, split=False):
     grouping = (mock.patch.object(packed_mesh, "_device_groups",
                                   split_groups) if split
                 else contextlib.nullcontext())
+    comm = dict(overlap=overlap, exchange=exchange)
     with checked_kernels(errs), grouping:
-        for damping in (0.5, 0.0):
-            ShardedMaxSum(t, mesh, damping=damping).run(cycles)
+        for damping in dampings:
+            ShardedMaxSum(t, mesh, damping=damping, **comm).run(cycles)
         # amaxsum: K7's activation branch
-        ShardedMaxSum(t, mesh, damping=0.5, activation=0.7).run(cycles)
+        ShardedMaxSum(t, mesh, damping=0.5, activation=0.7,
+                      **comm).run(cycles)
         moved = {}
         for rule in ("mgm", "dsa"):
-            eng = ShardedLocalSearch(t, mesh, rule=rule)
+            eng = ShardedLocalSearch(t, mesh, rule=rule, **comm)
             x0 = eng.run_chunked(0, seed=1)[1]
             _, x, _ = eng.run_chunked(cycles, x=x0, seed=1)
-            moved[rule] = int((x != x0).sum())
+            moved[rule] = int((eng.state_values(x)
+                               != eng.state_values(x0)).sum())
         packs = ShardedMaxSum(t, mesh).packs
     Ns = [sh.N for sh in packs.shards]
     torch.cuda.synchronize()
@@ -2039,7 +2083,11 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
         ShardedMaxSum, build_mesh
 
     mesh = build_mesh(n_shards, "cuda")
-    ms_eng = ShardedMaxSum(t, mesh, activation=0.7 if amaxsum else None)
+    # the dense collective (overlap "off"): the path these numbers were
+    # measured on before the compact modes came; sharded_compact_phase
+    # times those
+    ms_eng = ShardedMaxSum(t, mesh, activation=0.7 if amaxsum else None,
+                           overlap="off")
     packs = ms_eng.packs
     g = packs.groups[0]
     mixed = "_mixed" if packs.mixed else ""
@@ -2059,7 +2107,7 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
     else:
         r_u, bel = state
         r = g.slab_of(r_u)
-        ls = ShardedLocalSearch(t, mesh, rule="mgm")
+        ls = ShardedLocalSearch(t, mesh, rule="mgm", overlap="off")
         x = ls.run_chunked(5, seed=0)[1]
         gain = K.cur_best_gain(K.device_tables(g, x), x, False)[2]
         row = packs.common_on(g.device)[2]
@@ -2101,7 +2149,7 @@ def time_sharded(t, n_shards, reps=100, amaxsum=False):
     if amaxsum:
         runs = (("amaxsum", lambda: ms_eng.run(200)),)
     else:
-        dsa = ShardedLocalSearch(t, mesh, rule="dsa")
+        dsa = ShardedLocalSearch(t, mesh, rule="dsa", overlap="off")
         runs = (("maxsum", lambda: ms_eng.run(200)),
                 ("mgm", lambda: ls.run_chunked(200, seed=0)),
                 # dsa: with the draw and copy of its 200 coin rows
@@ -2593,7 +2641,8 @@ if "sharded" in sections:
     graphs["secp4_39k"] = compile_factor_graph(
         C.secp_dcop(C.SECP_BIG_SCALE, 3), device=dev)
 for name, t in graphs.items():
-    eng = ShardedLocalSearch(t, build_mesh(C.SHARDS, "cuda"), rule="mgm")
+    eng = ShardedLocalSearch(t, build_mesh(C.SHARDS, "cuda"), rule="mgm",
+                             overlap="off")
     x = eng.run_chunked(5, seed=0)[1]
     gain = K.cur_best_gain(K.device_tables(eng.groups[0], x), x, False)[2]
     for _ in range(3):
@@ -2773,10 +2822,10 @@ SEARCH_WIDTH, SEARCH_STEPS = 256, 8
 #: the CPU frontier the card's is held to runs at most this many chunks
 #: (k11x3_ib2 takes ~870, ~45 s on the CPU): the card's first chunks'
 #: history equals it, and the card's proof equals NCBB's optimum
-SEARCH_CPU_CHUNKS = 150
+SEARCH_CPU_CHUNKS = 60
 #: chunks run with torch.cuda.set_sync_debug_mode("error") around the
 #: chunk call, the one read after it
-SEARCH_SYNC_CHUNKS = 20
+SEARCH_SYNC_CHUNKS = 8
 
 
 def search_dcop(K, R, D, seed):
@@ -3852,7 +3901,7 @@ SERVE_BIG_LANES, SERVE_BIG_RATE, SERVE_SAMPLE = 64, 25.0, 32
 #: the jobs of the burst traced by torch.profiler for the busy share
 SERVE_PROFILE_JOBS = 64
 #: seconds into the script after which the big runs take half the jobs
-SERVE_CUT_AFTER_S = 500.0
+SERVE_CUT_AFTER_S = 300.0
 #: the sequential fallback's instances (K6 and K10 through the service)
 SERVE_MGM2_V, SERVE_DPOP_NODES = 2_000, 3_000
 #: when the script started (the serve phase cuts its job count near the
@@ -4330,7 +4379,7 @@ def dpop_batched_phase(smi, trees, device="cuda"):
 #: included, takes about two seconds); WARM_REPACK_ADDS factors added
 #: to one variable of degree 4 (plan depth 8) run the stream past its
 #: headroom
-WARM_V, WARM_D, WARM_EDITS, WARM_CHUNK = 100_000, 4, 25, 10
+WARM_V, WARM_D, WARM_EDITS, WARM_CHUNK = 100_000, 4, 15, 10
 WARM_BASE_CHUNKS, WARM_WINDOW, WARM_CPU_EDITS = 60, 3, 3
 WARM_REPACK_ADDS = 5
 #: the warm phase's mgm sub-leg (bench_churn's: 2,000 variables, 6,000
@@ -4655,7 +4704,7 @@ MEMO_V, MEMO_COLD_CYCLES, MEMO_BASES = 800, 2000, 4
 #: the at-size stream with the cache: serve_at_size's Poisson
 #: stream, job i on problem i % 64 at seed i % 64; seconds into the
 #: script after which it takes half the jobs (a quarter 100 s later)
-MEMO_STREAM_CUT_AFTER_S = 650.0
+MEMO_STREAM_CUT_AFTER_S = 500.0
 
 
 def memo_instance(seed, edit_seed=None):
@@ -4872,12 +4921,15 @@ PROCFLEET_MGM2_V = 500
 #: PROCFLEET_BURST_PROBLEMS problems (half of each size): every child
 #: loads each problem's YAML file before the burst, 0.4-0.6 s a file on
 #: the chip machine's host
-PROCFLEET_BURST_PROBLEMS = 16
+PROCFLEET_BURST_PROBLEMS = 8
+#: the process fleet's burst: this many of the at-size jobs (the
+#: script's time limit holds every phase)
+PROCFLEET_BURST_JOBS = 256
 #: a wait longer than two of a child's report intervals (0.25 s): every
 #: child's next report reads the card's memory after the last change
 PROCFLEET_REPORT_S = 0.6
 #: past this many seconds into the script the bursts are halved
-FLEET_CUT_AFTER_S = 1000.0
+FLEET_CUT_AFTER_S = 600.0
 
 
 _BIG_PROBLEMS = []
@@ -4944,11 +4996,11 @@ def fleet_runners(fleet):
     return out
 
 
-def fleet_burst_jobs(n_problems=SERVE_BIG_PROBLEMS):
-    """The at-size burst: SERVE_BIG_JOBS mgm jobs (halved past
+def fleet_burst_jobs(n_problems=SERVE_BIG_PROBLEMS, n_jobs=SERVE_BIG_JOBS):
+    """The at-size burst: ``n_jobs`` mgm jobs (halved past
     FLEET_CUT_AFTER_S), job i on problem i % ``n_problems`` of the big
     family at seed i, a sample of SERVE_SAMPLE of them checked."""
-    n = SERVE_BIG_JOBS
+    n = n_jobs
     cut = time.perf_counter() - SCRIPT_T0 > FLEET_CUT_AFTER_S
     if cut:
         n //= 2
@@ -5397,7 +5449,8 @@ def procfleet_burst_leg(smi, work, device, fleet, files):
     Then the burst at 1, 2 and 4 children (the rest partitioned).
     ``fleet`` started with replica-0 alone; ``files`` are the problems'
     YAML files."""
-    jobs, sample, cut = fleet_burst_jobs(PROCFLEET_BURST_PROBLEMS)
+    jobs, sample, cut = fleet_burst_jobs(PROCFLEET_BURST_PROBLEMS,
+                                         PROCFLEET_BURST_JOBS)
     want = {i: serve_sequential(jobs[i][0], "mgm", jobs[i][1],
                                 SERVE_MAX_CYCLES, device) for i in sample}
     out = {}
@@ -5463,7 +5516,7 @@ def procfleet_burst_leg(smi, work, device, fleet, files):
             say("procfleet", kind="burst", algo="mgm", children=n,
                 alive=len(order), vars=[SERVE_BIG_V, SERVE_BIG_V // 2],
                 problems=PROCFLEET_BURST_PROBLEMS, lanes=SERVE_BIG_LANES,
-                jobs_cut_from=SERVE_BIG_JOBS if cut else None,
+                jobs_cut_from=PROCFLEET_BURST_JOBS if cut else None,
                 checked=len(sample), equal=True,
                 stalls=fleet.metrics()["fleet"]["replicas_stalled"],
                 memory_at_spawn=memory.get(n),
@@ -5943,6 +5996,407 @@ def resilience_phase(smi, device="cuda"):
     return launches
 
 
+
+# -- the compact collectives and the generic sharded engine -----------------
+
+#: the compact phase's overlap modes: name -> (overlap, exchange)
+COMPACT_MODES = {"off": ("off", None), "exact": ("exact", False),
+                 "stale": ("stale", None), "exchange": ("exact", True)}
+#: cycles of the phase's timed card runs (their launches counted), of the
+#: stale runs held to their CPU twins, and of the launch-by-launch checks
+#: of K7, K8 and K9 in each compact mode
+COMPACT_CYCLES, COMPACT_CPU_CYCLES, COMPACT_CHECK_CYCLES = 200, 10, 4
+#: cycles of the generic engines' runs, on the card and on the CPU
+COMPACT_GENERIC_CYCLES = 100
+#: the phase's colourings (the main path's 10k/30k; the ring lattice is
+#: COMPACT_V variables) and the SECP's scale (1: SECP4-3.9k)
+COMPACT_V, COMPACT_E, COMPACT_SECP_SCALE = 10_000, 30_000, 1
+#: the generic maxsum's colouring: D = 10, out of the packers' scope
+COMPACT_D10 = 10
+#: the CLI leg's colouring
+COMPACT_CLI_V, COMPACT_CLI_E = 1_000, 3_000
+#: the library's stale placement solve at SHARDS shards, with per-cycle
+#: metrics (one cycle a chunk) and without
+COMPACT_STALE_CYCLES = 30
+#: the sharded kernels' counters → their rows of the kernels line
+COMPACT_ROWS = {
+    "device_fused_ba": "packed_shard_fused_ba",
+    "device_fused_ba_act": "packed_shard_fused_ba_act",
+    "device_fused_ba_mixed": "packed_shard_fused_ba_mixed",
+    "device_fused_ba_mixed_act": "packed_shard_fused_ba_mixed_act",
+    "device_mgm_move": "packed_shard_route_gains",
+    "device_mgm_move_mixed": "packed_shard_route_gains_mixed",
+    "device_tables": "packed_shard_tables",
+    "device_tables_mixed": "packed_shard_tables_mixed"}
+
+
+def device_us_per_cycle(run, cycles, tries=2):
+    """The device time of every kernel ``run()`` launches (torch.profiler's
+    self device time, so a kernel is counted once), per cycle; None when
+    no trace holds device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in prof.key_averages())
+        if total:
+            return total / cycles
+    return None
+
+
+def compact_want(algo, mixed, groups, cycles):
+    """The launches of a ``cycles``-cycle sharded run on the card: one K7
+    (or K9) a group a cycle, and mgm's K8 once a cycle over one group or
+    twice a group (its "max" and "min" modes) over two."""
+    tail = "_mixed" if mixed else ""
+    if algo in ("maxsum", "amaxsum"):
+        act = "_act" if algo == "amaxsum" else ""
+        key = "device_fused_ba" + (tail + act if mixed else act)
+        return {key: groups * cycles}
+    want = {"device_tables" + tail: groups * cycles}
+    if algo == "mgm":
+        want["device_mgm_move" + tail] = (1 if groups == 1 else 4) * cycles
+    return want
+
+
+def compact_engine(t, mesh, algo, mode):
+    from pydcop_tpu_torch.parallel import ShardedLocalSearch, ShardedMaxSum
+
+    overlap, exchange = COMPACT_MODES[mode]
+    if algo in ("maxsum", "amaxsum"):
+        return ShardedMaxSum(t, mesh, damping=0.5, overlap=overlap,
+                             exchange=exchange,
+                             activation=0.7 if algo == "amaxsum" else None)
+    params = {"activation": 0.7, "variant": "B"} if algo == "adsa" else None
+    return ShardedLocalSearch(t, mesh, rule=algo, algo_params=params,
+                              overlap=overlap, exchange=exchange)
+
+
+def compact_run(eng, cycles):
+    """(values, beliefs or None) of a fresh ``cycles``-cycle run."""
+    if hasattr(eng, "beliefs"):
+        values, q, _ = eng.run(cycles, seed=0)
+        return values, eng.beliefs(q)
+    return eng.run(cycles, seed=0), None
+
+
+def compact_packed_leg(smi, name, t_dev, t_cpu, algos, device):
+    """The packed engines on one graph at 8 shards, in one group (as on
+    one card: the launches combine the shards) and in two
+    (:func:`split_groups`: the launches write partials, the boundary
+    columns cross), each algorithm in every overlap mode (the exchange on
+    a pairwise cut): K7, K8 and K9 launch by launch against their plain
+    versions (:func:`sharded_kernel_vs_plain`), the launches of a
+    COMPACT_CYCLES run, exact and the exchange ``torch.equal`` to off
+    (values and the owner-reconciled beliefs), stale ``torch.equal`` to
+    its CPU twin; cycles/s, and (``algos["profile"]``) for maxsum and
+    mgm the device us a cycle.  Returns (the launches by kernel row and
+    path, cycles/s by (algo, mode, groups))."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from pydcop_tpu_torch.parallel import build_mesh, packed_mesh
+
+    mesh, cpu_mesh = build_mesh(SHARDS, device), build_mesh(SHARDS, "cpu")
+    by_row, rates = {}, {}
+    for groups in (1, 2):
+        split = groups == 2
+        grouping = (mock.patch.object(packed_mesh, "_device_groups",
+                                      split_groups) if split
+                    else contextlib.nullcontext())
+        with grouping:
+            pairwise = compact_engine(t_dev, mesh, "maxsum", "off") \
+                .comm.info.pairwise
+        modes = [m for m in COMPACT_MODES if pairwise or m != "exchange"]
+        for mode in modes:
+            if mode == "off":
+                continue
+            t0 = time.perf_counter()
+            overlap, exchange = COMPACT_MODES[mode]
+            try:
+                errs, _ = sharded_kernel_vs_plain(
+                    t_dev, SHARDS, COMPACT_CHECK_CYCLES, split=split,
+                    overlap=overlap, exchange=exchange, dampings=(0.5,))
+            except AssertionError as e:
+                fail("sharded_compact", f"{name} {mode} in {groups} "
+                     f"groups: {e}")
+            if device != "cpu" and len(errs) < 4:
+                fail("sharded_compact", f"{name} {mode}: only "
+                     f"{sorted(errs)} were checked")
+            say("sharded_compact", kind="kernel_vs_plain", instance=name,
+                groups=groups, mode=mode, cycles=COMPACT_CHECK_CYCLES,
+                max_abs_err=errs, seconds=round(time.perf_counter() - t0, 3))
+        for algo in algos["algos"]:
+            off = None
+            for mode in modes:
+                with grouping:
+                    eng = compact_engine(t_dev, mesh, algo, mode)
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    values, bel = compact_run(eng, COMPACT_CYCLES)
+                    torch.cuda.synchronize()
+                    run_s = time.perf_counter() - t0
+                    counts = {k: v for k, v in read_counts().items() if v}
+                    want = compact_want(algo, eng.packs.mixed, groups,
+                                        COMPACT_CYCLES)
+                    if device != "cpu" and counts != want:
+                        fail("sharded_compact", f"{name} {algo} {mode} in "
+                             f"{groups} groups: launches {counts}, "
+                             f"expected {want}")
+                    for k, n in counts.items():
+                        by_row.setdefault(COMPACT_ROWS[k], {})[
+                            f"sharded_compact_{name}_{algo}_{mode}_"
+                            f"{groups}g"] = n
+                    check = {}
+                    if mode == "off":
+                        off = (values, bel)
+                    elif mode in ("exact", "exchange"):
+                        same = np.array_equal(values, off[0]) and (
+                            bel is None or torch.equal(bel, off[1]))
+                        if not same:
+                            fail("sharded_compact", f"{name} {algo} {mode}"
+                                 f" in {groups} groups differs from off")
+                        check["equal_to_off"] = True
+                    else:
+                        card = compact_run(eng, COMPACT_CPU_CYCLES)
+                        cpu = compact_run(compact_engine(
+                            t_cpu, cpu_mesh, algo, mode), COMPACT_CPU_CYCLES)
+                        same = np.array_equal(card[0], cpu[0]) and (
+                            card[1] is None
+                            or torch.equal(card[1].cpu(), cpu[1]))
+                        if not same:
+                            fail("sharded_compact", f"{name} {algo} stale "
+                                 f"in {groups} groups differs from its "
+                                 f"CPU run")
+                        check["equal_to_cpu"] = True
+                        check["cpu_cycles"] = COMPACT_CPU_CYCLES
+                    rates[algo, mode, groups] = COMPACT_CYCLES / run_s
+                    if algos.get("profile") and algo in ("maxsum", "mgm") \
+                            and mode != "exchange" and device != "cpu":
+                        check["device_us_per_cycle"] = device_us_per_cycle(
+                            lambda eng=eng: compact_run(eng, 20), 20)
+                    stats = eng.comm_stats()
+                say("sharded_compact", instance=name, algo=algo, mode=mode,
+                    groups=groups, S=SHARDS, pairwise=pairwise,
+                    comm_mode=stats["mode"], collective=stats["collective"],
+                    cut_fraction=stats["cut_fraction"],
+                    boundary_columns=stats["boundary_columns"],
+                    total_columns=stats["total_columns"],
+                    bytes_per_cycle_dense=stats["bytes_per_cycle_dense"],
+                    bytes_per_cycle_compact=stats["bytes_per_cycle_compact"],
+                    exchange_rounds=stats["exchange_rounds"],
+                    cycles=COMPACT_CYCLES, launches=counts,
+                    cycles_per_s=COMPACT_CYCLES / run_s, **check,
+                    nvidia_smi=smi)
+    return by_row, rates
+
+
+def compact_generic_leg(smi, device, packed_rates):
+    """The generic sharded engine on the card at 8 shards: maxsum on a
+    D = 10 colouring (which the packers decline), mgm, dba and gdba on the
+    10k/30k CSP with ``use_packed=False``; each COMPACT_GENERIC_CYCLES
+    cycles, values equal to the CPU run (dba/gdba's weights too), no
+    kernel of the port launched; cycles/s beside the packed engine's."""
+    import torch
+
+    from pydcop_tpu_torch.ops.compile import compile_constraint_graph
+    from pydcop_tpu_torch.parallel import ShardedLocalSearch, \
+        ShardedMaxSum, build_mesh
+
+    from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays
+
+    rng = np.random.default_rng(5)
+    V, D = COMPACT_V, COMPACT_D10
+    ei, ej, _, _ = coloring_arrays(V, COMPACT_E)
+    mats = rng.uniform(0.0, 1.0, (ei.size, D, D)).astype(np.float32)
+    mats += np.eye(D, dtype=np.float32) * 3.0
+    unary = rng.uniform(0.0, 0.01, (V, D)).astype(np.float32)
+    d10 = [compile_binary_from_arrays(ei, ej, mats, V, unary=unary,
+                                      device=dv) for dv in (device, "cpu")]
+    csp = coloring_csp_dcop(V, COMPACT_E)
+    cg = [compile_constraint_graph(csp, device=dv) for dv in (device, "cpu")]
+    meshes = [build_mesh(SHARDS, device), build_mesh(SHARDS, "cpu")]
+    rows = {}
+    size = f"{V // 1000}k_{COMPACT_E // 1000}k"
+    cases = [("maxsum", f"coloring_d10_{size}", d10)] + [
+        (rule, f"coloring_csp_{size}", cg) for rule in ("mgm", "dba",
+                                                        "gdba")]
+    for algo, inst, ts in cases:
+        engs = []
+        for t, mesh in zip(ts, meshes):
+            if algo == "maxsum":
+                engs.append(ShardedMaxSum(t, mesh, damping=0.5))
+            else:
+                engs.append(ShardedLocalSearch(t, mesh, rule=algo,
+                                               use_packed=False))
+        if engs[0].st is None:
+            fail("sharded_compact", f"generic {algo}: the packed engine ran")
+        out = []
+        for eng in engs:
+            reset_counts()
+            if eng.mesh[0].type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if algo == "maxsum":
+                values, q, r = eng.run(COMPACT_GENERIC_CYCLES)
+                extra = eng.state_to_host(q, r)
+            else:
+                values, x, aux = eng.run_chunked(COMPACT_GENERIC_CYCLES,
+                                                 seed=0)
+                extra = {f"w{i}": w for i, w in enumerate(
+                    eng.aux_numpy(aux))}
+            if eng.mesh[0].type == "cuda":
+                torch.cuda.synchronize()
+            out.append((values, extra, time.perf_counter() - t0,
+                        {k: v for k, v in read_counts().items() if v}))
+        (vc, ec, sc, counts), (vp, ep, sp, _) = out
+        if counts:
+            fail("sharded_compact", f"generic {algo}: launches {counts}: the "
+                 f"generic engine launches no kernel of the port")
+        if not np.array_equal(vc, vp):
+            fail("sharded_compact", f"generic {algo} on {inst}: "
+                 f"{int((vc != vp).sum())} values differ from the CPU run")
+        state_equal = all(np.array_equal(ec[k], ep[k]) for k in ec)
+        if algo != "maxsum" and not state_equal:
+            fail("sharded_compact", f"generic {algo}: the breakout weights "
+                 f"differ from the CPU run")
+        rows[algo] = COMPACT_GENERIC_CYCLES / sc
+        stats = engs[0].comm_stats()
+        say("sharded_compact", kind="generic", algo=algo, instance=inst,
+            S=SHARDS, D=engs[0].base.max_domain_size,
+            cycles=COMPACT_GENERIC_CYCLES, equal_to_cpu=True,
+            state_equal_to_cpu=state_equal, comm_mode=stats["mode"],
+            cut_fraction=stats["cut_fraction"],
+            cycles_per_s=rows[algo], cpu_cycles_per_s=
+            COMPACT_GENERIC_CYCLES / sp,
+            packed_cycles_per_s=packed_rates.get(algo), nvidia_smi=smi)
+    return rows
+
+
+def compact_cli_leg(smi, device):
+    """``solve -d placement.yaml --shard-overlap exact`` and ``stale``
+    through the CLI, both commands at once: the result's
+    ``metrics()["shard"]`` names the compact mode (one shard a visible
+    device: the one card's single shard has no boundary, so stale runs
+    as exact, as in the JAX package) and the assignment equals the
+    library's solve of the same placement and mode.  Then the library at
+    SHARDS shards on the card, stale, with and without per-cycle metrics:
+    ``compact-stale`` both, the same assignment."""
+    import shutil
+    import tempfile
+
+    from pydcop_tpu_torch.distribution import yaml_dist
+    from pydcop_tpu_torch.runtime import solve_result
+
+    work = tempfile.mkdtemp(prefix="compact_cli_")
+    try:
+        dcop = coloring_dcop(COMPACT_CLI_V, COMPACT_CLI_E, seed=3)
+        [prob] = write_yaml([dcop], work, "prob")
+        dist = block_distribution(dcop, SHARDS)
+        placement = os.path.join(work, "placement.yaml")
+        with open(placement, "w", encoding="utf-8") as f:
+            f.write(yaml_dist(dist))
+        modes = ("exact", "stale")
+        procs = run_all([[sys.executable, "-m", "pydcop_tpu_torch", "solve",
+                          "-a", "maxsum", "--device", device, "--cycles",
+                          "100", "-d", placement, "--shard-overlap", m,
+                          prob] for m in modes], timeout=600)
+        for mode, (rc, stdout, stderr) in zip(modes, procs):
+            try:
+                out = json.loads(stdout)
+            except ValueError:
+                fail("sharded_compact", f"CLI {mode}: rc={rc} no JSON; "
+                     f"stderr: {stderr[-2000:]}")
+            lib = solve_result(dcop, "maxsum", distribution=dist,
+                               cycles=100, shard_overlap=mode, device=device)
+            shard = out.get("shard") or {}
+            if rc != 0 or out.get("status") != "FINISHED" \
+                    or not shard.get("mode", "").startswith("compact-") \
+                    or shard != lib.metrics()["shard"] \
+                    or out.get("assignment") != lib.assignment:
+                fail("sharded_compact", f"CLI {mode}: rc={rc} status="
+                     f"{out.get('status')} shard={shard} (library "
+                     f"{lib.metrics()['shard']}) error={out.get('error')}")
+            say("sharded_compact", kind="cli", overlap=mode,
+                shard=shard, cost=out["cost"], cycle=out["cycle"],
+                equal_to_library=True, nvidia_smi=smi)
+        # the library at SHARDS shards on the card, where stale has a
+        # halo; per-cycle metrics run it one cycle a chunk, and the halo
+        # goes on across the chunks: the same run as one dispatch
+        runs = [solve_result(dcop, "maxsum", distribution=dist,
+                             cycles=COMPACT_STALE_CYCLES, n_shards=SHARDS,
+                             shard_overlap="stale", collect_cycles=c,
+                             device=device) for c in (False, True)]
+        shard = [r.metrics()["shard"] for r in runs]
+        if [s_["mode"] for s_ in shard] != ["compact-stale"] * 2 \
+                or runs[0].assignment != runs[1].assignment \
+                or len(runs[1].history or ()) != COMPACT_STALE_CYCLES:
+            fail("sharded_compact", f"library stale at {SHARDS} shards: "
+                 f"modes {[s_['mode'] for s_ in shard]}, chunked run "
+                 f"equal: {runs[0].assignment == runs[1].assignment}")
+        say("sharded_compact", kind="library_stale", n_shards=SHARDS,
+            shard=shard[1], cost=runs[1].cost, cycle=runs[1].cycle,
+            per_cycle_equal_to_one_dispatch=True, nvidia_smi=smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def sharded_compact_phase(smi, device="cuda"):
+    """The compact collectives and the generic sharded engine on the card:
+    :func:`compact_packed_leg` on the 10k/30k colouring (maxsum, amaxsum,
+    mgm, dsa, adsa), on SECP4-3.9k (mixed: the same five) and on a
+    10k-variable ring lattice (pairwise, so the exchange runs: maxsum and
+    mgm), then :func:`compact_generic_leg` and :func:`compact_cli_leg`.
+    Returns the launches by kernel row and path."""
+    from pydcop_tpu_torch.ops.compile import compile_binary_from_arrays, \
+        compile_factor_graph
+
+    t0 = time.perf_counter()
+    V, E = COMPACT_V, COMPACT_E
+    size = f"{V // 1000}k_{E // 1000}k"
+    ei, ej, mats, un = coloring_arrays(V, E)
+    rei, rej, rmats, _ = ring_lattice(V, 3, seed=41)
+    secp4 = secp_dcop(COMPACT_SECP_SCALE, 3)
+    five = ("maxsum", "amaxsum", "mgm", "dsa", "adsa")
+    graphs = {
+        f"coloring_{size}": ([compile_binary_from_arrays(
+            ei, ej, mats, V, unary=un, device=dv)
+            for dv in (device, "cpu")], {"algos": five, "profile": True}),
+        f"secp4_{3.9 * COMPACT_SECP_SCALE:g}k": (
+            [compile_factor_graph(secp4, device=dv)
+             for dv in (device, "cpu")], {"algos": five}),
+        f"ring_lattice_{V // 1000}k": ([compile_binary_from_arrays(
+            rei, rej, rmats, V, device=dv) for dv in (device, "cpu")],
+            {"algos": ("maxsum", "mgm")}),
+    }
+    by_row, packed_rates = {}, {}
+    for name, ((t_dev, t_cpu), algos) in graphs.items():
+        rows, rates = compact_packed_leg(smi, name, t_dev, t_cpu, algos,
+                                         device)
+        for row, paths in rows.items():
+            by_row.setdefault(row, {}).update(paths)
+        if algos.get("profile"):
+            packed_rates = {a: rates[a, "off", 1] for a, _, g in rates
+                            if g == 1}
+    generic = compact_generic_leg(smi, device, packed_rates)
+    compact_cli_leg(smi, device)
+    say("sharded_compact", kind="done", generic_cycles_per_s=generic,
+        phase_s=round(time.perf_counter() - t0, 3),
+        script_s=round(time.perf_counter() - SCRIPT_T0, 1), nvidia_smi=smi)
+    return by_row
+
+
 def main():
     try:
         import torch
@@ -5998,7 +6452,8 @@ def main():
         # python3 chip_smoke.py --phases fleet,procfleet: those phases
         # alone, no kernel check and no result lines
         phases = {"fleet": fleet_phase, "procfleet": procfleet_phase,
-                  "resilience": resilience_phase}
+                  "resilience": resilience_phase,
+                  "sharded_compact": sharded_compact_phase}
         for name in sys.argv[2].split(","):
             if name not in phases:
                 fail("phases", f"{name}: not in {sorted(phases)}")
@@ -6006,6 +6461,7 @@ def main():
         print(smi, flush=True)
         return
 
+    phase_seconds("build")
     # 2. kernels against their plain versions, on the card ----------------
     ei, ej, mats, un = coloring_arrays(10_000, 30_000)
     primary_t = compile_binary_from_arrays(ei, ej, mats, 10_000, unary=un,
@@ -6221,7 +6677,8 @@ def main():
     for name, (t, n_shards, split) in sharded_cases.items():
         t0 = time.perf_counter()
         try:
-            errs, stats = sharded_kernel_vs_plain(t, n_shards, split=split)
+            errs, stats = sharded_kernel_vs_plain(
+                t, n_shards, SHARDED_CHECK_CYCLES, split=split)
         except AssertionError as e:
             fail("sharded_kernel_vs_plain", f"{name}: {e}")
         for k, v in errs.items():
@@ -6232,7 +6689,8 @@ def main():
                          "device_tables"} | k8:
             fail("sharded_kernel_vs_plain", f"{name}: only {sorted(errs)} "
                  f"were checked")
-        say("sharded_kernel_vs_plain", case=name, cycles=20,
+        say("sharded_kernel_vs_plain", case=name,
+            cycles=SHARDED_CHECK_CYCLES,
             max_abs_err=errs, seconds=round(time.perf_counter() - t0, 3),
             **stats)
 
@@ -6247,8 +6705,8 @@ def main():
                 continue
             t0 = time.perf_counter()
             try:
-                errs, stats = sharded_kernel_vs_plain(t, n_shards,
-                                                      split=split)
+                errs, stats = sharded_kernel_vs_plain(
+                    t, n_shards, SHARDED_CHECK_CYCLES, split=split)
             except AssertionError as e:
                 fail("sharded_mixed_kernel_vs_plain", f"{name} S={n_shards}:"
                      f" {e}")
@@ -6261,7 +6719,8 @@ def main():
                              "device_tables_mixed"} | k8:
                 fail("sharded_mixed_kernel_vs_plain", f"{name}: only "
                      f"{sorted(errs)} were checked")
-            say("sharded_mixed_kernel_vs_plain", case=name, cycles=20,
+            say("sharded_mixed_kernel_vs_plain", case=name,
+                cycles=SHARDED_CHECK_CYCLES,
                 split=split, max_abs_err=errs,
                 seconds=round(time.perf_counter() - t0, 3), **stats)
 
@@ -6277,6 +6736,7 @@ def main():
         say("lane_permute_kernel_vs_plain", S=3, N=N, max_abs_err=err,
             equal_to_index_select=True)
 
+    phase_seconds("kernels_vs_plain")
     # 3. CLI paths ---------------------------------------------------------
     from pydcop_tpu_torch.dcop import load_dcop_from_file
 
@@ -6303,6 +6763,7 @@ def main():
         say(phase, algo=algo, status=out["status"], cost=out["cost"],
             cpu_cost=want, cycle=out["cycle"], assignment=out["assignment"])
 
+    phase_seconds("cli")
     # 4. main paths at full width ------------------------------------------
     t0 = time.perf_counter()
     dcop = coloring_dcop(10_000, 30_000)
@@ -6723,25 +7184,35 @@ def main():
     # the exact-search family: syncbb/ncbb's host loops, the frontier
     # engine on the JAX bench's anytime instances, DPOP's frontier engine
     # and --anytime-exact through the CLI
+    phase_seconds("main_paths")
     search_host_phase()
+    phase_seconds("search_host")
     search_frontier_phase(smi)
+    phase_seconds("search_frontier")
     search_dpop_frontier_phase()
+    phase_seconds("search_dpop_frontier")
     # maxsum_dynamic: K1 binary on a layout swapped in place, K1-mixed
     # through the re-pack
     dynamic_k1 = maxsum_dynamic_phase(smi)
+    phase_seconds("maxsum_dynamic")
     # the harness: per-cycle metrics (K2 once a cycle), the captured
     # chunks of the generic engines, the pipelined dispatch
     harness_dcops = {"coloring_10k_30k": dcop, "coloring_csp_10k_30k": csp,
                      "secp_3.9k": secp}
     k2_by_path, k2_err, _ = harness_collect_phase(harness_dcops)
+    phase_seconds("harness_collect")
     harness_captured_phase(harness_dcops, cpu_results, smi)
+    phase_seconds("harness_captured")
     # batched solving: the batch engine's buckets (no kernel: the generic
     # cycles, as the JAX package's vmap) and K10 with an instance axis
     batch_phase(smi)
+    phase_seconds("batch")
     # the solve service: continuous batching over the batch engine's
     # bucket runners (no kernel), and its sequential fallback (K6, K10)
     serve_phase(smi)
+    phase_seconds("serve")
     dpop_batched = dpop_batched_phase(smi, dpop_packed)
+    phase_seconds("dpop_batched")
 
     # 5. times -------------------------------------------------------------
     timing = {}
@@ -6884,13 +7355,11 @@ def main():
 
     sharded_note = ("no single PyTorch call computes a shard's rotated "
                     "MaxSum cycle, MGM's arbitration or partial tables")
+    secp_t = compile_factor_graph(secp, device=dev)
+    big_secp_t = compile_factor_graph(mixed_dcops[big_secp], device=dev)
     for name, t, amaxsum in (
-            ("secp_3.9k", compile_factor_graph(secp, device=dev), False),
-            (big_secp, compile_factor_graph(mixed_dcops[big_secp],
-                                            device=dev), False),
-            ("secp_3.9k", compile_factor_graph(secp, device=dev), True),
-            (big_secp, compile_factor_graph(mixed_dcops[big_secp],
-                                            device=dev), True),
+            ("secp_3.9k", secp_t, False), (big_secp, big_secp_t, False),
+            ("secp_3.9k", secp_t, True), (big_secp, big_secp_t, True),
             ("10k_30k", primary_t, True),
             ("100k_300k", big_t, True)):
         out, rates = time_sharded(t, SHARDS, amaxsum=amaxsum)
@@ -7071,15 +7540,21 @@ def main():
     # warm repair (no kernel: the warm engines are the generic cycles)
     # and the solution cache over the service, last: their host-bound
     # stream is the phase whose length varies most
+    phase_seconds("times")
     warm_phase(smi)
+    phase_seconds("warm")
     memo_phase(smi)
+    phase_seconds("memo")
     # the fleets: a replica's sequential fallback launches K6 and K10
     # (the thread fleet's one CUDA context; two children's contexts)
     fleet_launches = fleet_phase(smi)
+    phase_seconds("fleet")
     child_k6 = procfleet_phase(smi)
+    phase_seconds("procfleet")
     # checkpoints, checkpoint faults, the orchestrator and the UI: K1,
     # K4 and K5 launch on this path
     resil = resilience_phase(smi)
+    phase_seconds("resilience")
     resil_rows = {
         "packed_maxsum_cycle": {
             "resilience_maxsum_checkpointed": resil["maxsum_checkpointed"],
@@ -7098,9 +7573,14 @@ def main():
             "resilience_repair_dcop_mgm":
                 resil["orchestrator_mgm_repair_mixed"]},
     }
+    # the compact collectives (K7, K8, K9 in the boundary-compacted modes,
+    # one group and two) and the generic sharded engine
+    compact_rows = sharded_compact_phase(smi)
+    phase_seconds("sharded_compact")
     for row in kernels:
         paths = row.setdefault("launches_by_path", {})
         paths.update(resil_rows.get(row["name"], {}))
+        paths.update(compact_rows.get(row["name"], {}))
         if row["name"] == "packed_mgm2_cycles":
             paths["fleet_replica_fallback_mgm2_job"] = fleet_launches["mgm2"]
             for child, n in sorted(child_k6.items()):

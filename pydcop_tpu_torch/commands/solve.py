@@ -96,8 +96,10 @@ def set_parser(subparsers):
     parser.add_argument("--shard-overlap",
                         choices=["off", "exact", "stale"], default=None,
                         help="sharded-engine collective path: off = dense "
-                        "whole-space sum (the default path here); exact "
-                        "and stale (boundary-compacted) are not ported")
+                        "whole-space sum; exact = boundary-compacted, bit "
+                        "for bit the dense run; stale = the boundary one "
+                        "cycle behind; default: exact when the cut "
+                        "fraction is at most the threshold, else dense")
     parser.add_argument("--shard-boundary-threshold", type=float,
                         default=0.5,
                         help="auto-policy cut-fraction threshold, recorded "

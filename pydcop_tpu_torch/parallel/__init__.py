@@ -1,12 +1,15 @@
-"""Sharded engines: factors split over S shards in one process, with the
-kernels of ``ops/packed_sharded.py`` (K7 and K9 one launch per device
-over its group of shards) and ordered collectives.
+"""Sharded engines: factors split over S shards in one process, the packed
+one with the kernels of ``ops/packed_sharded.py`` (K7 and K9 one launch
+per device over its group of shards, K8 after K9 for MGM), the generic
+``[E, D]`` one in plain PyTorch, and the dense or boundary-compacted
+collectives between them.
 
-The counterpart of the JAX package's ``parallel/`` (its ``shard_map``
-engines over a device mesh), for all-binary graphs; see
-:mod:`pydcop_tpu_torch.parallel.mesh` for what is ported and what
-raises ``NotPortedError``.
+The counterpart of the JAX package's in-process ``parallel/`` (its
+``shard_map`` engines over a device mesh, ``boundary.py``); see
+:mod:`pydcop_tpu_torch.parallel.mesh` for what is ported and what raises
+``NotPortedError``.
 """
+from pydcop_tpu_torch.parallel.generic_mesh import shard_factor_graph
 from pydcop_tpu_torch.parallel.mesh import (
     ShardedLocalSearch,
     ShardedMaxSum,
@@ -19,4 +22,5 @@ __all__ = [
     "ShardedMaxSum",
     "build_mesh",
     "partition_factors",
+    "shard_factor_graph",
 ]

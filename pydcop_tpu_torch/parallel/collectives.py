@@ -19,12 +19,34 @@ comes here; across devices every combine does, one partial per device
 (K8) or per shard (K7, K9).  A shard that holds no factor passes the
 operation's identity (zeros for the sums and the gain maxima, the "no
 index" sentinel for the tie-break minima) — it launches nothing.
+
+The compact modes of the engines (``overlap="exact"|"stale"``,
+``exchange=True``; the counterpart of the JAX package's
+``_combine_boundary``) combine at the boundary columns only:
+:func:`boundary_reduce` reduces the entries' slabs at the boundary index
+in entry order and :func:`put_boundary` writes the total back over an
+entry, whose other columns keep its own partial (the total of an
+interior column: its owner holds every factor of it);
+:func:`exchange` runs a neighbour-exchange plan's rounds of pairwise
+index sends instead, each sender sending its own partial and each
+receiver combining what it gets under the plan's valid bits with the
+operation's neutral (:data:`NEG_BIG`, :data:`POS_BIG`, :data:`INT_BIG`)
+at padding positions.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
+
+#: the neighbour exchange's neutrals at padding positions: float max,
+#: float min, and int max / min (``_NEG_BIG``, ``_POS_BIG``, ``_INT_BIG``)
+NEG_BIG = -3.0e38
+POS_BIG = 3.0e38
+INT_BIG = int(np.iinfo(np.int32).max)
+
+_COMBINE = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
 
 
 def _all_reduce(parts: Sequence[torch.Tensor],
@@ -66,3 +88,68 @@ def all_min(parts: Sequence[torch.Tensor],
     """The elementwise minimum of the shards' partials, on each shard's
     device."""
     return _all_reduce(parts, devices, torch.minimum)
+
+
+def boundary_reduce(parts: Sequence[torch.Tensor],
+                    devices: Sequence[torch.device],
+                    bnd: Sequence[torch.Tensor], axis: int,
+                    op: str = "sum") -> List[torch.Tensor]:
+    """The entries' slabs at the boundary index combined in entry order
+    (``op``: "sum", "max" or "min"), on each entry's device.  ``bnd[k]``
+    is the index on entry k's device; only the slabs cross devices."""
+    slabs = [p.index_select(axis, b) for p, b in zip(parts, bnd)]
+    return _all_reduce(slabs, devices, _COMBINE[op])
+
+
+def put_boundary(part: torch.Tensor, bnd: torch.Tensor, total: torch.Tensor,
+                 axis: int) -> torch.Tensor:
+    """``part`` with its boundary columns (rows for ``axis`` 0) replaced
+    by ``total``; a padding position of ``bnd`` repeats a column and
+    carries the same value."""
+    return part.index_copy(axis, bnd, total)
+
+
+#: one send of an exchange round: (sender, receiver, the sender's column
+#: index on its device, the receiver's column index and valid bits on
+#: its device)
+ExchangeStep = Tuple[int, int, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _neutral(t: torch.Tensor, op: str):
+    if op == "sum":
+        return 0
+    if t.dtype.is_floating_point:
+        return NEG_BIG if op == "max" else POS_BIG
+    return -INT_BIG if op == "max" else INT_BIG
+
+
+def exchange(parts: Sequence[torch.Tensor],
+             rounds: Sequence[Sequence[ExchangeStep]], axis: int,
+             op: str = "sum") -> List[torch.Tensor]:
+    """A neighbour exchange: each receiver combines (``op``) the segment
+    each round brings into its columns, the plan's padding positions
+    adding the neutral.  Every send reads the sender's partial as it was
+    before the exchange, so a pairwise column takes its partner's own
+    partial once, whatever rounds the plan put the pair's two directions
+    in (on an odd ring of shards they cannot share one).  Returns new
+    tensors; ``parts`` are not modified."""
+    orig = list(parts)
+    parts = list(parts)
+    for steps in rounds:
+        got = [(dst, orig[src].index_select(axis, send), recv, valid)
+               for src, dst, send, recv, valid in steps]
+        for dst, seg, recv, valid in got:
+            tgt = parts[dst]
+            seg = seg.to(tgt.device)
+            shape = [1] * tgt.dim()
+            shape[axis] = -1
+            upd = torch.where(valid.view(shape) > 0, seg,
+                              torch.full_like(seg, _neutral(tgt, op)))
+            if op == "sum":
+                parts[dst] = tgt.index_add(axis, recv, upd)
+                continue
+            idx = recv.view(shape).expand_as(upd)
+            parts[dst] = tgt.scatter_reduce(
+                axis, idx, upd, "amax" if op == "max" else "amin",
+                include_self=True)
+    return parts

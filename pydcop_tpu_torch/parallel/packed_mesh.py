@@ -47,9 +47,9 @@ The JAX packer's TPU machinery — one forced layout of 128-lane padded
 degree classes shared by every shard, the Clos plans, the per-shard
 degree limit of 96 — does not carry over: any graph in the packers'
 scope packs (arity 1-4, D <= 8, and D <= 5 when a factor has arity 3 or
-4).  Outside it :func:`build_shard_packs` raises
-:class:`~pydcop_tpu_torch.errors.NotPortedError`: the generic sharded
-engine that the JAX package falls back to is not ported.
+4).  :func:`packers_decline` names why a graph is outside it; the engines
+then run the generic sharded layout (``parallel/generic_mesh.py``), as
+the JAX package does, and :func:`build_shard_packs` refuses it.
 """
 from __future__ import annotations
 
@@ -59,7 +59,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.ops.compile import FactorBucket, FactorGraphTensors
 from pydcop_tpu_torch.ops.packed_maxsum import (
     ARITIES,
@@ -466,6 +465,22 @@ def _build_group(shards: List[ShardLayout], index: Sequence[int],
         barrier=torch.zeros(2, **i32))
 
 
+def packers_decline(tensors: FactorGraphTensors) -> Optional[str]:
+    """Why ``tensors`` is outside the packers' scope (a factor of arity
+    outside 1-4, D > 8, or D > 5 with a factor of arity 3 or 4: the
+    kernels unroll D up to 8, the ternary and quaternary tables grow as
+    D^3 and D^4), or None when the packers take it."""
+    D = tensors.max_domain_size
+    arities = {b.arity for b in tensors.buckets if b.n_factors}
+    if arities - set(ARITIES):
+        return (f"the sharded packers take factors of arity 1-4 (got "
+                f"arity {max(arities)})")
+    if D > MAX_D or (D > MAX_D_NARY and max(arities, default=0) >= 3):
+        limit = MAX_D if D > MAX_D else MAX_D_NARY
+        return f"the sharded packers take D <= {limit} here (got D = {D})"
+    return None
+
+
 def build_shard_packs(
     tensors: FactorGraphTensors,
     devices: Sequence[torch.device],
@@ -474,29 +489,17 @@ def build_shard_packs(
     """Pack every shard's factor subset over the common column map; shard
     s lives on ``devices[s]`` (``len(devices)`` shards).  ``assigns`` (one
     factor → shard array per bucket of ``tensors``) overrides
-    :func:`partition_factors`.
-
-    Raises :class:`NotPortedError` out of the packers' scope: a factor of
-    arity outside 1-4, D > 8, or D > 5 with a factor of arity 3 or 4 (the
-    kernels unroll D up to 8, the ternary and quaternary tables grow as
-    D^3 and D^4; the generic sharded engine that the JAX package falls
-    back to is not ported)."""
+    :func:`partition_factors`.  A graph outside the packers' scope
+    (:func:`packers_decline`) raises ``ValueError``: the engines run the
+    generic layout for it."""
     n_shards = len(devices)
     if n_shards < 1:
         raise ValueError("build_shard_packs needs at least one device")
     V, D = tensors.n_vars, tensors.max_domain_size
+    why = packers_decline(tensors)
+    if why is not None:
+        raise ValueError(why)
     arities = {b.arity for b in tensors.buckets if b.n_factors}
-    if arities - set(ARITIES):
-        raise NotPortedError(
-            f"the sharded engines take factors of arity 1-4 (got arity "
-            f"{max(arities)}); the generic sharded engine is not ported to "
-            f"the PyTorch package yet")
-    if D > MAX_D or (D > MAX_D_NARY and max(arities, default=0) >= 3):
-        limit = MAX_D if D > MAX_D else MAX_D_NARY
-        raise NotPortedError(
-            f"the sharded engines pack D <= {limit} here (got D = {D}); "
-            f"the generic sharded engine is not ported to the PyTorch "
-            f"package yet")
     mixed = bool(arities - {2})
     vis = [np.asarray(b.var_idx) for b in tensors.buckets]
     if not vis:

@@ -9,7 +9,8 @@ tensors on the device → run synchronous rounds.
   drives a sharded solve: the factors go to the shards of their host
   agents (:func:`_solve_under_placement`, maxsum and amaxsum; with
   ``collect_cycles`` one cycle a dispatch and its cost, as in the JAX
-  package).  A distribution strategy given by NAME (``oneagent``,
+  package, but stale's boundary halo goes on across the dispatches,
+  where the JAX package restarts it at every one).  A distribution strategy given by NAME (``oneagent``,
   ``adhoc``) is computed and validated, as in the JAX package: a
   single-device solve needs no placement to run.
 * ``headroom`` builds the warm-repair engine (``algorithms/warm.py``).
@@ -98,8 +99,8 @@ def solve_result(
     shards of ``device`` — by default one per visible device of its kind: the card
     count on cuda, 1 on the CPU.  ``shard_overlap`` and
     ``shard_boundary_threshold`` choose its collective path as in the JAX
-    package (only the dense one is ported); they and ``n_shards`` apply
-    to that path only.  As a strategy NAME it is computed and validated
+    package (dense, or the boundary-compacted exact and stale modes); they
+    and ``n_shards`` apply to that path only.  As a strategy NAME it is computed and validated
     (an unported strategy raises ``NotPortedError``).
 
     ``checkpoint_dir`` + ``checkpoint_every`` (default 10) persist
@@ -347,7 +348,9 @@ def _solve_under_placement(
         values, _q, _r = sharded.run(cycles=n_cycles)
     else:
         # chunked so the timeout is honoured (and per-cycle costs are
-        # collected) between device dispatches
+        # collected) between device dispatches; stale's halo goes on
+        # from chunk to chunk, so a chunk of one cycle still combines
+        # the previous cycle's boundary totals
         from pydcop_tpu_torch.ops.compile import total_cost
 
         chunk = 1 if collect_cycles else max(1, min(10, n_cycles))
@@ -356,7 +359,7 @@ def _solve_under_placement(
         values = None
         while done < n_cycles:
             n = min(chunk, n_cycles - done)
-            values, q, r = sharded.run(cycles=n, q=q, r=r)
+            values, q, r = sharded.run(cycles=n, q=q, r=r, keep_halo=True)
             done += n
             if collect_cycles:
                 history.append({

@@ -260,9 +260,18 @@ def test_placement_solve_equals_jax(name, cycles):
     assert got.msg_count == want.msg_count
     m = got.metrics()
     assert m["config"]["engine"] == "sharded_mesh"
-    assert m["shard"]["mode"] == "dense" and m["shard"]["n_shards"] == 8
-    assert m["shard"]["requested"] == "auto"
-    assert set(m["shard"]) - {"requested"} == set(want.metrics()["shard"])
+    # JAX's auto policy: exact at or under the cut threshold (C-w3); JAX
+    # runs its generic engine on the CPU mesh and the port its packed
+    # one, whose column counts differ (V against V + 1)
+    ws = want.metrics()["shard"]
+    assert m["shard"]["mode"] == ws["mode"] and m["shard"]["n_shards"] == 8
+    assert m["shard"]["mode"] == (
+        "compact-exact" if ws["cut_fraction"] <= 0.5 else "dense")
+    layout = {"total_columns", "bytes_per_cycle_dense",
+              "bytes_per_cycle_compact"}
+    assert {k: v for k, v in m["shard"].items() if k not in layout} == \
+        {k: v for k, v in ws.items() if k not in layout}
+    assert set(m["shard"]) == set(ws)
 
 
 def test_placement_solve_with_timeout_runs_in_chunks():
@@ -275,6 +284,24 @@ def test_placement_solve_with_timeout_runs_in_chunks():
                      timeout=600, n_shards=4, device="cpu")
     assert (a.assignment, a.cycle, b.status) == (b.assignment, b.cycle,
                                                  "FINISHED")
+
+
+def test_placement_stale_per_cycle_metrics_keep_the_halo():
+    """Per-cycle metrics run the placement solve one cycle a chunk; stale's
+    halo goes on across the chunks, so the run equals the unchunked one
+    and is stale throughout (``metrics()["shard"]["mode"]``)."""
+    jd = PLACEMENT["coloring_12"]()
+    d = load_dcop(dcop_yaml(jd))
+    dist = _full_distribution(d, 4, Distribution)
+    runs = [solve_result(d, "maxsum", distribution=dist, cycles=12,
+                         n_shards=4, device="cpu", shard_overlap="stale",
+                         collect_cycles=collect)
+            for collect in (False, True)]
+    for res in runs:
+        assert res.metrics()["shard"]["mode"] == "compact-stale"
+    assert runs[0].assignment == runs[1].assignment
+    assert runs[0].cost == runs[1].cost
+    assert len(runs[1].history) == 12
 
 
 def test_cli_distribution_file_round_trip(tmp_path):
@@ -301,13 +328,21 @@ def test_cli_distribution_file_round_trip(tmp_path):
     bad_f = tmp_path / "bad.yaml"
     bad_f.write_text("distribution:\n  a0: [v00]\n")
     for extra in (["-d", str(bad_f)], ["-d", "gh_cgdp"],
-                  ["-d", str(dist_f), "--shard-overlap", "exact"],
                   ["--shard-overlap", "off"]):
         out = subprocess.run(cmd[:8] + extra + [str(prob)],
                              capture_output=True, text=True, timeout=300,
                              cwd=ROOT)
         assert out.returncode != 0, extra
         assert json.loads(out.stdout)["status"] == "ERROR", extra
+    # the compact modes run: exact is the dense run
+    out = subprocess.run(cmd[:10] + ["-d", str(dist_f), "--shard-overlap",
+                                     "exact", str(prob)],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    exact = json.loads(out.stdout)
+    assert exact["assignment"] == want.assignment
+    assert exact["shard"]["n_shards"] == 1
 
 
 # -- refusals -----------------------------------------------------------------
@@ -345,39 +380,53 @@ agents: [a1]
 
 
 REFUSALS = {
-    "overlap_exact": lambda t: ShardedMaxSum(t, _cpu(2), overlap="exact"),
-    "overlap_stale": lambda t: ShardedMaxSum(t, _cpu(2), overlap="stale"),
-    "exchange": lambda t: ShardedMaxSum(t, _cpu(2), exchange=True),
     "precision_bf16": lambda t: ShardedMaxSum(t, _cpu(2), precision="bf16"),
     "sentinel": lambda t: ShardedMaxSum(t, _cpu(2), sentinel=True),
+    "ls_precision": lambda t: ShardedLocalSearch(
+        t, _cpu(2), algo_params={"precision": "bf16"}),
+}
+#: what the refusals above used to hold and now runs: amaxsum's
+#: activation and mixed-arity graphs on both engines, the compact
+#: collectives, and the generic engine (use_packed=False, dba and gdba,
+#: the graphs out of the packers' scope)
+LIFTED = {
+    "activation": lambda t: ShardedMaxSum(t, _cpu(2), activation=0.5),
+    "mixed_maxsum": lambda t: ShardedMaxSum(_secp_tensors(), _cpu(2)),
+    "mixed_local_search": lambda t: ShardedLocalSearch(_secp_tensors(),
+                                                       _cpu(2)),
+    "overlap_exact": lambda t: ShardedMaxSum(t, _cpu(2), overlap="exact"),
+    "overlap_stale": lambda t: ShardedMaxSum(t, _cpu(2), overlap="stale"),
+    "exchange": lambda t: ShardedMaxSum(t, _cpu(2), overlap="exact",
+                                        exchange=True),
     "generic_engine": lambda t: ShardedMaxSum(t, _cpu(2), use_packed=False),
     "ls_overlap_stale": lambda t: ShardedLocalSearch(t, _cpu(2),
                                                      overlap="stale"),
-    "ls_precision": lambda t: ShardedLocalSearch(
-        t, _cpu(2), algo_params={"precision": "bf16"}),
     "ls_generic_engine": lambda t: ShardedLocalSearch(t, _cpu(2),
                                                       use_packed=False),
     "dba": lambda t: ShardedLocalSearch(t, _cpu(2), rule="dba"),
     "gdba": lambda t: ShardedLocalSearch(t, _cpu(2), rule="gdba"),
-    "get_operand": lambda t: ShardedMaxSum(t, _cpu(2)).get_operand("cost"),
-    "set_operand": lambda t: ShardedLocalSearch(t, _cpu(2)).set_operand(
-        "cost", None),
-    "edit_factor": lambda t: ShardedMaxSum(t, _cpu(2)).edit_factor(0, 0, 0),
-    "state_to_host": lambda t: ShardedMaxSum(t, _cpu(2)).state_to_host(
-        None, None),
     "mixed_wide_ternary_maxsum": lambda t: ShardedMaxSum(
         _wide_nary_tensors(), _cpu(2)),
     "mixed_wide_ternary_local_search": lambda t: ShardedLocalSearch(
         _wide_nary_tensors(), _cpu(2)),
     "arity_5": lambda t: ShardedMaxSum(_wide_nary_tensors(5, 2), _cpu(2)),
 }
-#: what the refusals above used to hold and now runs: amaxsum's
-#: activation, and mixed-arity graphs on both engines
-LIFTED = {
-    "activation": lambda t: ShardedMaxSum(t, _cpu(2), activation=0.5),
-    "mixed_maxsum": lambda t: ShardedMaxSum(_secp_tensors(), _cpu(2)),
-    "mixed_local_search": lambda t: ShardedLocalSearch(_secp_tensors(),
-                                                       _cpu(2)),
+#: the cases of LIFTED that run the generic engine
+GENERIC = {"generic_engine", "ls_generic_engine", "dba", "gdba",
+           "mixed_wide_ternary_maxsum", "mixed_wide_ternary_local_search",
+           "arity_5"}
+#: the operand editing of the packed engine raises the JAX package's
+#: errors: an unknown operand, a wrong shape, an edit of the packed layout,
+#: a state that is not the engine's
+JAX_ERRORS = {
+    "get_operand": (lambda t: ShardedMaxSum(t, _cpu(2)).get_operand(
+        "bucket0"), ValueError),
+    "set_operand": (lambda t: ShardedLocalSearch(t, _cpu(2)).set_operand(
+        "cost", np.zeros(3, np.float32)), ValueError),
+    "edit_factor": (lambda t: ShardedMaxSum(t, _cpu(2)).edit_factor(
+        0, 0, 0), NotImplementedError),
+    "state_to_host": (lambda t: ShardedMaxSum(t, _cpu(2)).state_to_host(
+        None, None), ValueError),
 }
 
 
@@ -394,8 +443,19 @@ def test_lifted_refusals_run(what):
         values, _, _ = eng.run(cycles=3)
     else:
         values = eng.run(cycles=3)
-    assert values.shape == (eng.packs.Vp,)
-    assert eng.packs.mixed == what.startswith("mixed")
+    assert values.shape == (eng.base.n_vars,)
+    assert (eng.packs is None) == (what in GENERIC)
+    if eng.packs is not None:
+        assert eng.packs.mixed == what.startswith("mixed")
+    if what.startswith(("overlap", "exchange", "ls_overlap")):
+        assert eng.comm.compact
+
+
+@pytest.mark.parametrize("what", sorted(JAX_ERRORS))
+def test_packed_editing_raises_jax_errors(what):
+    call, err = JAX_ERRORS[what]
+    with pytest.raises(err):
+        call(_binary_tensors())
 
 
 def test_unported_solve_paths_refuse():
@@ -415,8 +475,10 @@ def test_unported_solve_paths_refuse():
     big_d = tensors_from_numpy(numpy_fields(jax_compile_binary(
         np.array([0]), np.array([1]), np.zeros((1, 9, 9), np.float32), 2)),
         device="cpu")
-    with pytest.raises(NotPortedError, match="D <= 8"):
-        ShardedMaxSum(big_d, _cpu(2))
+    # D = 9 is out of the packers' scope: the generic engine runs it
+    eng = ShardedMaxSum(big_d, _cpu(2))
+    assert eng.packs is None and eng.st is not None
+    assert eng.run(cycles=3)[0].shape == (2,)
     with pytest.raises(ValueError, match="unknown shard overlap"):
         ShardedMaxSum(_binary_tensors(), _cpu(2), overlap="sideways")
 

@@ -202,11 +202,16 @@ def test_engine_200_cycles_equal_the_per_shard_composition(name, split,
     t = _graph(name)
     if split:
         monkeypatch.setattr(packed_mesh, "_device_groups", _round_robin)
-    eng = ShardedLocalSearch(t, [CPU] * 8, rule="mgm")
+    # the dense combine: the composition below replicates group 0's
+    # gains, which the compact modes' per-group views are not
+    eng = ShardedLocalSearch(t, [CPU] * 8, rule="mgm", overlap="off")
     got = eng.run(200, seed=3)
     monkeypatch.setattr(eng, "_mgm_move",
                         functools.partial(_parent_mgm_move, eng))
     assert np.array_equal(got, eng.run(200, seed=3))
+    # and the default (compact at a low cut) is the same run
+    assert np.array_equal(
+        got, ShardedLocalSearch(t, [CPU] * 8, rule="mgm").run(200, seed=3))
 
 
 def test_wrapper_checks_its_modes():

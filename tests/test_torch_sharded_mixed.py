@@ -47,7 +47,6 @@ from pydcop_tpu.parallel.partition import partition_factors as \
 from pydcop_tpu.runtime import solve_result as jax_solve_result
 from pydcop_tpu_torch.dcop import load_dcop, load_dcop_from_file
 from pydcop_tpu_torch.distribution import Distribution, yaml_dist
-from pydcop_tpu_torch.errors import NotPortedError
 from pydcop_tpu_torch.ops import packed_sharded as K
 from pydcop_tpu_torch.ops.compile import numpy_fields, tensors_from_numpy
 from pydcop_tpu_torch.parallel import (
@@ -260,8 +259,13 @@ agents: [a1]
 def test_out_of_scope_mixed_graphs_refuse():
     from pydcop_tpu_torch.ops.compile import compile_factor_graph
 
+    # out of the packers' scope (D <= 5 with a ternary factor): the
+    # packers decline it and the generic engine runs it, as in JAX
+    from pydcop_tpu_torch.parallel.packed_mesh import packers_decline
+
     t = compile_factor_graph(_wide_ternary(), device="cpu")
-    with pytest.raises(NotPortedError, match="D <= 5"):
-        ShardedMaxSum(t, _cpu(2))
-    with pytest.raises(NotPortedError, match="D <= 5"):
-        ShardedLocalSearch(t, _cpu(2))
+    assert "D <= 5" in packers_decline(t)
+    for eng in (ShardedMaxSum(t, _cpu(2)), ShardedLocalSearch(t, _cpu(2))):
+        assert eng.packs is None and eng.st is not None
+    assert ShardedMaxSum(t, _cpu(2)).run(cycles=3)[0].shape == (3,)
+    assert ShardedLocalSearch(t, _cpu(2)).run(cycles=3).shape == (3,)
